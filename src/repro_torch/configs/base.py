@@ -1,0 +1,142 @@
+"""Architecture configuration schema: the port's copy of
+:mod:`repro.configs.base` (its dry-run shape cells are not ported).
+
+One ``ArchConfig`` per assigned architecture (exact public-literature
+numbers live in the per-arch files).  ``reduced()`` produces the same
+family at smoke-test scale (tiny widths/depths, same structural features)
+for the per-arch CPU tests.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class AttnKind(enum.Enum):
+    GQA = "gqa"
+    MLA = "mla"          # deepseek-v3 multi-head latent attention
+    NONE = "none"        # attention-free (pure SSM)
+
+
+class BlockKind(enum.Enum):
+    DENSE = "dense"          # attn + dense FFN
+    MOE = "moe"              # attn + routed-experts FFN
+    SSM = "ssm"              # mamba2 SSD block
+    SHARED_ATTN = "shared"   # zamba2-style shared transformer block
+
+
+class Frontend(enum.Enum):
+    NONE = "none"
+    VISION_STUB = "vision"   # precomputed patch embeddings (VLM)
+    AUDIO_STUB = "audio"     # precomputed frame embeddings (enc-dec audio)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    d_ff_shared: int = 0               # shared-expert hidden size
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MlaConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SsmConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """A run of identical layers, scanned as one unit."""
+
+    kind: BlockKind
+    count: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    kv_heads: int
+    d_ff: int
+    vocab: int
+    # structure
+    segments: tuple[Segment, ...] = ()
+    attn: AttnKind = AttnKind.GQA
+    activation: str = "silu"           # silu|gelu|sq_relu
+    gated_mlp: bool = True
+    qkv_bias: bool = False
+    tied_embeddings: bool = False
+    head_dim: int | None = None
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    # family extensions
+    moe: MoeConfig | None = None
+    mla: MlaConfig | None = None
+    ssm: SsmConfig | None = None
+    shared_attn_every: int = 0         # zamba2: shared block period
+    mtp: bool = False                  # deepseek multi-token prediction
+    # encoder-decoder (whisper)
+    enc_dec: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500            # audio frames after the conv stub
+    frontend: Frontend = Frontend.NONE
+    vision_tokens: int = 0             # VLM stub: prefix length
+    sub_quadratic: bool = False        # eligible for long_500k
+    notes: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def resolved_segments(self) -> tuple[Segment, ...]:
+        if self.segments:
+            return self.segments
+        return (Segment(BlockKind.DENSE, self.n_layers),)
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test-scale config of the same family."""
+        segs = tuple(Segment(s.kind, min(s.count, 2))
+                     for s in self.resolved_segments()[:4])
+        moe = None
+        if self.moe:
+            # capacity_factor high enough that nothing drops at smoke scale,
+            # so cached decode exactly matches the full forward.
+            moe = dataclasses.replace(
+                self.moe, n_experts=min(8, self.moe.n_experts),
+                top_k=min(2, self.moe.top_k), d_ff_expert=64,
+                d_ff_shared=64 if self.moe.n_shared_experts else 0,
+                capacity_factor=8.0)
+        mla = MlaConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=8,
+                        qk_rope_head_dim=8, v_head_dim=8) if self.mla else None
+        ssm = dataclasses.replace(self.ssm, d_state=16, head_dim=8,
+                                  chunk=8) if self.ssm else None
+        return dataclasses.replace(
+            self, name=self.name + "-smoke",
+            n_layers=sum(s.count for s in segs), d_model=64,
+            n_heads=4, kv_heads=min(4, max(1, self.kv_heads * 4
+                                           // max(1, self.n_heads))),
+            d_ff=128, vocab=256, head_dim=16, segments=segs, moe=moe,
+            mla=mla, ssm=ssm,
+            shared_attn_every=2 if self.shared_attn_every else 0,
+            n_encoder_layers=min(2, self.n_encoder_layers),
+            encoder_seq=16 if self.enc_dec else self.encoder_seq,
+            vision_tokens=8 if self.vision_tokens else 0)
