@@ -8,27 +8,34 @@ repository's ``src/`` beside this file; it imports nothing of JAX and
 nothing of the JAX package ``repro``.  Phases, each of which fails the run:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-2. build: compile the paged-attention CUDA kernels from ``csrc/``;
+2. build: compile the two CUDA extensions from their ``csrc/`` directories
+   at once (paged attention: decode and prefill; dense-stripe decode);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the full-width qwen2-0.5b geometry (Hq 14, Hkv 2, D 64, page 16), in
-   bfloat16 and float32: ragged lengths, permuted tables, sentinel tails,
-   a prefill at mixed depths and a verify at Lq = 5; then the time of the
-   kernel, of the plain version and of ``scaled_dot_product_attention``
-   over the gathered pages (a yardstick the port never calls), beside the
-   least time the card could take for the same work;
-4. serve: full-width qwen2-0.5b (seeded random bfloat16 weights) through
-   ``repro_torch.launch.serve.run``: 16 requests, prompts of 64-512
-   tokens, 64 new tokens each, batch 8, pages of 16, max_len 1024, 8 steps
-   per segment, with each kernel's launches counted over that run only;
-5. agreement: a short float32 run of the same batcher with the CUDA
-   kernels on the card and with the plain path on the CPU, same weights:
-   equal greedy streams, or a difference shown to sit at a logit near-tie.
+   in bfloat16 and float32.  Paged, at the full-width qwen2-0.5b geometry
+   (Hq 14, Hkv 2, D 64, page 16): ragged lengths, permuted tables, sentinel
+   tails, a prefill at mixed depths and a verify at Lq = 5.  Dense stripes,
+   at G = 7, D = 64 and G = 4, D = 16: ragged lengths (0, 1, a length above
+   the rows read), the whole stripe and a stripe read under ``s_cap`` whose
+   rows past it hold NaN.  Then the time of each kernel, of its plain
+   version and of ``scaled_dot_product_attention`` on the same K/V (a
+   yardstick the port never calls), beside the least time the card could
+   take for the same work;
+4. serve, paged and dense: full-width qwen2-0.5b (seeded random bfloat16
+   weights) through ``repro_torch.launch.serve.run``: 16 requests,
+   prompts of 64-512 tokens, 64 new tokens each, batch 8, max_len 1024,
+   8 steps per segment; paged with pages of 16, then dense stripes; each
+   path's kernel launches are counted over its own run only;
+5. agreement: short float32 runs with the same weights: each layout with
+   the CUDA kernels on the card against the plain path on the CPU, and the
+   dense layout against the paged one on the card: equal greedy streams,
+   or a difference shown to sit at a logit near-tie.
 
 Output: one line per check, then a JSON line with the kernels' numbers,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import pathlib
@@ -252,74 +259,203 @@ def kernel_timings(torch) -> dict:
     return out
 
 
+def stripe_checks(torch) -> float:
+    """The dense-stripe decode kernel against its plain version, at the
+    full-width (G = 7, D = 64) and reduced (G = 4, D = 16) geometries, in
+    both dtypes, over the whole stripe and under ``s_cap``; returns the
+    largest error at the full-width geometry in bfloat16."""
+    from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+    b, s = 8, 1025
+    lengths = [0, 1, 63, 64, 65, 300, 700, 1100]
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        tol = TOL[name]
+        for hq, hkv, d in ((HQ, HKV, D), (4, 1, 16)):
+            q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
+            for s_cap in (None, 512):
+                cap = s if s_cap is None else s_cap
+                k, v = (torch.randn(b, s, hkv, d, generator=gen,
+                                    device=dev).to(dtype) for _ in "kv")
+                k[:, cap:] = float("nan")        # never read under s_cap
+                v[:, cap:] = float("nan")
+                got = decode_attn(q, k, v, ln, s_cap=s_cap)
+                want = decode_attn_ref(q.float(), k[:, :cap].float(),
+                                       v[:, :cap].float(), ln)
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs().max().item()
+                finite = bool(torch.isfinite(got.float()).all())
+                zero = bool((got[0] == 0).all())
+                print(f"[kernels] decode_attn {name} G={hq // hkv} D={d} "
+                      f"s_cap={cap} of {s} rows, lengths {lengths}: "
+                      f"max_abs_err {err:.3e} (tol {tol:g}); finite "
+                      f"{finite}; length-0 slot zeros {zero}")
+                check(err <= tol and got.dtype == dtype,
+                      "decode_attn kernel disagrees")
+                check(finite and zero, "decode_attn kernel: the length-0 "
+                      "slot is not finite zeros")
+                if dtype == torch.bfloat16 and d == D:
+                    worst = max(worst, err)
+    return worst
+
+
+def stripe_timing(torch) -> dict:
+    """Time at the dense decode step's shapes, bfloat16: 8 slots at
+    depths over the serve run's range, stripes of max_len + 1 = 1025 rows
+    for 24 layers walked one layer per call, ``s_cap`` the scheduler's
+    row bucket for an 8-step segment."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attn import decode_attn_ref, kernel
+    from repro_torch.serve.scheduler import _pow2_bucket
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dtype, name, layers, b, max_len, item = (torch.bfloat16, "bfloat16", 24,
+                                             8, 1024, 2)
+    lengths = [int(x) for x in rng.integers(65, 577, size=b)]
+    cap = min(_pow2_bucket(max(lengths) + 8, hi=max_len), max_len)
+    shape = (layers, b, max_len + 1, HKV, D)
+    k = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    v = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q = torch.randn(b, HQ, D, generator=gen, device=dev).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q4 = q[:, :, None]
+    kt = [k[i, :, :cap].transpose(1, 2) for i in range(layers)]
+    vt = [v[i, :, :cap].transpose(1, 2) for i in range(layers)]
+    mask = (torch.arange(cap, device=dev)[None, :]
+            < ln[:, None])[:, None, None, :]
+    live = sum(min(n, cap) for n in lengths)
+    nbytes = 2 * q.numel() * item + live * HKV * D * item * 2 + b * 4
+    t_bound, by = bound(nbytes, 4.0 * HQ * D * live, name)
+    row = {
+        "ms": time_ms(torch, lambda i: kernel.decode_attn_cuda(
+            q, k[i % layers], v[i % layers], ln, cap), layers * 4),
+        "plain_ms": time_ms(torch, lambda i: decode_attn_ref(
+            q, k[i % layers, :, :cap], v[i % layers, :, :cap],
+            ln).to(dtype), layers),
+        "library_ms": time_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q4, kt[i % layers], vt[i % layers], attn_mask=mask,
+            enable_gqa=True), layers * 4),
+        "bound_ms": t_bound, "bound_by": by,
+        "shape": f"B={b} Hq={HQ} Hkv={HKV} D={D} S={max_len + 1} "
+                 f"s_cap={cap} lengths={lengths}"}
+    print(f"[timing] decode_attn {name} ({row['shape']}): kernel_ms "
+          f"{row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, library_ms "
+          f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} "
+          f"({row['bound_by']})")
+    return row
+
+
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the serving path
+# phases 4 and 5: the serving paths
 # ---------------------------------------------------------------------------
 
-def serve_full_width(torch) -> tuple[dict, dict]:
+def reset_counts() -> None:
+    from repro_torch.kernels import decode_attn, paged_attn
+    paged_attn.reset_launch_counts()
+    decode_attn.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import decode_attn, paged_attn
+    return {**paged_attn.launch_counts, **decode_attn.launch_counts}
+
+
+def serve_full_width(torch, paged: bool) -> dict:
+    """One path's serve run; returns that run's kernel launches."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.paged_attn import kernel
     from repro_torch.launch.serve import run
     cfg = get_config(ARCH)
     requests, max_new, batch, sync = 16, 64, 8, 8
-    kernel.reset_launch_counts()
+    layout = "paged" if paged else "dense"
+    reset_counts()
     res = run(ARCH, requests=requests, max_new=max_new, batch=batch,
-              max_len=1024, page_size=16, sync_every=sync, seed=0,
-              prompt_len=(64, 513), dtype=torch.bfloat16, device="cuda")
-    counts = dict(kernel.launch_counts)
+              max_len=1024, paged=paged, page_size=16, sync_every=sync,
+              seed=0, prompt_len=(64, 513), dtype=torch.bfloat16,
+              device="cuda")
+    counts = read_counts()
     lens = sorted(len(p) for p in res["prompts"].values())
-    print(f"[serve] prompts {lens[0]}-{lens[-1]} tokens; tok/s "
+    print(f"[serve] {layout}: prompts {lens[0]}-{lens[-1]} tokens; tok/s "
           f"{res['tok_per_s']:.1f}; launches {counts}")
     check(sorted(res["results"]) == list(range(requests)),
-          "serve: missing requests")
+          f"serve {layout}: missing requests")
     for rid, toks in res["results"].items():
         check(len(toks) == max_new and all(0 <= t < cfg.vocab for t in toks),
-              f"serve: request {rid} returned {len(toks)} tokens")
-    for name, n in counts.items():
-        check(n > 0, f"serve: kernel {name} was never launched")
-    check(counts["paged_prefill"] == cfg.n_layers * res["joins"],
-          "serve: prefill launches != layers x joins")
-    check(counts["paged_decode"] == cfg.n_layers * sync * res["segments"],
-          "serve: decode launches != layers x steps")
-    return res, counts
+              f"serve {layout}: request {rid} returned {len(toks)} tokens")
+    steps = cfg.n_layers * sync * res["segments"]
+    if paged:
+        check(counts["paged_prefill"] == cfg.n_layers * res["joins"],
+              "serve paged: prefill launches != layers x joins")
+        check(counts["paged_decode"] == steps,
+              "serve paged: decode launches != layers x steps")
+        check(counts["decode_attn"] == 0,
+              "serve paged: the dense decode kernel was launched")
+    else:
+        check(counts["decode_attn"] == steps,
+              "serve dense: decode_attn launches != layers x steps")
+        check(counts["paged_decode"] == counts["paged_prefill"] == 0,
+              "serve dense: a paged kernel was launched")
+    return counts
+
+
+def _near_tie(torch, params, cfg, prompt, got, want, label) -> bool:
+    """Equal streams (False), or a first difference at a logit near-tie of
+    the plain float32 forward after the common prefix (True); anything
+    else fails the run."""
+    from repro_torch.models.transformer import forward, logits_fn
+    if got == want:
+        return False
+    diff = [j for j in range(min(len(got), len(want))) if got[j] != want[j]]
+    check(bool(diff), f"agreement {label}: lengths differ")
+    i = diff[0]
+    toks = torch.tensor([prompt + want[:i]])
+    hidden, _ = forward(params, {"tokens": toks}, cfg, dtype=torch.float32)
+    logits = logits_fn(params, hidden[:, -1:], cfg)[0, 0]
+    gap = abs(float(logits[got[i]] - logits[want[i]]))
+    print(f"[agree] {label} differs at token {i}: logit gap {gap:.2e} "
+          f"between {got[i]} and {want[i]}")
+    check(gap < NEAR_TIE, f"agreement {label}: differs without a near-tie")
+    return True
 
 
 def agreement(torch) -> None:
-    """float32, same seeded weights: CUDA kernel path vs CPU plain path."""
+    """float32, same seeded weights: each layout's CUDA kernel path vs its
+    CPU plain path, and the dense layout vs the paged one on the card."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run
     from repro_torch.models.init import init_params
-    from repro_torch.models.transformer import forward, logits_fn
     cfg = get_config(ARCH)
     params = init_params(cfg, 1, device="cuda")
     cpu_params = _to(torch, params, "cpu")
     kw = dict(requests=3, max_new=8, batch=2, max_len=128, page_size=16,
               sync_every=4, seed=1, prompt_len=(16, 40),
               dtype=torch.float32)
-    on_card = run(ARCH, device="cuda", params=params, **kw)["results"]
-    on_cpu = run(ARCH, device="cpu", params=cpu_params, **kw)
-    prompts, on_cpu = on_cpu["prompts"], on_cpu["results"]
-    ties = 0
-    for rid, want in on_cpu.items():
-        got = on_card[rid]
-        if got == want:
-            continue
-        diff = [j for j in range(min(len(got), len(want)))
-                if got[j] != want[j]]
-        check(bool(diff), f"agreement: request {rid} lengths differ")
-        i = diff[0]
-        toks = torch.tensor([prompts[rid] + want[:i]])
-        hidden, _ = forward(cpu_params, {"tokens": toks}, cfg,
-                               dtype=torch.float32)
-        logits = logits_fn(cpu_params, hidden[:, -1:], cfg)[0, 0]
-        gap = abs(float(logits[got[i]] - logits[want[i]]))
-        print(f"[agree] request {rid} differs at token {i}: logit gap "
-              f"{gap:.2e} between {got[i]} and {want[i]}")
-        check(gap < NEAR_TIE, f"agreement: request {rid} differs without a "
-              "near-tie")
-        ties += 1
-    print(f"[agree] float32 greedy streams, CUDA kernels vs CPU plain path: "
-          f"{len(on_cpu) - ties}/{len(on_cpu)} equal, {ties} at near-ties")
+    streams = {}
+    for paged in (True, False):
+        layout = "paged" if paged else "dense"
+        on_card = run(ARCH, device="cuda", params=params, paged=paged,
+                      **kw)["results"]
+        on_cpu = run(ARCH, device="cpu", params=cpu_params, paged=paged,
+                     **kw)
+        prompts, on_cpu = on_cpu["prompts"], on_cpu["results"]
+        ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
+                             on_card[rid], want, f"{layout} request {rid}")
+                   for rid, want in on_cpu.items())
+        print(f"[agree] float32 greedy streams, {layout}, CUDA kernels vs "
+              f"CPU plain path: {len(on_cpu) - ties}/{len(on_cpu)} equal, "
+              f"{ties} at near-ties")
+        streams[layout] = on_card
+    ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
+                         streams["dense"][rid], want, f"dense vs paged "
+                         f"request {rid}")
+               for rid, want in streams["paged"].items())
+    print(f"[agree] float32 greedy streams on the card, dense kernel vs "
+          f"paged kernels: {len(prompts) - ties}/{len(prompts)} equal, "
+          f"{ties} at near-ties")
 
 
 def _to(torch, tree, device):
@@ -338,7 +474,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     try:
-        from repro_torch.kernels.paged_attn import kernel
+        from repro_torch.kernels.decode_attn import kernel as dense_kernel
+        from repro_torch.kernels.paged_attn import kernel as paged_kernel
     except ImportError as err:
         print(f"chip_smoke: the port is not importable: {err}",
               file=sys.stderr)
@@ -353,14 +490,24 @@ def main() -> int:
     print(f"[device] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; allow_tf32 off for matmul and cuDNN")
 
+    def build(mod):
+        t0 = time.perf_counter()
+        mod.load_extension()
+        return time.perf_counter() - t0
     t0 = time.perf_counter()
-    kernel.load_extension()
-    print(f"[build] paged-attention kernels built in "
-          f"{time.perf_counter() - t0:.1f}s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        t_paged, t_dense = pool.map(build, (paged_kernel, dense_kernel))
+    print(f"[build] both extensions built at once in "
+          f"{time.perf_counter() - t0:.1f}s (paged attention "
+          f"{t_paged:.1f}s, decode_attn {t_dense:.1f}s)")
 
     worst = kernel_checks(torch)
+    worst["decode_attn"] = stripe_checks(torch)
     timings = kernel_timings(torch)
-    _, counts = serve_full_width(torch)
+    timings["decode_attn"] = stripe_timing(torch)
+    counts = serve_full_width(torch, paged=True)
+    dense_counts = serve_full_width(torch, paged=False)
+    counts["decode_attn"] = dense_counts["decode_attn"]
     agreement(torch)
 
     sources = {"paged_decode": ("src/repro_torch/kernels/paged_attn/csrc/"
@@ -369,7 +516,10 @@ def main() -> int:
                "paged_prefill": ("src/repro_torch/kernels/paged_attn/csrc/"
                                  "paged_prefill.cu",
                                  "src/repro/kernels/paged_attn/"
-                                 "prefill_kernel.py:138")}
+                                 "prefill_kernel.py:138"),
+               "decode_attn": ("src/repro_torch/kernels/decode_attn/csrc/"
+                               "decode_attn.cu",
+                               "src/repro/kernels/decode_attn/kernel.py:82")}
     rows = []
     for name, (src, replaces) in sources.items():
         t = timings[name]

@@ -1,15 +1,18 @@
-// Shared device code of the two paged-attention kernels (paged_decode.cu,
-// paged_prefill.cu): a flash-attention walk of one (slot, KV head) row
-// block over the slot's pages, with the online softmax in float32.
+// Shared device code of the attention kernels (paged_decode.cu,
+// paged_prefill.cu, and ../../decode_attn/csrc/decode_attn.cu): a
+// flash-attention walk of one (slot, KV head) row block over the slot's
+// keys, with the online softmax in float32.
 //
 // A CTA owns `rows` query rows (at most RMAX) of one slot and one KV head.
-// It walks the slot's keys in tiles of TILE rows.  Each tile resolves its
-// rows' physical pages from the page table (the CUDA stand-in for the TPU
-// kernels' scalar-prefetched index maps), stages K and V in shared memory
-// as float32, scores every (row, key) pair, folds the tile into the
-// running (m, l, acc) state and moves on.  Keys at or past `n_keys` are
-// never loaded; a key above a row's causal position `row_pos[r]` scores
-// -1e30, exactly as the JAX kernels mask.
+// It walks the slot's keys in tiles of TILE rows.  Each tile asks a key-row
+// functor for the address of each of its rows: through the page table for
+// the paged kernels (the CUDA stand-in for the TPU kernels' scalar-
+// prefetched index maps), at a fixed stride into a contiguous stripe for
+// the dense decode kernel.  It stages K and V in shared memory as float32,
+// scores every (row, key) pair, folds the tile into the running (m, l, acc)
+// state and moves on.  Keys at or past `n_keys` are never loaded; a key
+// above a row's causal position `row_pos[r]` scores -1e30, exactly as the
+// JAX kernels mask.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,7 +40,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 // One 16-byte load of 4 float32 or 8 bfloat16 values, widened to float32.
-// The wrappers require 16-byte aligned pools; every row starts on a
+// The wrappers require 16-byte aligned pools and stripes; every row starts on a
 // multiple of D elements, and D * sizeof(T) is a multiple of 16.
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -98,12 +101,31 @@ __device__ __forceinline__ RowBlock row_block(unsigned char* smem) {
   return rb;
 }
 
-template <typename T, int D, int TILE, int RMAX>
+// Key-row functors: the index, in rows of D elements, of key row `kp` of
+// this CTA's slot and KV head.
+struct PagedRows {       // pools [n_pages, page_size, hkv, D], one table row
+  const int* table_row;
+  int n_pages, page_size, hkv, head;
+  __device__ __forceinline__ int64_t operator()(int kp) const {
+    int page = table_row[kp / page_size];
+    page = min(max(page, 0), n_pages - 1);  // never read out of bounds
+    return (static_cast<int64_t>(page) * page_size + kp % page_size) * hkv +
+           head;
+  }
+};
+
+struct StripeRows {      // stripes [B, S, hkv, D]: base = b * S * hkv + head
+  int64_t base;
+  int hkv;
+  __device__ __forceinline__ int64_t operator()(int kp) const {
+    return base + static_cast<int64_t>(kp) * hkv;
+  }
+};
+
+template <typename T, int D, int TILE, int RMAX, typename KeyRows>
 __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
-                            const T* __restrict__ k_pages,
-                            const T* __restrict__ v_pages,
-                            const int* __restrict__ table_row,
-                            int n_pages, int page_size, int hkv, int head,
+                            const T* __restrict__ k_rows,
+                            const T* __restrict__ v_rows, KeyRows key_row,
                             int n_keys, float scale, const RowBlock& rb,
                             unsigned char* smem) {
   constexpr int NT = kThreads;
@@ -139,17 +161,10 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
   __syncthreads();
 
   for (int t0 = 0; t0 < n_keys; t0 += TILE) {
-    // 1. physical address of each key row of the tile (-1: past the walk)
+    // 1. element offset of each key row of the tile (-1: past the walk)
     for (int j = tid; j < TILE; j += NT) {
       const int kp = t0 + j;
-      int64_t off = -1;
-      if (kp < n_keys) {
-        int page = table_row[kp / page_size];
-        page = min(max(page, 0), n_pages - 1);  // never read out of bounds
-        off = ((static_cast<int64_t>(page) * page_size + kp % page_size) *
-                   hkv + head) * D;
-      }
-      key_off[j] = off;
+      key_off[j] = kp < n_keys ? key_row(kp) * D : -1;
     }
     __syncthreads();
     // 2. stage K and V: 16-byte loads, neighbouring threads on
@@ -162,8 +177,8 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       const int64_t off = key_off[j];
       float kf[kVec], vf[kVec];
       if (off >= 0) {
-        load16(k_pages + off + c * kVec, kf);
-        load16(v_pages + off + c * kVec, vf);
+        load16(k_rows + off + c * kVec, kf);
+        load16(v_rows + off + c * kVec, vf);
       } else {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) kf[i] = vf[i] = 0.f;

@@ -52,8 +52,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   __syncthreads();
   const int n_keys = min(len, table_width * page_size);
   attend_rows<T, D, kDecodeTile, kDecodeRows>(
-      q, out, k_pages, v_pages, table + static_cast<int64_t>(b) * table_width,
-      n_pages, page_size, hkv, h, n_keys, scale, rb, smem);
+      q, out, k_pages, v_pages,
+      PagedRows{table + static_cast<int64_t>(b) * table_width, n_pages,
+                page_size, hkv, h},
+      n_keys, scale, rb, smem);
 }
 
 template <typename T, int D>

@@ -62,8 +62,10 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   int n_keys = min(kv_len[b], top + 1);
   n_keys = max(min(n_keys, table_width * page_size), 0);
   attend_rows<T, D, kPrefillTile, kPrefillRows>(
-      q, out, k_pages, v_pages, table + static_cast<int64_t>(b) * table_width,
-      n_pages, page_size, hkv, h, n_keys, scale, rb, smem);
+      q, out, k_pages, v_pages,
+      PagedRows{table + static_cast<int64_t>(b) * table_width, n_pages,
+                page_size, hkv, h},
+      n_keys, scale, rb, smem);
 }
 
 template <typename T, int D>

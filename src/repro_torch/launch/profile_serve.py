@@ -1,11 +1,13 @@
 """Where a decode segment's time goes, on the GPU.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--paged]
 
 Fills every slot of the batcher with the serve cell's requests
-(full-width qwen2-0.5b, bf16, prompts of 64-512 tokens, pages of 16),
-joins them, runs one decode segment to warm up, then traces ``--segments``
-more under ``torch.profiler`` and prints: wall time per decode step (host
+(full-width qwen2-0.5b, bf16, prompts of 64-512 tokens, max_len 1024;
+dense stripes, or pages of 16 with ``--paged``), joins them, runs one
+decode segment to warm up, then traces ``--segments`` more under
+``torch.profiler``.  Each segment is the serving path's own: the decode
+loop, the one host read of its tokens and their collection.  It prints: wall time per decode step (host
 clock, synchronised), once without the tracer and once under it; device
 busy time per step (sum of kernel times on the one stream, from the traced
 run); the device's idle share against each of the two walls (the untraced
@@ -43,7 +45,8 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
                    max_len: int = 1024, page_size: int = 16,
                    sync_every: int = 8, segments: int = 2,
                    prompt_len: tuple[int, int] = (64, 513), seed: int = 0,
-                   device: str = "cuda", trace: str | None = None) -> dict:
+                   paged: bool = False, device: str = "cuda",
+                   trace: str | None = None) -> dict:
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("profiling measures the GPU: device must be cuda")
@@ -51,7 +54,7 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
     model = Model(cfg)
     params = cast_for_serving(model.init(seed, device=dev), torch.bfloat16)
     scfg = ServeConfig(max_len=max_len, batch=batch, sync_every=sync_every,
-                       page_size=page_size)
+                       paged=paged, page_size=page_size)
     max_new = sync_every * (2 * segments + 2)  # nobody retires mid-run
     b = Batcher(model, params, scfg, seed=seed)
     rng = np.random.default_rng(seed)
@@ -59,14 +62,9 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
         n = int(rng.integers(*prompt_len))
         b.submit(rid, rng.integers(0, cfg.vocab, size=n).tolist())
     b._refill(max_new)
-    loop = b._loop(sync_every)
-    pages = torch.as_tensor(b.pool.table[:, :b._page_cap()], device=dev)
 
     def segment():
-        (b.tok, b.caches, b.lengths, b.done, b.remaining), emitted = loop(
-            params, b.tok, b.caches, b.lengths, b.done, b.remaining, b.gen,
-            pages)
-        return emitted.cpu()                   # the per-segment host read
+        b._collect(b._decode_segment(sync_every).cpu().numpy())
 
     segment()
     torch.cuda.synchronize(dev)
@@ -97,6 +95,7 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     summary = {
         "device": torch.cuda.get_device_name(dev),
+        "layout": "paged" if paged else "dense",
         "steps": steps, "batch": batch,
         "wall_ms_per_step": wall_plain * 1e3 / steps,
         "wall_ms_per_step_traced": wall * 1e3 / steps,
@@ -111,7 +110,8 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
                                  e.self_cpu_time_total / 1e3 / steps,
                                  "calls_per_step": e.count / steps}
                                 for e in host[:12]]}
-    print(f"[profile] {cfg.name} batch {batch}, {steps} decode steps on "
+    print(f"[profile] {cfg.name} {summary['layout']}, batch {batch}, "
+          f"{steps} decode steps on "
           f"{summary['device']}: wall {summary['wall_ms_per_step']:.2f} "
           f"ms/step ({summary['wall_ms_per_step_traced']:.2f} traced), "
           f"device busy {summary['device_busy_ms_per_step']:.2f} ms/step, "
@@ -136,10 +136,13 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--segments", type=int, default=2)
     ap.add_argument("--sync-every", type=int, default=8)
+    ap.add_argument("--paged", action="store_true",
+                    help="profile the paged pool (default: dense stripes)")
     ap.add_argument("--trace", default=None, metavar="PATH")
     args = ap.parse_args()
     profile_decode(args.arch, batch=args.batch, segments=args.segments,
-                   sync_every=args.sync_every, trace=args.trace)
+                   sync_every=args.sync_every, paged=args.paged,
+                   trace=args.trace)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,15 @@
-"""Serving driver of the port: continuous batching through the paged
-decode loop (see :mod:`repro_torch.serve.scheduler`), from
+"""Serving driver of the port: continuous batching through the decode
+loop (see :mod:`repro_torch.serve.scheduler`), from
 :mod:`repro.launch.serve`.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
-      --requests 16 --max-new 64 --batch 8 --max-len 1024
+      --requests 16 --max-new 64 --batch 8 --max-len 1024 [--paged]
 
-Runs the full-width model on the GPU by default; ``--reduced`` selects
-the smoke-scale config and ``--device cpu`` the plain PyTorch path.
-Weights are random, from ``--seed``.
+Serves from dense per-slot KV stripes by default, as the JAX driver does;
+``--paged`` serves from the paged pool.  Runs the full-width model on the
+GPU by default; ``--reduced`` selects the smoke-scale config and
+``--device cpu`` the plain PyTorch path.  Weights are random, from
+``--seed``.
 """
 from __future__ import annotations
 
@@ -30,13 +32,14 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def run(arch: str, *, reduced: bool = False, requests: int = 4,
         max_new: int = 8, batch: int = 4, max_len: int = 64, seed: int = 0,
         sync_every: int = 8, temperature: float = 0.0,
-        eos_id: int | None = None, page_size: int = 16,
+        eos_id: int | None = None, paged: bool = False, page_size: int = 16,
         total_pages: int | None = None, prompt_len: tuple[int, int] = (4, 12),
         dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda", params=None) -> dict:
     """Serve ``requests`` random prompts (lengths drawn from
-    ``prompt_len`` = [lo, hi), tokens from ``seed``) and print requests,
-    tokens and tok/s.  ``params`` (float32, from the port's init or the
+    ``prompt_len`` = [lo, hi), tokens from ``seed``) from dense stripes,
+    or from the paged pool with ``paged``, and print requests, tokens and
+    tok/s.  ``params`` (float32, from the port's init or the
     bridge) replaces the seeded random weights when given."""
     dev = resolve_device(device)
     cfg = get_config(arch)
@@ -48,7 +51,8 @@ def run(arch: str, *, reduced: bool = False, requests: int = 4,
     params = cast_for_serving(params, dtype)
     scfg = ServeConfig(max_len=max_len, batch=batch, dtype=dtype,
                        sync_every=sync_every, temperature=temperature,
-                       page_size=page_size, total_pages=total_pages)
+                       paged=paged, page_size=page_size,
+                       total_pages=total_pages)
     b = Batcher(model, params, scfg, eos_id=eos_id, seed=seed)
     rng = np.random.default_rng(seed)
     prompts = {}
@@ -66,10 +70,11 @@ def run(arch: str, *, reduced: bool = False, requests: int = 4,
     toks = sum(len(v) for v in results.values())
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
+    layout = (f"paged pool {b.pool.n_pages}x{b.pool.page_size}" if paged
+              else f"dense stripes {batch}x{max_len}")
     print(f"[serve] {len(results)} requests, {toks} tokens in {dt:.3f}s "
-          f"({toks / dt:.1f} tok/s on {where}, {cfg.name}, paged pool "
-          f"{b.pool.n_pages}x{b.pool.page_size}, {b.joins} joins, "
-          f"{b.segments} decode segments)")
+          f"({toks / dt:.1f} tok/s on {where}, {cfg.name}, {layout}, "
+          f"{b.joins} joins, {b.segments} decode segments)")
     return {"results": results, "prompts": prompts, "tokens": toks,
             "seconds": dt, "tok_per_s": toks / dt, "joins": b.joins,
             "segments": b.segments}
@@ -88,6 +93,9 @@ def main() -> None:
     ap.add_argument("--sync-every", type=int, default=8)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV pool + per-slot page tables (default: "
+                         "dense per-slot stripes)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--total-pages", type=int, default=None,
                     help="pool size in pages (default: batch * max pages)")
@@ -102,8 +110,8 @@ def main() -> None:
         max_new=args.max_new, batch=args.batch, max_len=args.max_len,
         seed=args.seed, sync_every=args.sync_every,
         temperature=args.temperature, eos_id=args.eos_id,
-        page_size=args.page_size, total_pages=args.total_pages,
-        prompt_len=tuple(args.prompt_len), dtype=_DTYPES[args.dtype],
+        paged=args.paged, page_size=args.page_size,
+        total_pages=args.total_pages, prompt_len=tuple(args.prompt_len), dtype=_DTYPES[args.dtype],
         device=args.device)
 
 

@@ -1,17 +1,27 @@
-"""GQA attention over a paged KV cache, from :mod:`repro.models.attention`.
+"""GQA attention over a KV cache, from :mod:`repro.models.attention`.
 
 Queries are reshaped to [B, L, Hkv, G, D] and contracted against the
 unexpanded KV heads; repeated KV heads are never materialised.
 
-Paged layout: K/V pages live in one pooled allocation per layer shared by
-every slot, and ``table`` names each slot's pages in order.  The pool
-holds ``n_pages + 1`` pages: ids ``0 .. n_pages - 1`` are the live pages
-the allocator hands out, and the last one is a **sink**.  The allocator's
-sentinel id is ``n_pages`` (see :class:`repro_torch.serve.kvpool.KVPool`),
-so a write through an unallocated entry, or past the table's width, is
-redirected to the sink where JAX drops it with ``mode="drop"``; PyTorch has
-no drop mode, and a masked write with a data-dependent shape would cost a
-host sync per call.  No read of live data ever comes from the sink.
+Dense-stripe layout (:class:`KVCache`): each slot owns a contiguous stripe
+``[B, max_len + 1, Hkv, D]`` per layer.  Row ``max_len`` is a **sink**: JAX
+scatters with ``mode="drop"``, so a slot at ``max_len`` that still writes
+its (discarded) token each step loses that write; PyTorch has no drop
+mode, and an index out of range is a device-side assert on CUDA, so the
+port sends every write at or past ``max_len`` to the sink row.  No read
+reaches it: every attention call is bounded to the first ``max_len`` rows.
+
+Paged layout (:class:`PagedKVCache`): K/V pages live in one pooled
+allocation per layer shared by every slot, and ``table`` names each slot's
+pages in order.  The pool holds ``n_pages + 1`` pages: ids
+``0 .. n_pages - 1`` are the live pages the allocator hands out, and the
+last one is the sink.  The allocator's sentinel id is ``n_pages`` (see
+:class:`repro_torch.serve.kvpool.KVPool`), so a write through an
+unallocated entry, or past the table's width, is redirected to the sink
+where JAX drops it.  No read of live data ever comes from the sink.
+
+A masked write with a data-dependent shape would cost a host sync per
+call; the sinks keep every write's shape fixed.
 """
 from __future__ import annotations
 
@@ -21,8 +31,15 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels.decode_attn import decode_attn
 from ..kernels.paged_attn import paged_attn, paged_prefill_attn
 from .layers import dense, rope_tables, rotate
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor           # [B, max_len + 1, Hkv, D] (+1: sink row)
+    v: torch.Tensor           # [B, max_len + 1, Hkv, D]
+    length: torch.Tensor | int   # [B] int32 per slot, or one offset
 
 
 class PagedKVCache(NamedTuple):
@@ -32,21 +49,84 @@ class PagedKVCache(NamedTuple):
     length: torch.Tensor      # [B] int32: tokens filled per slot
 
 
-def attention_core(q: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor) -> torch.Tensor:
-    """Causal attention of the cache-free forward: q [B,L,Hq,D], k/v
-    [B,L,Hkv,D] -> [B,L,Hq,D], softmax in float32.  The port keeps only
-    the dense core; the JAX module's blockwise core for very long
-    cache-free sequences is not on the serving path."""
-    b, l, hq, d = q.shape
-    hkv = k.shape[2]
-    qg = q.reshape(b, l, hkv, hq // hkv, d)
-    scores = (torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / math.sqrt(d)).float()
-    causal = torch.ones((l, l), dtype=torch.bool, device=q.device).tril()
-    scores = torch.where(causal, scores, torch.full_like(scores, -1e30))
+def _dense_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool, q_offset=0, kv_len=None) -> torch.Tensor:
+    """q: [B, Lq, Hkv, G, D], k/v: [B, Lk, Hkv, D] -> [B, Lq, Hkv, G, D].
+    ``q_offset`` and ``kv_len`` are ints or per-slot [B] tensors: row b's
+    query t sits at position ``q_offset[b] + t`` and sees keys up to it
+    (``causal``) and below ``kv_len[b]``.  Softmax in float32, masked
+    scores at -1e30, as in JAX."""
+    b, lq, _, _, d = q.shape
+    lk = k.shape[1]
+    dev = q.device
+    scores = (torch.einsum("bqhgd,bkhd->bhgqk", q, k) / math.sqrt(d)).float()
+    kpos = torch.arange(lk, device=dev)
+    off = torch.as_tensor(q_offset, device=dev).reshape(-1, 1, 1)   # [B|1]
+    qpos = off + torch.arange(lq, device=dev)[None, :, None]        # [.,Lq,1]
+    mask = torch.ones((1, lq, lk), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (kpos[None, None, :] <= qpos)
+    if kv_len is not None:
+        kvl = torch.as_tensor(kv_len, device=dev).reshape(-1, 1, 1)
+        mask = mask & (kpos[None, None, :] < kvl)
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, -1e30))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
-    return out.reshape(b, l, hq, v.shape[-1])
+    return torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, q_offset=0,
+                   kv_len=None) -> torch.Tensor:
+    """q [B,Lq,Hq,D], k/v [B,Lk,Hkv,D] -> [B,Lq,Hq,D], through
+    :func:`_dense_attn`.  The port keeps only the dense core; the JAX
+    module's blockwise core for very long cache-free sequences is not on
+    the serving path."""
+    b, lq, hq, d = q.shape
+    hkv = k.shape[2]
+    out = _dense_attn(q.reshape(b, lq, hkv, hq // hkv, d), k, v,
+                      causal=causal, q_offset=q_offset, kv_len=kv_len)
+    return out.reshape(b, lq, hq, v.shape[-1])
+
+
+def dense_write_index(length: torch.Tensor, n_tokens: int,
+                      max_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(slot, row) write address of each of the ``n_tokens`` new tokens of
+    every slot, for per-slot ``length`` [B]: row ``length[b] + t``, or the
+    sink row ``max_len`` where that is at or past ``max_len`` (JAX drops
+    those writes).  Every layer of a forward writes at the same addresses,
+    so the forward computes them once."""
+    dev = length.device
+    pos = (length.to(torch.int64)[:, None]
+           + torch.arange(n_tokens, device=dev, dtype=torch.int64)[None, :])
+    pos = torch.where(pos < max_len, pos, torch.full_like(pos, max_len))
+    slot = torch.arange(length.shape[0], device=dev)[:, None].expand_as(pos)
+    return slot, pos
+
+
+def _cache_insert(buf: torch.Tensor, vals: torch.Tensor, length,
+                  index: tuple[torch.Tensor, torch.Tensor] | None = None
+                  ) -> torch.Tensor:
+    """Write ``vals`` [B, L, ...] into the stripe ``buf`` [B, max_len + 1,
+    ...] in place, from ``length``.  An int offset is one shared slice,
+    clamped as ``jax.lax.dynamic_update_slice`` clamps its start (into
+    ``[0, max_len - L]``); per-slot lengths ([B]) scatter each slot at its
+    own depth, at the addresses of :func:`dense_write_index` (``index``,
+    when the caller has computed them), so writes JAX would drop land in
+    the sink row."""
+    max_len = buf.shape[1] - 1
+    vals = vals.to(buf.dtype)
+    if not isinstance(length, torch.Tensor) or length.dim() == 0:
+        n = vals.shape[1]
+        if n > max_len:
+            raise ValueError(f"{n} rows do not fit a stripe of {max_len}")
+        start = min(max(int(length), 0), max_len - n)
+        buf[:, start:start + n] = vals
+        return buf
+    if index is None:
+        index = dense_write_index(length, vals.shape[1], max_len)
+    buf[index] = vals
+    return buf
 
 
 def paged_write_index(table: torch.Tensor, length: torch.Tensor,
@@ -95,36 +175,61 @@ def _paged_insert(pool: torch.Tensor, vals: torch.Tensor,
 def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
               positions: torch.Tensor | None = None,
               rope: tuple[torch.Tensor, torch.Tensor] | None = None,
-              cache: PagedKVCache | None = None, write_index=None):
-    """x: [B, L, D].  With a paged ``cache``, writes this call's K/V at
-    ``cache.length`` through the table, then attends over the filled
-    prefix: a one-token call (decode) through :func:`paged_attn`, anything
-    longer (prefill, suffix prefill, verify) through
-    :func:`paged_prefill_attn`.  ``rope`` is the (cos, sin) pair of
-    ``positions`` and ``write_index`` the cache write addresses, when the
-    caller has computed them once for all layers."""
+              cache: KVCache | PagedKVCache | None = None,
+              write_index=None, kv_cap: int | None = None):
+    """x: [B, L, D].  With a ``cache``, writes this call's K/V at
+    ``cache.length`` and attends over the filled prefix.
+
+    Dense stripes: a one-token call (decode) goes through
+    :func:`decode_attn`, which reads at most the first ``kv_cap`` rows
+    (a host-known bound on the deepest live slot; the whole stripe when
+    None); a longer call (prefill) through :func:`attention_core` over the
+    stripe, or over its first ``length + L`` rows for an int offset, since
+    the masked keys past them contribute exactly zero.  Paged: a one-token
+    call through :func:`paged_attn`, anything longer (prefill, suffix
+    prefill, verify) through :func:`paged_prefill_attn`.
+
+    ``rope`` is the (cos, sin) pair of ``positions`` and ``write_index``
+    the cache write addresses, when the caller has computed them once for
+    all layers."""
     if rope is None:
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     q = rotate(dense(params["q"], x), *rope)
     k = rotate(dense(params["k"], x), *rope)
     v = dense(params["v"], x)
+    n = x.shape[1]
     new_cache = None
-    if cache is not None:
-        # the insert precedes the read, in stream order: rows of one call
-        # that share pages see each other's writes
+    # the insert precedes the read, in stream order: rows of one call see
+    # each other's writes
+    if isinstance(cache, PagedKVCache):
         if write_index is None:
             write_index = paged_write_index(
-                cache.table, cache.length, x.shape[1], cache.k.shape[0] - 1,
+                cache.table, cache.length, n, cache.k.shape[0] - 1,
                 cache.k.shape[1])
         kp = _paged_insert(cache.k, k, cache.table, cache.length, write_index)
         vp = _paged_insert(cache.v, v, cache.table, cache.length, write_index)
-        kv_len = cache.length + x.shape[1]
+        kv_len = cache.length + n
         new_cache = PagedKVCache(kp, vp, cache.table, kv_len)
-        if x.shape[1] == 1:
+        if n == 1:
             out = paged_attn(q[:, 0], kp, vp, cache.table, kv_len)[:, None]
         else:
             out = paged_prefill_attn(q, kp, vp, cache.table, cache.length,
                                      kv_len)
+    elif cache is not None:
+        kc = _cache_insert(cache.k, k, cache.length, write_index)
+        vc = _cache_insert(cache.v, v, cache.length, write_index)
+        kv_len = cache.length + n
+        new_cache = KVCache(kc, vc, kv_len)
+        cap = kc.shape[1] - 1                  # the sink row is never read
+        if kv_cap is not None:
+            cap = min(cap, kv_cap)
+        if n == 1:
+            out = decode_attn(q[:, 0], kc, vc, kv_len, s_cap=cap)[:, None]
+        else:
+            if not isinstance(kv_len, torch.Tensor) or kv_len.dim() == 0:
+                cap = min(cap, int(kv_len))
+            out = attention_core(q, kc[:, :cap], vc[:, :cap],
+                                 q_offset=cache.length, kv_len=kv_len)
     else:
         out = attention_core(q, k, v)
     y = dense(params["o"], out, n_in=2)

@@ -1,12 +1,13 @@
 """Step-by-step reference decode: the port's oracle for the batcher, from
 :mod:`repro.serve.reference`.
 
-Every request runs in one padded batch, one ``model.decode_step`` per
-token, with host-side bookkeeping and no scheduling.  Each slot owns a
-fixed run of pages (an identity page table), so nothing here shares the
-batcher's allocator, admission, refill or page-cap bucketing.  Per-slot
-lengths make each row's output independent of the other rows, so the
-batcher's refills must not change any request's tokens.
+Every request runs in one padded batch: ``model.prefill`` into dense
+stripes, then one ``model.decode_step`` per token over the whole stripe,
+with host-side bookkeeping and no scheduling, as the JAX reference does.
+It shares nothing with the batcher's joins, admission, refill, row or
+page-cap bounds, or the paged layout.  Per-slot lengths make each row's
+output independent of the other rows, so the batcher's refills must not
+change any request's tokens.
 """
 from __future__ import annotations
 
@@ -35,13 +36,8 @@ def reference_decode(model: Model, params, cfg: ServeConfig,
     for i, (_, p) in enumerate(requests):
         toks[i, :len(p)] = p
         plens[i] = len(p)
-    per_slot = -(-(width + max_new) // cfg.page_size)
-    table = torch.arange(b * per_slot, dtype=torch.int32,
-                         device=dev).reshape(b, per_slot)
-    caches = model.init_paged_caches(b, b * per_slot, cfg.page_size,
-                                     cfg.dtype, device=dev)
-    logits, caches = model.prefill_paged(
-        params, {"tokens": torch.as_tensor(toks, device=dev)}, caches, table,
+    logits, caches = model.prefill(
+        params, {"tokens": torch.as_tensor(toks, device=dev)}, cfg.max_len,
         dtype=cfg.dtype, last_pos=torch.as_tensor(plens - 1, device=dev))
     gen = torch.Generator(device=dev).manual_seed(seed)
     tok = sample_tokens(logits[:, -1], cfg.temperature, gen)[:, None]
@@ -53,7 +49,7 @@ def reference_decode(model: Model, params, cfg: ServeConfig,
         if all(done):
             break
         logits, caches = model.decode_step(params, tok, caches, lengths,
-                                           dtype=cfg.dtype, pages=table)
+                                           dtype=cfg.dtype)
         nxt = sample_tokens(logits[:, -1], cfg.temperature,
                             gen).cpu().numpy()
         new_tok = tok.cpu().numpy().copy()

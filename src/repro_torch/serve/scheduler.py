@@ -1,19 +1,26 @@
-"""Slot-based continuous batching over the paged decode loop, from
-:mod:`repro.serve.scheduler` (``ContinuousBatcher``, paged mode).
+"""Slot-based continuous batching over the decode loop, from
+:mod:`repro.serve.scheduler` (``ContinuousBatcher``).
 
-The scheduler owns ``cfg.batch`` decode slots sharing one pooled KV
-allocation.  Requests queue FIFO.  Between decode segments
-(``cfg.sync_every`` steps, the only host syncs), every free slot is
-refilled from the queue head when the pool can hold the request's worst
-case (prompt + budget pages, "reserve" admission): the joining prompts
-are padded to one power-of-two width and prefilled in one call through
-the page table, and rows outside the join write nothing to live pages.
-A slot retires when it emits EOS (kept) or exhausts its budget; its pages
-go back to the pool at the segment boundary.
+The scheduler owns ``cfg.batch`` decode slots.  Requests queue FIFO.
+Between decode segments (``cfg.sync_every`` steps, the only host syncs),
+free slots are refilled from the queue head: the joining prompts are
+padded to one power-of-two width and prefilled in one call.  A slot
+retires when it emits EOS (kept) or exhausts its budget.
 
-Each segment slices the page table to a power-of-two bound on the deepest
-live slot's page count (page-cap bucketing), so the attention kernels
-never walk pages past every slot's allocation.
+Two KV layouts, as in JAX (``cfg.paged``):
+
+- Dense (the default): each slot owns a stripe of ``max_len`` rows, so
+  admission needs only a free slot.  The join writes the joining slots'
+  rows only.  Each segment bounds the rows attention reads to a
+  power-of-two bucket over the deepest live slot plus the segment's steps
+  (``_kv_cap``), so the decode kernel never walks rows past every slot's
+  depth.
+- Paged: the slots share one pooled allocation.  A request is admitted
+  when the pool can hold its worst case (prompt + budget pages, "reserve"
+  admission); rows outside the join write nothing to live pages; a retired
+  slot's pages go back to the pool at the segment boundary.  Each segment
+  slices the page table to a power-of-two bound on the deepest live slot's
+  page count (page-cap bucketing).
 
 Not yet ported (later slices): the prefix cache, chunked prefill,
 speculation, skip-ahead and optimistic admission with preemption,
@@ -26,7 +33,8 @@ import collections
 import numpy as np
 import torch
 
-from .engine import PAD_TOKEN, ServeConfig, make_decode_loop, make_paged_join
+from .engine import (PAD_TOKEN, ServeConfig, make_decode_loop, make_join,
+                     make_paged_join)
 from .kvpool import KVPool
 from ..models.model_zoo import Model
 
@@ -48,12 +56,18 @@ class ContinuousBatcher:
         self.eos = eos_id
         self.device = dev = params["embed"]["table"].device
         b = cfg.batch
-        self.pool = KVPool(cfg.pool_pages, cfg.page_size, b,
-                           max_pages=cfg.max_pages)
-        self.caches = model.init_paged_caches(
-            b, cfg.pool_pages, cfg.page_size, cfg.dtype, device=dev)
-        self._join = make_paged_join(model, cfg, eos_id=eos_id)
-        self._loops: dict[int, object] = {}
+        if cfg.paged:
+            self.pool = KVPool(cfg.pool_pages, cfg.page_size, b,
+                               max_pages=cfg.max_pages)
+            self.caches = model.init_paged_caches(
+                b, cfg.pool_pages, cfg.page_size, cfg.dtype, device=dev)
+            self._join = make_paged_join(model, cfg, eos_id=eos_id)
+        else:
+            self.pool = None
+            self.caches = model.init_caches(b, cfg.max_len, cfg.dtype,
+                                            device=dev)
+            self._join = make_join(model, cfg, eos_id=eos_id)
+        self._loops: dict[tuple[int, int | None], object] = {}
         self.tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
         self.lengths = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.done = torch.ones((b,), dtype=torch.bool, device=dev)
@@ -66,6 +80,7 @@ class ContinuousBatcher:
         # host mirror of the slot table
         self.slot_rid: list[int | None] = [None] * b
         self.slot_budget = [0] * b
+        self.slot_len = [0] * b          # tokens in each slot's cache
         self.admit_order: list[int] = []
         self.joins = 0
         self.segments = 0
@@ -75,11 +90,26 @@ class ContinuousBatcher:
             raise ValueError("empty prompt")
         self.queue.append((rid, list(prompt)))
 
-    def _loop(self, steps: int):
-        if steps not in self._loops:
-            self._loops[steps] = make_decode_loop(
-                self.model, self.cfg, steps=steps, eos_id=self.eos)
-        return self._loops[steps]
+    def _loop(self, steps: int, kv_cap: int | None = None):
+        """The decode loop of ``(steps, kv_cap)``; ``kv_cap`` is None on the
+        paged path, whose bound is the page table's slice."""
+        key = (steps, kv_cap)
+        if key not in self._loops:
+            self._loops[key] = make_decode_loop(
+                self.model, self.cfg, steps=steps, eos_id=self.eos,
+                kv_cap=kv_cap, paged=self.cfg.paged)
+        return self._loops[key]
+
+    def _kv_cap(self, steps: int) -> int | None:
+        """Power-of-two bound on the rows the next ``steps`` decode steps
+        read: the deepest live slot's cache length plus ``steps``.  None
+        when it reaches ``max_len`` (read every row)."""
+        live = [self.slot_len[i] for i, r in enumerate(self.slot_rid)
+                if r is not None]
+        if not live:
+            return None
+        cap = _pow2_bucket(max(live) + steps, hi=self.cfg.max_len)
+        return None if cap >= self.cfg.max_len else cap
 
     def _page_cap(self) -> int:
         """Power-of-two bound on the deepest live slot's allocated page
@@ -92,10 +122,15 @@ class ContinuousBatcher:
         return _pow2_bucket(max(live), lo=2, hi=self.cfg.max_pages)
 
     def _admit_next(self, slot: int, max_new: int):
-        """Pop the queue head and reserve its worst case on ``slot`` if the
-        pool can hold it (FIFO: a head that does not fit blocks)."""
+        """Pop the queue head for ``slot``; paged, only if the pool can hold
+        its worst case, which is then reserved (FIFO: a head that does not
+        fit blocks)."""
         if not self.queue:
             return None
+        if self.pool is None:             # dense: a free slot is enough
+            rid, p = self.queue.popleft()
+            self.admit_order.append(rid)
+            return rid, p
         rid, p = self.queue[0]
         if not self.pool.can_admit(len(p) + max_new):
             return None
@@ -107,7 +142,8 @@ class ContinuousBatcher:
     def _retire(self, slot: int, rid: int, out: list[int]) -> None:
         self.results[rid] = out
         self.slot_rid[slot] = None
-        self.pool.release(slot)
+        if self.pool is not None:
+            self.pool.release(slot)
 
     def _refill(self, max_new: int) -> None:
         take: list[tuple[int, int, list[int]]] = []
@@ -123,29 +159,44 @@ class ContinuousBatcher:
         b, dev = self.cfg.batch, self.device
         width = _pow2_bucket(max(len(p) for _, _, p in take), lo=8,
                              hi=self.cfg.max_len)
-        join_mask = np.zeros((b,), bool)
-        prompts = np.zeros((b, width), np.int32)
-        plens = np.ones((b,), np.int32)
-        for slot, _, p in take:
-            join_mask[slot] = True
-            prompts[slot, :len(p)] = p
-            plens[slot] = len(p)
 
         def up(a):
             return torch.as_tensor(a, device=dev)
-        mask_t = up(join_mask)
-        (self.caches, self.tok, self.lengths, self.done, self.remaining,
-         first) = self._join(
-            self.params, self.caches, self.tok, self.lengths, self.done,
-            self.remaining, mask_t, up(prompts), up(plens),
-            up(np.full((b,), max_new, np.int32)), self.gen,
-            up(self.pool.table), up(np.zeros((b,), np.int32)), mask_t)
+        if self.pool is None:
+            prompts = np.zeros((len(take), width), np.int32)
+            for j, (_, _, p) in enumerate(take):
+                prompts[j, :len(p)] = p
+            (self.caches, self.tok, self.lengths, self.done, self.remaining,
+             first) = self._join(
+                self.params, self.caches, self.tok, self.lengths, self.done,
+                self.remaining, up(np.asarray([slot for slot, _, _ in take])),
+                up(prompts),
+                up(np.asarray([len(p) for _, _, p in take], np.int32)),
+                up(np.full((len(take),), max_new, np.int32)), self.gen)
+            first = dict(zip((slot for slot, _, _ in take),
+                             first.cpu().numpy().tolist()))
+        else:
+            join_mask = np.zeros((b,), bool)
+            prompts = np.zeros((b, width), np.int32)
+            plens = np.ones((b,), np.int32)
+            for slot, _, p in take:
+                join_mask[slot] = True
+                prompts[slot, :len(p)] = p
+                plens[slot] = len(p)
+            mask_t = up(join_mask)
+            (self.caches, self.tok, self.lengths, self.done, self.remaining,
+             first) = self._join(
+                self.params, self.caches, self.tok, self.lengths, self.done,
+                self.remaining, mask_t, up(prompts), up(plens),
+                up(np.full((b,), max_new, np.int32)), self.gen,
+                up(self.pool.table), up(np.zeros((b,), np.int32)), mask_t)
+            first = first.cpu().numpy()
         self.joins += 1
-        first = first.cpu().numpy()
         for slot, rid, p in take:
             tokv = int(first[slot])
             out = [tokv]
             self.outputs[rid] = out
+            self.slot_len[slot] = len(p)
             if (self.eos is not None and tokv == self.eos) or max_new <= 1:
                 self._retire(slot, rid, out)     # retired at commit
             else:
@@ -166,6 +217,7 @@ class ContinuousBatcher:
                     break
                 out.append(v)
                 appended += 1
+                self.slot_len[i] += 1
                 if ((self.eos is not None and v == self.eos)
                         or len(out) >= self.slot_budget[i]):
                     self._retire(i, rid, out)
@@ -174,6 +226,25 @@ class ContinuousBatcher:
                 raise RuntimeError(
                     f"slot {i} (request {rid}) stalled: device reports done "
                     "but host bookkeeping thinks it is live")
+
+    def _decode_segment(self, steps: int) -> torch.Tensor:
+        """Run one decode segment of ``steps`` steps over the live slots,
+        bounded by the page cap (paged) or ``_kv_cap`` (dense); returns the
+        emitted tokens [steps, B] on the device."""
+        if self.pool is not None:
+            cap = self._page_cap()
+            extra = (torch.as_tensor(
+                np.ascontiguousarray(self.pool.table[:, :cap]),
+                device=self.device),)
+            loop = self._loop(steps)
+        else:
+            extra = ()
+            loop = self._loop(steps, self._kv_cap(steps))
+        ((self.tok, self.caches, self.lengths, self.done, self.remaining),
+         emitted) = loop(self.params, self.tok, self.caches, self.lengths,
+                         self.done, self.remaining, self.gen, *extra)
+        self.segments += 1
+        return emitted
 
     def run(self, max_new: int = 16) -> dict[int, list[int]]:
         """Drain the queue: refill slots, run decode segments, read the
@@ -188,7 +259,8 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"request {rid}: prompt {len(prompt)} + max_new "
                     f"{max_new} exceeds max_len {self.cfg.max_len}")
-            if (self.pool.pages_for(len(prompt) + max_new)
+            if self.pool is not None and (
+                    self.pool.pages_for(len(prompt) + max_new)
                     > min(self.pool.n_pages, self.pool.max_pages)):
                 raise ValueError(
                     f"request {rid}: needs "
@@ -200,16 +272,7 @@ class ContinuousBatcher:
             self._refill(max_new)
             if not any(r is not None for r in self.slot_rid):
                 continue
-            cap = self._page_cap()
-            pages = torch.as_tensor(
-                np.ascontiguousarray(self.pool.table[:, :cap]),
-                device=self.device)
-            ((self.tok, self.caches, self.lengths, self.done,
-              self.remaining), emitted) = self._loop(steps)(
-                self.params, self.tok, self.caches, self.lengths, self.done,
-                self.remaining, self.gen, pages)
-            self.segments += 1
-            self._collect(emitted.cpu().numpy())
+            self._collect(self._decode_segment(steps).cpu().numpy())
         return self.results
 
 

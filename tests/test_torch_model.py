@@ -3,12 +3,15 @@ tree, bridged through numpy), in float32 at qwen2-0.5b ``reduced()``.
 
 The four paged call shapes of serving are compared: whole prefill, suffix
 prefill at ``cache_len > 0``, one-token decode, and an Lq = k+1 verify
-step.  Logits agree to atol = rtol = 1e-4 (float32, different summation
-orders; observed differences are about 1e-6), and the live pages of the
-KV pools agree to 1e-5 after each call.
+step; and the dense-stripe ones: prefill, and one-token decode with and
+without a ``kv_cap`` bound, including a slot at ``max_len``.  Logits agree
+to atol = rtol = 1e-4 (float32, different summation orders; observed
+differences are about 1e-6), and the live pages of the KV pools and the
+live rows of the stripes agree to 1e-5 after each call.
 
-The JAX side runs as its serving tests run it on the CPU: paged caches,
-XLA attention through the page table."""
+The JAX side runs as its serving tests run it on the CPU: XLA attention
+(through the page table for paged caches), and for one dense decode step
+the Pallas decode kernel in interpret mode."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,13 +21,17 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import attention as jax_attention
 from repro.models import param as pm
+from repro.kernels.decode_attn import decode_attn_policy
 from repro.models.model_zoo import Model as JaxModel
+from repro.serve.engine import ServeConfig as JaxServeConfig
+from repro.serve.engine import make_join as jax_make_join
 from repro_torch.configs import get_config
 from repro_torch.models import attention
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.models.init import cast_for_serving, init_params
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.transformer import forward, logits_fn
+from repro_torch.serve.engine import ServeConfig, make_join
 
 torch.set_num_threads(1)
 
@@ -240,3 +247,148 @@ def test_entry_points_default_to_cuda():
         params_from_numpy({"a": np.zeros(2)})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Model(cfg).init_paged_caches(1, 4, 8)
+
+
+@pytest.mark.parametrize("length", [[0, 5], [6, 3], [8, 2], 0, 2, 7])
+def test_cache_insert_matches_jax_drop_semantics(length):
+    """Per-slot writes at or past max_len drop in JAX; in the port they go
+    to the sink row and every live row matches.  An int offset is one
+    slice whose start is clamped as ``dynamic_update_slice`` clamps it."""
+    rng = np.random.default_rng(len(str(length)))
+    max_len = 8
+    buf = rng.standard_normal((2, max_len, 1, 2)).astype(np.float32)
+    vals = rng.standard_normal((2, 3, 1, 2)).astype(np.float32)
+    ln = np.asarray(length, np.int32)
+    want = jax_attention._cache_insert(jnp.asarray(buf), jnp.asarray(vals),
+                                       jnp.asarray(ln))
+    sink = np.full((2, 1, 1, 2), 9.0, np.float32)
+    got = attention._cache_insert(
+        torch.from_numpy(np.concatenate([buf, sink], axis=1)),
+        torch.from_numpy(vals),
+        torch.from_numpy(ln) if ln.ndim else int(ln))
+    np.testing.assert_array_equal(got[:, :max_len].numpy(), np.asarray(want))
+    if ln.ndim == 0:                        # a slice never reaches the sink
+        np.testing.assert_array_equal(got[:, max_len].numpy(), sink[:, 0])
+
+
+def _same_stripes(jc, tc, max_len):
+    for js, ts in zip(jc, tc):
+        for name in ("k", "v"):
+            assert ts[name].shape[2] == max_len + 1         # + sink row
+            np.testing.assert_allclose(ts[name][:, :, :max_len].numpy(),
+                                       np.asarray(js[name]), **KV_TOL)
+
+
+def test_dense_prefill_and_decode_match_jax(models):
+    """Prefill of ragged prompts into fresh stripes, then decode steps at
+    per-slot depths: without a bound, under ``kv_cap`` through the Pallas
+    kernel (interpret mode), and with one slot at max_len, whose write JAX
+    drops and whose read covers every row under the bound; then a 3-token
+    step at per-slot depths."""
+    cfg, jmodel, jparams, tmodel, tparams = models
+    rng = np.random.default_rng(5)
+    b, max_len = 3, 32
+    prompts = rng.integers(0, cfg.vocab, size=(b, 9)).astype(np.int32)
+    plens = np.asarray([9, 4, 6], np.int32)
+    jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(prompts)},
+                            max_len, dtype=jnp.float32, last_pos=plens - 1)
+    tl, tc = tmodel.prefill(tparams, {"tokens": torch.from_numpy(prompts)},
+                            max_len, dtype=torch.float32,
+                            last_pos=torch.from_numpy(plens - 1))
+    assert tl.shape == (b, 1, cfg.vocab) and tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    _same_stripes(jc, tc, max_len)
+
+    depth = plens.copy()
+    for kv_cap, mode in ((None, "xla"), (16, "kernel"), (16, "xla"),
+                         (None, "kernel")):
+        tok = rng.integers(0, cfg.vocab, size=(b, 1)).astype(np.int32)
+        if kv_cap is None and mode == "kernel":
+            depth[1] = max_len              # a retired slot at max_len
+        with decode_attn_policy(mode=mode, kv_cap=kv_cap, interpret=True):
+            jl, jc = jmodel.decode_step(jparams, jnp.asarray(tok), jc,
+                                        jnp.asarray(depth),
+                                        dtype=jnp.float32)
+        tl, tc = tmodel.decode_step(tparams, torch.from_numpy(tok), tc,
+                                    torch.from_numpy(depth),
+                                    dtype=torch.float32, kv_cap=kv_cap)
+        assert tl.shape == (b, 1, cfg.vocab)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+        _same_stripes(jc, tc, max_len)
+        depth = np.minimum(depth + 1, max_len)
+
+    # a 3-token step at per-slot depths: the per-slot masks of the dense
+    # core, and per-slot writes of several rows (slot 1's drop at max_len)
+    win = rng.integers(0, cfg.vocab, size=(b, 3)).astype(np.int32)
+    jl, jc = jmodel.decode_step(jparams, jnp.asarray(win), jc,
+                                jnp.asarray(depth), dtype=jnp.float32)
+    tl, tc = tmodel.decode_step(tparams, torch.from_numpy(win), tc,
+                                torch.from_numpy(depth), dtype=torch.float32)
+    assert tl.shape == (b, 3, cfg.vocab)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    _same_stripes(jc, tc, max_len)
+
+
+def test_dense_join_writes_only_the_joining_rows(models):
+    """The dense join computes and writes the joining slots only: the
+    other slots' stripes, tokens, lengths and flags stay bit-for-bit, and
+    the joining slot's state and rows match the JAX join's."""
+    cfg, jmodel, jparams, tmodel, tparams = models
+    rng = np.random.default_rng(6)
+    b, max_len = 3, 32
+    caches = tmodel.init_caches(b, max_len, torch.float32, device="cpu")
+    for c in caches:
+        for name in ("k", "v"):
+            c[name].copy_(torch.from_numpy(rng.standard_normal(
+                c[name].shape).astype(np.float32)))
+    before = [{n: c[n].clone() for n in c} for c in caches]
+    tok = torch.tensor([[5], [6], [7]], dtype=torch.int32)
+    lengths = torch.tensor([11, 0, 20], dtype=torch.int32)
+    done = torch.tensor([False, True, False])
+    remaining = torch.tensor([3, 0, 4], dtype=torch.int32)
+    prompt = rng.integers(0, cfg.vocab, size=(1, 8)).astype(np.int32)
+    join = make_join(tmodel, ServeConfig(max_len=max_len, batch=b,
+                                         dtype=torch.float32), eos_id=None)
+    caches, tok2, len2, done2, rem2, first = join(
+        tparams, caches, tok, lengths, done, remaining, torch.tensor([1]),
+        torch.from_numpy(prompt), torch.tensor([5], dtype=torch.int32),
+        torch.tensor([4], dtype=torch.int32), None)
+    for c, c0 in zip(caches, before):
+        for name in ("k", "v"):
+            assert torch.equal(c[name][:, [0, 2]], c0[name][:, [0, 2]])
+            assert torch.equal(c[name][:, 1, 8:], c0[name][:, 1, 8:])
+    keep = [0, 2]
+    assert torch.equal(tok2[keep], tok[keep])
+    assert torch.equal(len2[keep], lengths[keep])
+    assert torch.equal(done2[keep], done[keep])
+    assert torch.equal(rem2[keep], remaining[keep])
+    assert first.shape == (1,)
+
+    jjoin = jax_make_join(jmodel, JaxServeConfig(max_len=max_len, batch=b,
+                                                 dtype=jnp.float32),
+                          eos_id=None)
+    prompts = np.zeros((b, 8), np.int32)
+    prompts[1] = prompt[0]
+    jcaches = jmodel.init_caches(b, max_len, jnp.float32)
+    jcaches, jtok, jlen, jdone, jrem, _, jfirst = jjoin(
+        jparams, jcaches, jnp.asarray(tok.numpy()),
+        jnp.asarray(lengths.numpy()), jnp.asarray(done.numpy()),
+        jnp.asarray(remaining.numpy()), jnp.asarray([False, True, False]),
+        jnp.asarray(prompts), jnp.asarray([1, 5, 1], jnp.int32),
+        jnp.asarray([4, 4, 4], jnp.int32), jax.random.key(0))
+    assert int(first[0]) == int(jfirst[1])
+    assert int(tok2[1, 0]) == int(jtok[1, 0])
+    assert (int(len2[1]), bool(done2[1]), int(rem2[1])) == (
+        int(jlen[1]), bool(jdone[1]), int(jrem[1]))
+    for js, ts in zip(jcaches, caches):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(ts[name][:, 1, :5].numpy(),
+                                       np.asarray(js[name])[:, 1, :5],
+                                       **KV_TOL)
+
+
+def test_dense_caches_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(get_config("qwen2-0.5b").reduced()).init_caches(1, 8)

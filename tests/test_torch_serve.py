@@ -1,9 +1,11 @@
 """End-to-end serving: the port's continuous batcher against the JAX
-``Batcher`` (``ServeConfig(paged=True)``) on the same float32 weights at
-qwen2-0.5b ``reduced()``: more requests than slots (refills mid-run) and
-an EOS id that retires requests mid-batch.  Greedy streams must be equal;
-a difference is accepted only at a logit near-tie (the two candidate
-tokens' logits within 1e-4 of each other), which the test then shows.  Also: the port's own step-by-step
+``Batcher`` on the same float32 weights at qwen2-0.5b ``reduced()``, in
+both KV layouts (``ServeConfig(paged=True)`` and the dense default): more
+requests than slots (refills mid-run) and an EOS id that retires requests
+mid-batch.  Greedy streams must be equal; a difference is accepted only
+at a logit near-tie (the two candidate tokens' logits within 1e-4 of each
+other), which the test then shows.  Also: the port's dense and paged
+batchers against each other and against the port's step-by-step dense
 oracle, sampling, configuration guards, the CLI entry point, and a
 subprocess proof that the port imports neither JAX nor ``repro``."""
 import os
@@ -82,15 +84,19 @@ def _assert_same_or_near_tie(cfg, params, prompt, got, want):
                             f"near-tie (gap {gap})", got, want)
 
 
-def test_port_batcher_matches_jax_batcher(setup):
-    cfg, jmodel, jparams, model, tparams, requests, eos = setup
+def _jax_run(jmodel, jparams, requests, eos, **kw):
     jb = JaxBatcher(jmodel, jparams,
-                    JaxServeConfig(dtype=jnp.float32, paged=True, **SCFG),
+                    JaxServeConfig(dtype=jnp.float32, **{**SCFG, **kw}),
                     eos_id=eos)
     for rid, p in requests:
         jb.submit(rid, p)
-    want = jb.run(max_new=MAX_NEW)
-    got, b = _port_run(model, tparams, requests, eos)
+    return jb.run(max_new=MAX_NEW)
+
+
+def test_port_batcher_matches_jax_batcher(setup):
+    cfg, jmodel, jparams, model, tparams, requests, eos = setup
+    want = _jax_run(jmodel, jparams, requests, eos, paged=True)
+    got, b = _port_run(model, tparams, requests, eos, paged=True)
     assert set(got) == set(want) == {rid for rid, _ in requests}
     assert any(len(v) < MAX_NEW and v[-1] == eos for v in got.values())
     assert b.joins > 1                  # refills happened mid-run
@@ -107,8 +113,8 @@ def test_port_batcher_matches_port_reference(setup):
     want = reference_decode(model, tparams,
                             ServeConfig(dtype=torch.float32, **SCFG),
                             requests, MAX_NEW, eos_id=eos)
-    got, b = _port_run(model, tparams, requests, eos, total_pages=6,
-                       sync_every=3)
+    got, b = _port_run(model, tparams, requests, eos, paged=True,
+                       total_pages=6, sync_every=3)
     for rid, prompt in requests:
         _assert_same_or_near_tie(cfg, tparams, prompt, got[rid], want[rid])
     assert b.admit_order == [rid for rid, _ in requests]   # FIFO
@@ -144,7 +150,8 @@ def test_config_guards():
 
 def test_oversized_request_rejected(setup):
     _, _, _, model, tparams, _, _ = setup
-    b = Batcher(model, tparams, ServeConfig(dtype=torch.float32, **SCFG))
+    b = Batcher(model, tparams, ServeConfig(dtype=torch.float32, paged=True,
+                                            **SCFG))
     b.submit(0, [1] * 60)
     with pytest.raises(ValueError, match="exceeds max_len"):
         b.run(max_new=MAX_NEW)
@@ -153,9 +160,68 @@ def test_oversized_request_rejected(setup):
 def test_cli_run_on_cpu(capsys):
     from repro_torch.launch.serve import run
     out = run("qwen2-0.5b", reduced=True, requests=3, max_new=4, batch=2,
-              device="cpu", dtype=torch.float32)
+              paged=True, device="cpu", dtype=torch.float32)
     assert out["tokens"] == 12 and len(out["results"]) == 3
     assert "[serve] 3 requests, 12 tokens" in capsys.readouterr().out
+
+
+def test_dense_batcher_matches_jax_batcher(setup):
+    """The dense default of both packages: ``ServeConfig()`` stripes."""
+    cfg, jmodel, jparams, model, tparams, requests, eos = setup
+    want = _jax_run(jmodel, jparams, requests, eos)
+    got, b = _port_run(model, tparams, requests, eos)
+    assert b.pool is None and b.caches[0]["k"].shape[2] == SCFG["max_len"] + 1
+    assert set(got) == set(want) == {rid for rid, _ in requests}
+    assert any(len(v) < MAX_NEW and v[-1] == eos for v in got.values())
+    assert b.joins > 1                  # refills happened mid-run
+    assert b.admit_order == [rid for rid, _ in requests]   # FIFO
+    for rid, prompt in requests:
+        _assert_same_or_near_tie(cfg, tparams, prompt, got[rid], want[rid])
+
+
+@pytest.mark.parametrize("sync_every", [1, 3, 4])
+def test_dense_batcher_matches_paged_batcher_and_reference(setup, sync_every):
+    """Port dense vs port paged on the same requests, and both against the
+    dense step-by-step oracle: the layout, the row bound (``kv_cap``
+    buckets change as slots deepen) and the segment length change no
+    token."""
+    cfg, _, _, model, tparams, requests, eos = setup
+    dense, bd = _port_run(model, tparams, requests, eos,
+                          sync_every=sync_every)
+    paged, _ = _port_run(model, tparams, requests, eos, paged=True,
+                         sync_every=sync_every)
+    want = reference_decode(model, tparams,
+                            ServeConfig(dtype=torch.float32, **SCFG),
+                            requests, MAX_NEW, eos_id=eos)
+    assert len({k for k, _ in bd._loops}) == 1
+    assert any(cap is not None for _, cap in bd._loops)
+    for rid, prompt in requests:
+        assert dense[rid] == paged[rid], rid
+        _assert_same_or_near_tie(cfg, tparams, prompt, dense[rid], want[rid])
+
+
+def test_kv_cap_bounds_the_deepest_live_slot(setup):
+    """``_kv_cap`` is the power-of-two bucket of the deepest live slot's
+    cache length plus the segment's steps; None once it reaches max_len,
+    and None with no live slot."""
+    _, _, _, model, tparams, _, _ = setup
+    b = Batcher(model, tparams, ServeConfig(dtype=torch.float32, **SCFG))
+    assert b._kv_cap(4) is None
+    b.slot_rid = [0, None, 2]
+    b.slot_len = [9, 60, 3]
+    assert b._kv_cap(4) == 16           # 9 + 4 -> 16 (slot 1 is free)
+    b.slot_len = [13, 0, 3]
+    assert b._kv_cap(4) == 32
+    b.slot_len = [29, 0, 3]
+    assert b._kv_cap(4) is None         # 64 = max_len: read every row
+
+
+def test_cli_run_dense_on_cpu(capsys):
+    from repro_torch.launch.serve import run
+    out = run("qwen2-0.5b", reduced=True, requests=3, max_new=4, batch=2,
+              device="cpu", dtype=torch.float32)
+    assert out["tokens"] == 12 and len(out["results"]) == 3
+    assert "dense stripes 2x64" in capsys.readouterr().out
 
 
 _BLOCKED = r"""
@@ -175,7 +241,7 @@ for name in names:
     importlib.import_module(name)
 assert all(sys.modules[m] is None for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names))
+print(len(names), *names)
 """
 
 
@@ -185,4 +251,10 @@ def test_port_imports_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", _BLOCKED], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    names = res.stdout.split()
+    assert int(names[0]) >= 19
+    assert {"repro_torch.kernels.decode_attn.kernel",
+            "repro_torch.kernels.decode_attn.ops",
+            "repro_torch.kernels.decode_attn.ref",
+            "repro_torch.serve.reference",
+            "repro_torch.launch.profile_serve"} <= set(names[1:])
