@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, the wrappers' refusals, and the serving paths (paged and dense)
 through the kernels against the plain path on the CPU and against each
-other.  Every test here is marked ``cuda`` and skips without a GPU;
+other; the paper's primitives (skinny GEMM, push scatter) through their
+kernels against float64 oracles.  Every test here is marked ``cuda`` and skips without a GPU;
 on a GPU machine run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -9,13 +10,19 @@ on a GPU machine run them with
 This file imports neither JAX nor ``repro``, so it runs where only the
 port is installed.  Tolerances: float32 1e-4, bfloat16 2e-2 (max abs
 error against the plain version evaluated in float32 on the same values;
-TF32 is off)."""
+TF32 is off).  The primitives' kernels sum in float32 in an order of their
+own (atomics, for push), so they are held per output to the worst-case
+bound of float32 summation, n u / (1 - n u) times the sum of the terms'
+magnitudes (u = 2**-24, n the terms summed), against float64 results
+from the same, already rounded, inputs."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attn as dattn
+from repro_torch.kernels import push_scatter as ps
+from repro_torch.kernels import ss_gemm as sg
 from repro_torch.kernels.paged_attn import (kernel, paged_attn,
                                             paged_attn_ref,
                                             paged_prefill_attn,
@@ -210,3 +217,189 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+# ---------------------------------------------------------------------------
+# the paper's primitives: skinny GEMM (masked, compact) and push scatter
+# ---------------------------------------------------------------------------
+
+def _gamma(n_terms):
+    """Worst-case relative bound of a float32 sum of ``n_terms`` terms in
+    any order, each term rounded at most once: n u / (1 - n u), u = 2**-24
+    (the first-order n u for n u << 1)."""
+    nu = n_terms * 2.0 ** -24
+    return nu / (1 - nu)
+
+
+def _within_bound(got, want64, abs64, n_terms):
+    """|got - want| <= gamma(n) x sum |terms|, per output; the float64
+    results come from the kernel's own (already rounded) inputs."""
+    err = (got.double() - want64).abs()
+    return bool((err <= _gamma(n_terms) * abs64).all())
+
+
+def _skinny(rng, m, k, n, density, dtype, bk):
+    """A [M, K] and B [K, N] on the card, B's k-blocks of bk rows dead with
+    probability 1 - density (at density 0.05 one block is kept live)."""
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    nk = -(-k // bk)
+    live = rng.random(nk) < density
+    if 0 < density < 1 and not live.any():
+        live[nk // 2] = True
+    b[~np.repeat(live, bk)[:k]] = 0.0
+    return (a.to("cuda").to(dtype),
+            torch.from_numpy(b).to("cuda").to(dtype))
+
+
+SKINNY_SHAPES = [(256, 1024, 128),   # aligned
+                 (300, 300, 128),    # ragged M and K (K % 8 != 0 in bf16)
+                 (77, 520, 256)]     # ragged M, K % 8 == 0, ragged last block
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4, 8, 16])
+@pytest.mark.parametrize("m,k,bk", SKINNY_SHAPES)
+@pytest.mark.parametrize("density", [0.0, 0.05, 1.0])
+def test_ssgemm_kernels_match_plain_version(dtype, n, m, k, bk, density):
+    """Both walks against their plain versions in float64 on the same
+    values, within the worst-case float32 summation bound; the compact op
+    at budgets 1, the live count and every block (the first takes the
+    overflow guard whenever two or more blocks are live)."""
+    rng = np.random.default_rng(m + n + int(100 * density))
+    a, b = _skinny(rng, m, k, n, density, dtype, bk)
+    a64, b64 = a.double(), b.double()
+    mask = sg.block_occupancy(b, bk)
+    before = dict(sg.launch_counts)
+    got = sg.kernel.ssgemm_masked_cuda(a, b, mask, bk)
+    assert sg.launch_counts["ssgemm_masked"] == before["ssgemm_masked"] + 1
+    want = sg.ssgemm_masked_ref(a64, b64, mask, bk)
+    bnd = sg.ssgemm_masked_ref(a64.abs(), b64.abs(), mask, bk)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert _within_bound(got, want, bnd, k)
+    full, full_abs = a64 @ b64, a64.abs() @ b64.abs()
+    assert _within_bound(sg.ssgemm_masked(a, b, bk=bk), full, full_abs, k)
+    nk = mask.shape[0]
+    n_live = int(mask.sum())
+    for budget in sorted({1, max(n_live, 1), nk}):
+        got = sg.ssgemm_compact(a, b, budget=budget, bk=bk)
+        assert _within_bound(got, full, full_abs, k), budget
+    # the list walk on its own arguments: every other block, out of order
+    idx = torch.arange(nk - 1, -1, -2, dtype=torch.int32, device="cuda")
+    nl = torch.tensor([max(idx.numel() - 1, 0)], dtype=torch.int32,
+                      device="cuda")
+    got = sg.kernel.ssgemm_compact_cuda(a, b, idx, nl, bk)
+    want = sg.ssgemm_compact_ref(a64, b64, idx, nl, bk)
+    bnd = sg.ssgemm_compact_ref(a64.abs(), b64.abs(), idx, nl, bk)
+    torch.cuda.synchronize()
+    assert _within_bound(got, want, bnd, k)
+
+
+def test_ssgemm_odd_width_and_dense_entry_point():
+    """N = 3 and N = 13 (the kernel rounds the width up internally) and
+    the dense entry point, against float64."""
+    rng = np.random.default_rng(5)
+    for n in (1, 3, 13):
+        a, b = _skinny(rng, 130, 512, n, 0.5, torch.bfloat16, 128)
+        a64, b64 = a.double(), b.double()
+        want, bnd = a64 @ b64, a64.abs() @ b64.abs()
+        for fn in (sg.ssgemm_masked, lambda a, b: sg.ssgemm(
+                a, b, sparsity_aware=False)):
+            got = fn(a, b)
+            assert got.shape == (130, n)
+            assert _within_bound(got, want, bnd, 512)
+
+
+def test_ssgemm_wrappers_refuse_what_the_kernels_do_not_take():
+    a = torch.zeros(64, 256, device="cuda")
+    b = torch.zeros(256, 4, device="cuda")
+    mask = torch.ones(2, dtype=torch.int32, device="cuda")
+    run_ = sg.kernel.ssgemm_masked_cuda
+    with pytest.raises(TypeError):                  # float16
+        run_(a.half(), b.half(), mask, 128)
+    with pytest.raises(TypeError):                  # b dtype != a dtype
+        run_(a, b.to(torch.bfloat16), mask, 128)
+    with pytest.raises(ValueError):                 # a on the CPU
+        run_(a.cpu(), b, mask, 128)
+    with pytest.raises(ValueError):                 # N = 17
+        run_(a, torch.zeros(256, 17, device="cuda"), mask, 128)
+    with pytest.raises(ValueError):                 # not contiguous
+        run_(torch.zeros(256, 64, device="cuda").t(), b, mask, 128)
+    with pytest.raises(ValueError):                 # mask of the wrong size
+        run_(a, b, mask, 64)
+    with pytest.raises(TypeError):                  # int64 list
+        sg.kernel.ssgemm_compact_cuda(a, b, mask.long(), mask[:1], 128)
+    with pytest.raises(ValueError):                 # budget past the blocks
+        sg.ssgemm_compact(a, b, budget=3, bk=128)
+    with pytest.raises(ValueError):                 # N = 17 through the op
+        sg.ssgemm_masked(a, torch.ones(256, 17, device="cuda"))
+
+
+@pytest.mark.parametrize("n,u,hot,kind", [
+    (5000, 3000, 256, "zipf"),
+    (512, 2048, 512, "zipf"),       # hot == n < 1024
+    (200_000, 100_003, 1024, "zipf"),  # U not a multiple of any tile
+    (4096, 4096, 1024, "cold"),     # every destination once, hot set empty
+    (256, 10_000, 256, "hot"),      # every update hot
+])
+def test_push_scatter_kernel_matches_plain_version(n, u, hot, kind):
+    """The kernel against its plain version: the cold values exactly, each
+    hot slot within the float32 summation bound of its own update count;
+    and the op against the float64 oracle."""
+    rng = np.random.default_rng(n + u)
+    if kind == "zipf":
+        pop = 1.0 / np.arange(1, n + 1) ** 1.1
+        dst = rng.choice(n, size=u, p=pop / pop.sum())
+    elif kind == "cold":
+        dst = rng.permutation(n)[:u]
+    else:
+        dst = rng.integers(0, n, size=u)
+    dst = torch.from_numpy(dst.astype(np.int64)).to("cuda")
+    contrib = torch.from_numpy(rng.standard_normal(u).astype(np.float32))
+    contrib = contrib.to("cuda")
+    values = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    values = values.to("cuda")
+    slots = ps.hot_set(dst, n, hot)[dst]
+    if kind == "cold":                              # no update has a slot
+        slots = torch.full_like(slots, -1)
+    before = ps.launch_counts["push_scatter"]
+    hot_acc, cold = ps.kernel.push_scatter_cuda(slots, contrib, hot)
+    assert ps.launch_counts["push_scatter"] == before + 1
+    want_acc, want_cold = ps.push_scatter_kernel_ref(slots, contrib.double(),
+                                                     hot)
+    abs_acc, _ = ps.push_scatter_kernel_ref(slots,
+                                            contrib.abs().double(), hot)
+    count, _ = ps.push_scatter_kernel_ref(slots, torch.ones_like(contrib),
+                                          hot)
+    torch.cuda.synchronize()
+    assert torch.equal(cold.double(), want_cold)
+    err = (hot_acc.double() - want_acc).abs()
+    assert bool((err <= _gamma(count.double()) * abs_acc).all())
+    if kind == "hot":
+        assert bool((cold == 0).all())
+    if kind == "cold":
+        assert bool((hot_acc == 0).all())
+    got = ps.push_scatter(values, contrib, dst, hot=hot)
+    want = ps.push_scatter_ref(values.double(), contrib.double(), dst)
+    bnd = ps.push_scatter_ref(values.double().abs(), contrib.double().abs(),
+                              dst)
+    terms = 1 + torch.bincount(dst, minlength=n).double()
+    assert bool(((got.double() - want).abs() <= _gamma(terms) * bnd).all())
+
+
+def test_push_scatter_wrapper_refuses_what_the_kernel_does_not_take():
+    s = torch.zeros(8, dtype=torch.int32, device="cuda")
+    v = torch.zeros(8, device="cuda")
+    run_ = ps.kernel.push_scatter_cuda
+    with pytest.raises(TypeError):                  # int64 slots
+        run_(s.long(), v, 4)
+    with pytest.raises(TypeError):                  # bfloat16 values
+        run_(s, v.to(torch.bfloat16), 4)
+    with pytest.raises(ValueError):                 # values on the CPU
+        run_(s, v.cpu(), 4)
+    with pytest.raises(ValueError):                 # not contiguous
+        run_(s, torch.zeros(16, device="cuda")[::2], 4)
+    with pytest.raises(ValueError):                 # hot set past smem
+        run_(s, v, ps.kernel.MAX_HOT + 1)
+    with pytest.raises(ValueError):                 # hot set empty
+        run_(s, v, 0)

@@ -252,9 +252,18 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = res.stdout.split()
-    assert int(names[0]) >= 19
+    assert int(names[0]) >= 41
     assert {"repro_torch.kernels.decode_attn.kernel",
             "repro_torch.kernels.decode_attn.ops",
             "repro_torch.kernels.decode_attn.ref",
             "repro_torch.serve.reference",
-            "repro_torch.launch.profile_serve"} <= set(names[1:])
+            "repro_torch.launch.profile_serve",
+            "repro_torch.core.primitives.graphs",
+            "repro_torch.core.primitives.push",
+            "repro_torch.core.primitives.ss_gemm",
+            "repro_torch.kernels.ss_gemm.kernel",
+            "repro_torch.kernels.ss_gemm.ops",
+            "repro_torch.kernels.ss_gemm.ref",
+            "repro_torch.kernels.push_scatter.kernel",
+            "repro_torch.kernels.push_scatter.ops",
+            "repro_torch.kernels.push_scatter.ref"} <= set(names[1:])
