@@ -8,9 +8,10 @@ repository's ``src/`` beside this file; it imports nothing of JAX and
 nothing of the JAX package ``repro``.  Phases, each of which fails the run:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-2. build: compile the four CUDA extensions from their ``csrc/``
+2. build: compile the seven CUDA extensions from their ``csrc/``
    directories at once (paged attention: decode and prefill; dense-stripe
-   decode; skinny GEMM: masked and compact; push scatter);
+   decode; skinny GEMM: masked and compact; push scatter; wavesim volume;
+   wavesim flux; vector-sum);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in bfloat16 and float32.  Paged, at the full-width qwen2-0.5b geometry
    (Hq 14, Hkv 2, D 64, page 16): ragged lengths, permuted tables, sentinel
@@ -21,12 +22,18 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    and float32: N 2-16, ragged M and K, densities 0, 0.05 and 1, budgets
    1, the live count and every block (the overflow guard included).  Push
    scatter: every update hot, every update cold, hot == n < 1024, hot
-   1024, U a multiple of no tile.  The primitives are held per output to
-   the worst-case bound of float32 summation against float64 results from
-   the same inputs.  Then the time of each kernel, of its plain version
-   and of one library call (``scaled_dot_product_attention``,
-   ``torch.matmul``, ``index_add``; yardsticks the port never calls),
-   beside the least time the card could take for the same work;
+   1024, U a multiple of no tile.  Wave volume, float32 and bfloat16,
+   (E, F) from (1, 1) to ``Problem()``'s (64000, 27), c 1.0 and 0.7;
+   wave flux1d, (E, T) from (1, 9) to (64000, 243), alpha 0.5 (equal to
+   the plain version) and 0.3 (within one ulp); vector-sum in float32,
+   bfloat16 and float16 from 0 to 64 Mi elements, a 3-D shape and an
+   unaligned view (exactly a + b).  The summing kernels are held per
+   output to the worst-case bound of float32 summation against float64
+   results from the same inputs.  Then the time of each kernel, of its
+   plain version and of one library call (``scaled_dot_product_attention``,
+   ``torch.matmul``, ``index_add``, ``torch.add``; yardsticks the port
+   never calls), beside the least time the card could take for the same
+   work;
 4. serve, paged and dense: full-width qwen2-0.5b (seeded random bfloat16
    weights) through ``repro_torch.launch.serve.run``: 16 requests,
    prompts of 64-512 tokens, 64 new tokens each, batch 8, max_len 1024,
@@ -42,7 +49,14 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    blocks live): dense, masked, and compact at the live count and half of
    it; one push iteration on each of the three ``graphs.paper_inputs``
    graphs in full (57.6 M, 10 M and 100 M updates).  Each against its
-   float64 oracle, with the blocks skipped and the hot share printed.
+   float64 oracle, with the blocks skipped and the hot share printed;
+7. the wave path: ``repro_torch.launch.wave_demo.run`` at the demo's size
+   (8^3 grid, 3 fields, 40 steps, float32) with the volume kernel on the
+   card against the plain path on the CPU; at ``wavesim.Problem()`` (40^3
+   elements, 27 fields, float32, seeded on the card) one step against a
+   float64 step from the same input, then 5 steps timed by CUDA events
+   with the volume term's share; ``flux1d`` (E 64,000 x T 243) and
+   ``vector_sum`` (64 Mi float16 elements) through their public ops.
 
 Output: one line per check, then a JSON line with the kernels' numbers,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -724,6 +738,339 @@ def primitive_timings(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the wave step's kernels (volume, flux1d) and vector-sum
+# ---------------------------------------------------------------------------
+
+MANTISSA = {"float32": 24, "bfloat16": 8}
+
+
+def ulp(torch, x, dtype_name):
+    """The spacing of the dtype's values at |x| (both dtypes have float32's
+    exponent range)."""
+    m = x.double().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m))
+                      - (MANTISSA[dtype_name] - 1))
+
+
+def volume_within(torch, got, x64, w64) -> tuple[bool, float, float]:
+    """Per output, |got - want| <= gamma(27) x sum |x_i w_ij| (float64 from
+    the same x and the same rounded W), plus, for a bfloat16 output, its
+    own last rounding, 2**-8 |got|.  Returns (ok, max abs error, largest
+    error as a share of its bound)."""
+    from repro_torch.kernels.wavesim_volume import volume_kernel_ref
+    want = volume_kernel_ref(x64, w64)
+    lim = gamma(27) * volume_kernel_ref(x64.abs(), w64.abs())
+    if got.dtype != torch.float32:
+        lim = lim + 2.0 ** -8 * got.double().abs()
+    err = (got.double() - want).abs()
+    ratio = float((err / lim.clamp_min(1e-300)).max())
+    return bool((err <= lim).all()), float(err.max()), ratio
+
+
+def wave_kernel_checks(torch) -> None:
+    """The three kernels against their plain versions on the card: volume
+    within the float32 bound of its 27-term sums (ragged last tiles, c 1.0
+    and 0.7), flux1d equal at alpha 0.5 and within one ulp at 0.3 (the
+    plain version rounds twice in bfloat16), vector-sum exactly a + b."""
+    from repro_torch.kernels import vector_sum as vs
+    from repro_torch.kernels import wavesim_flux as wf
+    from repro_torch.kernels import wavesim_volume as wv
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst, n_checks = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for e, f in ((1, 1), (8, 9), (65, 27), (256, 3), (64000, 27)):
+            x = torch.randn(e * f, 27, generator=gen, device="cuda").to(dtype)
+            x64 = x.double()
+            for c in (1.0, 0.7):
+                w = wv.fused_operator(c, dtype)
+                got = wv.kernel.volume_cuda(x, w)
+                ok, err, ratio = volume_within(torch, got, x64, w.double())
+                n_checks += 1
+                worst[name] = max(worst.get(name, 0.0), ratio)
+                check(ok and got.dtype == dtype,
+                      f"wavesim_volume outside the bound ({dtype}, E={e} "
+                      f"F={f} c={c}): err {err:.3e}, {ratio:.2f} of it")
+    print(f"[kernels] wavesim_volume float32/bfloat16, (E, F) (1, 1) to "
+          f"(64000, 27), c 1.0/0.7: {n_checks} checks within the float32 "
+          f"bound of 27-term sums (largest error as a share of its bound: "
+          f"float32 {worst['float32']:.3f}, bfloat16 {worst['bfloat16']:.3f}"
+          f"; the bfloat16 bound adds the output's own rounding, which a "
+          f"tie reaches)")
+
+    n_checks, worst_ulps = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for e, t in ((1, 9), (4, 9), (600, 27), (1024, 128), (64000, 243)):
+            hi = torch.randn(e, t, generator=gen, device="cuda").to(dtype)
+            lo = torch.randn(e, t, generator=gen, device="cuda").to(dtype)
+            for alpha in (0.5, 0.3):
+                got = wf.kernel.flux1d_cuda(hi, lo, alpha)
+                want = wf.flux1d_ref(hi, lo, alpha)
+                for g, w_ in zip(got, want):
+                    n_checks += 1
+                    if alpha == 0.5:
+                        check(torch.equal(g, w_), f"flux1d differs from its "
+                              f"plain version ({name}, E={e} T={t})")
+                        continue
+                    ulps = float(((g.double() - w_.double()).abs() / ulp(
+                        torch, torch.maximum(g.double().abs(),
+                                             w_.double().abs()),
+                        name)).max())
+                    worst_ulps = max(worst_ulps, ulps)
+                    check(ulps <= 1.0, f"flux1d more than one ulp from its "
+                          f"plain version ({name}, E={e} T={t} alpha 0.3)")
+    print(f"[kernels] flux1d float32/bfloat16, (E, T) (1, 9) to (64000, "
+          f"243): {n_checks} outputs, equal to the plain version at alpha "
+          f"0.5; at 0.3 at most {worst_ulps:.0f} ulp apart")
+
+    n_checks = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for shape in ((0,), (1,), (7,), (512,), (10_000,), (64 << 20,),
+                      (3, 5, 7)):
+            a = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            b = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            got = vs.kernel.vector_sum_cuda(a, b)
+            n_checks += 1
+            check(torch.equal(got, vs.vector_sum_ref(a, b)),
+                  f"vector_sum is not a + b ({dtype}, shape {shape})")
+        buf = torch.randn(2, 10_001, generator=gen, device="cuda").to(dtype)
+        a, b = buf[0, 1:], buf[1, 1:]      # one element past 16 bytes
+        n_checks += 1
+        check(torch.equal(vs.kernel.vector_sum_cuda(a, b), a + b),
+              f"vector_sum is not a + b on an unaligned view ({dtype})")
+    torch.cuda.synchronize()
+    print(f"[kernels] vector_sum float32/bfloat16/float16, n 0 to 64 Mi, "
+          f"(3, 5, 7), an unaligned view: {n_checks} checks, each exactly "
+          f"a + b")
+
+
+def wave_timings(torch) -> dict:
+    """Times at the paper's sizes: volume at ``wavesim.Problem()`` (R =
+    1,728,000 rows of 27) and flux1d at E 64,000 x T 243
+    (``Problem().face_points``), both in float32 (the wave path's dtype;
+    bfloat16 printed beside), vector-sum at n = 64 Mi in float16 (the
+    paper's elements).  The kernels' products and sums run on the CUDA
+    cores in float32 whatever the dtype, so their operations are reckoned
+    at the float32 rate."""
+    from repro_torch.core.primitives import vector_sum as vs_core
+    from repro_torch.core.primitives import wavesim
+    from repro_torch.kernels import vector_sum as vs
+    from repro_torch.kernels import wavesim_flux as wf
+    from repro_torch.kernels import wavesim_volume as wv
+    prob = wavesim.Problem()
+    rows = prob.n_elements * prob.n_fields
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    out, extra = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        item = dtype.itemsize
+        u = torch.randn(prob.n_elements, prob.n_fields, 3, 3, 3,
+                        generator=gen, device="cuda").to(dtype)
+        x = u.view(rows, 27)
+        w = wv.fused_operator(1.0, dtype)
+        w_dev = w.cuda()
+        got = wv.kernel.volume_cuda(x, w)
+        _, err, _ = volume_within(torch, got, x.double(), w.double())
+        t_bound, by = bound(2.0 * rows * 27 * item + w.numel() * item,
+                            2.0 * rows * 27 * 27, "float32")
+        row = {"ms": time_ms(torch, lambda i: wv.kernel.volume_cuda(x, w),
+                             20),
+               "plain_ms": time_ms(torch, lambda i: wv.volume_kernel_ref(
+                   x, w_dev), 10),
+               "library_ms": time_ms(torch, lambda i: torch.matmul(
+                   x, w_dev), 20),
+               "bound_ms": t_bound, "bound_by": by, "max_abs_err": err,
+               "shape": f"Problem(): R={rows} rows of 27, {name}"}
+        einsum_ms = time_ms(torch, lambda i: wv.volume_ref(u), 3, reps=3)
+        line = (f"[timing] wavesim_volume ({row['shape']}): kernel_ms "
+                f"{row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, "
+                f"library_ms (torch.matmul) {row['library_ms']:.4f}, "
+                f"bound_ms {t_bound:.4f} ({by}), max_abs_err vs float64 "
+                f"{err:.3e}; the core einsums {einsum_ms:.4f} ms")
+        if dtype == torch.float32:
+            out["wavesim_volume"] = row
+            print(line)
+        else:
+            extra.append(line)
+        del u, x, got
+
+        e, t = prob.n_elements, prob.face_points
+        hi = torch.randn(e, t, generator=gen, device="cuda").to(dtype)
+        lo = torch.randn(e, t, generator=gen, device="cuda").to(dtype)
+        got = wf.kernel.flux1d_cuda(hi, lo, 0.5)
+        want = wf.flux1d_ref(hi, lo, 0.5)
+        err = max(float((g.double() - w_.double()).abs().max())
+                  for g, w_ in zip(got, want))
+        t_bound, by = bound(4.0 * e * t * item, 4.0 * e * t, "float32")
+        row = {"ms": time_ms(torch, lambda i: wf.kernel.flux1d_cuda(
+                   hi, lo, 0.5), 20),
+               "plain_ms": time_ms(torch, lambda i: wf.flux1d_ref(
+                   hi, lo, 0.5), 10),
+               "library_ms": None, "bound_ms": t_bound, "bound_by": by,
+               "max_abs_err": err, "shape": f"E={e} T={t}, {name}"}
+        line = (f"[timing] flux1d ({row['shape']}): kernel_ms "
+                f"{row['ms']:.4f}, plain_ms (torch.roll) "
+                f"{row['plain_ms']:.4f}, library_ms null (no single call), "
+                f"bound_ms {t_bound:.4f} ({by}), max_abs_err vs plain "
+                f"{err:.3e}")
+        if dtype == torch.float32:
+            out["flux1d"] = row
+            print(line)
+        else:
+            extra.append(line)
+        del hi, lo, got, want
+
+    n = 64 << 20
+    a = torch.randn(n, generator=gen, device="cuda").to(torch.float16)
+    b = torch.randn(n, generator=gen, device="cuda").to(torch.float16)
+    got = vs.kernel.vector_sum_cuda(a, b)
+    err = float((got.double() - vs_core.reference(a, b).double()).abs().max())
+    t_bound, by = bound(3.0 * n * 2, float(n), "float32")
+    row = {"ms": time_ms(torch, lambda i: vs.kernel.vector_sum_cuda(a, b),
+                         20),
+           "plain_ms": time_ms(torch, lambda i: vs.vector_sum_ref(a, b), 20),
+           "library_ms": time_ms(torch, lambda i: torch.add(a, b), 20),
+           "bound_ms": t_bound, "bound_by": by, "max_abs_err": err,
+           "shape": f"n={n} float16"}
+    out["vector_sum"] = row
+    print(f"[timing] vector_sum ({row['shape']}): kernel_ms "
+          f"{row['ms']:.4f}, plain_ms (a + b) {row['plain_ms']:.4f}, "
+          f"library_ms (torch.add) {row['library_ms']:.4f}, bound_ms "
+          f"{t_bound:.4f} ({by}), max_abs_err vs a + b {err:.3e}")
+    for line in extra:
+        print(line)
+    return out
+
+
+def flux_magnitudes(torch, a, alpha):
+    """Per node, the sum of |terms| of ``wavesim.flux`` on values whose
+    magnitudes are ``a``: alpha (|neighbour| + |own|) for each face."""
+    rhs = torch.zeros_like(a)
+    for axis in range(3):
+        na = axis + 4
+        rhs.select(na, 2).add_(alpha * (torch.roll(a, -1, axis).select(na, 0)
+                                        + a.select(na, 2)))
+        rhs.select(na, 0).add_(alpha * (torch.roll(a, 1, axis).select(na, 2)
+                                        + a.select(na, 0)))
+    return rhs
+
+
+def lines_agree(got: list[str], want: list[str]) -> bool:
+    """The same energy lines to their printed precision: the same steps,
+    each number within one unit of its last printed place (float32 sums
+    taken in another order may round the last digit the other way)."""
+    import re
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        gn, wn = re.findall(r"-?[\d.]+", g), re.findall(r"-?[\d.]+", w)
+        if len(gn) != len(wn) or gn[0] != wn[0]:
+            return False
+        for a, b in zip(gn[1:], wn[1:]):
+            places = len(a.split(".")[1]) if "." in a else 0
+            if abs(float(a) - float(b)) > 1.01 * 10.0 ** -places:
+                return False
+    return True
+
+
+def wave_path(torch) -> dict:
+    """Phase 7: the wave demo through ``wave_demo.run`` at the demo's size
+    (card against the CPU's plain path) and at ``Problem()`` (one step
+    against float64, then 5 timed steps), then flux1d and vector-sum
+    through their public ops at the paper's sizes.  Returns this phase's
+    launches."""
+    from repro_torch.core.primitives import vector_sum as vs_core
+    from repro_torch.core.primitives import wavesim
+    from repro_torch.kernels import vector_sum as vs
+    from repro_torch.kernels import wavesim_flux as wf
+    from repro_torch.kernels import wavesim_volume as wv
+    from repro_torch.launch import wave_demo
+    for mod in (wv, wf, vs):
+        mod.reset_launch_counts()
+
+    on_card = wave_demo.run(device="cuda", verbose=False)
+    on_cpu = wave_demo.run(device="cpu", verbose=False)
+    err = float((on_card["u"].cpu() - on_cpu["u"]).abs().max())
+    for line in on_card["energy"]:
+        print(f"[wave] demo on the card: {line}")
+    print(f"[wave] demo 8^3 x 3 fields, 40 steps, float32: card vs CPU "
+          f"plain path max |du| {err:.3e} (limit 1e-5); energy lines agree "
+          f"{lines_agree(on_card['energy'], on_cpu['energy'])}")
+    check(err <= 1e-5, "wave demo: the card's u differs from the CPU's")
+    check(lines_agree(on_card["energy"], on_cpu["energy"]),
+          "wave demo: the energy lines differ")
+    check(wv.launch_counts["wavesim_volume"] == 40,
+          "wave demo: volume launches != one per step")
+
+    prob = wavesim.Problem()
+    grid, fields, dt = prob.grid, prob.n_fields, wave_demo.DEMO_DT
+    u0 = wave_demo.initial_state(grid, fields, device="cuda", seed=SEED)
+    one = wave_demo.run(grid, fields, 1, dt, device="cuda", seed=SEED,
+                        verbose=False)["u"]
+    u64 = u0.double()
+    want = wavesim.step(u64, dt=dt)
+    w64 = wv.fused_operator(1.0, torch.float32).double()
+    vmag = wv.volume_kernel_ref(u64.abs().reshape(-1, 27), w64.abs())
+    mag = u64.abs() + dt * (vmag.reshape(u64.shape)
+                            + flux_magnitudes(torch, u64.abs(), 0.5))
+    # 27 roundings in a volume sum, 4 in a flux sum, then rhs_v + rhs_f,
+    # dt (rounded to float32) times it, and u plus that: at most 32
+    lim = gamma(32) * mag
+    errs = (one.double() - want).abs()
+    ratio = float((errs / lim.clamp_min(1e-300)).max())
+    print(f"[wave] Problem() {grid} x {fields} fields, one step, float32 vs "
+          f"float64: max_abs_err {float(errs.max()):.3e} ({ratio:.3f} of the "
+          f"float32 bound, gamma_32 x sum |terms|)")
+    check(bool((errs <= lim).all()) and one.shape == u0.shape,
+          "wave Problem(): one step outside the float32 bound")
+    del u0, one, u64, want, vmag, mag, lim, errs
+
+    steps = 5
+    res = wave_demo.run(grid, fields, steps, dt, device="cuda", seed=SEED,
+                        verbose=False)
+    u = res["u"]
+    check(u.shape == tuple(grid) + (fields, 3, 3, 3)
+          and bool(torch.isfinite(u).all()),
+          "wave Problem(): u not finite or of the wrong shape")
+    step_ms, vol_ms = res["step_ms"], res["volume_ms"]
+    print(f"[wave] Problem() {grid} x {fields} fields ({u.numel()} values, "
+          f"{u.numel() * 4 / 1e6:.1f} MB), {steps} steps, float32: "
+          f"ms/step {statistics.median(step_ms):.4f} median, "
+          f"{res['ms_per_step']:.4f} mean (per step "
+          f"{', '.join(f'{t:.3f}' for t in step_ms)}); volume kernel "
+          f"{statistics.median(vol_ms):.4f} ms median, "
+          f"{sum(vol_ms) / sum(step_ms):.1%} of the step; flux and update "
+          f"{statistics.median(step_ms) - statistics.median(vol_ms):.4f} ms")
+    del u, res
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    e, t = prob.n_elements, prob.face_points
+    hi = torch.randn(e, t, generator=gen, device="cuda")
+    lo = torch.randn(e, t, generator=gen, device="cuda")
+    fhi, flo = wf.flux1d(hi, lo, 0.5)
+    want = wf.flux1d_ref(hi, lo, 0.5)
+    check(torch.equal(fhi, want[0]) and torch.equal(flo, want[1]),
+          "flux1d op at E 64000 x T 243 differs from its plain version")
+    del hi, lo, fhi, flo, want
+    n = 64 << 20
+    a = torch.randn(n, generator=gen, device="cuda").to(torch.float16)
+    b = torch.randn(n, generator=gen, device="cuda").to(torch.float16)
+    check(torch.equal(vs.vector_sum(a, b), vs_core.reference(a, b)),
+          "vector_sum op at 64 Mi float16 elements is not a + b")
+    torch.cuda.synchronize()
+    print(f"[wave] flux1d op E={e} T={t} float32: equal to the plain "
+          f"version; vector_sum op n={n} float16: exactly a + b")
+    counts = {**wv.launch_counts, **wf.launch_counts, **vs.launch_counts}
+    print(f"[wave] launches {counts}")
+    check(counts["wavesim_volume"] == 40 + 1 + steps,
+          "wave: volume launches != one per step of the three runs")
+    check(counts["flux1d"] == 1 and counts["vector_sum"] == 1,
+          "wave: flux1d or vector_sum launches != one op call each")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5: the serving paths
 # ---------------------------------------------------------------------------
 
@@ -851,6 +1198,9 @@ def main() -> int:
         from repro_torch.kernels.paged_attn import kernel as paged_kernel
         from repro_torch.kernels.push_scatter import kernel as push_kernel
         from repro_torch.kernels.ss_gemm import kernel as ssgemm_kernel
+        from repro_torch.kernels.vector_sum import kernel as vsum_kernel
+        from repro_torch.kernels.wavesim_flux import kernel as flux_kernel
+        from repro_torch.kernels.wavesim_volume import kernel as vol_kernel
     except ImportError as err:
         print(f"chip_smoke: the port is not importable: {err}",
               file=sys.stderr)
@@ -871,7 +1221,9 @@ def main() -> int:
         return time.perf_counter() - t0
     t0 = time.perf_counter()
     mods = {"paged attention": paged_kernel, "decode_attn": dense_kernel,
-            "ss_gemm": ssgemm_kernel, "push_scatter": push_kernel}
+            "ss_gemm": ssgemm_kernel, "push_scatter": push_kernel,
+            "wavesim_volume": vol_kernel, "wavesim_flux": flux_kernel,
+            "vector_sum": vsum_kernel}
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         secs = dict(zip(mods, pool.map(build, mods.values())))
     print(f"[build] {len(mods)} extensions built at once in "
@@ -882,10 +1234,13 @@ def main() -> int:
     worst["decode_attn"] = stripe_checks(torch)
     ssgemm_checks(torch)
     push_checks(torch)
+    wave_kernel_checks(torch)
     timings = kernel_timings(torch)
     timings["decode_attn"] = stripe_timing(torch)
     timings.update(primitive_timings(torch))
-    for name in ("ssgemm_masked", "ssgemm_compact", "push_scatter"):
+    timings.update(wave_timings(torch))
+    for name in ("ssgemm_masked", "ssgemm_compact", "push_scatter",
+                 "wavesim_volume", "flux1d", "vector_sum"):
         worst[name] = timings[name]["max_abs_err"]
     counts = serve_full_width(torch, paged=True)
     dense_counts = serve_full_width(torch, paged=False)
@@ -893,6 +1248,7 @@ def main() -> int:
     agreement(torch)
     counts.update(primitives_ss_gemm(torch))
     counts.update(primitives_push(torch))
+    counts.update(wave_path(torch))
 
     sources = {"paged_decode": ("src/repro_torch/kernels/paged_attn/csrc/"
                                 "paged_decode.cu",
@@ -912,7 +1268,17 @@ def main() -> int:
                                   "src/repro/kernels/ss_gemm/kernel.py:94"),
                "push_scatter": ("src/repro_torch/kernels/push_scatter/csrc/"
                                 "push_scatter.cu",
-                                "src/repro/kernels/push_scatter/kernel.py:51")}
+                                "src/repro/kernels/push_scatter/kernel.py:51"),
+               "wavesim_volume": ("src/repro_torch/kernels/wavesim_volume/"
+                                  "csrc/volume.cu",
+                                  "src/repro/kernels/wavesim_volume/"
+                                  "kernel.py:51"),
+               "flux1d": ("src/repro_torch/kernels/wavesim_flux/csrc/"
+                          "flux1d.cu",
+                          "src/repro/kernels/wavesim_flux/kernel.py:26"),
+               "vector_sum": ("src/repro_torch/kernels/vector_sum/csrc/"
+                              "vector_sum.cu",
+                              "src/repro/kernels/vector_sum/kernel.py:21")}
     rows = []
     for name, (src, replaces) in sources.items():
         t = timings[name]
@@ -922,9 +1288,13 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+        # no single PyTorch call computes flux1d's pair of periodic
+        # differences, so its library_ms is null, and that row's alone
         check(all(isinstance(v, (int, float)) and math.isfinite(v)
                   for k, v in rows[-1].items()
-                  if k in ("ms", "plain_ms", "bound_ms", "library_ms")),
+                  if k in ("ms", "plain_ms", "bound_ms", "library_ms")
+                  and not (k == "library_ms" and name == "flux1d"
+                           and v is None)),
               f"{name}: a timing is not a finite number")
         check(counts[name] > 0, f"{name}: not launched on its path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -1,0 +1,34 @@
+"""Public volume op, from :mod:`repro.kernels.wavesim_volume.ops`:
+[E, F, 3, 3, 3] nodal fields -> the volume right-hand side.
+
+Routing is by the tensor's device and nothing else: a CUDA ``u`` goes to
+the hand-written kernel (:mod:`.kernel`), a CPU ``u`` to its plain version
+(:mod:`.ref`).  There is no fallback: a CUDA call the kernel cannot take
+raises.  The kron fusion uses index order i-major: flattening [3, 3, 3] in
+C order gives node index ``i*9 + j*3 + k``, which matches the layout of
+``kron(D_i, D_j, D_k)``.  The JAX op pads each 27-node row to 32 lanes
+for the TPU; the kernel reads the 27-wide rows in place, so nothing is
+padded or copied.  There is no ``interpret`` flag.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.primitives.wavesim import NODES
+
+from . import kernel, ref
+
+
+def volume(u: torch.Tensor, c: float = 1.0) -> torch.Tensor:
+    """u [E, F, 3, 3, 3] float32 or bfloat16 -> rhs of u's shape and
+    dtype, accumulated in float32 with the fused operator rounded to u's
+    dtype (as the JAX op rounds it)."""
+    if u.dim() != 5 or tuple(u.shape[2:]) != (3, 3, 3):
+        raise ValueError(f"u must be [E, F, 3, 3, 3], got {tuple(u.shape)}")
+    x = u.reshape(u.shape[0] * u.shape[1], NODES)
+    w = kernel.fused_operator(c, u.dtype)
+    if u.device.type == "cuda":
+        y = kernel.volume_cuda(x, w)
+    else:
+        y = ref.volume_kernel_ref(x, w)
+    return y.reshape(u.shape)

@@ -1,8 +1,10 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, the wrappers' refusals, and the serving paths (paged and dense)
 through the kernels against the plain path on the CPU and against each
-other; the paper's primitives (skinny GEMM, push scatter) through their
-kernels against float64 oracles.  Every test here is marked ``cuda`` and skips without a GPU;
+other; the paper's primitives (skinny GEMM, push scatter, the wave
+step's volume and flux, vector-sum) through their kernels against float64
+oracles or their plain versions, and the wave demo through the volume
+kernel against the plain path on the CPU.  Every test here is marked ``cuda`` and skips without a GPU;
 on a GPU machine run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -15,6 +17,8 @@ own (atomics, for push), so they are held per output to the worst-case
 bound of float32 summation, n u / (1 - n u) times the sum of the terms'
 magnitudes (u = 2**-24, n the terms summed), against float64 results
 from the same, already rounded, inputs."""
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -23,10 +27,14 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attn as dattn
 from repro_torch.kernels import push_scatter as ps
 from repro_torch.kernels import ss_gemm as sg
+from repro_torch.kernels import vector_sum as vs
+from repro_torch.kernels import wavesim_flux as wf
+from repro_torch.kernels import wavesim_volume as wv
 from repro_torch.kernels.paged_attn import (kernel, paged_attn,
                                             paged_attn_ref,
                                             paged_prefill_attn,
                                             paged_prefill_attn_ref)
+from repro_torch.launch import wave_demo
 from repro_torch.launch.serve import run
 from repro_torch.models.init import init_params
 
@@ -403,3 +411,208 @@ def test_push_scatter_wrapper_refuses_what_the_kernel_does_not_take():
         run_(s, v, ps.kernel.MAX_HOT + 1)
     with pytest.raises(ValueError):                 # hot set empty
         run_(s, v, 0)
+
+
+# ---------------------------------------------------------------------------
+# the wave step's kernels and vector-sum
+# ---------------------------------------------------------------------------
+
+_MANTISSA = {torch.float32: 24, torch.bfloat16: 8}
+
+
+def _ulp(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The spacing of ``dtype``'s values at |x| (normal range)."""
+    m = x.double().abs().clamp_min(torch.finfo(dtype).tiny)
+    return torch.exp2(torch.floor(torch.log2(m)) - (_MANTISSA[dtype] - 1))
+
+
+def _volume_within(got, x64, w64, dtype) -> bool:
+    """Per output, |got - want| <= gamma(27) x sum |x_i w_ij|, plus, for a
+    bfloat16 output, its own rounding (2**-8 |got|), with want and the sum
+    of magnitudes in float64 from the same x and the same rounded W."""
+    want = wv.volume_kernel_ref(x64, w64)
+    mag = wv.volume_kernel_ref(x64.abs(), w64.abs())
+    lim = _gamma(27) * mag
+    if dtype != torch.float32:
+        lim = lim + 2.0 ** -8 * got.double().abs()
+    return bool(((got.double() - want).abs() <= lim).all())
+
+
+def _lines_agree(got: list[str], want: list[str]) -> bool:
+    """The same energy lines to their printed precision: the same steps,
+    each number within one unit of its last printed place (float32 sums
+    taken in another order may round the last digit the other way)."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        gn, wn = re.findall(r"-?[\d.]+", g), re.findall(r"-?[\d.]+", w)
+        if len(gn) != len(wn) or gn[0] != wn[0]:
+            return False
+        for a, b in zip(gn[1:], wn[1:]):
+            places = len(a.split(".")[1]) if "." in a else 0
+            if abs(float(a) - float(b)) > 1.01 * 10.0 ** -places:
+                return False
+    return True
+
+
+VOLUME_SHAPES = [(1, 1), (8, 9), (65, 27), (256, 3), (64000, 27)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,f", VOLUME_SHAPES)
+@pytest.mark.parametrize("c", [1.0, 0.7])
+def test_volume_kernel_matches_plain_version(dtype, e, f, c):
+    """The op on the card against the kernel's plain version in float64
+    from the same inputs and the same rounded W, within the float32 bound
+    of a 27-term sum; ragged last tiles included (E*F of 1, 72, 1,755,
+    768 and 1,728,000 rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(e + f)
+    u = torch.randn(e, f, 3, 3, 3, generator=gen, device="cuda").to(dtype)
+    w = wv.fused_operator(c, dtype)
+    before = wv.launch_counts["wavesim_volume"]
+    got = wv.volume(u, c)
+    assert wv.launch_counts["wavesim_volume"] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == u.shape
+    assert _volume_within(got.reshape(-1, 27), u.reshape(-1, 27).double(),
+                          w.double(), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_volume_kernel_unaligned_rows(dtype):
+    """Rows that start one element past a 16-byte boundary take the
+    kernel's scalar loads and stores."""
+    rows = 700
+    buf = torch.randn(rows * 27 + 1, device="cuda").to(dtype)
+    x = buf[1:].view(rows, 27)
+    w = wv.fused_operator(0.7, dtype)
+    got = wv.kernel.volume_cuda(x, w)
+    torch.cuda.synchronize()
+    assert _volume_within(got, x.double(), w.double(), dtype)
+
+
+def test_volume_wrapper_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros(64, 27, device="cuda")
+    w = wv.fused_operator()
+    run_ = wv.kernel.volume_cuda
+    with pytest.raises(ValueError):                 # x on the CPU
+        run_(x.cpu(), w)
+    with pytest.raises(TypeError):                  # float16
+        run_(x.half(), w.half())
+    with pytest.raises(TypeError):                  # W in another dtype
+        run_(x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError):                 # W on the card
+        run_(x, w.cuda())
+    with pytest.raises(ValueError):                 # not contiguous
+        run_(torch.zeros(27, 64, device="cuda").t(), w)
+    with pytest.raises(ValueError):                 # rows padded to 32
+        run_(torch.zeros(64, 32, device="cuda"), w)
+    with pytest.raises(ValueError):                 # W of the wrong shape
+        run_(x, torch.zeros(32, 27))
+    with pytest.raises(ValueError):                 # not [E, F, 3, 3, 3]
+        wv.volume(torch.zeros(4, 3, 27, device="cuda"))
+
+
+FLUX_SHAPES = [(1, 9), (4, 9), (600, 27), (1024, 128), (64000, 243)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,t", FLUX_SHAPES)
+@pytest.mark.parametrize("alpha", [0.5, 0.3])
+def test_flux1d_kernel_matches_plain_version(dtype, e, t, alpha):
+    """Equal to the plain version (``torch.roll``) on the card at alpha
+    0.5; within one ulp of the dtype at 0.3, where the plain version
+    rounds twice in bfloat16 and the kernel once."""
+    gen = torch.Generator(device="cuda").manual_seed(e + t)
+    hi = torch.randn(e, t, generator=gen, device="cuda").to(dtype)
+    lo = torch.randn(e, t, generator=gen, device="cuda").to(dtype)
+    before = wf.launch_counts["flux1d"]
+    got = wf.flux1d(hi, lo, alpha)
+    assert wf.launch_counts["flux1d"] == before + 1
+    want = wf.flux1d_ref(hi, lo, alpha)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert g.dtype == dtype and g.shape == (e, t)
+        if alpha == 0.5:
+            assert torch.equal(g, w_)
+        else:
+            err = (g.double() - w_.double()).abs()
+            lim = _ulp(torch.maximum(g.double().abs(), w_.double().abs()),
+                       dtype)
+            assert bool((err <= lim).all())
+
+
+def test_flux1d_wrapper_refuses_what_the_kernel_does_not_take():
+    hi = torch.zeros(8, 9, device="cuda")
+    run_ = wf.kernel.flux1d_cuda
+    with pytest.raises(ValueError):                 # on the CPU
+        run_(hi.cpu(), hi.cpu())
+    with pytest.raises(TypeError):                  # float16
+        run_(hi.half(), hi.half())
+    with pytest.raises(TypeError):                  # lo in another dtype
+        run_(hi, hi.to(torch.bfloat16))
+    with pytest.raises(ValueError):                 # not contiguous
+        run_(torch.zeros(9, 8, device="cuda").t(), hi)
+    with pytest.raises(ValueError):                 # shapes differ
+        run_(hi, torch.zeros(8, 8, device="cuda"))
+    with pytest.raises(ValueError):                 # not [E, T]
+        run_(hi[None], hi[None])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [(0,), (1,), (7,), (512,), (10_000,),
+                                   (64 << 20,), (3, 5, 7)])
+def test_vector_sum_kernel_matches_plain_version(dtype, shape):
+    """Exactly a + b in every dtype, from the empty input (no launch) to
+    the paper's 64 Mi elements."""
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    a = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    before = vs.launch_counts["vector_sum"]
+    got = vs.vector_sum(a, b)
+    assert vs.launch_counts["vector_sum"] == before + (a.numel() > 0)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == a.shape
+    assert torch.equal(got, vs.vector_sum_ref(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_vector_sum_kernel_unaligned(dtype):
+    """Inputs one element past a 16-byte boundary (the scalar path)."""
+    buf = torch.randn(2, 10_001, device="cuda").to(dtype)
+    a, b = buf[0, 1:], buf[1, 1:]
+    got = vs.kernel.vector_sum_cuda(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, a + b)
+
+
+def test_vector_sum_wrapper_refuses_what_the_kernel_does_not_take():
+    a = torch.zeros(16, device="cuda")
+    run_ = vs.kernel.vector_sum_cuda
+    with pytest.raises(ValueError):                 # on the CPU
+        run_(a.cpu(), a.cpu())
+    with pytest.raises(TypeError):                  # int32
+        run_(a.int(), a.int())
+    with pytest.raises(TypeError):                  # b in another dtype
+        run_(a, a.half())
+    with pytest.raises(ValueError):                 # not contiguous
+        run_(a[::2], a[::2])
+    with pytest.raises(ValueError):                 # shapes differ
+        run_(a, a[:8])
+    with pytest.raises(ValueError):                 # through the op
+        vs.vector_sum(a, a[:8])
+
+
+def test_wave_demo_through_kernel_matches_cpu_plain_path():
+    """The demo's 40 steps with the volume kernel on the card against the
+    plain path on the CPU: u within 1e-5, the same energy lines to their
+    printed precision, one launch a step."""
+    before = wv.launch_counts["wavesim_volume"]
+    on_card = wave_demo.run(device="cuda", verbose=False)
+    assert wv.launch_counts["wavesim_volume"] == before + 40
+    on_cpu = wave_demo.run(device="cpu", verbose=False)
+    err = (on_card["u"].cpu() - on_cpu["u"]).abs().max().item()
+    assert err <= 1e-5
+    assert _lines_agree(on_card["energy"], on_cpu["energy"])

@@ -252,7 +252,7 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = res.stdout.split()
-    assert int(names[0]) >= 41
+    assert int(names[0]) >= 56
     assert {"repro_torch.kernels.decode_attn.kernel",
             "repro_torch.kernels.decode_attn.ops",
             "repro_torch.kernels.decode_attn.ref",
@@ -266,4 +266,16 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.kernels.ss_gemm.ref",
             "repro_torch.kernels.push_scatter.kernel",
             "repro_torch.kernels.push_scatter.ops",
-            "repro_torch.kernels.push_scatter.ref"} <= set(names[1:])
+            "repro_torch.kernels.push_scatter.ref",
+            "repro_torch.core.primitives.wavesim",
+            "repro_torch.core.primitives.vector_sum",
+            "repro_torch.kernels.wavesim_volume.kernel",
+            "repro_torch.kernels.wavesim_volume.ops",
+            "repro_torch.kernels.wavesim_volume.ref",
+            "repro_torch.kernels.wavesim_flux.kernel",
+            "repro_torch.kernels.wavesim_flux.ops",
+            "repro_torch.kernels.wavesim_flux.ref",
+            "repro_torch.kernels.vector_sum.kernel",
+            "repro_torch.kernels.vector_sum.ops",
+            "repro_torch.kernels.vector_sum.ref",
+            "repro_torch.launch.wave_demo"} <= set(names[1:])
