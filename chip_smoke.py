@@ -8,19 +8,26 @@ repository's ``src/`` beside this file; it imports nothing of JAX and
 nothing of the JAX package ``repro``.  Phases, each of which fails the run:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-2. build: compile the seven CUDA extensions from their ``csrc/``
+2. build: compile the eight CUDA extensions from their ``csrc/``
    directories at once (paged attention: decode and prefill; dense-stripe
    decode; skinny GEMM: masked and compact; push scatter; wavesim volume;
-   wavesim flux; vector-sum);
+   wavesim flux; vector-sum; the grouped expert GEMM);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in bfloat16 and float32.  Paged, at the full-width qwen2-0.5b geometry
    (Hq 14, Hkv 2, D 64, page 16): ragged lengths, permuted tables, sentinel
-   tails, a prefill at mixed depths and a verify at Lq = 5.  Dense stripes,
-   at G = 7, D = 64 and G = 4, D = 16: ragged lengths (0, 1, a length above
-   the rows read), the whole stripe and a stripe read under ``s_cap`` whose
-   rows past it hold NaN.  Skinny GEMM, masked and compact, in bfloat16
-   and float32: N 2-16, ragged M and K, densities 0, 0.05 and 1, budgets
-   1, the live count and every block (the overflow guard included).  Push
+   tails, a prefill at mixed depths and a verify at Lq = 5; the same at
+   the full-width moonshot geometry (Hq 16, Hkv 16: G = 1, D = 128).
+   Dense stripes, at G = 7, D = 64, G = 4, D = 16 and G = 1, D = 128:
+   ragged lengths (0, 1, a length above the rows read), the whole stripe
+   and a stripe read under ``s_cap`` whose rows past it hold NaN.  The
+   grouped expert GEMM in bfloat16 and float32: ``test_kernels_moe.py``'s
+   sweep, empty and full experts, a ragged C, rows that are not 16 bytes,
+   and full-width moonshot's expert shapes at decode (C 1) and at a
+   4,096-token join (C 480) with counts from a seeded routing; the rows
+   past each count exactly zero though the padding holds NaN.  Skinny
+   GEMM, masked and compact, in bfloat16 and float32: N 2-16, ragged M
+   and K, densities 0, 0.05 and 1, budgets 1, the live count and every
+   block (the overflow guard included).  Push
    scatter: every update hot, every update cold, hot == n < 1024, hot
    1024, U a multiple of no tile.  Wave volume, float32 and bfloat16,
    (E, F) from (1, 1) to ``Problem()``'s (64000, 27), c 1.0 and 0.7;
@@ -31,9 +38,10 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    output to the worst-case bound of float32 summation against float64
    results from the same inputs.  Then the time of each kernel, of its
    plain version and of one library call (``scaled_dot_product_attention``,
-   ``torch.matmul``, ``index_add``, ``torch.add``; yardsticks the port
-   never calls), beside the least time the card could take for the same
-   work;
+   ``torch.bmm``, ``torch.matmul``, ``index_add``, ``torch.add``;
+   yardsticks the port never calls), beside the least time the card could
+   take for the same work; the attention kernels also at moonshot's
+   geometry over 48 layers, and the grouped GEMM with its tiles skipped;
 4. serve, paged and dense: full-width qwen2-0.5b (seeded random bfloat16
    weights) through ``repro_torch.launch.serve.run``: 16 requests,
    prompts of 64-512 tokens, 64 new tokens each, batch 8, max_len 1024,
@@ -56,7 +64,18 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    elements, 27 fields, float32, seeded on the card) one step against a
    float64 step from the same input, then 5 steps timed by CUDA events
    with the volume term's share; ``flux1d`` (E 64,000 x T 243) and
-   ``vector_sum`` (64 Mi float16 elements) through their public ops.
+   ``vector_sum`` (64 Mi float16 elements) through their public ops;
+8. MoE agreement: full-width moonshot-v1-16b-a3b cut to 1 dense + 2 MoE
+   layers, seeded float32 weights, each layout's CUDA kernels on the card
+   against the plain path on the CPU and dense against paged on the card
+   (batch 2, capacities of 1-15, so choices drop): equal greedy streams or
+   a difference at a logit near-tie; the grouped GEMM's launches counted;
+9. MoE serve: full-width, full-depth moonshot-v1-16b-a3b (48 layers, 64
+   experts top-6, seeded bfloat16 weights built in place, about 58 GB)
+   through ``repro_torch.launch.serve.run``, paged with pages of 16, the
+   qwen serve cell's traffic; launches of the grouped GEMM (3 per MoE
+   layer and forward call) and of both paged kernels checked, tok/s and
+   peak device memory printed.
 
 Output: one line per check, then a JSON line with the kernels' numbers,
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -84,6 +103,8 @@ UNIT_ROUNDOFF = 2.0 ** -24                # float32
 SEED = 0
 ARCH = "qwen2-0.5b"
 HQ, HKV, D, PS = 14, 2, 64, 16
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_GEO = (16, 16, 128)                   # its Hq, Hkv, head_dim (G 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -99,13 +120,14 @@ def check(cond: bool, msg: str) -> None:
 # inputs and measurement helpers
 # ---------------------------------------------------------------------------
 
-def paged_inputs(torch, rng, *, b, depths, n_pages, p_max, dtype, layers=1):
-    """Pools [layers, n_pages + 1, PS, HKV, D] (the last page is the
+def paged_inputs(torch, rng, *, b, depths, n_pages, p_max, dtype, layers=1,
+                 hkv=HKV, d=D):
+    """Pools [layers, n_pages + 1, PS, hkv, d] (the last page is the
     sink), a permuted table whose rows map ceil(depth / PS) distinct pages
     and end in sentinels (n_pages)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    shape = (layers, n_pages + 1, PS, HKV, D)
+    shape = (layers, n_pages + 1, PS, hkv, d)
     k = torch.randn(shape, generator=gen, device=dev).to(dtype)
     v = torch.randn(shape, generator=gen, device=dev).to(dtype)
     tbl = [[n_pages] * p_max for _ in range(b)]
@@ -157,13 +179,16 @@ def sdpa_inputs(torch, k, v, table, q_pos, kv_len):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_checks(torch) -> dict:
-    """Correctness at several shapes and both dtypes; returns, per kernel,
-    the largest error at the main path's shape in bfloat16."""
+def kernel_checks(torch, geo=(HQ, HKV, D)) -> dict:
+    """Correctness at several shapes and both dtypes, at the attention
+    geometry ``geo`` = (Hq, Hkv, D); returns, per kernel, the largest
+    error at the main path's shape in bfloat16."""
     import numpy as np
     from repro_torch.kernels.paged_attn import ops, ref
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
+    hq, hkv, d = geo
+    at = f"Hq={hq} Hkv={hkv} D={d}"
     worst = {"paged_decode": 0.0, "paged_prefill": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
@@ -171,15 +196,16 @@ def kernel_checks(torch) -> dict:
         # decode: ragged lengths (one token, page edges, deep), sentinels
         lengths = [1, 15, 16, 17, 100, 333, 512, 576]
         k, v, tbl = paged_inputs(torch, rng, b=8, depths=lengths,
-                                 n_pages=512, p_max=64, dtype=dtype)
-        q = torch.randn(8, HQ, D, device=dev).to(dtype)
+                                 n_pages=512, p_max=64, dtype=dtype,
+                                 hkv=hkv, d=d)
+        q = torch.randn(8, hq, d, device=dev).to(dtype)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
         got = ops.paged_attn(q, k[0], v[0], tbl, ln)
         want = ref.paged_attn_ref(q.float(), k[0].float(), v[0].float(),
                                   tbl, ln)
         torch.cuda.synchronize()
         err = (got.float() - want).abs().max().item()
-        print(f"[kernels] decode {name} ragged+sentinel: max_abs_err "
+        print(f"[kernels] decode {name} {at} ragged+sentinel: max_abs_err "
               f"{err:.3e} (tol {tol:g})")
         check(err <= tol and got.dtype == dtype, "decode kernel disagrees")
         if dtype == torch.bfloat16:
@@ -192,8 +218,9 @@ def kernel_checks(torch) -> dict:
                 ("join Lq=512", 512, [0] * 8)):
             kvl = [o + lq for o in offs]
             k, v, tbl = paged_inputs(torch, rng, b=8, depths=kvl,
-                                     n_pages=512, p_max=64, dtype=dtype)
-            q = torch.randn(8, lq, HQ, D, device=dev).to(dtype)
+                                     n_pages=512, p_max=64, dtype=dtype,
+                                     hkv=hkv, d=d)
+            q = torch.randn(8, lq, hq, d, device=dev).to(dtype)
             off = torch.tensor(offs, dtype=torch.int32, device=dev)
             kv = torch.tensor(kvl, dtype=torch.int32, device=dev)
             got = ops.paged_prefill_attn(q, k[0], v[0], tbl, off, kv)
@@ -201,7 +228,7 @@ def kernel_checks(torch) -> dict:
                                               v[0].float(), tbl, off, kv)
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
-            print(f"[kernels] prefill {name} {label}: max_abs_err "
+            print(f"[kernels] prefill {name} {at} {label}: max_abs_err "
                   f"{err:.3e} (tol {tol:g})")
             check(err <= tol and got.dtype == dtype,
                   f"prefill kernel disagrees ({label})")
@@ -209,44 +236,46 @@ def kernel_checks(torch) -> dict:
                 worst["paged_prefill"] = max(worst["paged_prefill"], err)
     # non-joining rows of a join: all-sentinel tables must not fault
     k, v, tbl = paged_inputs(torch, rng, b=2, depths=[64, 0], n_pages=8,
-                             p_max=4, dtype=torch.bfloat16)
-    q = torch.randn(2, 64, HQ, D, device=dev).to(torch.bfloat16)
+                             p_max=4, dtype=torch.bfloat16, hkv=hkv, d=d)
+    q = torch.randn(2, 64, hq, d, device=dev).to(torch.bfloat16)
     z = torch.zeros(2, dtype=torch.int32, device=dev)
     out = ops.paged_prefill_attn(q, k[0], v[0], tbl, z, z + 64)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out.float()).all()),
           "prefill kernel: non-finite output on an all-sentinel row")
-    print("[kernels] all-sentinel rows: finite, no fault")
+    print(f"[kernels] {at} all-sentinel rows: finite, no fault")
     return worst
 
 
-def kernel_timings(torch) -> dict:
-    """Times at the main path's shapes, bfloat16: 8 slots, pools for 24
-    layers walked one layer per call (as the model walks them), decode
-    depths over the run's range, and the first join (8 prompts padded to
-    512 tokens)."""
+def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
+    """Times at the main path's shapes, bfloat16: 8 slots, pools for
+    ``layers`` layers walked one layer per call (as the model walks them),
+    decode depths over the run's range, and the first join (8 prompts
+    padded to 512 tokens), at the attention geometry ``geo``."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attn import kernel, ops, ref
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
-    dtype, name, layers, b = torch.bfloat16, "bfloat16", 24, 8
+    dtype, name, b = torch.bfloat16, "bfloat16", 8
+    hq, hkv, d = geo
     item = 2
     out = {}
 
     lengths = [int(x) for x in rng.integers(65, 577, size=b)]
     k, v, tbl = paged_inputs(torch, rng, b=b, depths=lengths, n_pages=512,
-                             p_max=64, dtype=dtype, layers=layers)
+                             p_max=64, dtype=dtype, layers=layers,
+                             hkv=hkv, d=d)
     ctbl = ops._clamp_table(tbl, k.shape[1])
-    q = torch.randn(b, HQ, D, device=dev).to(dtype)
+    q = torch.randn(b, hq, d, device=dev).to(dtype)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     kg, vg, mask = sdpa_inputs(torch, k[0], v[0], tbl,
                                (ln - 1)[:, None], ln)
     q4 = q[:, :, None]
     live = sum(lengths)
-    nbytes = (2 * q.numel() * item + live * HKV * D * item * 2
+    nbytes = (2 * q.numel() * item + live * hkv * d * item * 2
               + tbl.numel() * 4 + b * 4)
-    t_bound, by = bound(nbytes, 4.0 * HQ * D * live, name)
+    t_bound, by = bound(nbytes, 4.0 * hq * d * live, name)
     out["paged_decode"] = {
         "ms": time_ms(torch, lambda i: kernel.paged_attn_cuda(
             q, k[i % layers], v[i % layers], ctbl, ln), layers * 4),
@@ -255,22 +284,23 @@ def kernel_timings(torch) -> dict:
         "library_ms": time_ms(torch, lambda i: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask, enable_gqa=True), layers * 4),
         "bound_ms": t_bound, "bound_by": by,
-        "shape": f"B={b} Hq={HQ} Hkv={HKV} D={D} ps={PS} lengths={lengths}"}
+        "shape": f"B={b} Hq={hq} Hkv={hkv} D={d} ps={PS} lengths={lengths}"}
 
     lq = 512
     k, v, tbl = paged_inputs(torch, rng, b=b, depths=[lq] * b, n_pages=512,
-                             p_max=64, dtype=dtype, layers=layers)
+                             p_max=64, dtype=dtype, layers=layers,
+                             hkv=hkv, d=d)
     ctbl = ops._clamp_table(tbl, k.shape[1])
-    q = torch.randn(b, lq, HQ, D, device=dev).to(dtype)
+    q = torch.randn(b, lq, hq, d, device=dev).to(dtype)
     off = torch.zeros(b, dtype=torch.int32, device=dev)
     kv = off + lq
     pos = off[:, None] + torch.arange(lq, device=dev)[None, :]
     kg, vg, mask = sdpa_inputs(torch, k[0], v[0], tbl, pos, kv)
     q4 = q.permute(0, 2, 1, 3).contiguous()
     visible = b * lq * (lq + 1) // 2
-    nbytes = (2 * q.numel() * item + b * lq * HKV * D * item * 2
+    nbytes = (2 * q.numel() * item + b * lq * hkv * d * item * 2
               + tbl.numel() * 4 + 2 * b * 4)
-    t_bound, by = bound(nbytes, 4.0 * HQ * D * visible, name)
+    t_bound, by = bound(nbytes, 4.0 * hq * d * visible, name)
     out["paged_prefill"] = {
         "ms": time_ms(torch, lambda i: kernel.paged_prefill_attn_cuda(
             q, k[i % layers], v[i % layers], ctbl, off, kv), layers),
@@ -279,8 +309,8 @@ def kernel_timings(torch) -> dict:
         "library_ms": time_ms(torch, lambda i: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask, enable_gqa=True), layers),
         "bound_ms": t_bound, "bound_by": by,
-        "shape": f"B={b} Lq={lq} q_offset=0 kv_len={lq} Hq={HQ} Hkv={HKV} "
-                 f"D={D} ps={PS}"}
+        "shape": f"B={b} Lq={lq} q_offset=0 kv_len={lq} Hq={hq} Hkv={hkv} "
+                 f"D={d} ps={PS}"}
     for kname, row in out.items():
         print(f"[timing] {kname} {name} ({row['shape']}): kernel_ms "
               f"{row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, "
@@ -291,7 +321,8 @@ def kernel_timings(torch) -> dict:
 
 def stripe_checks(torch) -> float:
     """The dense-stripe decode kernel against its plain version, at the
-    full-width (G = 7, D = 64) and reduced (G = 4, D = 16) geometries, in
+    full-width qwen (G = 7, D = 64), reduced (G = 4, D = 16) and
+    full-width moonshot (G = 1, D = 128) geometries, in
     both dtypes, over the whole stripe and under ``s_cap``; returns the
     largest error at the full-width geometry in bfloat16."""
     from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
@@ -304,7 +335,7 @@ def stripe_checks(torch) -> float:
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         tol = TOL[name]
-        for hq, hkv, d in ((HQ, HKV, D), (4, 1, 16)):
+        for hq, hkv, d in ((HQ, HKV, D), (4, 1, 16), MOE_GEO):
             q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
             for s_cap in (None, 512):
                 cap = s if s_cap is None else s_cap
@@ -332,11 +363,12 @@ def stripe_checks(torch) -> float:
     return worst
 
 
-def stripe_timing(torch) -> dict:
+def stripe_timing(torch, geo=(HQ, HKV, D), layers=24) -> dict:
     """Time at the dense decode step's shapes, bfloat16: 8 slots at
     depths over the serve run's range, stripes of max_len + 1 = 1025 rows
-    for 24 layers walked one layer per call, ``s_cap`` the scheduler's
-    row bucket for an 8-step segment."""
+    for ``layers`` layers walked one layer per call, ``s_cap`` the
+    scheduler's row bucket for an 8-step segment, at the geometry
+    ``geo``."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn import decode_attn_ref, kernel
@@ -344,14 +376,14 @@ def stripe_timing(torch) -> dict:
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    dtype, name, layers, b, max_len, item = (torch.bfloat16, "bfloat16", 24,
-                                             8, 1024, 2)
+    dtype, name, b, max_len, item = torch.bfloat16, "bfloat16", 8, 1024, 2
+    hq, hkv, d = geo
     lengths = [int(x) for x in rng.integers(65, 577, size=b)]
     cap = min(_pow2_bucket(max(lengths) + 8, hi=max_len), max_len)
-    shape = (layers, b, max_len + 1, HKV, D)
+    shape = (layers, b, max_len + 1, hkv, d)
     k = torch.randn(shape, generator=gen, device=dev).to(dtype)
     v = torch.randn(shape, generator=gen, device=dev).to(dtype)
-    q = torch.randn(b, HQ, D, generator=gen, device=dev).to(dtype)
+    q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     q4 = q[:, :, None]
     kt = [k[i, :, :cap].transpose(1, 2) for i in range(layers)]
@@ -359,8 +391,8 @@ def stripe_timing(torch) -> dict:
     mask = (torch.arange(cap, device=dev)[None, :]
             < ln[:, None])[:, None, None, :]
     live = sum(min(n, cap) for n in lengths)
-    nbytes = 2 * q.numel() * item + live * HKV * D * item * 2 + b * 4
-    t_bound, by = bound(nbytes, 4.0 * HQ * D * live, name)
+    nbytes = 2 * q.numel() * item + live * hkv * d * item * 2 + b * 4
+    t_bound, by = bound(nbytes, 4.0 * hq * d * live, name)
     row = {
         "ms": time_ms(torch, lambda i: kernel.decode_attn_cuda(
             q, k[i % layers], v[i % layers], ln, cap), layers * 4),
@@ -371,12 +403,175 @@ def stripe_timing(torch) -> dict:
             q4, kt[i % layers], vt[i % layers], attn_mask=mask,
             enable_gqa=True), layers * 4),
         "bound_ms": t_bound, "bound_by": by,
-        "shape": f"B={b} Hq={HQ} Hkv={HKV} D={D} S={max_len + 1} "
+        "shape": f"B={b} Hq={hq} Hkv={hkv} D={d} S={max_len + 1} "
                  f"s_cap={cap} lengths={lengths}"}
     print(f"[timing] decode_attn {name} ({row['shape']}): kernel_ms "
           f"{row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, library_ms "
           f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} "
           f"({row['bound_by']})")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the grouped expert GEMM, at full-width moonshot's expert shapes
+# ---------------------------------------------------------------------------
+
+def routed_counts(torch, tokens: int, seed: int):
+    """(counts [E] int32, capacity) of one MoE call over ``tokens`` tokens
+    at full-width moonshot: the port's route and rank dispatch on a seeded
+    router (N(0, 0.02), as the init draws it) and seeded activations of
+    unit RMS (what the block's norm hands the router)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    router = {"w": 0.02 * torch.randn(cfg.d_model, cfg.moe.n_experts,
+                                      generator=gen, device="cuda")}
+    x = torch.randn(tokens, cfg.d_model, generator=gen, device="cuda")
+    _, ids, _ = moe.route({"router": router}, x, cfg)
+    cap = moe.capacity(cfg, tokens)
+    return moe.dispatch(ids, cfg.moe.n_experts, cap)[2], cap
+
+
+def group_inputs(torch, rng, e, c, d, f, counts, dtype):
+    """xe [E, C, D] with NaN in the padding rows (rows at or past each
+    count), w [E, D, F] of std 1/sqrt(D) with NaN in the empty experts,
+    and the float64 product of the live rows with its magnitudes."""
+    import numpy as np
+    cnt = torch.as_tensor(np.asarray(counts, np.int32), device="cuda")
+    xe = torch.from_numpy(rng.standard_normal((e, c, d)).astype(
+        np.float32)).cuda().to(dtype)
+    w = (torch.from_numpy(rng.standard_normal((e, d, f)).astype(
+        np.float32)).cuda() / math.sqrt(d)).to(dtype)
+    live = torch.arange(c, device="cuda")[None, :, None] < cnt[:, None, None]
+    x64, w64 = (xe * live).double(), w.double()
+    want, mag = torch.bmm(x64, w64), torch.bmm(x64.abs(), w64.abs())
+    xe = torch.where(live, xe, torch.full_like(xe, float("nan")))
+    w[cnt == 0] = float("nan")
+    return xe, w, cnt, live, want, mag
+
+
+def group_gemm_checks(torch) -> float:
+    """The kernel against the float64 product of the same values:
+    ``test_kernels_moe.py``'s sweep, empty and full experts, a ragged C,
+    and both full-width shapes (decode C 1 and a 4,096-token join's C 480,
+    gate/up D 2048 -> F 1408 and down 1408 -> 2048) with counts from a
+    seeded routing; both dtypes within the float32 summation bound (the
+    bfloat16 products are exact and summed in float32); the rows past each
+    count exactly zero though the padding holds NaN.  A second launch with
+    the kernel's tile counters gives the same bits and must count on the
+    card the tiles that the counts predict.  Rows of D and F that are not
+    whole 16 bytes are refused.  Returns the largest bfloat16 error at the
+    full-width decode shape."""
+    import numpy as np
+    from repro_torch.kernels import moe_group_gemm as mg
+    rng = np.random.default_rng(6)
+    dec, dec_cap = routed_counts(torch, 8, SEED)
+    pre, pre_cap = routed_counts(torch, 4096, SEED + 1)
+    dec, pre = dec.cpu().numpy(), pre.cpu().numpy()
+    cases = [(f"sweep {s}", *s, rng.integers(0, s[1] + 1, size=s[0]))
+             for s in ((2, 128, 64, 64), (8, 256, 128, 96), (4, 64, 32, 256))]
+    cases += [("all-empty", 4, 64, 32, 64, np.zeros(4)),
+              ("all-full", 4, 64, 32, 64, np.full(4, 64)),
+              ("ragged C, counts past C", 6, 100, 48, 80,
+               [100, 37, 0, 64, 103, 1]),
+              ("full-width decode gate/up", 64, dec_cap, 2048, 1408, dec),
+              ("full-width decode down", 64, dec_cap, 1408, 2048, dec),
+              ("full-width join gate/up", 64, pre_cap, 2048, 1408, pre),
+              ("full-width join down", 64, pre_cap, 1408, 2048, pre)]
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for label, e, c, d, f, counts in cases:
+            xe, w, cnt, live, want, mag = group_inputs(torch, rng, e, c, d,
+                                                       f, counts, dtype)
+            got = mg.group_gemm(xe, w, cnt)
+            tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
+            again = mg.kernel.group_gemm_cuda(xe, w, cnt, tiles=tiles)
+            torch.cuda.synchronize()
+            zeros = bool((got[~live.expand(e, c, f)] == 0).all())
+            ok, err, ratio = summed_within(got, want, mag, d)
+            if name == "bfloat16" and label == "full-width decode gate/up":
+                worst = err
+            total, skipped = tiles.tolist()
+            print(f"[kernels] group_gemm {name} {label} (E={e} C={c} D={d} "
+                  f"F={f}, {int(cnt.clamp(0, c).sum())} live rows): "
+                  f"max_abs_err {err:.3e} ({ratio:.3f} of the float32 "
+                  f"bound); rows past the counts exactly 0: {zeros}; tiles "
+                  f"skipped (counted on the card) {skipped}/{total}")
+            check(ok and zeros and bool(torch.isfinite(got).all()),
+                  f"group_gemm disagrees ({name}, {label})")
+            check(torch.equal(again, got),
+                  f"group_gemm: a second launch differs ({name}, {label})")
+            check((total, skipped) == mg.kernel.tile_counts(cnt, c, f),
+                  f"group_gemm: tiles counted on the card are not those the "
+                  f"counts predict ({name}, {label})")
+    try:
+        mg.group_gemm(torch.zeros(3, 40, 37, device="cuda"),
+                      torch.zeros(3, 37, 53, device="cuda"),
+                      torch.zeros(3, dtype=torch.int32, device="cuda"))
+    except ValueError as err:
+        print(f"[kernels] group_gemm refuses rows of D 37, F 53: {err}")
+    else:
+        check(False, "group_gemm took rows that are not whole 16 bytes")
+    return worst
+
+
+def group_gemm_timing(torch) -> dict:
+    """Times at full-width moonshot's gate/up shape (64 experts, D 2048,
+    F 1408, bfloat16), counts from a seeded routing: the decode step's
+    call (batch 8, C 1) on the row, and a 4,096-token join's (C 480) in
+    its ``prefill_*`` keys.  The bound counts the live experts' weights,
+    the live rows in and every output row out; the library call is one
+    ``torch.bmm`` over the padded slabs, which reads every expert's
+    weights.  The tiles and tiles skipped are the kernel's own count, on
+    the card, of its first (checked) launch."""
+    import numpy as np
+    from repro_torch.kernels import moe_group_gemm as mg
+    e, d, f, item = 64, 2048, 1408, 2
+    rng = np.random.default_rng(7)
+    w = (torch.from_numpy(rng.standard_normal((e, d, f)).astype(
+        np.float32)).cuda() / math.sqrt(d)).to(torch.bfloat16)
+    rows = {}
+    for label, tokens, seed in (("decode", 8, SEED), ("prefill", 4096,
+                                                       SEED + 1)):
+        cnt, c = routed_counts(torch, tokens, seed)
+        xe = torch.from_numpy(rng.standard_normal((e, c, d)).astype(
+            np.float32)).cuda().to(torch.bfloat16)
+        live = torch.arange(c, device="cuda")[None, :, None] < cnt[:, None,
+                                                                   None]
+        xe = xe * live
+        n_rows, n_live = int(cnt.sum()), int((cnt > 0).sum())
+        nbytes = (n_live * d * f * item + n_rows * d * item + e * c * f * 4
+                  + e * 4)
+        t_bound, by = bound(nbytes, 2.0 * n_rows * d * f, "bfloat16")
+        tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
+        got = mg.kernel.group_gemm_cuda(xe, w, cnt, tiles=tiles)
+        err = float((got.double() - torch.bmm(xe.double(), w.double())
+                     ).abs().max())
+        total, skipped = tiles.tolist()
+        calls = 20 if c == 1 else 5
+        rows[label] = {
+            "ms": time_ms(torch, lambda i: mg.kernel.group_gemm_cuda(
+                xe, w, cnt), calls),
+            "plain_ms": time_ms(torch, lambda i: mg.group_gemm_ref(
+                xe, w, cnt), 3, reps=3),
+            "library_ms": time_ms(torch, lambda i: torch.bmm(xe, w), calls),
+            "bound_ms": t_bound, "bound_by": by, "max_abs_err": err,
+            "tiles_skipped": skipped, "tiles": total,
+            "shape": f"E={e} C={c} D={d} F={f} bf16, {n_rows} live rows in "
+                     f"{n_live} live experts"}
+        r = rows[label]
+        print(f"[timing] group_gemm {label} ({r['shape']}): kernel_ms "
+              f"{r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
+              f"(torch.bmm, padded) {r['library_ms']:.4f}, bound_ms "
+              f"{t_bound:.4f} ({by}), tiles skipped (counted on the card) "
+              f"{skipped}/{total}, "
+              f"max_abs_err vs float64 {err:.3e}")
+    row = dict(rows["decode"])
+    row.update({f"prefill_{k}": rows["prefill"][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "tiles_skipped", "tiles")})
     return row
 
 
@@ -1075,14 +1270,16 @@ def wave_path(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 def reset_counts() -> None:
-    from repro_torch.kernels import decode_attn, paged_attn
+    from repro_torch.kernels import decode_attn, moe_group_gemm, paged_attn
     paged_attn.reset_launch_counts()
     decode_attn.reset_launch_counts()
+    moe_group_gemm.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels import decode_attn, paged_attn
-    return {**paged_attn.launch_counts, **decode_attn.launch_counts}
+    from repro_torch.kernels import decode_attn, moe_group_gemm, paged_attn
+    return {**paged_attn.launch_counts, **decode_attn.launch_counts,
+            **moe_group_gemm.launch_counts}
 
 
 def serve_full_width(torch, paged: bool) -> dict:
@@ -1120,6 +1317,34 @@ def serve_full_width(torch, paged: bool) -> dict:
         check(counts["paged_decode"] == counts["paged_prefill"] == 0,
               "serve dense: a paged kernel was launched")
     return counts
+
+
+def dense_join_rows(torch) -> None:
+    """What a dense join's prefill costs at full-width qwen, bf16: the
+    joining rows alone (J of them, which a dense-MLP model would allow)
+    against all 8 rows (what ``make_join`` prefills, as JAX does), at the
+    join's widths 128 and 512."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.init import cast_for_serving
+    from repro_torch.models.model_zoo import Model
+    cfg = get_config(ARCH)
+    model = Model(cfg)
+    params = cast_for_serving(model.init(SEED, device="cuda",
+                                         dtype=torch.bfloat16),
+                              torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for width in (128, 512):
+        toks = torch.randint(0, cfg.vocab, (8, width), generator=gen,
+                             device="cuda")
+        last = torch.full((8,), width - 1, dtype=torch.long, device="cuda")
+        ms = {j: time_ms(torch, lambda i, j=j: model.prefill(
+            params, {"tokens": toks[:j]}, width, dtype=torch.bfloat16,
+            last_pos=last[:j]), 3, reps=3) for j in (1, 4, 8)}
+        print(f"[join] {ARCH} dense join prefill at width {width}: joining "
+              f"rows only, J 1 {ms[1]:.3f} ms, J 4 {ms[4]:.3f} ms; every "
+              f"row (8) {ms[8]:.3f} ms")
+        check(all(math.isfinite(v) for v in ms.values()),
+              "dense join timing is not finite")
 
 
 def _near_tie(torch, params, cfg, prompt, got, want, label) -> bool:
@@ -1178,6 +1403,114 @@ def agreement(torch) -> None:
           f"{ties} at near-ties")
 
 
+def moe_cut(layers_moe: int):
+    """Full-width moonshot with its depth cut to the dense layer and
+    ``layers_moe`` MoE layers (every width, the experts and the vocab
+    kept)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BlockKind, Segment
+    cfg = get_config(MOE_ARCH)
+    return dataclasses.replace(
+        cfg, n_layers=1 + layers_moe,
+        segments=(Segment(BlockKind.DENSE, 1),
+                  Segment(BlockKind.MOE, layers_moe)))
+
+
+def moe_agreement(torch) -> None:
+    """float32, full-width moonshot cut to 1 dense + 2 MoE layers, seeded
+    weights: each layout's CUDA kernels (the attention kernels at D 128,
+    G 1 and the grouped expert GEMM) against its CPU plain path, and the
+    dense layout against the paged one on the card.  Batch 2 with prompts
+    of 16-40 tokens gives capacities of 1 to 15, so choices drop."""
+    from repro_torch.launch.serve import run
+    from repro_torch.models.init import init_params
+    cfg = moe_cut(2)
+    params = init_params(cfg, 1, device="cuda")
+    cpu_params = _to(torch, params, "cpu")
+    kw = dict(requests=3, max_new=8, batch=2, max_len=128, page_size=16,
+              sync_every=4, seed=1, prompt_len=(16, 40),
+              dtype=torch.float32)
+    streams = {}
+    for paged in (True, False):
+        layout = "paged" if paged else "dense"
+        reset_counts()
+        res = run(cfg, device="cuda", params=params, paged=paged, **kw)
+        counts = read_counts()
+        calls = res["joins"] + kw["sync_every"] * res["segments"]
+        check(counts["group_gemm"] == 3 * 2 * calls,
+              f"moe agreement {layout}: group_gemm launches "
+              f"{counts['group_gemm']} != 3 x 2 MoE layers x {calls} calls")
+        on_card = res["results"]
+        on_cpu = run(cfg, device="cpu", params=cpu_params, paged=paged,
+                     **kw)
+        prompts, on_cpu = on_cpu["prompts"], on_cpu["results"]
+        ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
+                             on_card[rid], want, f"moe {layout} request "
+                             f"{rid}")
+                   for rid, want in on_cpu.items())
+        print(f"[agree] moe float32 greedy streams, {layout}, CUDA kernels "
+              f"vs CPU plain path: {len(on_cpu) - ties}/{len(on_cpu)} "
+              f"equal, {ties} at near-ties; launches {counts}")
+        streams[layout] = on_card
+    ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
+                         streams["dense"][rid], want, f"moe dense vs paged "
+                         f"request {rid}")
+               for rid, want in streams["paged"].items())
+    print(f"[agree] moe float32 greedy streams on the card, dense vs paged: "
+          f"{len(prompts) - ties}/{len(prompts)} equal, {ties} at "
+          f"near-ties")
+
+
+def moe_serve(torch) -> dict:
+    """Full-width, full-depth moonshot (48 layers: 1 dense + 47 MoE;
+    seeded bfloat16 weights built in place) through
+    ``repro_torch.launch.serve.run``, paged with pages of 16: 16 requests,
+    prompts of 64-512 tokens, 64 new tokens each, batch 8, max_len 1024,
+    8 steps per segment.  Returns the run's kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run
+    cfg = get_config(MOE_ARCH)
+    requests, max_new, batch, sync = 16, 64, 8, 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run(MOE_ARCH, requests=requests, max_new=max_new, batch=batch,
+              max_len=1024, paged=True, page_size=16, sync_every=sync,
+              seed=0, prompt_len=(64, 513), dtype=torch.bfloat16,
+              device="cuda")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lens = sorted(len(p) for p in res["prompts"].values())
+    steps = sync * res["segments"]
+    n_moe = sum(s.count for s in cfg.resolved_segments()
+                if s.kind.value == "moe")
+    print(f"[serve] moe paged {cfg.name}: prompts {lens[0]}-{lens[-1]} "
+          f"tokens; tok/s {res['tok_per_s']:.1f} ({res['tokens']} tokens "
+          f"in {res['seconds']:.2f}s; {wall:.1f}s with the weights' "
+          f"init); {res['joins']} joins, {res['segments']} segments; peak "
+          f"device memory {peak:.2f} GiB; launches {counts}")
+    check(sorted(res["results"]) == list(range(requests)),
+          "serve moe: missing requests")
+    for rid, toks in res["results"].items():
+        check(len(toks) == max_new and all(0 <= t < cfg.vocab for t in toks),
+              f"serve moe: request {rid} returned {len(toks)} tokens")
+    check(counts["group_gemm"] == 3 * n_moe * (res["joins"] + steps),
+          "serve moe: group_gemm launches != 3 x MoE layers x (joins + "
+          "decode steps)")
+    check(counts["paged_prefill"] == cfg.n_layers * res["joins"],
+          "serve moe: prefill launches != layers x joins")
+    check(counts["paged_decode"] == cfg.n_layers * steps,
+          "serve moe: decode launches != layers x steps")
+    check(counts["decode_attn"] == 0,
+          "serve moe: the dense decode kernel was launched")
+    del res
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _to(torch, tree, device):
     if isinstance(tree, dict):
         return {k: _to(torch, v, device) for k, v in tree.items()}
@@ -1195,6 +1528,7 @@ def main() -> int:
         return 2
     try:
         from repro_torch.kernels.decode_attn import kernel as dense_kernel
+        from repro_torch.kernels.moe_group_gemm import kernel as group_kernel
         from repro_torch.kernels.paged_attn import kernel as paged_kernel
         from repro_torch.kernels.push_scatter import kernel as push_kernel
         from repro_torch.kernels.ss_gemm import kernel as ssgemm_kernel
@@ -1223,7 +1557,7 @@ def main() -> int:
     mods = {"paged attention": paged_kernel, "decode_attn": dense_kernel,
             "ss_gemm": ssgemm_kernel, "push_scatter": push_kernel,
             "wavesim_volume": vol_kernel, "wavesim_flux": flux_kernel,
-            "vector_sum": vsum_kernel}
+            "vector_sum": vsum_kernel, "moe_group_gemm": group_kernel}
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         secs = dict(zip(mods, pool.map(build, mods.values())))
     print(f"[build] {len(mods)} extensions built at once in "
@@ -1231,12 +1565,17 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()) + ")")
 
     worst = kernel_checks(torch)
+    kernel_checks(torch, MOE_GEO)
     worst["decode_attn"] = stripe_checks(torch)
+    worst["group_gemm"] = group_gemm_checks(torch)
     ssgemm_checks(torch)
     push_checks(torch)
     wave_kernel_checks(torch)
     timings = kernel_timings(torch)
     timings["decode_attn"] = stripe_timing(torch)
+    kernel_timings(torch, MOE_GEO, layers=48)
+    stripe_timing(torch, MOE_GEO, layers=48)
+    timings["group_gemm"] = group_gemm_timing(torch)
     timings.update(primitive_timings(torch))
     timings.update(wave_timings(torch))
     for name in ("ssgemm_masked", "ssgemm_compact", "push_scatter",
@@ -1245,10 +1584,13 @@ def main() -> int:
     counts = serve_full_width(torch, paged=True)
     dense_counts = serve_full_width(torch, paged=False)
     counts["decode_attn"] = dense_counts["decode_attn"]
+    dense_join_rows(torch)
     agreement(torch)
     counts.update(primitives_ss_gemm(torch))
     counts.update(primitives_push(torch))
     counts.update(wave_path(torch))
+    moe_agreement(torch)
+    counts["group_gemm"] = moe_serve(torch)["group_gemm"]
 
     sources = {"paged_decode": ("src/repro_torch/kernels/paged_attn/csrc/"
                                 "paged_decode.cu",
@@ -1278,7 +1620,11 @@ def main() -> int:
                           "src/repro/kernels/wavesim_flux/kernel.py:26"),
                "vector_sum": ("src/repro_torch/kernels/vector_sum/csrc/"
                               "vector_sum.cu",
-                              "src/repro/kernels/vector_sum/kernel.py:21")}
+                              "src/repro/kernels/vector_sum/kernel.py:21"),
+               "group_gemm": ("src/repro_torch/kernels/moe_group_gemm/csrc/"
+                              "group_gemm.cu",
+                              "src/repro/kernels/moe_group_gemm/"
+                              "kernel.py:39")}
     rows = []
     for name, (src, replaces) in sources.items():
         t = timings[name]
@@ -1288,6 +1634,9 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+        if name == "group_gemm":     # the decode call; the join's beside
+            rows[-1].update({k: v for k, v in t.items()
+                             if k.startswith(("tiles", "prefill_"))})
         # no single PyTorch call computes flux1d's pair of periodic
         # differences, so its library_ms is null, and that row's alone
         check(all(isinstance(v, (int, float)) and math.isfinite(v)

@@ -82,6 +82,7 @@ cudaError_t dispatch_stripe(int head_dim, const void* q, const void* k,
   switch (head_dim) {
     case 16: return launch_stripe<T, 16>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, stream);
     case 64: return launch_stripe<T, 64>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, stream);
+    case 128: return launch_stripe<T, 128>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, stream);
     default: return cudaErrorInvalidValue;
   }
 }

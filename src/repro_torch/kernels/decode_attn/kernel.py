@@ -23,7 +23,7 @@ import torch
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "decode_attn.cu")
-_HEAD_DIMS = (16, 64)          # reduced and full-width qwen2-0.5b
+_HEAD_DIMS = (16, 64, 128)     # reduced configs, qwen2-0.5b, moonshot
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUP = 16                 # kStripeRows in decode_attn.cu
 

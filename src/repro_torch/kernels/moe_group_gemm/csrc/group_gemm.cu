@@ -1,0 +1,318 @@
+// Sparsity-aware grouped expert GEMM for sm_90a: out[e] = xe[e] @ w[e] in
+// float32, one product per expert, with the rows at or past counts[e] set
+// to zero.  The paper's "skip the command for a zero operand" (§5.1.2) at
+// the granularity of a tile of capacity rows.
+//
+// Replaces the TPU kernel src/repro/kernels/moe_group_gemm/kernel.py
+// (`group_gemm_kernel`, body `_kernel`).  Same function: xe [E, C, D] and
+// w [E, D, F] in float32 or bfloat16 (one dtype), counts [E] int32 ->
+// out [E, C, F] float32.  On the TPU one grid step takes one (expert,
+// 128-row tile); `pl.when` skips the MXU product of a tile past the count
+// and writes zeros, and the weight block's repeated index map elides the
+// skipped steps' weight copies.
+//
+// What bounds it on an H100.  At decode (C 1 at batch 8 on moonshot) it is
+// bound by the bytes of the live experts' weights: each live expert's D x F
+// block is read once (5.8 MB in bf16 at D 2048, F 1408) for two flops per
+// weight.  At a 4,096-token prefill join (C 480) it is bound by operations:
+// 0.18 TFLOP per GEMM against 0.37 GB.
+//
+// What the design does about it.  The grid is (F tiles, C tiles, E); each
+// CTA owns BM capacity rows x 64 output columns of one expert and reads
+// counts[e] first.  A tile whose first row is at or past the count writes
+// its zeros and returns before it touches xe or w: a dead expert costs one
+// count read per CTA and its zero rows, and no weight byte.  A live tile
+// walks K in chunks of 128 bytes a row, staged in shared memory through a
+// register prefetch of the next chunk (two buffers, one barrier a chunk);
+// rows at or past the count are not read (zeros are staged) and are
+// written as zeros.  At decode C is 1, so BM is 16 and one expert's weight
+// block is streamed by F / 64 CTAs side by side (22 for the gate and up
+// projections), all of them resident at once.  bfloat16 products run on
+// the tensor cores through `nvcuda::wmma` (16x16x16 fragments, float32
+// accumulators): a 16-row fragment wastes 15 rows at C 1, which costs
+// nothing where the weight bytes bound the kernel.  float32 products run as
+// plain FMA tiles on the CUDA cores (no TF32).  Operands move in 16-byte
+// loads: rows of D and F are whole 16-byte multiples and both bases are
+// 16-byte aligned, which the wrapper requires.  Reads past C, D and F are
+// guarded.  Where asked (a non-null `tiles`), each CTA adds one to tiles[0]
+// and each skipped one to tiles[1], so a caller can read what was skipped.
+// wgmma, TMA and a persistent schedule are later work.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
+
+namespace group_gemm {
+
+constexpr int kThreads = 128;  // four warps
+constexpr int kBN = 64;        // output columns per CTA
+constexpr int kChunk = 128;    // bytes of K staged per row and chunk
+
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+template <typename T, int BM>
+struct Tile {
+  static constexpr int V = 16 / static_cast<int>(sizeof(T));  // per 16 B
+  static constexpr int BK = kChunk / static_cast<int>(sizeof(T));
+  static constexpr int LDA = BK + V;   // padded rows, 16-byte multiples
+  static constexpr int LDB = kBN + V;
+  static constexpr int LDC = kBN + 4;  // float epilogue tile
+  static constexpr int A_ELEMS = BM * LDA;
+  static constexpr int B_ELEMS = BK * LDB;
+  // 16-byte chunks per thread and chunk of K
+  static constexpr int A_VEC = BM * BK / V / kThreads;
+  static constexpr int B_VEC = BK * kBN / V / kThreads;
+  static constexpr int kOperandBytes =
+      2 * (A_ELEMS + B_ELEMS) * static_cast<int>(sizeof(T));
+  static constexpr int kEpilogueBytes = BM * LDC * 4;
+  static constexpr int kSmemBytes =
+      kOperandBytes > kEpilogueBytes ? kOperandBytes : kEpilogueBytes;
+  static_assert(BM * BK % (V * kThreads) == 0, "A chunk splits evenly");
+  static_assert(BK * kBN % (V * kThreads) == 0, "B chunk splits evenly");
+};
+
+// One expert's view: where its rows and weights start and how much is live.
+template <typename T>
+struct Operands {
+  const T* x;  // xe[e], [C, D]
+  const T* w;  // w[e], [D, F]
+  int c0, n0, live, d, f;
+};
+
+// The next chunk of K, held in registers between its load and its store.
+template <typename T, int BM>
+struct Stage {
+  using TL = Tile<T, BM>;
+  uint4 a[TL::A_VEC];
+  uint4 b[TL::B_VEC];
+
+  __device__ __forceinline__ void load(const Operands<T>& op, int k0) {
+    constexpr int kRowChunks = TL::BK / TL::V;
+#pragma unroll
+    for (int j = 0; j < TL::A_VEC; ++j) {
+      const int q = threadIdx.x + j * kThreads;
+      const int r = q / kRowChunks, k = k0 + (q % kRowChunks) * TL::V;
+      a[j] = r < op.live && k < op.d
+                 ? *reinterpret_cast<const uint4*>(
+                       op.x + static_cast<int64_t>(op.c0 + r) * op.d + k)
+                 : make_uint4(0, 0, 0, 0);
+    }
+    constexpr int kColChunks = kBN / TL::V;
+#pragma unroll
+    for (int j = 0; j < TL::B_VEC; ++j) {
+      const int q = threadIdx.x + j * kThreads;
+      const int k = k0 + q / kColChunks;
+      const int n = op.n0 + (q % kColChunks) * TL::V;
+      b[j] = k < op.d && n < op.f
+                 ? *reinterpret_cast<const uint4*>(
+                       op.w + static_cast<int64_t>(k) * op.f + n)
+                 : make_uint4(0, 0, 0, 0);
+    }
+  }
+
+  __device__ __forceinline__ void store(T* as, T* bs) const {
+    constexpr int kRowChunks = TL::BK / TL::V;
+#pragma unroll
+    for (int j = 0; j < TL::A_VEC; ++j) {
+      const int q = threadIdx.x + j * kThreads;
+      *reinterpret_cast<uint4*>(
+          as + (q / kRowChunks) * TL::LDA + (q % kRowChunks) * TL::V) = a[j];
+    }
+    constexpr int kColChunks = kBN / TL::V;
+#pragma unroll
+    for (int j = 0; j < TL::B_VEC; ++j) {
+      const int q = threadIdx.x + j * kThreads;
+      *reinterpret_cast<uint4*>(
+          bs + (q / kColChunks) * TL::LDB + (q % kColChunks) * TL::V) = b[j];
+    }
+  }
+};
+
+// The products of one staged chunk.  bfloat16: warp w owns output columns
+// [16w, 16w + 16) and every 16-row fragment that holds a live row.
+template <int BM>
+struct Mma {
+  static constexpr int FM = BM / 16;
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
+      acc[FM];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < FM; ++i) nvcuda::wmma::fill_fragment(acc[i], 0.f);
+  }
+
+  __device__ __forceinline__ void step(const __nv_bfloat16* as,
+                                       const __nv_bfloat16* bs, int live) {
+    using namespace nvcuda;
+    using TL = Tile<__nv_bfloat16, BM>;
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int kk = 0; kk < TL::BK; kk += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, bs + kk * TL::LDB + warp * 16, TL::LDB);
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        if (i * 16 < live) {  // warp-uniform: fragments past the count idle
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major> fa;
+          wmma::load_matrix_sync(fa, as + i * 16 * TL::LDA + kk, TL::LDA);
+          wmma::mma_sync(acc[i], fa, fb, acc[i]);
+        }
+      }
+    }
+  }
+};
+
+// float32: thread t owns column t % 64 and rows t / 64 + 2i, i < BM / 2.
+template <int BM>
+struct Fma {
+  static constexpr int R = BM / 2;
+  float acc[R];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  }
+
+  __device__ __forceinline__ void step(const float* as, const float* bs,
+                                       int) {
+    using TL = Tile<float, BM>;
+    const int col = threadIdx.x % kBN, r0 = threadIdx.x / kBN;
+#pragma unroll 4
+    for (int kk = 0; kk < TL::BK; ++kk) {
+      const float b = bs[kk * TL::LDB + col];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        acc[i] = fmaf(as[(r0 + 2 * i) * TL::LDA + kk], b, acc[i]);
+    }
+  }
+};
+
+template <typename T, int BM>
+struct Math;
+template <int BM>
+struct Math<__nv_bfloat16, BM> { using type = Mma<BM>; };
+template <int BM>
+struct Math<float, BM> { using type = Fma<BM>; };
+
+template <typename T, int BM>
+__global__ void __launch_bounds__(kThreads)
+group_gemm_kernel(const T* __restrict__ xe, const T* __restrict__ w,
+                  const int* __restrict__ counts, float* __restrict__ out,
+                  int* __restrict__ tiles, int c, int d, int f) {
+  using TL = Tile<T, BM>;
+  __shared__ __align__(128) unsigned char smem[TL::kSmemBytes];
+  const int e = blockIdx.z;
+  const int c0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * kBN;
+  const int cnt = min(max(counts[e], 0), c);
+  float* o = out + static_cast<int64_t>(e) * c * f;
+  const int rows = min(BM, c - c0);
+  const int cols = min(kBN, f - n0);
+  if (tiles != nullptr && threadIdx.x == 0) {
+    atomicAdd(tiles, 1);
+    if (c0 >= cnt) atomicAdd(tiles + 1, 1);
+  }
+  if (c0 >= cnt) {  // skipped tile: zeros, and nothing of xe or w is read
+    for (int i = threadIdx.x; i < rows * kBN; i += kThreads) {
+      const int r = i / kBN, n = i % kBN;
+      if (n < cols) o[static_cast<int64_t>(c0 + r) * f + n0 + n] = 0.f;
+    }
+    return;
+  }
+  const Operands<T> op{xe + static_cast<int64_t>(e) * c * d,
+                       w + static_cast<int64_t>(e) * d * f, c0, n0,
+                       min(BM, cnt - c0), d, f};
+  T* as[2] = {reinterpret_cast<T*>(smem),
+              reinterpret_cast<T*>(smem) + TL::A_ELEMS};
+  T* bs[2] = {reinterpret_cast<T*>(smem) + 2 * TL::A_ELEMS,
+              reinterpret_cast<T*>(smem) + 2 * TL::A_ELEMS + TL::B_ELEMS};
+
+  typename Math<T, BM>::type math;
+  math.zero();
+  Stage<T, BM> st;
+  const int nk = (d + TL::BK - 1) / TL::BK;
+  if (nk > 0) st.load(op, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    // chunk kt into buffer kt & 1: every warp is past its products of
+    // chunk kt - 2, which read that buffer, since the last barrier
+    st.store(as[kt & 1], bs[kt & 1]);
+    __syncthreads();
+    if (kt + 1 < nk) st.load(op, (kt + 1) * TL::BK);  // in flight meanwhile
+    math.step(as[kt & 1], bs[kt & 1], op.live);
+  }
+
+  if constexpr (sizeof(T) == 2) {
+    // stage the float32 tile in shared memory, then write it row-guarded
+    __syncthreads();  // the operand buffers become the epilogue tile
+    float* cs = reinterpret_cast<float*>(smem);
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i)
+      nvcuda::wmma::store_matrix_sync(cs + i * 16 * TL::LDC + warp * 16,
+                                      math.acc[i], TL::LDC,
+                                      nvcuda::wmma::mem_row_major);
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * kBN; i += kThreads) {
+      const int r = i / kBN, n = i % kBN;
+      if (n < cols)
+        o[static_cast<int64_t>(c0 + r) * f + n0 + n] =
+            r < op.live ? cs[r * TL::LDC + n] : 0.f;
+    }
+  } else {
+    const int n = threadIdx.x % kBN, r0 = threadIdx.x / kBN;
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) {
+      const int r = r0 + 2 * i;
+      if (r < rows && n < cols)
+        o[static_cast<int64_t>(c0 + r) * f + n0 + n] =
+            r < op.live ? math.acc[i] : 0.f;
+    }
+  }
+}
+
+template <typename T, int BM>
+cudaError_t launch(const void* xe, const void* w, const int* counts,
+                   float* out, int* tiles, int e, int c, int d, int f,
+                   cudaStream_t stream) {
+  const dim3 grid((f + kBN - 1) / kBN, (c + BM - 1) / BM, e);
+  group_gemm_kernel<T, BM><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(xe), static_cast<const T*>(w), counts, out, tiles,
+      c, d, f);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* xe, const void* w, const int* counts,
+                     float* out, int* tiles, int e, int c, int d, int f,
+                     int bm, cudaStream_t stream) {
+  if (bm == 16) return launch<T, 16>(xe, w, counts, out, tiles, e, c, d, f,
+                                     stream);
+  if (bm == 64) return launch<T, 64>(xe, w, counts, out, tiles, e, c, d, f,
+                                     stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace group_gemm
+
+// Plain C++ entry point for the binding (no PyTorch headers here).  `bm`
+// is the capacity rows per tile (16 or 64); D and F are whole 16-byte rows
+// and both bases 16-byte aligned; `tiles` is null or two int32 counters
+// the launch adds to.  Returns the launch status.
+cudaError_t group_gemm_launch(int dtype, const void* xe, const void* w,
+                              const int* counts, float* out, int* tiles,
+                              int e, int c, int d, int f, int bm,
+                              cudaStream_t stream) {
+  using namespace group_gemm;
+  if (e < 0 || c < 0 || d < 0 || f < 0) return cudaErrorInvalidValue;
+  if (e == 0 || c == 0 || f == 0) return cudaSuccess;
+  if (e > 65535 || (c + bm - 1) / bm > 65535) return cudaErrorInvalidValue;
+  if (dtype == kFloat32)
+    return dispatch<float>(xe, w, counts, out, tiles, e, c, d, f, bm, stream);
+  if (dtype == kBFloat16)
+    return dispatch<__nv_bfloat16>(xe, w, counts, out, tiles, e, c, d, f, bm,
+                                   stream);
+  return cudaErrorInvalidValue;
+}

@@ -85,6 +85,7 @@ cudaError_t dispatch_decode(int head_dim, const void* q, const void* k,
   switch (head_dim) {
     case 16: return launch_decode<T, 16>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, stream);
     case 64: return launch_decode<T, 64>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, stream);
+    case 128: return launch_decode<T, 128>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -98,6 +98,7 @@ cudaError_t dispatch_prefill(int head_dim, const void* q, const void* k,
   switch (head_dim) {
     case 16: return launch_prefill<T, 16>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, stream);
     case 64: return launch_prefill<T, 64>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, stream);
+    case 128: return launch_prefill<T, 128>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, stream);
     default: return cudaErrorInvalidValue;
   }
 }

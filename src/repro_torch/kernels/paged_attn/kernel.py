@@ -26,7 +26,7 @@ import torch
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "paged_decode.cu", "paged_prefill.cu")
-_HEAD_DIMS = (16, 64)          # reduced and full-width qwen2-0.5b
+_HEAD_DIMS = (16, 64, 128)     # reduced configs, qwen2-0.5b, moonshot
 _DTYPES = (torch.float32, torch.bfloat16)
 DECODE_MAX_GROUP = 16          # kDecodeRows in paged_decode.cu
 

@@ -31,7 +31,8 @@ def block_occupancy(b: torch.Tensor, bk: int) -> torch.Tensor:
 
 def _masked(a, b, mask, bk):
     if a.device.type == "cuda":
-        return kernel.ssgemm_masked_cuda(a, b, mask, bk)
+        return kernel.ssgemm_masked_cuda(a.contiguous(), b.contiguous(),
+                                         mask, bk)
     return ref.ssgemm_masked_ref(a, b, mask, bk)
 
 
@@ -66,7 +67,8 @@ def ssgemm_compact(a: torch.Tensor, b: torch.Tensor, *, budget: int,
                       order[(capped - 1).clamp_min(0)]).to(torch.int32)
     capped = capped.reshape(1).to(torch.int32)
     if a.device.type == "cuda":
-        out = kernel.ssgemm_compact_cuda(a, b, idx, capped, bk)
+        out = kernel.ssgemm_compact_cuda(a.contiguous(), b.contiguous(),
+                                         idx, capped, bk)
     else:
         out = ref.ssgemm_compact_ref(a, b, idx, capped, bk)
     over = int(n_live) - budget

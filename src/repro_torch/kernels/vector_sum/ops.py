@@ -19,5 +19,5 @@ def vector_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.shape != b.shape:
         raise ValueError("shape mismatch")
     if a.device.type == "cuda":
-        return kernel.vector_sum_cuda(a, b)
+        return kernel.vector_sum_cuda(a.contiguous(), b.contiguous())
     return ref.vector_sum_ref(a, b)

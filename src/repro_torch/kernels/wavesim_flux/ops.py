@@ -23,5 +23,5 @@ def flux1d(hi: torch.Tensor, lo: torch.Tensor, alpha: float = 0.5
         raise ValueError(f"hi and lo must be [E, T] of one shape, got "
                          f"{tuple(hi.shape)} and {tuple(lo.shape)}")
     if hi.device.type == "cuda":
-        return kernel.flux1d_cuda(hi, lo, alpha)
+        return kernel.flux1d_cuda(hi.contiguous(), lo.contiguous(), alpha)
     return ref.flux1d_ref(hi, lo, alpha)

@@ -1,20 +1,22 @@
 """Where a decode segment's time goes, on the GPU.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--paged]
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--paged] \
+      [--arch moonshot-v1-16b-a3b]
 
 Fills every slot of the batcher with the serve cell's requests
-(full-width qwen2-0.5b, bf16, prompts of 64-512 tokens, max_len 1024;
-dense stripes, or pages of 16 with ``--paged``), joins them, runs one
-decode segment to warm up, then traces ``--segments`` more under
-``torch.profiler``.  Each segment is the serving path's own: the decode
-loop, the one host read of its tokens and their collection.  It prints: wall time per decode step (host
-clock, synchronised), once without the tracer and once under it; device
-busy time per step (sum of kernel times on the one stream, from the traced
-run); the device's idle share against each of the two walls (the untraced
-one is the serving path's own; the tracer slows the host); kernels
-launched per step; the kernels that take the most device time; and the
-host ops that take the most CPU time under the tracer.  The last line is a
-JSON summary.  ``--trace PATH`` also writes the Chrome trace.
+(``--arch`` at full width, qwen2-0.5b by default, seeded bf16 weights
+built in place, prompts of 64-512 tokens, max_len 1024; dense stripes,
+or pages of 16 with ``--paged``), joins them, runs one decode segment to
+warm up, then traces ``--segments`` more under ``torch.profiler``. Each
+segment is the serving path's own: the decode loop, the one host read of
+its tokens and their collection. It prints: wall time per decode step
+(host clock, synchronised), once without the tracer and once under it;
+device busy time per step (sum of kernel times on the one stream, from
+the traced run); the device's idle share against each of the two walls
+(the untraced one is the serving path's own; the tracer slows the host);
+kernels launched per step; the kernels that take the most device time;
+and the host ops that take the most CPU time under the tracer. The last
+line is a JSON summary. ``--trace PATH`` also writes the Chrome trace.
 """
 from __future__ import annotations
 
@@ -28,7 +30,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
 from ..device import resolve_device
-from ..models.init import cast_for_serving
 from ..models.model_zoo import Model
 from ..serve.engine import ServeConfig
 from ..serve.scheduler import Batcher
@@ -52,7 +53,7 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
         raise ValueError("profiling measures the GPU: device must be cuda")
     cfg = get_config(arch)
     model = Model(cfg)
-    params = cast_for_serving(model.init(seed, device=dev), torch.bfloat16)
+    params = model.init(seed, device=dev, dtype=torch.bfloat16)
     scfg = ServeConfig(max_len=max_len, batch=batch, sync_every=sync_every,
                        paged=paged, page_size=page_size)
     max_new = sync_every * (2 * segments + 2)  # nobody retires mid-run

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..models.init import cast_for_serving
 from ..models.model_zoo import Model
@@ -29,7 +30,7 @@ from ..serve.scheduler import Batcher
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def run(arch: str, *, reduced: bool = False, requests: int = 4,
+def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
         max_new: int = 8, batch: int = 4, max_len: int = 64, seed: int = 0,
         sync_every: int = 8, temperature: float = 0.0,
         eos_id: int | None = None, paged: bool = False, page_size: int = 16,
@@ -39,15 +40,19 @@ def run(arch: str, *, reduced: bool = False, requests: int = 4,
     """Serve ``requests`` random prompts (lengths drawn from
     ``prompt_len`` = [lo, hi), tokens from ``seed``) from dense stripes,
     or from the paged pool with ``paged``, and print requests, tokens and
-    tok/s.  ``params`` (float32, from the port's init or the
-    bridge) replaces the seeded random weights when given."""
+    tok/s.  ``arch`` is a registry name or a config (one cut in depth,
+    say).  ``params`` (from the port's init or the bridge) replaces the
+    seeded random weights when given; it is cast for serving in
+    ``dtype``."""
     dev = resolve_device(device)
-    cfg = get_config(arch)
+    cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     model = Model(cfg)
     if params is None:
-        params = model.init(seed, device=dev)
+        # built in the serving dtype: the full-width MoE tree fits the card
+        # only so (the float32 leaves of cast_for_serving stay float32)
+        params = model.init(seed, device=dev, dtype=dtype)
     params = cast_for_serving(params, dtype)
     scfg = ServeConfig(max_len=max_len, batch=batch, dtype=dtype,
                        sync_every=sync_every, temperature=temperature,
@@ -111,8 +116,8 @@ def main() -> None:
         seed=args.seed, sync_every=args.sync_every,
         temperature=args.temperature, eos_id=args.eos_id,
         paged=args.paged, page_size=args.page_size,
-        total_pages=args.total_pages, prompt_len=tuple(args.prompt_len), dtype=_DTYPES[args.dtype],
-        device=args.device)
+        total_pages=args.total_pages, prompt_len=tuple(args.prompt_len),
+        dtype=_DTYPES[args.dtype], device=args.device)
 
 
 if __name__ == "__main__":

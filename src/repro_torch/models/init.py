@@ -1,10 +1,13 @@
 """Seeded parameter init with the shapes and scales of
-:func:`repro.models.transformer.init_lm` (dense GQA decoders).
+:func:`repro.models.transformer.init_lm` (GQA decoders with dense and
+routed-expert feed-forward blocks).
 
 The tree has the JAX layout, unwrapped (see ``repro.models.param.unwrap``):
-layer-stacked ``segments`` whose leaves are ``[n_layers, ...]``.  Values
-come from a ``torch.Generator`` seeded explicitly, so they differ from the
-JAX init's; parity tests feed both packages the JAX weights through
+layer-stacked ``segments`` whose leaves are ``[n_layers, ...]``, with a
+``mlp`` in DENSE blocks and a ``moe`` (``init_moe``'s router, expert
+weights and shared experts) in MOE blocks.  Values come from a
+``torch.Generator`` seeded explicitly, so they differ from the JAX init's;
+parity tests feed both packages the JAX weights through
 :mod:`repro_torch.models.bridge` instead.
 """
 from __future__ import annotations
@@ -16,58 +19,117 @@ import torch
 from ..configs.base import ArchConfig, AttnKind, BlockKind
 from ..device import resolve_device
 
+FILL_CHUNK = 1 << 24    # values drawn at once by init_params (64 MiB fp32)
+
 
 def _check_supported(cfg: ArchConfig) -> None:
     kinds = {s.kind for s in cfg.resolved_segments()}
-    if (kinds != {BlockKind.DENSE} or cfg.attn is not AttnKind.GQA
-            or cfg.enc_dec or cfg.shared_attn_every or cfg.moe is not None
-            or cfg.frontend.value != "none"):
+    if (not kinds <= {BlockKind.DENSE, BlockKind.MOE}
+            or cfg.attn is not AttnKind.GQA or cfg.enc_dec
+            or cfg.shared_attn_every or cfg.frontend.value != "none"
+            or (BlockKind.MOE in kinds) != (cfg.moe is not None)):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA decoders only so far")
+            f"{cfg.name}: the port runs GQA decoders with dense and MoE "
+            "blocks only so far")
+
+
+def serves_in_float32(path: tuple[str, ...]) -> bool:
+    """Leaves kept in float32 when the projections are stored in a lower
+    serving dtype: norm scales (the norms multiply in float32), the
+    embedding (rows are gathered, then cast), the router (JAX routes with
+    float32 logits from a float32 weight) and the untied read-out (JAX
+    reads out in float32 from a float32 weight)."""
+    return (path[-1] == "scale" or path[:1] in (("embed",), ("lm_head",))
+            or path[-2:] == ("router", "w"))
+
+
+def _spec(cfg: ArchConfig) -> dict:
+    """The tree as leaf specs: ("normal", shape, std), ("zeros", shape) or
+    ("ones", shape); layer-stacked leaves lead with the layer count."""
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.kv_heads
+    hd, f = cfg.resolved_head_dim, cfg.d_ff
+
+    def dense(n, fan_in, *shape):
+        return {"w": ("normal", (n, fan_in) + shape, 1 / math.sqrt(fan_in))}
+
+    def gated_mlp(n, width, gated=True):
+        out = {"wi": dense(n, d, width), "wo": dense(n, width, d)}
+        if gated:
+            out["wg"] = dense(n, d, width)
+        return out
+
+    spec: dict = {"embed": {"table": ("normal", (cfg.vocab, d), 0.02)}}
+    segments = []
+    for seg in cfg.resolved_segments():
+        n = seg.count
+        attn = {}
+        for name, heads in (("q", hq), ("k", hkv), ("v", hkv)):
+            attn[name] = dense(n, d, heads, hd)
+            if cfg.qkv_bias:
+                attn[name]["b"] = ("zeros", (n, heads, hd))
+        attn["o"] = {"w": ("normal", (n, hq, hd, d), 1 / math.sqrt(hq * hd))}
+        block = {"norm1": {"scale": ("ones", (n, d))}, "attn": attn,
+                 "norm2": {"scale": ("ones", (n, d))}}
+        if seg.kind is BlockKind.MOE:
+            m = cfg.moe
+            e, fe = m.n_experts, m.d_ff_expert
+            moe = {"router": {"w": ("normal", (n, d, e), 0.02)},
+                   "wi": ("normal", (n, e, d, fe), 1 / math.sqrt(d)),
+                   "wg": ("normal", (n, e, d, fe), 1 / math.sqrt(d)),
+                   "wo": ("normal", (n, e, fe, d), 1 / math.sqrt(fe))}
+            if m.n_shared_experts:
+                moe["shared"] = gated_mlp(
+                    n, m.d_ff_shared or fe * m.n_shared_experts)
+            block["moe"] = moe
+        else:
+            block["mlp"] = gated_mlp(n, f, cfg.gated_mlp)
+        segments.append(block)
+    spec["segments"] = segments
+    spec["final_norm"] = {"scale": ("ones", (d,))}
+    if not cfg.tied_embeddings:
+        spec["lm_head"] = {"w": ("normal", (d, cfg.vocab),
+                                 1 / math.sqrt(d))}
+    return spec
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *,
                 device: str | torch.device = "cuda",
                 dtype: torch.dtype = torch.float32) -> dict:
     """Random weights for ``cfg``: embedding rows N(0, 0.02), projections
-    N(0, 1/fan_in) as in ``init_dense``, zero biases, unit norm scales."""
+    N(0, 1/fan_in) as in ``init_dense``, the router N(0, 0.02), zero
+    biases, unit norm scales.
+
+    ``dtype`` is the storage of every leaf but those
+    :func:`serves_in_float32` keeps in float32, so ``dtype=bfloat16``
+    gives the tree :func:`cast_for_serving` would make of the float32 one,
+    bit for bit.  Each leaf is allocated once in its storage dtype and
+    filled ``FILL_CHUNK`` values at a time from float32 draws, so the peak
+    is the tree plus two float32 chunks (the draw and its scaled copy, 64
+    MiB each): a full-width MoE model is built in bfloat16 without its
+    float32 tree ever existing."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.kv_heads
-    hd, f = cfg.resolved_head_dim, cfg.d_ff
 
-    def normal(shape, std):
-        return (torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.float32) * std).to(dtype)
-
-    def zeros(shape):
-        return torch.zeros(shape, device=dev, dtype=dtype)
-
-    def ones(shape):
-        return torch.ones(shape, device=dev, dtype=dtype)
-
-    params: dict = {"embed": {"table": normal((cfg.vocab, d), 0.02)}}
-    segments = []
-    for seg in cfg.resolved_segments():
-        n = seg.count
-        attn = {}
-        for name, heads in (("q", hq), ("k", hkv), ("v", hkv)):
-            attn[name] = {"w": normal((n, d, heads, hd), 1 / math.sqrt(d))}
-            if cfg.qkv_bias:
-                attn[name]["b"] = zeros((n, heads, hd))
-        attn["o"] = {"w": normal((n, hq, hd, d), 1 / math.sqrt(hq * hd))}
-        mlp = {"wi": {"w": normal((n, d, f), 1 / math.sqrt(d))},
-               "wo": {"w": normal((n, f, d), 1 / math.sqrt(f))}}
-        if cfg.gated_mlp:
-            mlp["wg"] = {"w": normal((n, d, f), 1 / math.sqrt(d))}
-        segments.append({"norm1": {"scale": ones((n, d))}, "attn": attn,
-                         "norm2": {"scale": ones((n, d))}, "mlp": mlp})
-    params["segments"] = segments
-    params["final_norm"] = {"scale": ones((d,))}
-    if not cfg.tied_embeddings:
-        params["lm_head"] = {"w": normal((d, cfg.vocab), 1 / math.sqrt(d))}
-    return params
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(v, path) for v in node]
+        kind, shape = node[0], node[1]
+        out_dtype = torch.float32 if serves_in_float32(path) else dtype
+        if kind == "zeros":
+            return torch.zeros(shape, device=dev, dtype=out_dtype)
+        if kind == "ones":
+            return torch.ones(shape, device=dev, dtype=out_dtype)
+        out = torch.empty(shape, device=dev, dtype=out_dtype)
+        flat = out.view(-1)
+        for start in range(0, flat.numel(), FILL_CHUNK):
+            part = flat[start:start + FILL_CHUNK]
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev,
+                                   dtype=torch.float32) * node[2])
+        return out
+    return build(_spec(cfg), ())
 
 
 def cast_for_serving(params: dict, dtype: torch.dtype) -> dict:
@@ -76,14 +138,13 @@ def cast_for_serving(params: dict, dtype: torch.dtype) -> dict:
     The JAX ``dense`` casts its float32 weight to the activation dtype on
     every call, which XLA fuses into the matmul; an eager port would copy
     each weight once per call instead.  Casting once up front gives the
-    same values.  Norm scales and the embedding table stay float32: the
-    norms multiply in float32, the embedding gathers rows before it casts,
-    and the tied read-out computes its logits in float32."""
+    same values.  The leaves :func:`serves_in_float32` names stay float32,
+    where the JAX model computes from the float32 weight.  A leaf already
+    in its dtype is kept, not copied."""
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, path) for v in node]
-        keep = path[-1] == "scale" or path[:1] == ("embed",)
-        return node if keep else node.to(dtype)
+        return node if serves_in_float32(path) else node.to(dtype)
     return walk(params, ())

@@ -1,4 +1,6 @@
-"""Dense GQA decoder over a KV cache, from :mod:`repro.models.transformer`.
+"""GQA decoder over a KV cache, from :mod:`repro.models.transformer`:
+DENSE blocks (attention and a gated MLP) and MOE blocks (attention and the
+routed experts of :mod:`.moe`).
 
 Parameters keep the JAX layout: each segment's leaves are stacked over its
 layers (``[n_layers, ...]``), and the JAX ``lax.scan`` over a segment
@@ -11,12 +13,13 @@ from __future__ import annotations
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, BlockKind
 from ..device import resolve_device
 from .attention import (KVCache, PagedKVCache, dense_write_index, gqa_apply,
                         paged_write_index)
 from .init import _check_supported
 from .layers import dense, embed, mlp, rmsnorm, rope_tables, unembed
+from .moe import moe_apply
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
@@ -50,17 +53,22 @@ def init_paged_caches(cfg: ArchConfig, batch: int, n_pages: int,
             for seg in cfg.resolved_segments()]
 
 
-def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
-                rope, cache: KVCache | PagedKVCache | None = None,
+def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                kind: BlockKind, *, rope,
+                cache: KVCache | PagedKVCache | None = None,
                 write_index=None, kv_cap: int | None = None):
-    """Pre-norm attention block and gated MLP; returns (y, new_cache)."""
+    """Pre-norm attention block, then the gated MLP (DENSE) or the routed
+    experts (MOE); returns (y, new_cache)."""
     h, new_cache = gqa_apply(params["attn"],
                              rmsnorm(params["norm1"], x, cfg.norm_eps), cfg,
                              rope=rope, cache=cache, write_index=write_index,
                              kv_cap=kv_cap)
     x = x + h
-    h = mlp(params["mlp"], rmsnorm(params["norm2"], x, cfg.norm_eps),
-            cfg.activation)
+    z = rmsnorm(params["norm2"], x, cfg.norm_eps)
+    if kind is BlockKind.MOE:
+        h = moe_apply(params["moe"], z, cfg, cfg.activation)
+    else:
+        h = mlp(params["mlp"], z, cfg.activation)
     return x + h, new_cache
 
 
@@ -91,7 +99,9 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
       verify are all this one call.
 
     Without caches the call is a plain causal forward.  (The JAX forward
-    also returns an auxiliary loss, which only MoE blocks make nonzero.)
+    also returns the MoE blocks' auxiliary loss, which serving does not
+    read.)  A MOE block's capacity counts every row and position of the
+    call, idle and padding rows included, as in JAX.
     """
     _check_supported(cfg)
     per_slot = isinstance(cache_len, torch.Tensor) and cache_len.dim() == 1
@@ -128,8 +138,9 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
             elif caches is not None:
                 cache = KVCache(caches[si]["k"][i], caches[si]["v"][i],
                                 cache_len)
-            x, _ = block_apply(_layer(stacked, i), x, cfg, rope=rope,
-                               cache=cache, write_index=index, kv_cap=kv_cap)
+            x, _ = block_apply(_layer(stacked, i), x, cfg, seg.kind,
+                               rope=rope, cache=cache, write_index=index,
+                               kv_cap=kv_cap)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
 
 

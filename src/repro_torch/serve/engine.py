@@ -115,12 +115,16 @@ def make_decode_loop(model: Model, cfg: ServeConfig, *, steps: int,
 
 
 def make_join(model: Model, cfg: ServeConfig, *, eos_id: int | None):
-    """Dense slot refill: batch-prefill the joining prompts (padded to one
-    width W) into fresh W-row stripes and copy them into the joining
-    slots' rows of the serving stripes, in place.  Only the joining rows
-    are computed and written: every other slot's stripe rows, token,
-    length and flags stay bit-for-bit the same.  (The JAX join prefills
-    every row and selects with ``jnp.where`` over the whole cache.)
+    """Dense slot refill, as the JAX join: batch-prefill every row into
+    fresh W-row stripes, the joining prompts (padded to one width W) in
+    their slots and zero prompts in the others, as the JAX scheduler builds
+    them; then copy the joining rows into the serving stripes, in place.
+    Only the joining rows are written: every other slot's stripe rows,
+    token, length and flags stay bit-for-bit the same.  Every row is
+    computed because with MoE blocks rows interact (each token of a call
+    takes expert capacity); for a dense-MLP model the joining rows alone
+    would give the same values, at no measured saving (``chip_smoke.py``'s
+    ``dense_join_rows``).
 
     ``join(params, caches, tok, lengths, done, remaining, rows, prompts,
     plens, budgets, gen)``: ``rows`` [J] int64 names the joining slots, and
@@ -131,13 +135,16 @@ def make_join(model: Model, cfg: ServeConfig, *, eos_id: int | None):
 
     def join(params, caches, tok, lengths, done, remaining, rows, prompts,
              plens, budgets, gen):
-        width = prompts.shape[1]
-        logits, fresh = model.prefill(params, {"tokens": prompts}, width,
-                                      dtype=cfg.dtype, last_pos=plens - 1)
+        b, width = tok.shape[0], prompts.shape[1]
+        logits, fresh = model.prefill(
+            params, {"tokens": prompts.new_zeros((b, width)).index_copy(
+                0, rows, prompts)}, width, dtype=cfg.dtype,
+            last_pos=plens.new_zeros(b).index_copy(0, rows, plens - 1))
+        logits = logits[rows]
         for new, old in zip(fresh, caches):
             for name in ("k", "v"):
-                old[name][:, :, :width].index_copy_(1, rows,
-                                                   new[name][:, :, :width])
+                old[name][:, :, :width].index_copy_(
+                    1, rows, new[name][:, :, :width].index_select(1, rows))
         first = sample_tokens(logits[:, -1], temp, gen)
         if eos_id is None:
             is_eos = torch.zeros_like(first, dtype=torch.bool)

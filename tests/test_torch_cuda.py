@@ -4,16 +4,19 @@ through the kernels against the plain path on the CPU and against each
 other; the paper's primitives (skinny GEMM, push scatter, the wave
 step's volume and flux, vector-sum) through their kernels against float64
 oracles or their plain versions, and the wave demo through the volume
-kernel against the plain path on the CPU.  Every test here is marked ``cuda`` and skips without a GPU;
-on a GPU machine run them with
+kernel against the plain path on the CPU; the grouped expert GEMM and
+the MoE model (reduced moonshot) served through it, the bfloat16 init
+built in place, and the ops that take strided views.  Every test here is
+marked ``cuda`` and skips without a GPU; on a GPU machine run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports neither JAX nor ``repro``, so it runs where only the
 port is installed.  Tolerances: float32 1e-4, bfloat16 2e-2 (max abs
 error against the plain version evaluated in float32 on the same values;
-TF32 is off).  The primitives' kernels sum in float32 in an order of their
-own (atomics, for push), so they are held per output to the worst-case
+TF32 is off).  The primitives' kernels and the grouped expert GEMM (in
+both dtypes) sum in float32 in an order of their own (atomics, for push),
+so they are held per output to the worst-case
 bound of float32 summation, n u / (1 - n u) times the sum of the terms'
 magnitudes (u = 2**-24, n the terms summed), against float64 results
 from the same, already rounded, inputs."""
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import decode_attn as dattn
+from repro_torch.kernels import moe_group_gemm as mg
 from repro_torch.kernels import push_scatter as ps
 from repro_torch.kernels import ss_gemm as sg
 from repro_torch.kernels import vector_sum as vs
@@ -36,7 +40,7 @@ from repro_torch.kernels.paged_attn import (kernel, paged_attn,
                                             paged_prefill_attn_ref)
 from repro_torch.launch import wave_demo
 from repro_torch.launch.serve import run
-from repro_torch.models.init import init_params
+from repro_torch.models.init import FILL_CHUNK, init_params
 
 torch.set_num_threads(1)
 
@@ -48,7 +52,8 @@ pytestmark = [pytest.mark.cuda,
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GEOMETRIES = [(4, 1, 16, 8),       # reduced qwen2-0.5b
               (14, 2, 64, 16),     # full-width qwen2-0.5b
-              (16, 2, 64, 8)]      # G = 8, pages of 8
+              (16, 2, 64, 8),      # G = 8, pages of 8
+              (16, 16, 128, 16)]   # full-width moonshot (G = 1, D = 128)
 
 
 @pytest.fixture(autouse=True)
@@ -141,7 +146,8 @@ def test_serving_through_kernels_matches_cpu_plain_path():
 
 STRIPE_GEOMETRIES = [(4, 1, 16),     # reduced qwen2-0.5b (G = 4)
                      (14, 2, 64),    # full-width qwen2-0.5b (G = 7)
-                     (16, 1, 64)]    # G = 16, the kernel's largest group
+                     (16, 1, 64),    # G = 16, the kernel's largest group
+                     (16, 16, 128)]  # full-width moonshot (G = 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -616,3 +622,209 @@ def test_wave_demo_through_kernel_matches_cpu_plain_path():
     err = (on_card["u"].cpu() - on_cpu["u"]).abs().max().item()
     assert err <= 1e-5
     assert _lines_agree(on_card["energy"], on_cpu["energy"])
+
+
+# ---------------------------------------------------------------------------
+# the grouped expert GEMM and the MoE model
+# ---------------------------------------------------------------------------
+
+GROUP_SHAPES = [(2, 128, 64, 64, None),     # test_kernels_moe.py's sweep
+                (8, 256, 128, 96, None),
+                (4, 64, 32, 256, None),
+                (64, 1, 2048, 1408, None),  # moonshot decode, C 1
+                (6, 100, 48, 80, None),     # ragged C and F
+                (4, 64, 32, 64, "all-empty"),
+                (4, 64, 32, 64, "all-full")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f,fill", GROUP_SHAPES)
+def test_group_gemm_kernel_matches_plain_version(dtype, e, c, d, f, fill):
+    """One launch through the op; the rows below each count within the
+    float32 summation bound of the float64 product of the same values (in
+    bfloat16 too: the products are exact and summed in float32); the rows
+    past it exactly zero, although the padding rows of xe and the weights
+    of the empty experts hold NaN, which a skipped tile never reads.  A
+    second launch through the wrapper gives the same bits and counts on
+    the card the tiles the counts leave empty."""
+    rng = np.random.default_rng(e * c + d)
+    counts = {"all-empty": np.zeros(e), "all-full": np.full(e, c)}.get(
+        fill, rng.integers(0, c + 1, size=e)).astype(np.int32)
+    counts[0] = 0 if fill is None else counts[0]
+    xe = torch.from_numpy(rng.standard_normal((e, c, d)).astype(
+        np.float32)).to("cuda").to(dtype)
+    w = torch.from_numpy(rng.standard_normal((e, d, f)).astype(
+        np.float32)).to("cuda").to(dtype)
+    cnt = torch.from_numpy(counts).to("cuda")
+    live = (torch.arange(c, device="cuda")[None, :, None]
+            < cnt[:, None, None])
+    x64, w64 = (xe * live).double(), w.double()
+    want, bnd = x64 @ w64, x64.abs() @ w64.abs()
+    xe = torch.where(live, xe, torch.full_like(xe, float("nan")))
+    w[cnt == 0] = float("nan")
+    before = mg.launch_counts["group_gemm"]
+    got = mg.group_gemm(xe, w, cnt)
+    assert mg.launch_counts["group_gemm"] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (e, c, f)
+    assert bool((got[~live.expand(e, c, f)] == 0).all())
+    assert _within_bound(got, want, bnd, d)
+    tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
+    assert torch.equal(mg.kernel.group_gemm_cuda(xe, w, cnt, tiles=tiles),
+                       got)
+    total, skipped = mg.kernel.tile_counts(cnt, c, f)
+    assert tiles.tolist() == [total, skipped]
+    bm = mg.kernel.tile_rows(c)
+    n_f = -(-f // 64)
+    assert total == e * -(-c // bm) * n_f
+    assert skipped == n_f * sum(-(-c // bm) - -(-int(n) // bm)
+                                for n in counts)
+
+
+def test_group_gemm_wrapper_refuses_what_the_kernel_does_not_take():
+    xe = torch.zeros(2, 4, 8, device="cuda")
+    w = torch.zeros(2, 8, 16, device="cuda")
+    cnt = torch.ones(2, dtype=torch.int32, device="cuda")
+    run_ = mg.kernel.group_gemm_cuda
+    with pytest.raises(ValueError):                 # on the CPU
+        run_(xe.cpu(), w.cpu(), cnt.cpu())
+    with pytest.raises(TypeError):                  # float16
+        run_(xe.half(), w.half(), cnt)
+    with pytest.raises(TypeError):                  # w in another dtype
+        run_(xe, w.to(torch.bfloat16), cnt)
+    with pytest.raises(TypeError):                  # int64 counts
+        run_(xe, w, cnt.long())
+    with pytest.raises(ValueError):                 # not contiguous
+        run_(xe, torch.zeros(2, 16, 8, device="cuda").transpose(1, 2), cnt)
+    with pytest.raises(ValueError):                 # D does not chain
+        run_(xe, torch.zeros(2, 9, 16, device="cuda"), cnt)
+    with pytest.raises(ValueError):                 # counts for 3 experts
+        run_(xe, w, torch.ones(3, dtype=torch.int32, device="cuda"))
+    cnt3 = torch.zeros(3, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16 bytes"):   # D 37, F 53 rows
+        run_(torch.zeros(3, 40, 37, device="cuda"),
+             torch.zeros(3, 37, 53, device="cuda"), cnt3)
+    with pytest.raises(ValueError, match="16 bytes"):   # bf16 D 4
+        run_(xe.to(torch.bfloat16)[:, :, :4].contiguous(),
+             torch.zeros(2, 4, 16, dtype=torch.bfloat16, device="cuda"), cnt)
+    flat = torch.zeros(1 + 2 * 4 * 8, device="cuda")
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        run_(flat[1:].view(2, 4, 8), w, cnt)        # one float past
+    with pytest.raises(ValueError, match="16 bytes"):   # through the op
+        mg.group_gemm(torch.zeros(3, 40, 37, device="cuda"),
+                      torch.zeros(3, 37, 53, device="cuda"), cnt3)
+    with pytest.raises(ValueError):                 # tiles not int32 [2]
+        run_(xe, w, cnt, tiles=torch.zeros(3, dtype=torch.int32,
+                                           device="cuda"))
+
+
+def _moe_run(cfg, params, paged):
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import Batcher
+    b = Batcher(Model(cfg), params, ServeConfig(
+        max_len=64, batch=2, dtype=torch.float32, sync_every=4,
+        paged=paged, page_size=8))
+    rng = np.random.default_rng(0)
+    for rid in range(5):
+        b.submit(rid, rng.integers(0, cfg.vocab,
+                                   size=int(rng.integers(4, 12))).tolist())
+    return b.run(max_new=9), b
+
+
+def test_moe_serving_through_kernels_matches_cpu_plain_path():
+    """Reduced moonshot (1 dense + 2 MoE layers), float32, same weights,
+    at capacity factor 8 and 0.5: the paged and dense batchers on the card
+    give the CPU plain path's greedy tokens, and the expert GEMMs run
+    three launches a MoE layer and forward call."""
+    import dataclasses
+    base = get_config("moonshot-v1-16b-a3b").reduced()
+    params = init_params(base, 0, device="cuda")
+    for factor in (8.0, 0.5):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, capacity_factor=factor))
+        for paged in (True, False):
+            mg.reset_launch_counts()
+            on_card, b = _moe_run(cfg, params, paged)
+            calls = b.joins + 4 * b.segments
+            assert mg.launch_counts["group_gemm"] == 3 * 2 * calls
+            on_cpu, _ = _moe_run(cfg, _to_cpu(params), paged)
+            assert on_card == on_cpu, (factor, paged)
+
+
+def test_init_in_bfloat16_builds_no_float32_tree():
+    """Full-width moonshot cut to 1 dense + 2 MoE layers: the bfloat16
+    init's peak is the tree plus two float32 fill chunks, not a float32
+    copy of the experts or of any leaf; the router and the read-out are
+    float32."""
+    import dataclasses
+    from repro_torch.configs.base import BlockKind, Segment
+    full = get_config("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(full, n_layers=3, segments=(
+        Segment(BlockKind.DENSE, 1), Segment(BlockKind.MOE, 2)))
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    moe = params["segments"][1]["moe"]
+    tree = sum(t.numel() * t.element_size()
+               for t in _leaves(params))
+    experts = sum(moe[n].numel() for n in ("wi", "wg", "wo"))
+    peak = torch.cuda.max_memory_allocated() - base
+    assert moe["wi"].dtype == torch.bfloat16
+    assert moe["router"]["w"].dtype == torch.float32
+    assert params["lm_head"]["w"].dtype == torch.float32
+    assert peak <= tree + 2 * 4 * FILL_CHUNK + (64 << 20), (peak, tree)
+    assert peak < tree + experts * 2          # no float32 expert copy
+    del params, moe
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
+# the ops take strided views (their kernels take contiguous rows only)
+# ---------------------------------------------------------------------------
+
+def test_vector_sum_op_takes_strided_views():
+    buf = torch.randn(64, 48, device="cuda")
+    for a, b in ((buf.t(), (2 * buf).t()),              # transposed
+                 (buf[:, ::3], buf[:, 1::3])):          # strided columns
+        assert not a.is_contiguous()
+        got = vs.vector_sum(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, a + b)
+
+
+def test_flux1d_op_takes_strided_views():
+    u = torch.randn(2, 243, 500, device="cuda")
+    hi, lo = u[0].t(), u[1].t()                 # [500, 243], strided
+    for alpha in (0.5, 0.3):
+        got = wf.flux1d(hi, lo, alpha)
+        want = wf.flux1d_ref(hi.contiguous(), lo.contiguous(), alpha)
+        torch.cuda.synchronize()
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssgemm_ops_take_strided_views(dtype):
+    rng = np.random.default_rng(9)
+    a, b = _skinny(rng, 512, 300, 4, 0.5, dtype, 128)
+    at = a.t().contiguous().t()                 # [300, 512] data, a's view
+    assert not at.is_contiguous()
+    bs = torch.stack([b, b], dim=2)[:, :, 0]    # b, columns 2 apart
+    assert not bs.is_contiguous() and torch.equal(bs, b)
+    a64, b64 = a.double(), b.double()
+    want, bnd = a64 @ b64, a64.abs() @ b64.abs()
+    for got in (sg.ssgemm_masked(at, bs, bk=128),
+                sg.ssgemm_compact(at, bs, budget=2, bk=128),
+                sg.ssgemm(at, bs)):
+        torch.cuda.synchronize()
+        assert _within_bound(got, want, bnd, 300)

@@ -330,9 +330,9 @@ def test_dense_prefill_and_decode_match_jax(models):
 
 
 def test_dense_join_writes_only_the_joining_rows(models):
-    """The dense join computes and writes the joining slots only: the
-    other slots' stripes, tokens, lengths and flags stay bit-for-bit, and
-    the joining slot's state and rows match the JAX join's."""
+    """The dense join writes the joining slots only: the other slots'
+    stripes, tokens, lengths and flags stay bit-for-bit, and the joining
+    slot's state and rows match the JAX join's."""
     cfg, jmodel, jparams, tmodel, tparams = models
     rng = np.random.default_rng(6)
     b, max_len = 3, 32

@@ -252,7 +252,7 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = res.stdout.split()
-    assert int(names[0]) >= 56
+    assert int(names[0]) >= 62
     assert {"repro_torch.kernels.decode_attn.kernel",
             "repro_torch.kernels.decode_attn.ops",
             "repro_torch.kernels.decode_attn.ref",
@@ -278,4 +278,9 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.kernels.vector_sum.kernel",
             "repro_torch.kernels.vector_sum.ops",
             "repro_torch.kernels.vector_sum.ref",
-            "repro_torch.launch.wave_demo"} <= set(names[1:])
+            "repro_torch.launch.wave_demo",
+            "repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.models.moe",
+            "repro_torch.kernels.moe_group_gemm.kernel",
+            "repro_torch.kernels.moe_group_gemm.ops",
+            "repro_torch.kernels.moe_group_gemm.ref"} <= set(names[1:])
