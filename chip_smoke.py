@@ -41,7 +41,10 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    ``torch.bmm``, ``torch.matmul``, ``index_add``, ``torch.add``;
    yardsticks the port never calls), beside the least time the card could
    take for the same work; the attention kernels also at moonshot's
-   geometry over 48 layers, and the grouped GEMM with its tiles skipped;
+   geometry over 48 layers, the grouped GEMM at decode and at a join (its
+   gate/up and its down projection) with its tiles skipped, and the
+   achieved TFLOP/s and share of the bound of the two kernels redesigned
+   for the tensor cores (bf16 prefill, the grouped GEMM at a join);
 4. serve, paged and dense: full-width qwen2-0.5b (seeded random bfloat16
    weights) through ``repro_torch.launch.serve.run``: 16 requests,
    prompts of 64-512 tokens, 64 new tokens each, batch 8, max_len 1024,
@@ -77,8 +80,10 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    layer and forward call) and of both paged kernels checked, tok/s and
    peak device memory printed.
 
-Output: one line per check, then a JSON line with the kernels' numbers,
-the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+Output: one line per check, then a JSON line with the kernels' numbers
+(the attention rows carry moonshot's D 128 times as ``d128_*``, the
+grouped GEMM's row the join's as ``prefill_*`` and ``down_*``), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -308,7 +313,7 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
             q, k[i % layers], v[i % layers], tbl, off, kv), layers, reps=3),
         "library_ms": time_ms(torch, lambda i: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask, enable_gqa=True), layers),
-        "bound_ms": t_bound, "bound_by": by,
+        "bound_ms": t_bound, "bound_by": by, "flops": 4.0 * hq * d * visible,
         "shape": f"B={b} Lq={lq} q_offset=0 kv_len={lq} Hq={hq} Hkv={hkv} "
                  f"D={d} ps={PS}"}
     for kname, row in out.items():
@@ -503,7 +508,8 @@ def group_gemm_checks(torch) -> float:
                   f"group_gemm disagrees ({name}, {label})")
             check(torch.equal(again, got),
                   f"group_gemm: a second launch differs ({name}, {label})")
-            check((total, skipped) == mg.kernel.tile_counts(cnt, c, f),
+            check((total, skipped) == mg.kernel.tile_counts(cnt, c, f,
+                                                            dtype),
                   f"group_gemm: tiles counted on the card are not those the "
                   f"counts predict ({name}, {label})")
     try:
@@ -518,23 +524,29 @@ def group_gemm_checks(torch) -> float:
 
 
 def group_gemm_timing(torch) -> dict:
-    """Times at full-width moonshot's gate/up shape (64 experts, D 2048,
-    F 1408, bfloat16), counts from a seeded routing: the decode step's
-    call (batch 8, C 1) on the row, and a 4,096-token join's (C 480) in
-    its ``prefill_*`` keys.  The bound counts the live experts' weights,
-    the live rows in and every output row out; the library call is one
-    ``torch.bmm`` over the padded slabs, which reads every expert's
-    weights.  The tiles and tiles skipped are the kernel's own count, on
-    the card, of its first (checked) launch."""
+    """Times at full-width moonshot's expert shapes (64 experts, bfloat16),
+    counts from a seeded routing: the decode step's gate/up call (batch 8,
+    C 1, D 2048 -> F 1408) on the row, a 4,096-token join's gate/up call
+    (C 480) in its ``prefill_*`` keys and the join's down projection (D
+    1408 -> F 2048) in its ``down_*`` keys.  The bound counts the live
+    experts' weights, the live rows in and every output row out; the
+    library call is one ``torch.bmm`` over the padded slabs, which reads
+    every expert's weights.  The tiles and tiles skipped are the kernel's
+    own count, on the card, of its first (checked) launch."""
     import numpy as np
     from repro_torch.kernels import moe_group_gemm as mg
-    e, d, f, item = 64, 2048, 1408, 2
+    e, item = 64, 2
     rng = np.random.default_rng(7)
-    w = (torch.from_numpy(rng.standard_normal((e, d, f)).astype(
-        np.float32)).cuda() / math.sqrt(d)).to(torch.bfloat16)
+    weights = {}
     rows = {}
-    for label, tokens, seed in (("decode", 8, SEED), ("prefill", 4096,
-                                                       SEED + 1)):
+    for label, tokens, seed, d, f in (("decode", 8, SEED, 2048, 1408),
+                                      ("prefill", 4096, SEED + 1, 2048, 1408),
+                                      ("down", 4096, SEED + 1, 1408, 2048)):
+        if (d, f) not in weights:
+            weights[d, f] = (torch.from_numpy(rng.standard_normal(
+                (e, d, f)).astype(np.float32)).cuda()
+                / math.sqrt(d)).to(torch.bfloat16)
+        w = weights[d, f]
         cnt, c = routed_counts(torch, tokens, seed)
         xe = torch.from_numpy(rng.standard_normal((e, c, d)).astype(
             np.float32)).cuda().to(torch.bfloat16)
@@ -544,7 +556,8 @@ def group_gemm_timing(torch) -> dict:
         n_rows, n_live = int(cnt.sum()), int((cnt > 0).sum())
         nbytes = (n_live * d * f * item + n_rows * d * item + e * c * f * 4
                   + e * 4)
-        t_bound, by = bound(nbytes, 2.0 * n_rows * d * f, "bfloat16")
+        flops = 2.0 * n_rows * d * f
+        t_bound, by = bound(nbytes, flops, "bfloat16")
         tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
         got = mg.kernel.group_gemm_cuda(xe, w, cnt, tiles=tiles)
         err = float((got.double() - torch.bmm(xe.double(), w.double())
@@ -558,7 +571,7 @@ def group_gemm_timing(torch) -> dict:
                 xe, w, cnt), 3, reps=3),
             "library_ms": time_ms(torch, lambda i: torch.bmm(xe, w), calls),
             "bound_ms": t_bound, "bound_by": by, "max_abs_err": err,
-            "tiles_skipped": skipped, "tiles": total,
+            "flops": flops, "tiles_skipped": skipped, "tiles": total,
             "shape": f"E={e} C={c} D={d} F={f} bf16, {n_rows} live rows in "
                      f"{n_live} live experts"}
         r = rows[label]
@@ -569,10 +582,28 @@ def group_gemm_timing(torch) -> dict:
               f"{skipped}/{total}, "
               f"max_abs_err vs float64 {err:.3e}")
     row = dict(rows["decode"])
-    row.update({f"prefill_{k}": rows["prefill"][k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-        "tiles_skipped", "tiles")})
+    for label in ("prefill", "down"):
+        row.update({f"{label}_{k}": rows[label][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "flops",
+            "tiles_skipped", "tiles")})
     return row
+
+
+def redesign_line(timings: dict) -> None:
+    """The redesigned kernels' achieved rate and share of their bound."""
+    parts = []
+    for label, name, key in (
+            ("paged_prefill qwen join", "paged_prefill", ""),
+            ("paged_prefill moonshot join (D 128)", "paged_prefill",
+             "d128_"),
+            ("group_gemm join gate/up", "group_gemm", "prefill_"),
+            ("group_gemm join down", "group_gemm", "down_")):
+        row = timings[name]
+        ms = row[key + "ms"]
+        parts.append(f"{label} {ms:.4f} ms, "
+                     f"{row[key + 'flops'] / ms / 1e9:.1f} TFLOP/s, "
+                     f"{row[key + 'bound_ms'] / ms:.1%} of its bound")
+    print("[timing] redesigned kernels (bf16): " + "; ".join(parts))
 
 
 # ---------------------------------------------------------------------------
@@ -1573,9 +1604,13 @@ def main() -> int:
     wave_kernel_checks(torch)
     timings = kernel_timings(torch)
     timings["decode_attn"] = stripe_timing(torch)
-    kernel_timings(torch, MOE_GEO, layers=48)
-    stripe_timing(torch, MOE_GEO, layers=48)
+    at_d128 = kernel_timings(torch, MOE_GEO, layers=48)
+    at_d128["decode_attn"] = stripe_timing(torch, MOE_GEO, layers=48)
+    for name, row in at_d128.items():
+        timings[name].update({f"d128_{k}": row[k] for k in (
+            "ms", "library_ms", "bound_ms", "flops") if k in row})
     timings["group_gemm"] = group_gemm_timing(torch)
+    redesign_line(timings)
     timings.update(primitive_timings(torch))
     timings.update(wave_timings(torch))
     for name in ("ssgemm_masked", "ssgemm_compact", "push_scatter",
@@ -1596,7 +1631,7 @@ def main() -> int:
                                 "paged_decode.cu",
                                 "src/repro/kernels/paged_attn/kernel.py:107"),
                "paged_prefill": ("src/repro_torch/kernels/paged_attn/csrc/"
-                                 "paged_prefill.cu",
+                                 "paged_prefill_tc.cu",
                                  "src/repro/kernels/paged_attn/"
                                  "prefill_kernel.py:138"),
                "decode_attn": ("src/repro_torch/kernels/decode_attn/csrc/"
@@ -1634,16 +1669,23 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-        if name == "group_gemm":     # the decode call; the join's beside
-            rows[-1].update({k: v for k, v in t.items()
-                             if k.startswith(("tiles", "prefill_"))})
+        # the group_gemm row is the decode call, the join's calls beside
+        # it; the attention rows are at qwen's geometry, moonshot's beside
+        rows[-1].update({k: v for k, v in t.items()
+                         if k.startswith(("tiles", "prefill_", "down_",
+                                          "d128_"))
+                         and not k.endswith("flops")})
+        if name == "group_gemm":     # the join's calls take the wgmma file
+            rows[-1]["prefill_source"] = ("src/repro_torch/kernels/"
+                                          "moe_group_gemm/csrc/"
+                                          "group_gemm_sm90.cu")
         # no single PyTorch call computes flux1d's pair of periodic
         # differences, so its library_ms is null, and that row's alone
         check(all(isinstance(v, (int, float)) and math.isfinite(v)
                   for k, v in rows[-1].items()
-                  if k in ("ms", "plain_ms", "bound_ms", "library_ms")
-                  and not (k == "library_ms" and name == "flux1d"
-                           and v is None)),
+                  if k.endswith("_ms") or k == "ms"
+                  if not (k == "library_ms" and name == "flux1d"
+                          and v is None)),
               f"{name}: a timing is not a finite number")
         check(counts[name] > 0, f"{name}: not launched on its path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

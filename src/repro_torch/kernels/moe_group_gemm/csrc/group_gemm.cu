@@ -14,29 +14,32 @@
 // What bounds it on an H100.  At decode (C 1 at batch 8 on moonshot) it is
 // bound by the bytes of the live experts' weights: each live expert's D x F
 // block is read once (5.8 MB in bf16 at D 2048, F 1408) for two flops per
-// weight.  At a 4,096-token prefill join (C 480) it is bound by operations:
-// 0.18 TFLOP per GEMM against 0.37 GB.
+// weight.  At a 4,096-token join (C 480) the bytes bound it too, with the
+// operations just under them (group_gemm_sm90.cu has the numbers).
 //
-// What the design does about it.  The grid is (F tiles, C tiles, E); each
-// CTA owns BM capacity rows x 64 output columns of one expert and reads
-// counts[e] first.  A tile whose first row is at or past the count writes
-// its zeros and returns before it touches xe or w: a dead expert costs one
-// count read per CTA and its zero rows, and no weight byte.  A live tile
-// walks K in chunks of 128 bytes a row, staged in shared memory through a
-// register prefetch of the next chunk (two buffers, one barrier a chunk);
-// rows at or past the count are not read (zeros are staged) and are
-// written as zeros.  At decode C is 1, so BM is 16 and one expert's weight
-// block is streamed by F / 64 CTAs side by side (22 for the gate and up
-// projections), all of them resident at once.  bfloat16 products run on
-// the tensor cores through `nvcuda::wmma` (16x16x16 fragments, float32
-// accumulators): a 16-row fragment wastes 15 rows at C 1, which costs
-// nothing where the weight bytes bound the kernel.  float32 products run as
-// plain FMA tiles on the CUDA cores (no TF32).  Operands move in 16-byte
+// What the design does about it.  The calls of a join in bfloat16 (C >
+// 16) go to group_gemm_sm90.cu: wgmma tiles fed by TMA through a ring of
+// K stages (see there).  This file keeps decode (C <= 16) and float32.
+// The grid is (F tiles, C tiles, E); each CTA owns BM capacity rows x 64
+// output columns of one expert and reads counts[e] first.  A tile whose
+// first row is at or past the count writes its zeros and returns before it
+// touches xe or w: a dead expert costs one count read per CTA and its zero
+// rows, and no weight byte.  A live tile walks K in chunks of 128 bytes a
+// row, staged in shared memory through a register prefetch of the next
+// chunk (two buffers, one barrier a chunk); rows at or past the count are
+// not read (zeros are staged) and are written as zeros.  At decode C is 1,
+// so BM is 16 and one expert's weight block is streamed by F / 64 CTAs side
+// by side (22 for the gate and up projections), all of them resident at
+// once: the weight bytes, not the products, set the time, and this design
+// reaches 73-79% of that bound.  bfloat16 products run on the tensor cores
+// through `nvcuda::wmma` (16x16x16 fragments, float32 accumulators): a
+// 16-row fragment wastes 15 rows at C 1, which costs nothing where the
+// weight bytes bound the kernel.  float32 products run as plain FMA tiles
+// on the CUDA cores (no TF32), with BM 64.  Operands move in 16-byte
 // loads: rows of D and F are whole 16-byte multiples and both bases are
 // 16-byte aligned, which the wrapper requires.  Reads past C, D and F are
 // guarded.  Where asked (a non-null `tiles`), each CTA adds one to tiles[0]
 // and each skipped one to tiles[1], so a caller can read what was skipped.
-// wgmma, TMA and a persistent schedule are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -290,15 +293,25 @@ cudaError_t dispatch(const void* xe, const void* w, const int* counts,
                      int bm, cudaStream_t stream) {
   if (bm == 16) return launch<T, 16>(xe, w, counts, out, tiles, e, c, d, f,
                                      stream);
-  if (bm == 64) return launch<T, 64>(xe, w, counts, out, tiles, e, c, d, f,
-                                     stream);
+  if constexpr (sizeof(T) == 4) {  // bfloat16 past C 16 is the wgmma kernel's
+    if (bm == 64) return launch<T, 64>(xe, w, counts, out, tiles, e, c, d,
+                                       f, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace group_gemm
 
+// bfloat16 with C > 16: wgmma tiles of 256 rows x 128 columns
+// (group_gemm_sm90.cu)
+cudaError_t group_gemm_wgmma_launch(const void* xe, const void* w,
+                                    const int* counts, float* out,
+                                    int* tiles, int e, int c, int d, int f,
+                                    cudaStream_t stream);
+
 // Plain C++ entry point for the binding (no PyTorch headers here).  `bm`
-// is the capacity rows per tile (16 or 64); D and F are whole 16-byte rows
+// is the capacity rows per tile: 16 (C <= 16), 64 (float32) or 256
+// (bfloat16, C > 16: the wgmma kernel); D and F are whole 16-byte rows
 // and both bases 16-byte aligned; `tiles` is null or two int32 counters
 // the launch adds to.  Returns the launch status.
 cudaError_t group_gemm_launch(int dtype, const void* xe, const void* w,
@@ -309,6 +322,11 @@ cudaError_t group_gemm_launch(int dtype, const void* xe, const void* w,
   if (e < 0 || c < 0 || d < 0 || f < 0) return cudaErrorInvalidValue;
   if (e == 0 || c == 0 || f == 0) return cudaSuccess;
   if (e > 65535 || (c + bm - 1) / bm > 65535) return cudaErrorInvalidValue;
+  if (bm == 256)
+    return dtype == kBFloat16
+               ? group_gemm_wgmma_launch(xe, w, counts, out, tiles, e, c, d,
+                                         f, stream)
+               : cudaErrorInvalidValue;
   if (dtype == kFloat32)
     return dispatch<float>(xe, w, counts, out, tiles, e, c, d, f, bm, stream);
   if (dtype == kBFloat16)

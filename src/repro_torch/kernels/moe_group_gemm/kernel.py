@@ -1,7 +1,9 @@
 """Build, load and launch the hand-written CUDA grouped expert GEMM.
 
 Sources live in ``csrc/``: ``group_gemm.cu`` (replaces the TPU kernel
-``repro/kernels/moe_group_gemm/kernel.py::group_gemm_kernel``) and
+``repro/kernels/moe_group_gemm/kernel.py::group_gemm_kernel``: decode
+and float32, and the launcher), ``group_gemm_sm90.cu`` (the same kernel
+for bfloat16 slabs of more than 16 rows, a join's: wgmma fed by TMA) and
 ``binding.cpp``, the one file that includes PyTorch's headers.  They are
 compiled for ``sm_90a`` with ``torch.utils.cpp_extension.load`` at the
 first launch, into ``build/moe_group_gemm`` at the repository root.
@@ -10,10 +12,12 @@ Importing this module builds nothing.
 The wrapper checks device, dtype, shape, contiguity and alignment (rows of
 D and F in whole 16 bytes, 16-byte aligned bases) and raises on anything
 the kernel does not take; it allocates the output with ``torch.empty`` and
-launches on PyTorch's current stream.  The kernel's capacity tile is
-:func:`tile_rows` rows (16 where C fits one fragment, as at decode, else
-64).  Given ``tiles``, the kernel counts on the card the tiles it ran and
-those it skipped; :func:`tile_counts` is what the tiling rule predicts.
+launches on PyTorch's current stream.  The tile is :func:`tile_rows`
+capacity rows by :func:`tile_cols` output columns: 16 x 64 where C fits
+one fragment (as at decode), 256 x 128 for bfloat16 past that (the wgmma
+kernel), 64 x 64 for float32.  Given ``tiles``, the kernel counts on the
+card the tiles it ran and those it skipped; :func:`tile_counts` is what
+the tiling rule predicts.
 The plain version lives in :mod:`.ref` and the routing by the tensors'
 device in :mod:`.ops`.  ``launch_counts`` counts launches.
 """
@@ -25,9 +29,10 @@ import threading
 import torch
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("binding.cpp", "group_gemm.cu")
+_SOURCES = ("binding.cpp", "group_gemm.cu", "group_gemm_sm90.cu")
 _DTYPES = (torch.float32, torch.bfloat16)
 BN = 64                        # kBN in group_gemm.cu
+BN_WGMMA = 128                 # kBN in group_gemm_sm90.cu
 _INT_MAX = 2**31 - 1
 
 launch_counts = {"group_gemm": 0}
@@ -64,20 +69,29 @@ def load_extension():
     return _ext
 
 
-def tile_rows(c: int) -> int:
+def tile_rows(c: int, dtype: torch.dtype) -> int:
     """Capacity rows per tile of the kernel for slabs of ``c`` rows."""
-    return 16 if c <= 16 else 64
+    if c <= 16:
+        return 16
+    return 256 if dtype == torch.bfloat16 else 64
 
 
-def tile_counts(counts: torch.Tensor, c: int, f: int) -> tuple[int, int]:
+def tile_cols(c: int, dtype: torch.dtype) -> int:
+    """Output columns per tile of the kernel for slabs of ``c`` rows."""
+    return BN_WGMMA if tile_rows(c, dtype) == 256 else BN
+
+
+def tile_counts(counts: torch.Tensor, c: int, f: int,
+                dtype: torch.dtype) -> tuple[int, int]:
     """(tiles, tiles skipped) that the tiling rule predicts for one launch
-    over [E, c, *] slabs with ``f`` output columns: a tile is skipped when
-    its first row is at or past its expert's count.  Reads ``counts`` back
-    to the host; the kernel's own count is ``group_gemm_cuda(tiles=)``."""
-    bm = tile_rows(c)
+    over [E, c, *] slabs of ``dtype`` with ``f`` output columns: a tile is
+    skipped when its first row is at or past its expert's count.  Reads
+    ``counts`` back to the host; the kernel's own count is
+    ``group_gemm_cuda(tiles=)``."""
+    bm = tile_rows(c, dtype)
     per_expert = -(-c // bm)
     live = (counts.clamp(0, c) + bm - 1) // bm
-    n_f = -(-f // BN)
+    n_f = -(-f // tile_cols(c, dtype))
     total = counts.shape[0] * per_expert * n_f
     return total, total - int(live.sum()) * n_f
 
@@ -119,7 +133,7 @@ def group_gemm_cuda(xe: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"counts has {counts.shape[0]} entries for {e} "
                          "experts")
     f = w.shape[2]
-    bm = tile_rows(c)
+    bm = tile_rows(c, xe.dtype)
     if e > 65535 or -(-c // bm) > 65535 or max(c, d, f) > _INT_MAX:
         raise ValueError(f"shape xe {tuple(xe.shape)} w {tuple(w.shape)} "
                          "is past the kernel's grid")

@@ -6,9 +6,9 @@ Routing is by the tensors' device and nothing else: a CUDA ``xe`` goes to
 the hand-written kernel (:mod:`.kernel`), a CPU ``xe`` to its plain
 version (:mod:`.ref`).  There is no fallback: a CUDA call the kernel
 cannot take raises.  The JAX op's ``bc`` (capacity rows per tile) is not
-taken: the result does not depend on it, and the kernel picks its own tile
-(:func:`.kernel.tile_rows`) and needs no padding of C.  There is no
-``interpret`` flag.
+taken: the result does not depend on it, and the kernel picks its own
+tile (:func:`.kernel.tile_rows` x :func:`.kernel.tile_cols`) and needs no
+padding of C.  There is no ``interpret`` flag.
 """
 from __future__ import annotations
 

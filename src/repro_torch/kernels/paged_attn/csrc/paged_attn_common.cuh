@@ -1,7 +1,8 @@
-// Shared device code of the attention kernels (paged_decode.cu,
-// paged_prefill.cu, and ../../decode_attn/csrc/decode_attn.cu): a
-// flash-attention walk of one (slot, KV head) row block over the slot's
-// keys, with the online softmax in float32.
+// Shared device code of the attention kernels (paged_decode.cu, the
+// float32 prefill of paged_prefill.cu, and ../../decode_attn/csrc/
+// decode_attn.cu): a flash-attention walk of one (slot, KV head) row block
+// over the slot's keys, with the online softmax in float32.  The bfloat16
+// prefill (paged_prefill_tc.cu) has a tensor-core walk of its own.
 //
 // A CTA owns `rows` query rows (at most RMAX) of one slot and one KV head.
 // It walks the slot's keys in tiles of TILE rows.  Each tile asks a key-row

@@ -23,10 +23,21 @@
 // card's 132 SMs at a join.  Each CTA stops its page walk at
 // min(kv_len, causal top of its row block + 1), which skips the pages
 // above the block's diagonal, as the TPU kernel's causal skip does.  The
-// products run on the CUDA cores in float32 from shared memory; moving them
-// to wgmma tensor-core tiles is the next step for this kernel and is left
-// for a later change.
+// dtype picks the walk, by a fixed rule: bfloat16, the served dtype, runs
+// on the tensor cores (paged_prefill_tc.cu: mma.sync products, cp.async
+// K/V ring); float32, the dtype of the card-side agreement runs, keeps the
+// shared tile walk of paged_attn_common.cuh on the CUDA cores (TF32 is off
+// by the repository's rule, so float32 has no tensor-core product).
 #include "paged_attn_common.cuh"
+
+// bfloat16 on the tensor cores (paged_prefill_tc.cu)
+cudaError_t paged_prefill_tc_launch(int head_dim, const void* q,
+                                    const void* k, const void* v,
+                                    const int* table, const int* q_offset,
+                                    const int* kv_len, void* out, int batch,
+                                    int lq, int hq, int hkv, int n_pages,
+                                    int page_size, int table_width,
+                                    cudaStream_t stream);
 
 namespace paged_attn {
 
@@ -121,9 +132,8 @@ cudaError_t paged_prefill_launch(int dtype, int head_dim, const void* q,
                                    kv_len, out, batch, lq, hq, hkv, n_pages,
                                    page_size, table_width, stream);
   if (dtype == kBFloat16)
-    return dispatch_prefill<__nv_bfloat16>(head_dim, q, k, v, table,
-                                           q_offset, kv_len, out, batch, lq,
-                                           hq, hkv, n_pages, page_size,
-                                           table_width, stream);
+    return paged_prefill_tc_launch(head_dim, q, k, v, table, q_offset,
+                                   kv_len, out, batch, lq, hq, hkv, n_pages,
+                                   page_size, table_width, stream);
   return cudaErrorInvalidValue;
 }

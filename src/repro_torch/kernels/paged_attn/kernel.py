@@ -3,8 +3,10 @@
 Sources live in ``csrc/``: ``paged_decode.cu`` (replaces the TPU kernel
 ``repro/kernels/paged_attn/kernel.py::paged_attn_kernel``),
 ``paged_prefill.cu`` (replaces ``prefill_kernel.py::
-paged_prefill_attn_kernel``) and ``binding.cpp``, the one file that
-includes PyTorch's headers.  They are compiled for ``sm_90a`` with
+paged_prefill_attn_kernel``; float32 on the CUDA cores, and the dispatch
+by dtype), ``paged_prefill_tc.cu`` (the same kernel in bfloat16 on the
+tensor cores) and ``binding.cpp``, the one file that includes PyTorch's
+headers.  They are compiled for ``sm_90a`` with
 ``torch.utils.cpp_extension.load`` in one call, at the first launch, into
 ``build/paged_attn`` at the repository root.  Importing this module builds
 nothing.
@@ -25,7 +27,8 @@ import threading
 import torch
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("binding.cpp", "paged_decode.cu", "paged_prefill.cu")
+_SOURCES = ("binding.cpp", "paged_decode.cu", "paged_prefill.cu",
+            "paged_prefill_tc.cu")
 _HEAD_DIMS = (16, 64, 128)     # reduced configs, qwen2-0.5b, moonshot
 _DTYPES = (torch.float32, torch.bfloat16)
 DECODE_MAX_GROUP = 16          # kDecodeRows in paged_decode.cu

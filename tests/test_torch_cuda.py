@@ -95,16 +95,27 @@ def test_decode_kernel_matches_plain_version(dtype, hq, hkv, d, ps):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,d,ps", GEOMETRIES)
-@pytest.mark.parametrize("lq,offsets", [(5, [0, 3, 17, 60, 100]),
-                                        (37, [0, 0, 9, 31, 64])])
+@pytest.mark.parametrize("lq,offsets,cut", [
+    (5, [0, 3, 17, 60, 100], [0] * 5),
+    (37, [0, 0, 9, 31, 64], [0] * 5),
+    (3, [0, 2, 1, 0, 5], [0] * 5),                # kv_len below one tile
+    (9, [0, 15, 60, 119, 250], [0] * 5),          # rows across a page and
+                                                  # a 64-key tile edge
+    (20, [0, 40, 70, 5, 0], [17, 10, 0, 19, 3])])  # kv_len cuts the window
 def test_prefill_kernel_matches_plain_version(dtype, hq, hkv, d, ps, lq,
-                                              offsets):
+                                              offsets, cut):
+    """Prefill and verify shapes, and the tensor-core walk's edges
+    (bfloat16; float32 takes the CUDA-core walk): Lq x G not a multiple of
+    the 64-row block (at G 7 a block cuts a token's group), queries that
+    straddle a page and a 64-key tile, kv_len below one tile, and kv_len
+    below some rows' positions."""
     rng = np.random.default_rng(hq + d + lq)
-    kv_len = [o + lq for o in offsets]
-    k, v, tbl = _pages(rng, 5, hkv, d, 80, ps, 16, kv_len, dtype)
+    kv_len = [o + lq - c for o, c in zip(offsets, cut)]
+    k, v, tbl = _pages(rng, 5, hkv, d, 100, ps, 40, [o + lq for o in offsets],
+                       dtype)
     q = torch.randn(5, lq, hq, d, device="cuda").to(dtype)
     off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
-    kvl = off + lq
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     before = kernel.launch_counts["paged_prefill"]
     got = paged_prefill_attn(q, k, v, tbl, off, kvl)
     assert kernel.launch_counts["paged_prefill"] == before + 1
@@ -113,6 +124,23 @@ def test_prefill_kernel_matches_plain_version(dtype, hq, hkv, d, ps, lq,
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(14, 2, 64), (16, 16, 128)])
+def test_prefill_join_at_full_width(hq, hkv, d):
+    """A join of eight 512-token prompts in bfloat16 at full-width qwen
+    (G 7, D 64) and moonshot (G 1, D 128), pages of 16, against the plain
+    version in float32 on the same values."""
+    rng = np.random.default_rng(d)
+    k, v, tbl = _pages(rng, 8, hkv, d, 256, 16, 32, [512] * 8,
+                       torch.bfloat16)
+    q = torch.randn(8, 512, hq, d, device="cuda").to(torch.bfloat16)
+    off = torch.zeros(8, dtype=torch.int32, device="cuda")
+    got = paged_prefill_attn(q, k, v, tbl, off, off + 512)
+    want = paged_prefill_attn_ref(q.float(), k.float(), v.float(), tbl, off,
+                                  off + 512)
+    torch.cuda.synchronize()
+    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -634,7 +662,25 @@ GROUP_SHAPES = [(2, 128, 64, 64, None),     # test_kernels_moe.py's sweep
                 (64, 1, 2048, 1408, None),  # moonshot decode, C 1
                 (6, 100, 48, 80, None),     # ragged C and F
                 (4, 64, 32, 64, "all-empty"),
-                (4, 64, 32, 64, "all-full")]
+                (4, 64, 32, 64, "all-full"),
+                (3, 300, 200, 136, None),   # C, K and F past whole tiles
+                (64, 480, 2048, 1408, "routed"),  # moonshot's join: gate/up
+                (64, 480, 1408, 2048, "routed")]  # and down
+
+
+def _routed_counts(tokens):
+    """Expert counts of one MoE call over ``tokens`` tokens at full-width
+    moonshot: the port's route and rank dispatch on a seeded router
+    (N(0, 0.02)) and seeded activations of unit RMS."""
+    from repro_torch.models import moe
+    cfg = get_config("moonshot-v1-16b-a3b")
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    router = {"w": 0.02 * torch.randn(cfg.d_model, cfg.moe.n_experts,
+                                      generator=gen, device="cuda")}
+    x = torch.randn(tokens, cfg.d_model, generator=gen, device="cuda")
+    _, ids, _ = moe.route({"router": router}, x, cfg)
+    return moe.dispatch(ids, cfg.moe.n_experts,
+                        moe.capacity(cfg, tokens))[2].cpu().numpy()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -648,9 +694,13 @@ def test_group_gemm_kernel_matches_plain_version(dtype, e, c, d, f, fill):
     second launch through the wrapper gives the same bits and counts on
     the card the tiles the counts leave empty."""
     rng = np.random.default_rng(e * c + d)
-    counts = {"all-empty": np.zeros(e), "all-full": np.full(e, c)}.get(
-        fill, rng.integers(0, c + 1, size=e)).astype(np.int32)
-    counts[0] = 0 if fill is None else counts[0]
+    if fill == "routed":                # a 4,096-token join: C 480
+        counts = _routed_counts(4096).astype(np.int32)
+        assert counts.shape == (e,) and counts.max() <= c
+    else:
+        counts = {"all-empty": np.zeros(e), "all-full": np.full(e, c)}.get(
+            fill, rng.integers(0, c + 1, size=e)).astype(np.int32)
+        counts[0] = 0 if fill is None else counts[0]
     xe = torch.from_numpy(rng.standard_normal((e, c, d)).astype(
         np.float32)).to("cuda").to(dtype)
     w = torch.from_numpy(rng.standard_normal((e, d, f)).astype(
@@ -672,10 +722,10 @@ def test_group_gemm_kernel_matches_plain_version(dtype, e, c, d, f, fill):
     tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
     assert torch.equal(mg.kernel.group_gemm_cuda(xe, w, cnt, tiles=tiles),
                        got)
-    total, skipped = mg.kernel.tile_counts(cnt, c, f)
+    total, skipped = mg.kernel.tile_counts(cnt, c, f, dtype)
     assert tiles.tolist() == [total, skipped]
-    bm = mg.kernel.tile_rows(c)
-    n_f = -(-f // 64)
+    bm = mg.kernel.tile_rows(c, dtype)
+    n_f = -(-f // mg.kernel.tile_cols(c, dtype))
     assert total == e * -(-c // bm) * n_f
     assert skipped == n_f * sum(-(-c // bm) - -(-int(n) // bm)
                                 for n in counts)

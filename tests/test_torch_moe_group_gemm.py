@@ -119,14 +119,23 @@ def test_cpu_tensors_take_the_plain_version():
         kernel.group_gemm_cuda(tx, tw, tc)       # the wrapper takes no CPU
 
 
-@pytest.mark.parametrize("c,counts,want", [
-    (1, [1, 0, 1, 0], (4 * 22, 2 * 22)),         # decode: C 1, tiles of 16
-    (480, [480, 0, 100, 64], (4 * 8 * 22, 22 * (0 + 8 + 6 + 7))),
-    (16, [17, -2], (2 * 22, 22))])               # counts clamp to [0, C]
-def test_tile_counts(c, counts, want):
-    """Tiles of the kernel's launch and those skipped (F 1408 = 22 column
-    tiles of 64; 16-row tiles up to C 16, else 64-row tiles)."""
-    assert kernel.tile_counts(torch.tensor(counts), c, 1408) == want
+@pytest.mark.parametrize("c,dtype,counts,rows", [
+    (1, torch.bfloat16, [1, 0, 1, 0], (4, 2)),     # decode: C 1, tiles of 16
+    (480, torch.bfloat16, [480, 0, 100, 64],       # a join: the wgmma
+     (4 * 2, 0 + 2 + 1 + 1)),                      # kernel's 256-row tiles
+    (480, torch.float32, [480, 0, 100, 64],        # float32: 64-row tiles
+     (4 * 8, 0 + 8 + 6 + 7)),
+    (16, torch.bfloat16, [17, -2], (2, 1))])       # counts clamp to [0, C]
+def test_tile_counts(c, dtype, counts, rows):
+    """Tiles of the kernel's launch and those skipped: ``rows`` gives them
+    per column tile (16-row tiles up to C 16, then 256-row tiles in
+    bfloat16 and 64-row tiles in float32), times F 1408's column tiles of
+    ``kernel.BN_WGMMA`` (the bfloat16 kernel past C 16) or ``kernel.BN``."""
+    bn = kernel.BN_WGMMA if c > 16 and dtype == torch.bfloat16 else kernel.BN
+    assert kernel.tile_cols(c, dtype) == bn
+    n_f = -(-1408 // bn)
+    assert (kernel.tile_counts(torch.tensor(counts), c, 1408, dtype)
+            == (rows[0] * n_f, rows[1] * n_f))
 
 
 def test_argument_checks():
