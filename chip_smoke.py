@@ -25,9 +25,11 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    and full-width moonshot's expert shapes at decode (C 1) and at a
    4,096-token join (C 480) with counts from a seeded routing; the rows
    past each count exactly zero though the padding holds NaN.  Skinny
-   GEMM, masked and compact, in bfloat16 and float32: N 2-16, ragged M
-   and K, densities 0, 0.05 and 1, budgets 1, the live count and every
-   block (the overflow guard included).  Push
+   GEMM, masked and compact, in bfloat16 and float32 on both routes (the
+   tensor-core walk for aligned bfloat16, the CUDA-core walk for the
+   rest, counted by ``route_counts``): N 1-16, ragged M and K, densities
+   0, 0.05 and 1, budgets 1, the live count and every block (the overflow
+   guard included), and A's columns NaN in every block a walk skips.  Push
    scatter: every update hot, every update cold, hot == n < 1024, hot
    1024, U a multiple of no tile.  Wave volume, float32 and bfloat16,
    (E, F) from (1, 1) to ``Problem()``'s (64000, 27), c 1.0 and 0.7;
@@ -43,8 +45,9 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    take for the same work; the attention kernels also at moonshot's
    geometry over 48 layers, the grouped GEMM at decode and at a join (its
    gate/up and its down projection) with its tiles skipped, and the
-   achieved TFLOP/s and share of the bound of the two kernels redesigned
-   for the tensor cores (bf16 prefill, the grouped GEMM at a join);
+   achieved TFLOP/s and share of the bound of the kernels redesigned for
+   the tensor cores (bf16 prefill, the grouped GEMM at a join, both
+   ss-gemm walks at N 16); ss-gemm's two routes side by side at N 2-16;
 4. serve, paged and dense: full-width qwen2-0.5b (seeded random bfloat16
    weights) through ``repro_torch.launch.serve.run``: 16 requests,
    prompts of 64-512 tokens, 64 new tokens each, batch 8, max_len 1024,
@@ -61,6 +64,7 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    it; one push iteration on each of the three ``graphs.paper_inputs``
    graphs in full (57.6 M, 10 M and 100 M updates).  Each against its
    float64 oracle, with the blocks skipped and the hot share printed;
+   every ss-gemm launch there takes the tensor-core route;
 7. the wave path: ``repro_torch.launch.wave_demo.run`` at the demo's size
    (8^3 grid, 3 fields, 40 steps, float32) with the volume kernel on the
    card against the plain path on the CPU; at ``wavesim.Problem()`` (40^3
@@ -82,7 +86,8 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*``, the
-grouped GEMM's row the join's as ``prefill_*`` and ``down_*``), the
+grouped GEMM's row the join's as ``prefill_*`` and ``down_*``, the ss-gemm
+rows N 16's as ``n16_*``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -597,7 +602,9 @@ def redesign_line(timings: dict) -> None:
             ("paged_prefill moonshot join (D 128)", "paged_prefill",
              "d128_"),
             ("group_gemm join gate/up", "group_gemm", "prefill_"),
-            ("group_gemm join down", "group_gemm", "down_")):
+            ("group_gemm join down", "group_gemm", "down_"),
+            ("ssgemm_masked N 16 make_skinny", "ssgemm_masked", "n16_"),
+            ("ssgemm_compact N 16 clustered", "ssgemm_compact", "n16_")):
         row = timings[name]
         ms = row[key + "ms"]
         parts.append(f"{label} {ms:.4f} ms, "
@@ -645,8 +652,9 @@ def skinny_inputs(torch, rng, m, k, n, density, dtype, bk):
 def ssgemm_checks(torch) -> None:
     """Both walks against their plain versions on the card (float64 on the
     same values, worst-case float32 bound), at ragged and aligned shapes,
-    N 2-16, densities 0 / 0.05 / 1, in bfloat16 and float32; the compact
-    op at budgets 1, the live count and every block."""
+    N 1-16, densities 0 / 0.05 / 1, in bfloat16 and float32, on both
+    routes; the compact op at budgets 1, the live count and every block;
+    then A poisoned with NaN in every block a walk skips."""
     import numpy as np
     from repro_torch.kernels import ss_gemm as sg
     rng = np.random.default_rng(3)
@@ -655,9 +663,10 @@ def ssgemm_checks(torch) -> None:
               (1000, 4096, 256)]    # aligned, the paper's K
     n_checks = overflows = 0
     worst = 0.0
+    sg.reset_launch_counts()
     for dtype in (torch.bfloat16, torch.float32):
         for m, k, bk in shapes:
-            for n in (2, 4, 8, 16):
+            for n in (1, 2, 3, 4, 8, 9, 15, 16):
                 for density in (0.0, 0.05, 1.0):
                     a, b = skinny_inputs(torch, rng, m, k, n, density, dtype,
                                          bk)
@@ -699,10 +708,70 @@ def ssgemm_checks(torch) -> None:
                               f"{ratio:.2f} of the bound")
     check(overflows > 0, "no compact check took the overflow guard")
     print(f"[kernels] ssgemm masked/compact, bfloat16 and float32, "
-          f"M x K x bk {shapes}, N 2-16, density 0/0.05/1: {n_checks} "
+          f"M x K x bk {shapes}, N 1-16, density 0/0.05/1: {n_checks} "
           f"checks within the float32 summation bound (largest error "
           f"{worst:.3f} of its bound); {overflows} compact runs took the "
-          f"overflow guard")
+          f"overflow guard; routes {sg.route_counts}")
+    check(min(sg.route_counts.values()) > 0, "an ss-gemm route never ran")
+    ssgemm_poison_checks(torch)
+
+
+def ssgemm_poison_checks(torch) -> None:
+    """A's columns hold NaN in every block a walk skips (for the list walk
+    also the live blocks listed past n_live): a kernel that loaded them and
+    multiplied by B's zeros would return NaN.  Both routes, both walks and
+    both ops, finite and within the float32 bound."""
+    import numpy as np
+    from repro_torch.kernels import ss_gemm as sg
+    rng = np.random.default_rng(5)
+    sg.reset_launch_counts()
+    worst, n_checks = 0.0, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, k, bk in ((1000, 4096, 256), (77, 520, 256)):
+            for n in (4, 16):
+                a, b = skinny_inputs(torch, rng, m, k, n, 1.0, dtype, bk)
+                nk = -(-k // bk)
+                for kb in range(1, nk - 1, 2):    # odd blocks dead
+                    b[kb * bk:(kb + 1) * bk] = 0
+                mask = sg.block_occupancy(b, bk)
+                live = torch.nonzero(mask).reshape(-1)
+                a64, b64 = a.double(), b.double()
+                full, full_abs = a64 @ b64, a64.abs() @ b64.abs()
+
+                def poisoned(walked):
+                    cols = torch.zeros(k, dtype=torch.bool, device="cuda")
+                    for kb in walked:
+                        cols[kb * bk:(kb + 1) * bk] = True
+                    return a.masked_fill(~cols, float("nan"))
+                a_mask = poisoned(live.tolist())
+                idx = live.flip(0).to(torch.int32)      # the last past n_live
+                nl = torch.tensor([idx.numel() - 1], dtype=torch.int32,
+                                  device="cuda")
+                runs = [("masked kernel", sg.kernel.ssgemm_masked_cuda(
+                            a_mask, b, mask, bk), full, full_abs),
+                        ("masked op", sg.ssgemm_masked(a_mask, b, bk=bk),
+                         full, full_abs),
+                        ("compact op", sg.ssgemm_compact(
+                            a_mask, b, budget=live.numel(), bk=bk), full,
+                         full_abs),
+                        ("compact kernel", sg.kernel.ssgemm_compact_cuda(
+                            poisoned(idx[:-1].tolist()), b, idx, nl, bk),
+                         sg.ssgemm_compact_ref(a64, b64, idx, nl, bk),
+                         sg.ssgemm_compact_ref(a64.abs(), b64.abs(), idx,
+                                               nl, bk))]
+                torch.cuda.synchronize()
+                for label, got, want, bnd in runs:
+                    ok, err, ratio = summed_within(got, want, bnd, k)
+                    n_checks += 1
+                    worst = max(worst, ratio)
+                    check(ok and bool(torch.isfinite(got).all()),
+                          f"ssgemm {label} read a skipped block ({dtype}, "
+                          f"M={m} K={k} N={n}): err {err:.3e}")
+    print(f"[kernels] ssgemm NaN in every skipped block of A: {n_checks} "
+          f"checks finite and within the float32 bound (largest error "
+          f"{worst:.3f} of its bound); routes {sg.route_counts}")
+    check(min(sg.route_counts.values()) > 0,
+          "an ss-gemm route missed the NaN check")
 
 
 def push_checks(torch) -> None:
@@ -816,9 +885,13 @@ def primitives_ss_gemm(torch) -> dict:
                   f"density {density:.3f}, zero rows {row_zero:.1%}, blocks "
                   f"skipped {nk - live}/{nk} ({(nk - live) / nk:.1%}); "
                   f"max_abs_err (share of bound): {', '.join(parts)}")
-    print(f"[primitives] ss-gemm launches {sg.launch_counts}")
+    print(f"[primitives] ss-gemm launches {sg.launch_counts}, routes "
+          f"{sg.route_counts}")
     check(sg.launch_counts["ssgemm_masked"] == 16,
           "ss-gemm: dense + masked runs != 2 x 8 masked-kernel launches")
+    check(sg.route_counts["tensor_core"] == sum(sg.launch_counts.values())
+          and sg.route_counts["cuda_core"] == 0,
+          "ss-gemm: a bf16 Problem() launch missed the tensor-core route")
     return dict(sg.launch_counts)
 
 
@@ -862,16 +935,19 @@ def primitives_push(torch) -> dict:
 
 def primitive_timings(torch) -> dict:
     """Times of the three kernels at the primitives phase's shapes:
-    ss-gemm at Problem() (N 4, bf16), masked on make_skinny data (every
-    block live) and compact on the clustered B at budget = the live count;
-    push on powerlaw-1M-10M (10 M updates, hot 1,024).  Also masked on the
-    clustered B and both at N 16, printed only."""
+    ss-gemm at Problem() (bf16) at N 4 and, as ``n16_*``, N 16, masked on
+    make_skinny data (every block live) and compact on the clustered B at
+    budget = the live count; push on powerlaw-1M-10M (10 M updates, hot
+    1,024).  Printed only: the other walk on each B, the two routes side by
+    side at N 2-16, and the float32 route at N 16 beside float32
+    ``torch.matmul``."""
     import numpy as np
     from repro_torch.core.primitives import graphs, ss_gemm
     from repro_torch.kernels import push_scatter as ps
     from repro_torch.kernels import ss_gemm as sg
     prob = ss_gemm.Problem()
     m, k, bk, item = prob.m, prob.k, 256, 2
+    ext = sg.kernel.load_extension()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
     a64 = a.double()
@@ -891,13 +967,17 @@ def primitive_timings(torch) -> dict:
                 torch.int32)
             nl = torch.tensor([live], dtype=torch.int32, device="cuda")
             lib = time_ms(torch, lambda i: torch.matmul(a, b), 20)
-            for kname, run, plain, extra_bytes in (
+            c_out = torch.empty(m, n, device="cuda")
+            for kname, run, bare, plain, extra_bytes in (
                     ("ssgemm_masked",
                      lambda i: sg.kernel.ssgemm_masked_cuda(a, b, mask, bk),
+                     lambda i: ext.ssgemm_masked_tc(a, b, mask, bk, c_out),
                      lambda i: sg.ssgemm_masked_ref(a, b, mask, bk), nk * 4),
                     ("ssgemm_compact",
                      lambda i: sg.kernel.ssgemm_compact_cuda(a, b, idx, nl,
                                                              bk),
+                     lambda i: ext.ssgemm_compact_tc(a, b, idx, nl, bk,
+                                                     c_out),
                      lambda i: sg.ssgemm_compact_ref(a, b, idx, nl, bk),
                      idx.numel() * 4 + 4)):
                 got = run(0)
@@ -917,17 +997,22 @@ def primitive_timings(torch) -> dict:
                         f"{row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, "
                         f"library_ms (torch.matmul, dense) {lib:.4f}, "
                         f"bound_ms {t_bound:.4f} ({by}), max_abs_err vs "
-                        f"float64 {err:.3e}")
-                main = n == 4 and (
-                    (kname, label) in (("ssgemm_masked", "make_skinny"),
-                                       ("ssgemm_compact", "clustered")))
-                if main:
+                        f"float64 {err:.3e}; through the binding entry, "
+                        f"without the Python wrapper, "
+                        f"{time_ms(torch, bare, 50):.4f} ms")
+                main = (kname, label) in (("ssgemm_masked", "make_skinny"),
+                                          ("ssgemm_compact", "clustered"))
+                if main and n == 4:
                     out[kname] = row
-                    print(line)
-                else:
-                    extra.append(line)
+                elif main:
+                    out[kname].update({
+                        "n16_ms": row["ms"], "n16_plain_ms": row["plain_ms"],
+                        "n16_library_ms": lib, "n16_bound_ms": t_bound,
+                        "n16_flops": flops})
+                (print if main else extra.append)(line)
     for line in extra:
         print(line)
+    ssgemm_route_timings(torch, a, bk)
 
     g = {x.name: x for x in graphs.paper_inputs(SEED)}["powerlaw-1M-10M"]
     src, dst = g.edges(g.n_edges, SEED)
@@ -961,6 +1046,45 @@ def primitive_timings(torch) -> dict:
           f"max_abs_err vs float64 {err:.3e}; the whole push_scatter op "
           f"{op_ms:.4f} ms")
     return out
+
+
+def ssgemm_route_timings(torch, a, bk: int) -> None:
+    """The masked walk on both routes at Problem() (bf16 A, make_skinny B)
+    for N 2-16: the tensor-core walk, which ``route`` picks there, and the
+    CUDA-core walk called through its own binding entry; then the float32
+    route at N 16 beside float32 ``torch.matmul``.  Printed only."""
+    from repro_torch.core.primitives import ss_gemm
+    from repro_torch.kernels import ss_gemm as sg
+    ext = sg.kernel.load_extension()
+    parts = []
+    for n in (2, 4, 8, 16):
+        b = torch.from_numpy(ss_gemm.make_skinny(ss_gemm.Problem(n=n),
+                                                 SEED)).cuda().bfloat16()
+        mask = sg.block_occupancy(b, bk)
+        check(sg.route(a, b, bk) == "tensor_core",
+              "ss-gemm: Problem() bf16 does not take the tensor-core route")
+        out = torch.empty(a.shape[0], n, device="cuda")
+        tc = time_ms(torch, lambda i: sg.kernel.ssgemm_masked_cuda(
+            a, b, mask, bk), 50)
+        cc = time_ms(torch, lambda i: ext.ssgemm_masked(a, b, mask, bk, out),
+                     50)
+        lib = time_ms(torch, lambda i: torch.matmul(a, b), 50)
+        parts.append(f"N {n}: tensor-core {tc:.4f}, CUDA-core {cc:.4f}, "
+                     f"torch.matmul {lib:.4f}")
+    print("[timing] ssgemm_masked routes, M=16384 K=4096 bf16 make_skinny "
+          "(ms): " + "; ".join(parts))
+    a32, b32 = a.float(), b.float()
+    check(sg.route(a32, b32, bk) == "cuda_core",
+          "ss-gemm: float32 does not take the CUDA-core route")
+    f32 = time_ms(torch, lambda i: sg.kernel.ssgemm_masked_cuda(
+        a32, b32, mask, bk), 20)
+    lib = time_ms(torch, lambda i: torch.matmul(a32, b32), 20)
+    t_bound, by = bound(a32.numel() * 4 + b32.numel() * 4 + a.shape[0] * 64,
+                        2.0 * a32.numel() * 16, "float32")
+    print(f"[timing] ssgemm_masked float32 route (CUDA-core walk), M=16384 "
+          f"K=4096 N=16 make_skinny: kernel_ms {f32:.4f}, torch.matmul "
+          f"(float32, TF32 off) {lib:.4f}, bound_ms {t_bound:.4f} ({by})")
+    del a32, b32
 
 
 # ---------------------------------------------------------------------------
@@ -1610,8 +1734,8 @@ def main() -> int:
         timings[name].update({f"d128_{k}": row[k] for k in (
             "ms", "library_ms", "bound_ms", "flops") if k in row})
     timings["group_gemm"] = group_gemm_timing(torch)
-    redesign_line(timings)
     timings.update(primitive_timings(torch))
+    redesign_line(timings)
     timings.update(wave_timings(torch))
     for name in ("ssgemm_masked", "ssgemm_compact", "push_scatter",
                  "wavesim_volume", "flux1d", "vector_sum"):
@@ -1638,10 +1762,10 @@ def main() -> int:
                                "decode_attn.cu",
                                "src/repro/kernels/decode_attn/kernel.py:82"),
                "ssgemm_masked": ("src/repro_torch/kernels/ss_gemm/csrc/"
-                                 "ss_gemm.cu",
+                                 "ss_gemm_tc.cu",
                                  "src/repro/kernels/ss_gemm/kernel.py:51"),
                "ssgemm_compact": ("src/repro_torch/kernels/ss_gemm/csrc/"
-                                  "ss_gemm.cu",
+                                  "ss_gemm_tc.cu",
                                   "src/repro/kernels/ss_gemm/kernel.py:94"),
                "push_scatter": ("src/repro_torch/kernels/push_scatter/csrc/"
                                 "push_scatter.cu",
@@ -1673,12 +1797,15 @@ def main() -> int:
         # it; the attention rows are at qwen's geometry, moonshot's beside
         rows[-1].update({k: v for k, v in t.items()
                          if k.startswith(("tiles", "prefill_", "down_",
-                                          "d128_"))
+                                          "d128_", "n16_"))
                          and not k.endswith("flops")})
         if name == "group_gemm":     # the join's calls take the wgmma file
             rows[-1]["prefill_source"] = ("src/repro_torch/kernels/"
                                           "moe_group_gemm/csrc/"
                                           "group_gemm_sm90.cu")
+        if name.startswith("ssgemm"):  # float32 and ragged K: CUDA cores
+            rows[-1]["cuda_core_source"] = ("src/repro_torch/kernels/"
+                                            "ss_gemm/csrc/ss_gemm.cu")
         # no single PyTorch call computes flux1d's pair of periodic
         # differences, so its library_ms is null, and that row's alone
         check(all(isinstance(v, (int, float)) and math.isfinite(v)

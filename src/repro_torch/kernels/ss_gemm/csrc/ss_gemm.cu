@@ -1,6 +1,10 @@
 // Sparsity-aware skinny GEMM, C[M, N] = A[M, K] @ B[K, N] in float32, for
 // sm_90a: the paper's "inspect the operand, skip the command" (§5.1.2) at
-// the granularity of a k-block of `bk` rows of B.
+// the granularity of a k-block of `bk` rows of B.  This is the CUDA-core
+// walk; the wrapper (kernel.py, `route`) sends bfloat16 calls whose rows of
+// A are whole 16 bytes, on 16-byte aligned bases, with bk % 16 == 0 to the
+// tensor-core walk of ss_gemm_tc.cu instead, and everything else (float32,
+// a ragged K, unaligned views) here.
 //
 // Replaces the two TPU kernels of src/repro/kernels/ss_gemm/kernel.py:
 //  * `ssgemm_masked_kernel`: a static walk over every k-block that skips
@@ -13,17 +17,20 @@
 //    and trailing steps repeat the last live id.  Here the list walk visits
 //    idx[j] for j < n_live, with n_live read from device memory (no host
 //    read); the repeated tail is simply not walked.
-// Both walks share one kernel body; the walk is a functor, as the key-row
-// functors of ../../paged_attn/csrc/paged_attn_common.cuh.
+// Both walks share one kernel body; the walk is a functor (walk.cuh), as
+// the key-row functors of ../../paged_attn/csrc/paged_attn_common.cuh.
 //
-// What bounds it on an H100: device-memory bytes.  Each live k-block of A
-// is read once (M x live columns x 2 bytes in bf16, 128 MiB at the paper's
-// M 16,384 x K 4,096) for 2 x N flops per element, at most 16 flops per
-// byte at N 16: far under the ~295 where the tensor cores would become the
-// limit.  In this first version the products run on the CUDA cores in
-// float32, whose 67 TFLOP/s come close to the bytes' time at N 16.
+// What bounds it on an H100.  The function is bytes-bound: each live k-block
+// of A is read once (M x live columns x 2 bytes in bf16, 128 MiB at the
+// paper's M 16,384 x K 4,096) for 2 x N flops per element, at most 16 flops
+// per byte at N 16.  This walk does not reach that bound at N 16: every
+// element of A is widened to float32 and takes N `fmaf`s against B's
+// float32 copy in shared memory, B is restaged for every 32 rows, and a
+// warp ends with R x N shuffle sums.  It is issue-bound there: 0.151 ms for
+// 2.15 GFLOP on an H100 80GB HBM3 at 700 W, 14 TFLOP/s and 27% of the bytes
+// bound.  At N 4 a warp takes 8 rows and the walk reaches about 74% of it.
 //
-// What the design does about it.  A is row-major with K contiguous, so a
+// What the design does.  A is row-major with K contiguous, so a
 // warp owns R rows (8 for N <= 8, 4 for N 16) and its lanes take 16-byte
 // chunks along K: a k-block row of 256 bf16 values is one coalesced
 // 512-byte request per row, and a lane issues all R of its row loads before
@@ -38,6 +45,7 @@
 // bytes, the lanes take one element each instead of 16 bytes (same walk,
 // still coalesced).
 #include "../../paged_attn/csrc/paged_attn_common.cuh"
+#include "walk.cuh"
 
 namespace ss_gemm {
 using paged_attn::kBFloat16;
@@ -54,30 +62,6 @@ template <int NP>
 struct Tile {
   static constexpr int kRows = NP >= 16 ? 4 : 8;              // rows per warp
   static constexpr int kLaneStride = NP <= 4 ? NP : NP + 4;   // floats
-};
-
-// The k-block walks: `steps()` blocks are visited, step j names block
-// `block(j)`, or -1 to skip it.  Every thread of a CTA sees the same value.
-struct MaskWalk {
-  const int* mask;  // [nk] int32, nonzero where the block is live
-  int nk;
-  __device__ __forceinline__ int steps() const { return nk; }
-  __device__ __forceinline__ int block(int j) const {
-    return mask[j] != 0 ? j : -1;
-  }
-};
-
-struct ListWalk {
-  const int* idx;     // [budget] int32 live block ids
-  const int* n_live;  // [1] int32 entries of idx to walk
-  int budget, nk;
-  __device__ __forceinline__ int steps() const {
-    return min(max(*n_live, 0), budget);
-  }
-  __device__ __forceinline__ int block(int j) const {
-    const int kb = idx[j];
-    return kb >= 0 && kb < nk ? kb : -1;  // never read out of bounds
-  }
 };
 
 // Shared-memory slot of row `kk` of a staged piece of B, in the order the

@@ -1,19 +1,25 @@
 """Build, load and launch the hand-written CUDA skinny-GEMM kernels.
 
-Sources live in ``csrc/``: ``ss_gemm.cu`` (one kernel body with two
-k-block walks, replacing the TPU kernels ``repro/kernels/ss_gemm/
-kernel.py::ssgemm_masked_kernel`` and ``ssgemm_compact_kernel``) and
-``binding.cpp``, the one file that includes PyTorch's headers.  They are
-compiled for ``sm_90a`` with ``torch.utils.cpp_extension.load`` at the
-first launch, into ``build/ss_gemm`` at the repository root.  Importing
-this module builds nothing.
+Sources live in ``csrc/``: two kernel bodies that each take both k-block
+walks of ``walk.cuh`` (together they replace the TPU kernels
+``repro/kernels/ss_gemm/kernel.py::ssgemm_masked_kernel`` and
+``ssgemm_compact_kernel``): ``ss_gemm_tc.cu``, bfloat16 products on the
+tensor cores (``mma.sync``) fed by a ``cp.async`` ring, a CTA per 64 rows
+of M; and ``ss_gemm.cu``, products on the CUDA cores in float32, a warp
+per 4 or 8 rows.  ``binding.cpp`` is the one file that includes PyTorch's
+headers.  They are compiled for ``sm_90a`` with
+``torch.utils.cpp_extension.load`` at the first launch, into
+``build/ss_gemm`` at the repository root.  Importing this module builds
+nothing.
 
-The wrappers check device, dtype, shape and contiguity and raise on
-anything the kernels do not take; they allocate the output with
-``torch.empty`` and launch on PyTorch's current stream.  The kernels
-choose their own M tiling (a warp per 4 or 8 rows); ``bk`` is the skip
-granularity.  The plain versions live in :mod:`.ref` and the routing by the
-tensors' device in :mod:`.ops`.  ``launch_counts`` counts launches.
+:func:`route` chooses the kernel body before each launch, by the operands'
+dtype, shape and alignment; each route is its own binding entry point, and
+a launch that fails on either raises.  The wrappers check device, dtype,
+shape and contiguity and raise on anything the kernels do not take; they
+allocate the output with ``torch.empty`` and launch on PyTorch's current
+stream.  ``bk`` is the skip granularity.  The plain versions live in
+:mod:`.ref` and the routing by the tensors' device in :mod:`.ops`.
+``launch_counts`` counts launches by walk, ``route_counts`` by route.
 """
 from __future__ import annotations
 
@@ -23,20 +29,34 @@ import threading
 import torch
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("binding.cpp", "ss_gemm.cu")
+_SOURCES = ("binding.cpp", "ss_gemm.cu", "ss_gemm_tc.cu")
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_WIDTH = 16                 # kMaxWidth in ss_gemm.cu
+MAX_WIDTH = 16                 # kMaxWidth in both .cu files
 _INT_MAX = 2**31 - 1
 
 launch_counts = {"ssgemm_masked": 0, "ssgemm_compact": 0}
+route_counts = {"tensor_core": 0, "cuda_core": 0}
 
 _ext = None
 _lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, route_counts):
+        for name in counts:
+            counts[name] = 0
+
+
+def route(a: torch.Tensor, b: torch.Tensor, bk: int) -> str:
+    """The kernel body a launch on a [M, K] and b [K, N] with k-blocks of
+    ``bk`` takes: ``"tensor_core"`` (``ss_gemm_tc.cu``) for bfloat16 whose
+    rows of A are whole 16 bytes (K % 8 == 0), with A and B on 16-byte
+    aligned addresses and bk % 16 == 0; ``"cuda_core"`` (``ss_gemm.cu``)
+    for everything else: float32, a ragged K, unaligned views."""
+    if (a.dtype == torch.bfloat16 and a.shape[1] % 8 == 0 and bk % 16 == 0
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def build_dir() -> pathlib.Path:
@@ -112,8 +132,13 @@ def ssgemm_masked_cuda(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty(a.shape[0], b.shape[1], dtype=torch.float32,
                       device=a.device)
     if a.shape[0]:                   # no rows: nothing to launch
-        load_extension().ssgemm_masked(a, b, block_mask, bk, out)
+        path = route(a, b, bk)
+        ext = load_extension()
+        launch = (ext.ssgemm_masked_tc if path == "tensor_core"
+                  else ext.ssgemm_masked)
+        launch(a, b, block_mask, bk, out)
         launch_counts["ssgemm_masked"] += 1
+        route_counts[path] += 1
     return out
 
 
@@ -134,6 +159,11 @@ def ssgemm_compact_cuda(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty(a.shape[0], b.shape[1], dtype=torch.float32,
                       device=a.device)
     if a.shape[0]:                   # no rows: nothing to launch
-        load_extension().ssgemm_compact(a, b, block_idx, n_live, bk, out)
+        path = route(a, b, bk)
+        ext = load_extension()
+        launch = (ext.ssgemm_compact_tc if path == "tensor_core"
+                  else ext.ssgemm_compact)
+        launch(a, b, block_idx, n_live, bk, out)
         launch_counts["ssgemm_compact"] += 1
+        route_counts[path] += 1
     return out

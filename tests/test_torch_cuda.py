@@ -296,25 +296,34 @@ def _skinny(rng, m, k, n, density, dtype, bk):
 
 SKINNY_SHAPES = [(256, 1024, 128),   # aligned
                  (300, 300, 128),    # ragged M and K (K % 8 != 0 in bf16)
-                 (77, 520, 256)]     # ragged M, K % 8 == 0, ragged last block
+                 (77, 520, 256),     # ragged M, K % 8 == 0, ragged last block
+                 (300, 4096, 256),   # ragged M, the paper's K
+                 (1000, 1024, 128)]  # M a multiple of no CTA's rows
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [2, 4, 8, 16])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 9, 15, 16])
 @pytest.mark.parametrize("m,k,bk", SKINNY_SHAPES)
 @pytest.mark.parametrize("density", [0.0, 0.05, 1.0])
 def test_ssgemm_kernels_match_plain_version(dtype, n, m, k, bk, density):
     """Both walks against their plain versions in float64 on the same
-    values, within the worst-case float32 summation bound; the compact op
-    at budgets 1, the live count and every block (the first takes the
-    overflow guard whenever two or more blocks are live)."""
+    values, within the worst-case float32 summation bound, on the route
+    ``kernel.route`` picks (the tensor-core walk for bfloat16 with K % 8 ==
+    0 and bk % 16 == 0, padding N to 8 or 16; the CUDA-core walk for the
+    rest), as ``route_counts`` shows; the compact op at budgets 1, the live
+    count and every block (the first takes the overflow guard whenever two
+    or more blocks are live)."""
     rng = np.random.default_rng(m + n + int(100 * density))
     a, b = _skinny(rng, m, k, n, density, dtype, bk)
     a64, b64 = a.double(), b.double()
     mask = sg.block_occupancy(b, bk)
-    before = dict(sg.launch_counts)
+    path = ("tensor_core" if dtype == torch.bfloat16 and k % 8 == 0
+            and bk % 16 == 0 else "cuda_core")
+    assert sg.route(a, b, bk) == path
+    before, routes = dict(sg.launch_counts), dict(sg.route_counts)
     got = sg.kernel.ssgemm_masked_cuda(a, b, mask, bk)
     assert sg.launch_counts["ssgemm_masked"] == before["ssgemm_masked"] + 1
+    assert sg.route_counts[path] == routes[path] + 1
     want = sg.ssgemm_masked_ref(a64, b64, mask, bk)
     bnd = sg.ssgemm_masked_ref(a64.abs(), b64.abs(), mask, bk)
     assert got.dtype == torch.float32 and got.shape == (m, n)
@@ -335,6 +344,53 @@ def test_ssgemm_kernels_match_plain_version(dtype, n, m, k, bk, density):
     bnd = sg.ssgemm_compact_ref(a64.abs(), b64.abs(), idx, nl, bk)
     torch.cuda.synchronize()
     assert _within_bound(got, want, bnd, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("m,k,bk", [(1000, 4096, 256), (77, 520, 256),
+                                    (300, 1024, 64)])
+def test_ssgemm_skipped_blocks_are_not_read(dtype, n, m, k, bk):
+    """A's columns in every block the walk skips hold NaN (for the list
+    walk also the live blocks listed past n_live): a kernel that loaded
+    them and multiplied by B's zeros would return NaN.  The kernels and
+    the ops stay finite and within the float32 bound."""
+    rng = np.random.default_rng(m + n)
+    a, b = _skinny(rng, m, k, n, 1.0, dtype, bk)
+    nk = -(-k // bk)
+    for kb in range(1, nk, 2):       # the odd blocks dead, the last live
+        if kb < nk - 1:
+            b[kb * bk:(kb + 1) * bk] = 0
+    mask = sg.block_occupancy(b, bk)
+    live = torch.nonzero(mask).reshape(-1)
+    assert 2 <= live.numel() < nk
+    a64, b64 = a.double(), b.double()
+    want, bnd = a64 @ b64, a64.abs() @ b64.abs()
+
+    def poisoned(walked):
+        cols = torch.zeros(k, dtype=torch.bool, device="cuda")
+        for kb in walked:
+            cols[kb * bk:(kb + 1) * bk] = True
+        return a.masked_fill(~cols, float("nan"))
+
+    a_masked = poisoned(live.tolist())
+    got = [sg.kernel.ssgemm_masked_cuda(a_masked, b, mask, bk),
+           sg.ssgemm_masked(a_masked, b, bk=bk),
+           sg.ssgemm_compact(a_masked, b, budget=live.numel(), bk=bk)]
+    for out in got:
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert _within_bound(out, want, bnd, k)
+    # the list walk: the live blocks in reverse, the last one past n_live
+    idx = live.flip(0).to(torch.int32)
+    nl = torch.tensor([idx.numel() - 1], dtype=torch.int32, device="cuda")
+    a_list = poisoned(idx[:-1].tolist())
+    out = sg.kernel.ssgemm_compact_cuda(a_list, b, idx, nl, bk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _within_bound(out, sg.ssgemm_compact_ref(a64, b64, idx, nl, bk),
+                         sg.ssgemm_compact_ref(a64.abs(), b64.abs(), idx, nl,
+                                               bk), k)
 
 
 def test_ssgemm_odd_width_and_dense_entry_point():

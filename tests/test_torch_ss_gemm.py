@@ -180,3 +180,33 @@ def test_cpu_tensors_take_the_plain_path_and_the_kernel_refuses_them():
         sg.kernel.ssgemm_masked_cuda(ta, tb, mask, 256)
     with pytest.raises(ValueError, match="CUDA"):
         sg.kernel.ssgemm_compact_cuda(ta, tb, mask, mask, 256)
+
+
+@pytest.mark.parametrize("dtype,k,bk,a_off,b_off,want", [
+    ("bfloat16", 4096, 256, 0, 0, "tensor_core"),   # Problem(), JAX's bk
+    ("bfloat16", 520, 256, 0, 0, "tensor_core"),    # a short last block
+    ("bfloat16", 64, 16, 0, 0, "tensor_core"),      # the smallest bk
+    ("bfloat16", 300, 128, 0, 0, "cuda_core"),      # K % 8 != 0
+    ("bfloat16", 512, 200, 0, 0, "cuda_core"),      # bk % 16 != 0
+    ("bfloat16", 512, 128, 1, 0, "cuda_core"),      # A 2 bytes off 16
+    ("bfloat16", 512, 128, 0, 1, "cuda_core"),      # B 2 bytes off 16
+    ("float32", 4096, 256, 0, 0, "cuda_core"),      # float32
+    ("float32", 300, 128, 0, 0, "cuda_core"),
+])
+def test_route_by_dtype_shape_and_alignment(dtype, k, bk, a_off, b_off,
+                                            want):
+    """The rule the CUDA wrappers launch by, held on CPU tensors: the
+    tensor-core walk takes bfloat16 with whole 16-byte rows of A, 16-byte
+    aligned A and B and bk % 16 == 0; the CUDA-core walk the rest."""
+    tdt = DTYPES[dtype][1]
+    a = torch.zeros(32 * k + a_off, dtype=tdt)[a_off:].view(32, k)
+    b = torch.zeros(k * 4 + b_off, dtype=tdt)[b_off:].view(k, 4)
+    assert sg.route(a, b, bk) == want
+
+
+def test_route_counts_reset_with_launch_counts():
+    sg.kernel.route_counts["tensor_core"] += 3
+    sg.kernel.launch_counts["ssgemm_masked"] += 3
+    sg.reset_launch_counts()
+    assert sg.route_counts == {"tensor_core": 0, "cuda_core": 0}
+    assert sg.launch_counts == {"ssgemm_masked": 0, "ssgemm_compact": 0}
