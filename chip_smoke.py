@@ -14,12 +14,16 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    wavesim flux; vector-sum; the grouped expert GEMM);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in bfloat16 and float32.  Paged, at the full-width qwen2-0.5b geometry
-   (Hq 14, Hkv 2, D 64, page 16): ragged lengths, permuted tables, sentinel
-   tails, a prefill at mixed depths and a verify at Lq = 5; the same at
-   the full-width moonshot geometry (Hq 16, Hkv 16: G = 1, D = 128).
-   Dense stripes, at G = 7, D = 64, G = 4, D = 16 and G = 1, D = 128:
-   ragged lengths (0, 1, a length above the rows read), the whole stripe
-   and a stripe read under ``s_cap`` whose rows past it hold NaN.  The
+   (Hq 14, Hkv 2, D 64, page 16): decode at the serve batch of 8 (so at
+   its split count) over lengths 0, 1, page edges, the whole table and
+   one key before, at and past every rank boundary of the split-KV walk,
+   permuted tables, sentinel tails, the pool rows past each length NaN; a
+   prefill at mixed depths and a verify at Lq = 5; the same at the
+   full-width moonshot geometry (Hq 16, Hkv 16: G = 1, D = 128).  Dense
+   stripes, at G = 7, D = 64, G = 4, D = 16 and G = 1, D = 128: ragged
+   lengths (0, 1, a length above the rows read, rank boundaries +-1), the
+   whole stripe and a stripe read under ``s_cap`` whose rows past it hold
+   NaN.  The
    grouped expert GEMM in bfloat16 and float32: ``test_kernels_moe.py``'s
    sweep, empty and full experts, a ragged C, rows that are not 16 bytes,
    and full-width moonshot's expert shapes at decode (C 1) and at a
@@ -47,7 +51,10 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    gate/up and its down projection) with its tiles skipped, and the
    achieved TFLOP/s and share of the bound of the kernels redesigned for
    the tensor cores (bf16 prefill, the grouped GEMM at a join, both
-   ss-gemm walks at N 16); ss-gemm's two routes side by side at N 2-16;
+   ss-gemm walks at N 16); the two decode kernels and SDPA also on the
+   device alone (the same calls captured in one CUDA graph and replayed),
+   with each split count, GB/s, share of the bound and the wrapper's host
+   us a call; ss-gemm's two routes side by side at N 2-16;
 4. serve, paged and dense: full-width qwen2-0.5b (seeded random bfloat16
    weights) through ``repro_torch.launch.serve.run``: 16 requests,
    prompts of 64-512 tokens, 64 new tokens each, batch 8, max_len 1024,
@@ -86,8 +93,9 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*``, the
-grouped GEMM's row the join's as ``prefill_*`` and ``down_*``, the ss-gemm
-rows N 16's as ``n16_*``), the
+decode rows their device-only ``graph_ms`` and SDPA's ``library_graph_ms``,
+the grouped GEMM's row the join's as ``prefill_*`` and ``down_*``, the
+ss-gemm rows N 16's as ``n16_*``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -167,10 +175,69 @@ def time_ms(torch, fn, calls: int, reps: int = 5) -> float:
     return statistics.median(samples)
 
 
+def graph_ms(torch, fn, calls: int, reps: int = 5) -> float:
+    """Device time per call, without host time: ``calls`` calls captured
+    in one CUDA graph after a warm-up on a side stream, the graph replayed
+    between CUDA events; the median of ``reps`` replays over ``calls``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(samples)
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one call, in us: ``calls`` calls enqueued back to back,
+    timed on the host clock before the device has finished them."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(i)
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / calls * 1e6
+
+
 def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def poisoned(torch, k, v, table, lengths, n_pages):
+    """Copies of the pools k/v [n_pages + 1, PS, Hkv, D] whose rows past
+    each slot's length in its last page, unused pages and the sink (page
+    ``n_pages``) hold NaN, so that a read past a slot's length shows."""
+    kp, vp = k.clone(), v.clone()
+    used = torch.zeros(n_pages + 1, dtype=torch.bool, device=k.device)
+    for i, n in enumerate(lengths):
+        pages = table[i, :-(-n // PS)].long()
+        used[pages] = True
+        if n % PS:
+            kp[pages[-1], n % PS:] = float("nan")
+            vp[pages[-1], n % PS:] = float("nan")
+    kp[~used] = float("nan")
+    vp[~used] = float("nan")
+    return kp, vp
 
 
 def sdpa_inputs(torch, k, v, table, q_pos, kv_len):
@@ -194,30 +261,51 @@ def kernel_checks(torch, geo=(HQ, HKV, D)) -> dict:
     geometry ``geo`` = (Hq, Hkv, D); returns, per kernel, the largest
     error at the main path's shape in bfloat16."""
     import numpy as np
-    from repro_torch.kernels.paged_attn import ops, ref
+    from repro_torch.kernels.paged_attn import kernel, ops, ref, split
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     hq, hkv, d = geo
     at = f"Hq={hq} Hkv={hkv} D={d}"
     worst = {"paged_decode": 0.0, "paged_prefill": 0.0}
+    # decode at the serve batch of 8, so at the serve run's split count:
+    # lengths 0, 1, page edges, deep, the whole table, and one key before,
+    # at and past every rank boundary, in batches of 8
+    bound = 64 * PS
+    splits = split.split_count(8, hkv, hq // hkv, bound,
+                               split.sm_count(torch.device("cuda", 0)))
+    lengths = sorted({0, 1, 15, 16, 17, 100, 333, 512, 576, bound}
+                     | set(split.boundary_lengths(splits, bound)))
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         tol = TOL[name]
-        # decode: ragged lengths (one token, page edges, deep), sentinels
-        lengths = [1, 15, 16, 17, 100, 333, 512, 576]
-        k, v, tbl = paged_inputs(torch, rng, b=8, depths=lengths,
-                                 n_pages=512, p_max=64, dtype=dtype,
-                                 hkv=hkv, d=d)
-        q = torch.randn(8, hq, d, device=dev).to(dtype)
-        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        got = ops.paged_attn(q, k[0], v[0], tbl, ln)
-        want = ref.paged_attn_ref(q.float(), k[0].float(), v[0].float(),
-                                  tbl, ln)
-        torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().item()
-        print(f"[kernels] decode {name} {at} ragged+sentinel: max_abs_err "
-              f"{err:.3e} (tol {tol:g})")
-        check(err <= tol and got.dtype == dtype, "decode kernel disagrees")
+        errs, finite, zero = [], True, True
+        for i in range(0, len(lengths), 8):
+            batch = (lengths[i:i + 8] + lengths)[:8]
+            k, v, tbl = paged_inputs(torch, rng, b=8, depths=batch,
+                                     n_pages=512, p_max=64, dtype=dtype,
+                                     hkv=hkv, d=d)
+            kp, vp = poisoned(torch, k[0], v[0], tbl, batch, 512)
+            q = torch.randn(8, hq, d, device=dev).to(dtype)
+            ln = torch.tensor(batch, dtype=torch.int32, device=dev)
+            got = ops.paged_attn(q, kp, vp, tbl, ln)
+            check(kernel.last_splits["paged_decode"] == splits,
+                  "decode kernel: not the split count of the serve batch")
+            want = ref.paged_attn_ref(q.float(), k[0].float(), v[0].float(),
+                                      tbl, ln)
+            torch.cuda.synchronize()
+            errs.append((got.float() - want).abs().max().item())
+            finite &= bool(torch.isfinite(got.float()).all())
+            zero &= bool((got[ln == 0] == 0).all())
+            check(got.dtype == dtype, "decode kernel: wrong dtype")
+        err = max(errs)
+        print(f"[kernels] decode {name} {at}, {splits} ranks a cluster, "
+              f"{len(lengths)} lengths (0, page edges, the whole table, "
+              f"rank boundaries +-1: {lengths}), NaN past each length: "
+              f"max_abs_err {err:.3e} (tol {tol:g}); finite {finite}; "
+              f"length-0 slots zeros {zero}")
+        check(err <= tol, "decode kernel disagrees")
+        check(finite and zero, "decode kernel: a length-0 slot is not "
+              "finite zeros, or a row past a length was read")
         if dtype == torch.bfloat16:
             worst["paged_decode"] = max(worst["paged_decode"], err)
         # prefill at mixed depths, a verify (Lq = 5) and the join shape
@@ -264,7 +352,7 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
     padded to 512 tokens), at the attention geometry ``geo``."""
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attn import kernel, ops, ref
+    from repro_torch.kernels.paged_attn import kernel, ops, ref, split
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
     dtype, name, b = torch.bfloat16, "bfloat16", 8
@@ -286,15 +374,33 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
     nbytes = (2 * q.numel() * item + live * hkv * d * item * 2
               + tbl.numel() * 4 + b * 4)
     t_bound, by = bound(nbytes, 4.0 * hq * d * live, name)
+
+    def decode(i):
+        return kernel.paged_attn_cuda(q, k[i % layers], v[i % layers], ctbl,
+                                      ln)
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask,
+                                              enable_gqa=True)
+    kernel.last_splits["paged_decode"] = None
     out["paged_decode"] = {
-        "ms": time_ms(torch, lambda i: kernel.paged_attn_cuda(
-            q, k[i % layers], v[i % layers], ctbl, ln), layers * 4),
+        "ms": time_ms(torch, decode, layers * 4),
+        "graph_ms": graph_ms(torch, decode, layers * 4),
+        "host_us": host_us(torch, decode),
         "plain_ms": time_ms(torch, lambda i: ref.paged_attn_ref(
             q, k[i % layers], v[i % layers], tbl, ln).to(dtype), layers),
-        "library_ms": time_ms(torch, lambda i: F.scaled_dot_product_attention(
-            q4, kg, vg, attn_mask=mask, enable_gqa=True), layers * 4),
-        "bound_ms": t_bound, "bound_by": by,
+        "library_ms": time_ms(torch, sdpa, layers * 4),
+        "library_graph_ms": graph_ms(torch, sdpa, layers * 4),
+        "bound_ms": t_bound, "bound_by": by, "bytes": nbytes,
         "shape": f"B={b} Hq={hq} Hkv={hkv} D={d} ps={PS} lengths={lengths}"}
+    # the cluster size the timed calls launched, held to the schedule's
+    out["paged_decode"]["splits"] = launched = kernel.last_splits[
+        "paged_decode"]
+    check(launched == split.split_count(b, hkv, hq // hkv,
+                                        ctbl.shape[1] * PS,
+                                        split.sm_count(dev)),
+          f"paged_decode timing: launched {launched} ranks a cluster, not "
+          "the schedule's count")
 
     lq = 512
     k, v, tbl = paged_inputs(torch, rng, b=b, depths=[lq] * b, n_pages=512,
@@ -326,7 +432,16 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
               f"{row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, "
               f"library_ms {row['library_ms']:.4f}, bound_ms "
               f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    print_device_times("paged_decode", name, out["paged_decode"])
     return out
+
+
+def print_device_times(kname: str, dtype_name: str, row: dict) -> None:
+    print(f"[timing] {kname} {dtype_name} device only: graph_ms "
+          f"{row['graph_ms']:.4f} ({row['splits']} ranks a cluster, "
+          f"{row['bound_ms'] / row['graph_ms']:.1%} of the bytes bound); "
+          f"SDPA library_graph_ms {row['library_graph_ms']:.4f}; the "
+          f"wrapper's host time {row['host_us']:.1f} us a call")
 
 
 def stripe_checks(torch) -> float:
@@ -335,39 +450,55 @@ def stripe_checks(torch) -> float:
     full-width moonshot (G = 1, D = 128) geometries, in
     both dtypes, over the whole stripe and under ``s_cap``; returns the
     largest error at the full-width geometry in bfloat16."""
-    from repro_torch.kernels.decode_attn import decode_attn, decode_attn_ref
+    from repro_torch.kernels.decode_attn import (decode_attn,
+                                                 decode_attn_ref, kernel)
+    from repro_torch.kernels.paged_attn import split
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = 0.0
     b, s = 8, 1025
-    lengths = [0, 1, 63, 64, 65, 300, 700, 1100]
-    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         tol = TOL[name]
         for hq, hkv, d in ((HQ, HKV, D), (4, 1, 16), MOE_GEO):
-            q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
             for s_cap in (None, 512):
                 cap = s if s_cap is None else s_cap
-                k, v = (torch.randn(b, s, hkv, d, generator=gen,
-                                    device=dev).to(dtype) for _ in "kv")
-                k[:, cap:] = float("nan")        # never read under s_cap
-                v[:, cap:] = float("nan")
-                got = decode_attn(q, k, v, ln, s_cap=s_cap)
-                want = decode_attn_ref(q.float(), k[:, :cap].float(),
-                                       v[:, :cap].float(), ln)
-                torch.cuda.synchronize()
-                err = (got.float() - want).abs().max().item()
-                finite = bool(torch.isfinite(got.float()).all())
-                zero = bool((got[0] == 0).all())
+                splits = split.split_count(
+                    b, hkv, hq // hkv, cap,
+                    split.sm_count(torch.device("cuda", 0)))
+                lengths = sorted({0, 1, 63, 64, 65, 300, 700, 1100}
+                                 | set(split.boundary_lengths(splits, cap)))
+                errs, finite, zero = [], True, True
+                for i in range(0, len(lengths), b):
+                    batch = (lengths[i:i + b] + lengths)[:b]
+                    ln = torch.tensor(batch, dtype=torch.int32, device=dev)
+                    q = torch.randn(b, hq, d, generator=gen,
+                                    device=dev).to(dtype)
+                    k, v = (torch.randn(b, s, hkv, d, generator=gen,
+                                        device=dev).to(dtype) for _ in "kv")
+                    k[:, cap:] = float("nan")    # never read under s_cap
+                    v[:, cap:] = float("nan")
+                    got = decode_attn(q, k, v, ln, s_cap=s_cap)
+                    check(kernel.last_splits["decode_attn"] == splits,
+                          "decode_attn kernel: not the batch's split count")
+                    want = decode_attn_ref(q.float(), k[:, :cap].float(),
+                                           v[:, :cap].float(), ln)
+                    torch.cuda.synchronize()
+                    errs.append((got.float() - want).abs().max().item())
+                    finite &= bool(torch.isfinite(got.float()).all())
+                    zero &= bool((got[ln == 0] == 0).all())
+                    check(got.dtype == dtype, "decode_attn: wrong dtype")
+                err = max(errs)
                 print(f"[kernels] decode_attn {name} G={hq // hkv} D={d} "
-                      f"s_cap={cap} of {s} rows, lengths {lengths}: "
-                      f"max_abs_err {err:.3e} (tol {tol:g}); finite "
-                      f"{finite}; length-0 slot zeros {zero}")
-                check(err <= tol and got.dtype == dtype,
-                      "decode_attn kernel disagrees")
-                check(finite and zero, "decode_attn kernel: the length-0 "
-                      "slot is not finite zeros")
+                      f"s_cap={cap} of {s} rows, {splits} ranks a cluster, "
+                      f"{len(lengths)} lengths (0, 1, above the rows read, "
+                      f"rank boundaries +-1): max_abs_err {err:.3e} (tol "
+                      f"{tol:g}); finite {finite}; length-0 slots zeros "
+                      f"{zero}")
+                check(err <= tol, "decode_attn kernel disagrees")
+                check(finite and zero, "decode_attn kernel: a length-0 "
+                      "slot is not finite zeros, or a row past s_cap was "
+                      "read")
                 if dtype == torch.bfloat16 and d == D:
                     worst = max(worst, err)
     return worst
@@ -382,6 +513,7 @@ def stripe_timing(torch, geo=(HQ, HKV, D), layers=24) -> dict:
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attn import decode_attn_ref, kernel
+    from repro_torch.kernels.paged_attn import split
     from repro_torch.serve.scheduler import _pow2_bucket
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
@@ -403,22 +535,39 @@ def stripe_timing(torch, geo=(HQ, HKV, D), layers=24) -> dict:
     live = sum(min(n, cap) for n in lengths)
     nbytes = 2 * q.numel() * item + live * hkv * d * item * 2 + b * 4
     t_bound, by = bound(nbytes, 4.0 * hq * d * live, name)
+
+    def decode(i):
+        return kernel.decode_attn_cuda(q, k[i % layers], v[i % layers], ln,
+                                       cap)
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(
+            q4, kt[i % layers], vt[i % layers], attn_mask=mask,
+            enable_gqa=True)
+    kernel.last_splits["decode_attn"] = None
     row = {
-        "ms": time_ms(torch, lambda i: kernel.decode_attn_cuda(
-            q, k[i % layers], v[i % layers], ln, cap), layers * 4),
+        "ms": time_ms(torch, decode, layers * 4),
+        "graph_ms": graph_ms(torch, decode, layers * 4),
+        "host_us": host_us(torch, decode),
         "plain_ms": time_ms(torch, lambda i: decode_attn_ref(
             q, k[i % layers, :, :cap], v[i % layers, :, :cap],
             ln).to(dtype), layers),
-        "library_ms": time_ms(torch, lambda i: F.scaled_dot_product_attention(
-            q4, kt[i % layers], vt[i % layers], attn_mask=mask,
-            enable_gqa=True), layers * 4),
-        "bound_ms": t_bound, "bound_by": by,
+        "library_ms": time_ms(torch, sdpa, layers * 4),
+        "library_graph_ms": graph_ms(torch, sdpa, layers * 4),
+        "bound_ms": t_bound, "bound_by": by, "bytes": nbytes,
         "shape": f"B={b} Hq={hq} Hkv={hkv} D={d} S={max_len + 1} "
                  f"s_cap={cap} lengths={lengths}"}
+    # the cluster size the timed calls launched, held to the schedule's
+    row["splits"] = launched = kernel.last_splits["decode_attn"]
+    check(launched == split.split_count(b, hkv, hq // hkv, cap,
+                                        split.sm_count(dev)),
+          f"decode_attn timing: launched {launched} ranks a cluster, not "
+          "the schedule's count")
     print(f"[timing] decode_attn {name} ({row['shape']}): kernel_ms "
           f"{row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, library_ms "
           f"{row['library_ms']:.4f}, bound_ms {row['bound_ms']:.4f} "
           f"({row['bound_by']})")
+    print_device_times("decode_attn", name, row)
     return row
 
 
@@ -611,6 +760,20 @@ def redesign_line(timings: dict) -> None:
                      f"{row[key + 'flops'] / ms / 1e9:.1f} TFLOP/s, "
                      f"{row[key + 'bound_ms'] / ms:.1%} of its bound")
     print("[timing] redesigned kernels (bf16): " + "; ".join(parts))
+    parts = []
+    for label, name, key in (
+            ("paged_decode qwen", "paged_decode", ""),
+            ("paged_decode moonshot (D 128)", "paged_decode", "d128_"),
+            ("decode_attn qwen", "decode_attn", ""),
+            ("decode_attn moonshot (D 128)", "decode_attn", "d128_")):
+        row = timings[name]
+        ms, lib = row[key + "graph_ms"], row[key + "library_graph_ms"]
+        parts.append(f"{label} {ms:.4f} ms ({row[key + 'splits']} ranks "
+                     f"a cluster), {row[key + 'bytes'] / ms / 1e6:.1f} GB/s, "
+                     f"{row[key + 'bound_ms'] / ms:.1%} of its bound; SDPA "
+                     f"{lib:.4f} ms ({lib / ms:.2f}x the kernel's time)")
+    print("[timing] redesigned decode kernels (bf16, device time from a "
+          "CUDA graph): " + "; ".join(parts))
 
 
 # ---------------------------------------------------------------------------
@@ -1732,7 +1895,8 @@ def main() -> int:
     at_d128["decode_attn"] = stripe_timing(torch, MOE_GEO, layers=48)
     for name, row in at_d128.items():
         timings[name].update({f"d128_{k}": row[k] for k in (
-            "ms", "library_ms", "bound_ms", "flops") if k in row})
+            "ms", "library_ms", "bound_ms", "flops", "graph_ms",
+            "library_graph_ms", "host_us", "splits", "bytes") if k in row})
     timings["group_gemm"] = group_gemm_timing(torch)
     timings.update(primitive_timings(torch))
     redesign_line(timings)
@@ -1794,11 +1958,15 @@ def main() -> int:
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
         # the group_gemm row is the decode call, the join's calls beside
-        # it; the attention rows are at qwen's geometry, moonshot's beside
+        # it; the attention rows are at qwen's geometry, moonshot's beside;
+        # the decode rows add device-only times (graph_ms, SDPA's
+        # library_graph_ms), the wrapper's host_us and their split count
         rows[-1].update({k: v for k, v in t.items()
-                         if k.startswith(("tiles", "prefill_", "down_",
-                                          "d128_", "n16_"))
-                         and not k.endswith("flops")})
+                         if (k.startswith(("tiles", "prefill_", "down_",
+                                           "d128_", "n16_"))
+                             or k in ("graph_ms", "library_graph_ms",
+                                      "host_us", "splits"))
+                         and not k.endswith(("flops", "bytes"))})
         if name == "group_gemm":     # the join's calls take the wgmma file
             rows[-1]["prefill_source"] = ("src/repro_torch/kernels/"
                                           "moe_group_gemm/csrc/"

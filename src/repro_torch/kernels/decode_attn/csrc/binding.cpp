@@ -13,12 +13,14 @@ cudaError_t decode_attn_launch(int dtype, int head_dim, const void* q,
                                const void* k, const void* v,
                                const int* lengths, void* out, int batch,
                                int hq, int hkv, int s, int s_cap,
-                               cudaStream_t stream);
+                               int splits, cudaStream_t stream);
 
 // q/out [B, Hq, D], k/v [B, S, Hkv, D], lengths [B] int32; keys at or past
-// min(lengths[b], s_cap) are not read
+// min(lengths[b], s_cap) are not read; `splits` CTAs (one cluster) per
+// (slot, KV head): 1, 2, 4 or 8
 void decode_attn(torch::Tensor q, torch::Tensor k, torch::Tensor v,
-                 torch::Tensor lengths, int64_t s_cap, torch::Tensor out) {
+                 torch::Tensor lengths, int64_t s_cap, torch::Tensor out,
+                 int64_t splits) {
   for (auto* t : {&q, &k, &v, &lengths, &out})
     TORCH_CHECK(t->is_cuda() && t->is_contiguous(),
                 "decode_attn takes contiguous CUDA tensors");
@@ -39,7 +41,8 @@ void decode_attn(torch::Tensor q, torch::Tensor k, torch::Tensor v,
       v.data_ptr(), lengths.data_ptr<int>(), out.data_ptr(),
       static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
       static_cast<int>(k.size(2)), static_cast<int>(k.size(1)),
-      static_cast<int>(s_cap), c10::cuda::getCurrentCUDAStream().stream());
+      static_cast<int>(s_cap), static_cast<int>(splits),
+      c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == cudaSuccess, "decode_attn launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

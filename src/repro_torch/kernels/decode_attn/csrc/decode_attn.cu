@@ -7,82 +7,93 @@
 // float32 online softmax (m, l, acc), output written once, a slot with
 // length 0 gives zeros (acc / max(l, 1e-30)).  The TPU kernel skips every
 // 512-row block at or past the slot's length before loading it (scalar
-// prefetch) and its caller prunes the grid to `s_cap` rows; here the walk
-// of each CTA ends at min(lengths[b], s_cap), so no key row at or past it
-// is ever loaded.  `s_cap` lets the caller pass the whole stripe (batch
-// stride S x Hkv x D) instead of a sliced copy: a row-bounded view of a
-// [B, S, Hkv, D] stripe is not contiguous, and copying it would cost a
-// stripe's worth of traffic per layer per step.
+// prefetch) and its caller prunes the grid to `s_cap` rows; here a slot's
+// walk covers its first n_keys = min(lengths[b], s_cap) rows, so no key
+// row at or past it is ever loaded.  `s_cap` lets the caller pass the
+// whole stripe (batch stride S x Hkv x D) instead of a sliced copy: a
+// row-bounded view of a [B, S, Hkv, D] stripe is not contiguous, and
+// copying it would cost a stripe's worth of traffic per layer per step.
 //
-// What bounds it on an H100: device-memory bytes.  Each live K and V row
-// is read once (live rows x Hkv x D x 2 bytes in bf16, x2 for K and V) for
+// What bounds it on an H100: device-memory bytes, and at serving batch
+// sizes the latency of few, dependent loads.  Each live K and V row is
+// read once (live rows x Hkv x D x 2 bytes in bf16, x2 for K and V) for
 // 4 x G x D flops per row, about 3.5 flops per byte at G=7, D=64: two
 // orders of magnitude under the ~295 flops/byte where the tensor cores
-// would become the limit.
+// would become the limit.  With one CTA per (slot, KV head), 16 at batch 8
+// on qwen2-0.5b, the chain of loads of each CTA's walk sets the time.
 //
-// What the design does about it: the tile walk, staging and online softmax
-// are the paged decode kernel's (paged_attn_common.cuh), with a stripe
-// offset in place of the page-table lookup.  One CTA per (slot, KV head)
-// keeps the G query rows of that head resident, so each K/V row is fetched
-// once for all G query heads, with 16-byte loads.  With B x Hkv CTAs (16 at
-// batch 8 on qwen2-0.5b) the card is far from full; splitting the walk over
-// CTAs (flash-decoding with a combine step) is left for a later change.
-#include "../../paged_attn/csrc/paged_attn_common.cuh"
+// What the design does about it: the split-KV walk of
+// ../../paged_attn/csrc/decode_split.cuh, shared with the paged decode
+// kernel, with a fixed stripe stride in place of the staged page ids.
+// `splits` CTAs per (slot, KV head, pair of query heads), one cluster,
+// share the slot's rows and merge their softmax states through
+// distributed shared memory in the same launch (split.py picks `splits`
+// from the batch, the KV heads, G and s_cap).  Two query rows a CTA keep
+// each lane's serial work per key short; the G / 2 CTAs of a KV head read
+// the same K/V rows, which L2 can serve after the first read.  q stays in
+// registers, and each warp keeps kUnroll warp-steps of 16-byte K/V loads
+// in flight.
+#include "../../paged_attn/csrc/decode_split.cuh"
 
 namespace decode_attn {
 using namespace paged_attn;
 
-constexpr int kStripeTile = 64;   // keys per tile
-constexpr int kStripeRows = 16;   // most query heads per KV head (G)
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int D, int GMAX>
+__global__ void __launch_bounds__(split::kBlock)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ lengths,
                    T* __restrict__ out, int hq, int hkv, int s, int s_cap,
-                   float scale) {
+                   float qscale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
   const int g = hq / hkv;
+  const int groups = (g + GMAX - 1) / GMAX;   // CTAs sharing the G rows
+  const int b = blockIdx.y, h = blockIdx.z / groups;
+  const int r0 = blockIdx.z % groups * GMAX;  // this CTA's first row
   const int n_keys = min(max(lengths[b], 0), s_cap);
-  RowBlock rb = row_block<D, kStripeTile, kStripeRows>(smem);
-  rb.rows = g;
-  for (int r = threadIdx.x; r < g; r += kThreads) {
-    rb.row_off[r] = (static_cast<int64_t>(b) * hq + h * g + r) * D;
-    rb.row_pos[r] = n_keys - 1;  // the new token sees every walked key
-  }
-  __syncthreads();
-  attend_rows<T, D, kStripeTile, kStripeRows>(
-      q, out, k, v,
-      StripeRows{static_cast<int64_t>(b) * s * hkv + h, hkv}, n_keys, scale,
-      rb, smem);
+  const split::Stripe keys{
+      StripeRows{static_cast<int64_t>(b) * s * hkv + h, hkv}};
+  split::decode_walk<T, D, GMAX>(
+      q, out, k, v, keys,
+      (static_cast<int64_t>(b) * hq + static_cast<int64_t>(h) * g + r0) * D,
+      min(GMAX, g - r0), n_keys, qscale, smem);
 }
 
-template <typename T, int D>
+template <typename T, int D, int GMAX>
 cudaError_t launch_stripe(const void* q, const void* k, const void* v,
                           const int* lengths, void* out, int batch, int hq,
-                          int hkv, int s, int s_cap, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D, kStripeTile, kStripeRows>();
-  auto kernel = decode_attn_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  kernel<<<dim3(batch, hkv), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), hq, hkv, s,
-      s_cap, scale);
-  return cudaGetLastError();
+                          int hkv, int s, int s_cap, int splits,
+                          cudaStream_t stream) {
+  const float qscale = split::kLog2e / sqrtf(static_cast<float>(D));
+  return split::launch_clusters(
+      decode_attn_kernel<T, D, GMAX>, splits, batch,
+      hkv * split::row_groups(hq / hkv),
+      split::smem_bytes<D, GMAX, false>(), stream, q, k, v, lengths, out, hq,
+      hkv, s, s_cap, qscale);
+}
+
+static_assert(split::kCtaRows == 2, "one case for each row count");
+
+template <typename T, int D>
+cudaError_t dispatch_group(const void* q, const void* k, const void* v,
+                           const int* lengths, void* out, int batch, int hq,
+                           int hkv, int s, int s_cap, int splits,
+                           cudaStream_t stream) {
+  switch (split::group_rows(hq / hkv)) {
+    case 1: return launch_stripe<T, D, 1>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, splits, stream);
+    case 2: return launch_stripe<T, D, 2>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, splits, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 cudaError_t dispatch_stripe(int head_dim, const void* q, const void* k,
                             const void* v, const int* lengths, void* out,
                             int batch, int hq, int hkv, int s, int s_cap,
-                            cudaStream_t stream) {
+                            int splits, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch_stripe<T, 16>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, stream);
-    case 64: return launch_stripe<T, 64>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, stream);
-    case 128: return launch_stripe<T, 128>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, stream);
+    case 16: return dispatch_group<T, 16>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, splits, stream);
+    case 64: return dispatch_group<T, 64>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, splits, stream);
+    case 128: return dispatch_group<T, 128>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, splits, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -94,18 +105,19 @@ cudaError_t dispatch_stripe(int head_dim, const void* q, const void* k,
 cudaError_t decode_attn_launch(int dtype, int head_dim, const void* q,
                                const void* k, const void* v,
                                const int* lengths, void* out, int batch,
-                               int hq, int hkv, int s, int s_cap,
+                               int hq, int hkv, int s, int s_cap, int splits,
                                cudaStream_t stream) {
   using namespace decode_attn;
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kStripeRows || s_cap < 0 ||
-      s_cap > s)
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > split::kMaxGroup ||
+      s_cap < 0 || s_cap > s)
     return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
   if (dtype == kFloat32)
     return dispatch_stripe<float>(head_dim, q, k, v, lengths, out, batch, hq,
-                                  hkv, s, s_cap, stream);
+                                  hkv, s, s_cap, splits, stream);
   if (dtype == kBFloat16)
     return dispatch_stripe<__nv_bfloat16>(head_dim, q, k, v, lengths, out,
-                                          batch, hq, hkv, s, s_cap, stream);
+                                          batch, hq, hkv, s, s_cap, splits,
+                                          stream);
   return cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA dense-stripe decode kernel.
 
 Sources live in ``csrc/``: ``decode_attn.cu`` (replaces the TPU kernel
-``repro/kernels/decode_attn/kernel.py::decode_attn_kernel``; it reuses the
-tile walk of ``../paged_attn/csrc/paged_attn_common.cuh``) and
+``repro/kernels/decode_attn/kernel.py::decode_attn_kernel``; it runs the
+split-KV walk of ``../paged_attn/csrc/decode_split.cuh``, with ``splits``
+from :mod:`repro_torch.kernels.paged_attn.split`) and
 ``binding.cpp``, the one file that includes PyTorch's headers.  They are
 compiled for ``sm_90a`` with ``torch.utils.cpp_extension.load`` at the
 first launch, into ``build/decode_attn`` at the repository root.
@@ -12,7 +13,8 @@ The wrapper checks device, dtype, shape, contiguity, alignment, the group
 size and ``s_cap``, and raises on anything the kernel does not take; it
 allocates the output with ``torch.empty`` and launches on PyTorch's
 current stream.  The plain version lives in :mod:`.ref` and the routing by
-the tensors' device in :mod:`.ops`.  ``launch_counts`` counts launches.
+the tensors' device in :mod:`.ops`.  ``launch_counts`` counts launches;
+``last_splits`` holds the cluster size of the last launch.
 """
 from __future__ import annotations
 
@@ -21,13 +23,16 @@ import threading
 
 import torch
 
+from ..paged_attn import split
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "decode_attn.cu")
 _HEAD_DIMS = (16, 64, 128)     # reduced configs, qwen2-0.5b, moonshot
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_GROUP = 16                 # kStripeRows in decode_attn.cu
+MAX_GROUP = 16                 # kMaxGroup in decode_split.cuh
 
 launch_counts = {"decode_attn": 0}
+last_splits = {"decode_attn": None}
 
 _ext = None
 _lock = threading.Lock()
@@ -80,7 +85,9 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel.  q [B, Hq, D]; k/v [B, S, Hkv, D] whole stripes
     in q's dtype; lengths [B] int32; slot b attends over its first
     ``min(lengths[b], s_cap)`` rows, and no row at or past ``s_cap`` is
-    read (0 <= s_cap <= S).  Returns [B, Hq, D] in q's dtype."""
+    read (0 <= s_cap <= S).  One launch of ``split.split_count(B, Hkv,
+    G, s_cap, SMs)`` CTAs per (slot, KV head, row group).  Returns [B, Hq,
+    D] in q's dtype."""
     dev = q.device
     _check("q", q, 3, _DTYPES, dev)
     _check("k", k, 4, (q.dtype,), dev)
@@ -103,12 +110,14 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"takes groups of 1 to {MAX_GROUP}")
     if not isinstance(s_cap, int) or not 0 <= s_cap <= s:
         raise ValueError(f"s_cap must be an int in [0, {s}], got {s_cap!r}")
-    for name, t in (("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
                              "reads rows in 16-byte chunks)")
+    splits = split.split_count(b, hkv, hq // hkv, s_cap, split.sm_count(dev))
     ext = load_extension()
     out = torch.empty_like(q)
-    ext.decode_attn(q, k, v, lengths, s_cap, out)
+    ext.decode_attn(q, k, v, lengths, s_cap, out, splits)
     launch_counts["decode_attn"] += 1
+    last_splits["decode_attn"] = splits
     return out

@@ -14,7 +14,7 @@ cudaError_t paged_decode_launch(int dtype, int head_dim, const void* q,
                                 const int* table, const int* lengths,
                                 void* out, int batch, int hq, int hkv,
                                 int n_pages, int page_size, int table_width,
-                                cudaStream_t stream);
+                                int splits, cudaStream_t stream);
 cudaError_t paged_prefill_launch(int dtype, int head_dim, const void* q,
                                  const void* k, const void* v,
                                  const int* table, const int* q_offset,
@@ -41,10 +41,11 @@ void check_cuda(const torch::Tensor& t, const char* name) {
 }  // namespace
 
 // q [B, Hq, D], k/v [N, ps, Hkv, D], table [B, P] int32, lengths [B] int32,
-// out [B, Hq, D] (allocated by the caller)
+// out [B, Hq, D] (allocated by the caller); `splits` CTAs (one cluster)
+// per (slot, KV head): 1, 2, 4 or 8
 void paged_decode(torch::Tensor q, torch::Tensor k, torch::Tensor v,
                   torch::Tensor table, torch::Tensor lengths,
-                  torch::Tensor out) {
+                  torch::Tensor out, int64_t splits) {
   for (auto* t : {&q, &k, &v, &table, &lengths, &out}) check_cuda(*t, "input");
   TORCH_CHECK(q.dim() == 3 && k.dim() == 4 && table.dim() == 2);
   TORCH_CHECK(table.scalar_type() == torch::kInt32 &&
@@ -56,7 +57,7 @@ void paged_decode(torch::Tensor q, torch::Tensor k, torch::Tensor v,
       out.data_ptr(), static_cast<int>(q.size(0)),
       static_cast<int>(q.size(1)), static_cast<int>(k.size(2)),
       static_cast<int>(k.size(0)), static_cast<int>(k.size(1)),
-      static_cast<int>(table.size(1)),
+      static_cast<int>(table.size(1)), static_cast<int>(splits),
       c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == cudaSuccess, "paged_decode launch failed: ",
               cudaGetErrorString(err));

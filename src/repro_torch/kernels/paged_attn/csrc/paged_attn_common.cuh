@@ -1,17 +1,19 @@
-// Shared device code of the attention kernels (paged_decode.cu, the
-// float32 prefill of paged_prefill.cu, and ../../decode_attn/csrc/
-// decode_attn.cu): a flash-attention walk of one (slot, KV head) row block
-// over the slot's keys, with the online softmax in float32.  The bfloat16
-// prefill (paged_prefill_tc.cu) has a tensor-core walk of its own.
+// Shared device code of the attention kernels: the conversions, the
+// key-row functors (PagedRows, StripeRows) and the shared-memory helper,
+// and the tile walk `attend_rows` of the float32 prefill (paged_prefill.cu):
+// a flash-attention walk of one (slot, KV head) row block over the slot's
+// keys, with the online softmax in float32.  The two decode kernels
+// (paged_decode.cu, ../../decode_attn/csrc/decode_attn.cu) run the split-KV
+// walk of decode_split.cuh instead, and the bfloat16 prefill
+// (paged_prefill_tc.cu) a tensor-core walk of its own.
 //
 // A CTA owns `rows` query rows (at most RMAX) of one slot and one KV head.
 // It walks the slot's keys in tiles of TILE rows.  Each tile asks a key-row
-// functor for the address of each of its rows: through the page table for
-// the paged kernels (the CUDA stand-in for the TPU kernels' scalar-
-// prefetched index maps), at a fixed stride into a contiguous stripe for
-// the dense decode kernel.  It stages K and V in shared memory as float32,
-// scores every (row, key) pair, folds the tile into the running (m, l, acc)
-// state and moves on.  Keys at or past `n_keys` are never loaded; a key
+// functor for the address of each of its rows: through the page table
+// (the CUDA stand-in for the TPU kernels' scalar-prefetched index maps), or
+// at a fixed stride into a contiguous stripe.  It stages K and V in shared
+// memory as float32, scores every (row, key) pair, folds the tile into the
+// running (m, l, acc) state and moves on.  Keys at or past `n_keys` are never loaded; a key
 // above a row's causal position `row_pos[r]` scores -1e30, exactly as the
 // JAX kernels mask.
 #pragma once
@@ -40,24 +42,27 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// One 16-byte load of 4 float32 or 8 bfloat16 values, widened to float32.
-// The wrappers require 16-byte aligned pools and stripes; every row starts on a
-// multiple of D elements, and D * sizeof(T) is a multiple of 16.
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
+// One 16-byte load: 4 float32 or 8 bfloat16 values.  The wrappers require
+// 16-byte aligned pools, stripes and q; every row starts on a multiple of
+// D elements, and D * sizeof(T) is a multiple of 16.
+__device__ __forceinline__ uint4 ldg16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
+
+// 16 bytes as float32 values: 4 float32, or 8 bfloat16 (a bfloat16 is the
+// high half of a float32, the lower-addressed one in the low bits).
+__device__ __forceinline__ void widen(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void widen(const uint4& r, float (&f)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(pairs[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
@@ -178,8 +183,8 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       const int64_t off = key_off[j];
       float kf[kVec], vf[kVec];
       if (off >= 0) {
-        load16(k_rows + off + c * kVec, kf);
-        load16(v_rows + off + c * kVec, vf);
+        widen(ldg16(k_rows + off + c * kVec), kf);
+        widen(ldg16(v_rows + off + c * kVec), vf);
       } else {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) kf[i] = vf[i] = 0.f;

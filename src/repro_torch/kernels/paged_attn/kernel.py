@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA paged-attention kernels.
 
 Sources live in ``csrc/``: ``paged_decode.cu`` (replaces the TPU kernel
-``repro/kernels/paged_attn/kernel.py::paged_attn_kernel``),
+``repro/kernels/paged_attn/kernel.py::paged_attn_kernel``; the split-KV
+walk of ``decode_split.cuh``, with ``splits`` from :mod:`.split`),
 ``paged_prefill.cu`` (replaces ``prefill_kernel.py::
 paged_prefill_attn_kernel``; float32 on the CUDA cores, and the dispatch
 by dtype), ``paged_prefill_tc.cu`` (the same kernel in bfloat16 on the
@@ -17,7 +18,7 @@ anything the kernel does not take; it allocates the output with
 launches: the plain versions live in :mod:`.ref` and the routing between
 the two, by the tensors' device, in :mod:`.ops`.  ``launch_counts`` counts
 the launches of each kernel, so a run can show that its path went through
-them.
+them; ``last_splits`` holds the cluster size of the last decode launch.
 """
 from __future__ import annotations
 
@@ -26,14 +27,17 @@ import threading
 
 import torch
 
+from . import split
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "paged_decode.cu", "paged_prefill.cu",
             "paged_prefill_tc.cu")
 _HEAD_DIMS = (16, 64, 128)     # reduced configs, qwen2-0.5b, moonshot
 _DTYPES = (torch.float32, torch.bfloat16)
-DECODE_MAX_GROUP = 16          # kDecodeRows in paged_decode.cu
+DECODE_MAX_GROUP = 16          # kMaxGroup in decode_split.cuh
 
 launch_counts = {"paged_decode": 0, "paged_prefill": 0}
+last_splits = {"paged_decode": None}
 
 _ext = None
 _lock = threading.Lock()
@@ -110,7 +114,8 @@ def paged_attn_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """Launch the decode kernel.  q [B, Hq, D]; k_pages/v_pages [N, ps,
     Hkv, D] in q's dtype; table [B, P] int32 with every entry < N; lengths
-    [B] int32.  Returns [B, Hq, D] in q's dtype."""
+    [B] int32.  One launch of ``split.split_count(B, Hkv, G, P x ps, SMs)``
+    CTAs per (slot, KV head, row group).  Returns [B, Hq, D] in q's dtype."""
     dev = q.device
     _check("q", q, 3, _DTYPES, dev)
     hq, hkv = _check_pages(q, k_pages, v_pages, table, dev)
@@ -120,10 +125,17 @@ def paged_attn_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if hq // hkv > DECODE_MAX_GROUP:
         raise ValueError(f"G = {hq // hkv} > {DECODE_MAX_GROUP} query heads "
                          "per KV head")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned (the kernel reads rows "
+                         "in 16-byte chunks)")
+    splits = split.split_count(q.shape[0], hkv, hq // hkv,
+                               table.shape[1] * k_pages.shape[1],
+                               split.sm_count(dev))
     ext = load_extension()
     out = torch.empty_like(q)
-    ext.paged_decode(q, k_pages, v_pages, table, lengths, out)
+    ext.paged_decode(q, k_pages, v_pages, table, lengths, out, splits)
     launch_counts["paged_decode"] += 1
+    last_splits["paged_decode"] = splits
     return out
 
 

@@ -37,7 +37,7 @@ from repro_torch.kernels import wavesim_volume as wv
 from repro_torch.kernels.paged_attn import (kernel, paged_attn,
                                             paged_attn_ref,
                                             paged_prefill_attn,
-                                            paged_prefill_attn_ref)
+                                            paged_prefill_attn_ref, split)
 from repro_torch.launch import wave_demo
 from repro_torch.launch.serve import run
 from repro_torch.models.init import FILL_CHUNK, init_params
@@ -76,21 +76,98 @@ def _pages(rng, b, hkv, d, n, ps, p_max, depths, dtype):
     return pool(), pool(), torch.from_numpy(tbl).to("cuda")
 
 
+# the decode kernels' contract: G 1 to 16, head_dim 16, 64 and 128
+DECODE_GEOMETRIES = [(4, 1, 16, 8),       # reduced qwen2-0.5b (G 4)
+                     (14, 2, 64, 16),     # full-width qwen2-0.5b (G 7)
+                     (16, 2, 64, 8),      # G 8, pages of 8
+                     (16, 1, 64, 16),     # G 16
+                     (16, 16, 128, 16),   # full-width moonshot (G 1)
+                     (16, 1, 128, 16),    # G 16 at D 128
+                     (2, 2, 16, 4)]       # G 1 at D 16, pages of 4
+DECODE_BOUND = 384                        # keys a table row or cap spans
+
+
+def _split_batches(splits, hkv, group, bound, lengths):
+    """Batches of slot lengths that cover ``lengths``, each of the one
+    size (the largest up to len(lengths), or the least that makes it)
+    for which the wrappers pick ``splits`` CTAs a slot and row group."""
+    sms = split.sm_count(torch.device("cuda", torch.cuda.current_device()))
+    sizes = [b for b in range(1, 600)
+             if split.split_count(b, hkv, group, bound, sms) == splits]
+    b = max(x for x in sizes if x <= max(len(lengths), sizes[0]))
+    return [[lengths[(i + j) % len(lengths)] for j in range(b)]
+            for i in range(0, len(lengths), b)]
+
+
+def _decode_lengths(splits, ps, bound):
+    return sorted({0, 1, ps - 1, ps, ps + 1, splits * split.TILE - 1, bound}
+                  | set(split.boundary_lengths(splits, bound)))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq,hkv,d,ps", GEOMETRIES)
-def test_decode_kernel_matches_plain_version(dtype, hq, hkv, d, ps):
-    rng = np.random.default_rng(hq + d)
-    lengths = [1, ps - 1, ps, ps + 1, 7 * ps + 3]
-    k, v, tbl = _pages(rng, 5, hkv, d, 40, ps, 9, lengths, dtype)
-    q = torch.randn(5, hq, d, device="cuda").to(dtype)
-    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    before = kernel.launch_counts["paged_decode"]
-    got = paged_attn(q, k, v, tbl, ln)
-    assert kernel.launch_counts["paged_decode"] == before + 1
-    want = paged_attn_ref(q.float(), k.float(), v.float(), tbl, ln)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype
-    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+@pytest.mark.parametrize("hq,hkv,d,ps", DECODE_GEOMETRIES)
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_decode_kernel_matches_plain_version(dtype, hq, hkv, d, ps, splits):
+    """Lengths 0, 1, page edges, the full table, shorter than ``splits``
+    tiles and one key before, at and past every rank boundary, with the
+    batch that makes the wrapper pick ``splits`` CTAs a slot and row group
+    (G over row groups of ``split.CTA_ROWS``).  The pool
+    rows past each slot's length in its last page, every unused page and
+    the sink hold NaN, so a read past a length shows; the plain version
+    reads the same pools without the NaN."""
+    rng = np.random.default_rng(hq + d + splits)
+    p_max = DECODE_BOUND // ps
+    for lengths in _split_batches(splits, hkv, hq // hkv, DECODE_BOUND,
+                                  _decode_lengths(splits, ps, DECODE_BOUND)):
+        b = len(lengths)
+        n = sum(-(-x // ps) for x in lengths) + 1
+        k, v, tbl = _pages(rng, b, hkv, d, n, ps, p_max, lengths, dtype)
+        kp, vp = k.clone(), v.clone()
+        used = torch.zeros(n + 1, dtype=torch.bool, device="cuda")
+        for i, x in enumerate(lengths):
+            pages = tbl[i, :-(-x // ps)].long()
+            used[pages] = True
+            if x % ps:
+                kp[pages[-1], x % ps:] = float("nan")
+                vp[pages[-1], x % ps:] = float("nan")
+        kp[~used] = float("nan")
+        vp[~used] = float("nan")
+        q = torch.randn(b, hq, d, device="cuda").to(dtype)
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        before = kernel.launch_counts["paged_decode"]
+        got = paged_attn(q, kp, vp, tbl, ln)
+        assert kernel.launch_counts["paged_decode"] == before + 1
+        assert kernel.last_splits["paged_decode"] == splits
+        want = paged_attn_ref(q.float(), k.float(), v.float(), tbl, ln)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        assert bool(torch.isfinite(got.float()).all())
+        assert bool((got[ln == 0] == 0).all())
+        assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 8])
+def test_decode_kernel_stages_a_wide_table_in_runs(dtype, splits):
+    """A table row of 600 pages of 4 keys, wider than the 256 page ids a
+    CTA stages at once: a rank's range is walked in runs of 255 pages,
+    each staged in turn, at the run edges +-1 and at the full table."""
+    rng = np.random.default_rng(splits)
+    hq, hkv, d, ps, p_max = 4, 1, 16, 4, 600
+    bound = p_max * ps
+    lengths = [0, 1, 1019, 1020, 1021, 2039, 2040, 2041, bound - 1, bound]
+    for batch in _split_batches(splits, hkv, hq // hkv, bound, lengths):
+        n = sum(-(-x // ps) for x in batch)
+        k, v, tbl = _pages(rng, len(batch), hkv, d, n, ps, p_max, batch,
+                           dtype)
+        q = torch.randn(len(batch), hq, d, device="cuda").to(dtype)
+        ln = torch.tensor(batch, dtype=torch.int32, device="cuda")
+        got = paged_attn(q, k, v, tbl, ln)
+        assert kernel.last_splits["paged_decode"] == splits
+        want = paged_attn_ref(q.float(), k.float(), v.float(), tbl, ln)
+        torch.cuda.synchronize()
+        assert bool((got[ln == 0] == 0).all())
+        assert (got.float() - want).abs().max().item() <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -156,6 +233,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):                 # not contiguous
         kernel.paged_attn_cuda(torch.zeros(4, 2, 16, device="cuda")
                                .transpose(0, 1), pool, pool, tbl, ln)
+    with pytest.raises(ValueError, match="aligned"):  # q off 16 bytes
+        kernel.paged_attn_cuda(torch.zeros(129, device="cuda")[1:]
+                               .view(2, 4, 16), pool, pool, tbl, ln)
 
 
 def test_serving_through_kernels_matches_cpu_plain_path():
@@ -172,42 +252,42 @@ def test_serving_through_kernels_matches_cpu_plain_path():
     assert on_card["results"] == on_cpu["results"]
 
 
-STRIPE_GEOMETRIES = [(4, 1, 16),     # reduced qwen2-0.5b (G = 4)
-                     (14, 2, 64),    # full-width qwen2-0.5b (G = 7)
-                     (16, 1, 64),    # G = 16, the kernel's largest group
-                     (16, 16, 128)]  # full-width moonshot (G = 1)
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq,hkv,d", STRIPE_GEOMETRIES)
-@pytest.mark.parametrize("s_cap", [None, 100])
-def test_decode_attn_kernel_matches_plain_version(dtype, hq, hkv, d, s_cap):
-    """Ragged lengths: 0 (zeros), 1, tile edges, and lengths above the
-    rows read; with ``s_cap`` the rows past it hold NaN and must never be
+@pytest.mark.parametrize("hq,hkv,d,ps", DECODE_GEOMETRIES)
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("s_cap", [None, 200])
+def test_decode_attn_kernel_matches_plain_version(dtype, hq, hkv, d, ps,
+                                                  splits, s_cap):
+    """Lengths 0 (zeros), 1, shorter than ``splits`` tiles, one key
+    before, at and past every rank boundary, and above the rows read, with
+    the batch that makes the wrapper pick ``splits`` CTAs a slot and row
+    group; with ``s_cap`` the rows past it hold NaN and must never be
     read."""
-    rng = np.random.default_rng(hq + d)
-    b, s = 6, 160
-    lengths = [0, 1, 63, 64, 65, s + 5]
-
-    def stripe():
-        a = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
-        if s_cap is not None:
-            a[:, s_cap:] = np.nan
-        return torch.from_numpy(a).to("cuda").to(dtype)
-    k, v = stripe(), stripe()
-    q = torch.randn(b, hq, d, device="cuda").to(dtype)
-    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    before = dattn.launch_counts["decode_attn"]
-    got = dattn.decode_attn(q, k, v, ln, s_cap=s_cap)
-    assert dattn.launch_counts["decode_attn"] == before + 1
+    rng = np.random.default_rng(hq + d + splits)
+    s = DECODE_BOUND
     cap = s if s_cap is None else s_cap
-    want = dattn.decode_attn_ref(q.float(), k[:, :cap].float(),
-                                 v[:, :cap].float(), ln)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == q.shape
-    assert bool(torch.isfinite(got.float()).all())
-    assert bool((got[0] == 0).all())
-    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+    lengths = _decode_lengths(splits, ps, cap) + [cap + 5]
+    for chunk in _split_batches(splits, hkv, hq // hkv, cap, lengths):
+        b = len(chunk)
+
+        def stripe():
+            a = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+            a[:, cap:] = np.nan
+            return torch.from_numpy(a).to("cuda").to(dtype)
+        k, v = stripe(), stripe()
+        q = torch.randn(b, hq, d, device="cuda").to(dtype)
+        ln = torch.tensor(chunk, dtype=torch.int32, device="cuda")
+        before = dattn.launch_counts["decode_attn"]
+        got = dattn.decode_attn(q, k, v, ln, s_cap=s_cap)
+        assert dattn.launch_counts["decode_attn"] == before + 1
+        assert dattn.kernel.last_splits["decode_attn"] == splits
+        want = dattn.decode_attn_ref(q.float(), k[:, :cap].float(),
+                                     v[:, :cap].float(), ln)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        assert bool(torch.isfinite(got.float()).all())
+        assert bool((got[ln == 0] == 0).all())
+        assert (got.float() - want).abs().max().item() <= TOL[dtype]
 
 
 def test_decode_attn_wrapper_refuses_what_the_kernel_does_not_take():
@@ -229,6 +309,9 @@ def test_decode_attn_wrapper_refuses_what_the_kernel_does_not_take():
              torch.zeros(2, 8, 1, 32, device="cuda"), ln, 8)
     with pytest.raises(ValueError):                 # G = 17
         run_(torch.zeros(2, 17, 16, device="cuda"), kv, kv, ln, 8)
+    with pytest.raises(ValueError, match="aligned"):  # q off 16 bytes
+        run_(torch.zeros(129, device="cuda")[1:].view(2, 4, 16), kv, kv, ln,
+             8)
 
 
 def _dense_run(params, device, **kw):

@@ -1,7 +1,9 @@
 """Port dense-stripe decode attention vs the JAX package's Pallas kernel
 (run in interpret mode, as the JAX tests run it on the CPU) and vs the
 JAX plain version: ragged per-slot lengths, a length above the stripe, a
-stripe read under ``s_cap``, a length-0 slot and a scalar length.  On the
+stripe read under ``s_cap``, a length-0 slot and a scalar length; and the
+split-then-combine plain version of the kernel's split-KV schedule at
+every split count.  On the
 CPU the port's op runs its plain PyTorch version; the CUDA kernel is held
 against that same version on the card by ``tests/test_torch_cuda.py``.
 
@@ -18,6 +20,8 @@ from repro.kernels.decode_attn import decode_attn as jax_decode_attn
 from repro.kernels.decode_attn.ref import decode_attn_ref as jax_ref
 from repro_torch.kernels.decode_attn import (decode_attn, decode_attn_ref,
                                              kernel)
+from repro_torch.kernels.paged_attn import split
+from repro_torch.kernels.paged_attn.ref import decode_split_ref
 
 torch.set_num_threads(1)
 
@@ -116,6 +120,27 @@ def test_op_keeps_the_query_dtype_on_cpu():
     want = decode_attn_ref(q.float(), k.float(), v.float(),
                            torch.tensor([3, 64]))
     assert (out.float() - want).abs().max() < 2e-2
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_split_combine_matches_pallas_kernel(splits):
+    """The split-then-combine plain version at lengths 0, 1, shorter than
+    ``splits`` tiles, one key before, at and past each rank boundary, and
+    above the stripe, against the Pallas kernel: empty ranks add nothing,
+    and the merged states give the softmax of the whole slot."""
+    rng = np.random.default_rng(20 + splits)
+    s = 256
+    lengths = sorted({0, 1, splits * split.TILE - 1, s + 9}
+                     | set(split.boundary_lengths(splits, s)))
+    q, k, v = _inputs(rng, len(lengths), s, 8, 2, 16)
+    ln = np.asarray(lengths, np.int32)
+    want = jax_decode_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(ln), bs=64)
+    got = decode_split_ref(_t(q), _t(k), _t(v), _t(ln), splits)
+    np.testing.assert_array_equal(got[0].numpy(), 0.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), decode_attn_ref(
+        _t(q), _t(k), _t(v), _t(ln)).numpy(), **TOL)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
