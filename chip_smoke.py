@@ -11,7 +11,10 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
 2. build: compile the eight CUDA extensions from their ``csrc/``
    directories at once (paged attention: decode and prefill; dense-stripe
    decode; skinny GEMM: masked and compact; push scatter; wavesim volume;
-   wavesim flux; vector-sum; the grouped expert GEMM);
+   wavesim flux; vector-sum; the grouped expert GEMM), and beside them
+   ``volume.cu`` alone through ``repro_torch.launch.sass_check``: its
+   registers, spills and CTAs an SM, and that each product run is one
+   row's 189 FFMAs with constant-bank weights and no LDC, LDL or STL;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in bfloat16 and float32.  Paged, at the full-width qwen2-0.5b geometry
    (Hq 14, Hkv 2, D 64, page 16): decode at the serve batch of 8 (so at
@@ -36,11 +39,16 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    guard included), and A's columns NaN in every block a walk skips.  Push
    scatter: every update hot, every update cold, hot == n < 1024, hot
    1024, U a multiple of no tile.  Wave volume, float32 and bfloat16,
-   (E, F) from (1, 1) to ``Problem()``'s (64000, 27), c 1.0 and 0.7;
+   (E, F) from (1, 1) to ``Problem()``'s (64000, 27), c 1.0 and 0.7, and
+   row counts that end the persistent walk anywhere in its ring (1, 255,
+   257, a tile a CTA +-1, a walk that wraps the ring) on an aligned and an
+   unaligned base, each within the bounds of 27-term and of the stencil's
+   7-term sums; an off-pattern W refused;
    wave flux1d, (E, T) from (1, 9) to (64000, 243), alpha 0.5 (equal to
    the plain version) and 0.3 (within one ulp); vector-sum in float32,
-   bfloat16 and float16 from 0 to 64 Mi elements, a 3-D shape and an
-   unaligned view (exactly a + b).  The summing kernels are held per
+   bfloat16 and float16 from 0 to 64 Mi elements, a 3-D shape, the
+   lengths where its spans change shape +-1, on its default grid and on a
+   persistent one, and an unaligned view (exactly a + b).  The summing kernels are held per
    output to the worst-case bound of float32 summation against float64
    results from the same inputs.  Then the time of each kernel, of its
    plain version and of one library call (``scaled_dot_product_attention``,
@@ -54,7 +62,10 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    ss-gemm walks at N 16); the two decode kernels and SDPA also on the
    device alone (the same calls captured in one CUDA graph and replayed),
    with each split count, GB/s, share of the bound and the wrapper's host
-   us a call; ss-gemm's two routes side by side at N 2-16;
+   us a call; ss-gemm's two routes side by side at N 2-16; volume (both
+   dtypes) and vector-sum on the device alone too, against
+   ``torch.matmul`` and ``torch.add`` timed the same way (``[timing]
+   redesigned primitives``), vector-sum also on a persistent grid;
 4. serve, paged and dense: full-width qwen2-0.5b (seeded random bfloat16
    weights) through ``repro_torch.launch.serve.run``: 16 requests,
    prompts of 64-512 tokens, 64 new tokens each, batch 8, max_len 1024,
@@ -93,9 +104,10 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*``, the
-decode rows their device-only ``graph_ms`` and SDPA's ``library_graph_ms``,
-the grouped GEMM's row the join's as ``prefill_*`` and ``down_*``, the
-ss-gemm rows N 16's as ``n16_*``), the
+decode, volume and vector-sum rows their device-only ``graph_ms`` and
+the library call's ``library_graph_ms``, volume's row its bfloat16 times
+as ``bf16_*``, the grouped GEMM's row the join's as ``prefill_*`` and
+``down_*``, the ss-gemm rows N 16's as ``n16_*``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -774,6 +786,21 @@ def redesign_line(timings: dict) -> None:
                      f"{lib:.4f} ms ({lib / ms:.2f}x the kernel's time)")
     print("[timing] redesigned decode kernels (bf16, device time from a "
           "CUDA graph): " + "; ".join(parts))
+    parts = []
+    for label, name, key, lib_name in (
+            ("wavesim_volume float32", "wavesim_volume", "", "torch.matmul"),
+            ("wavesim_volume bf16", "wavesim_volume", "bf16_",
+             "torch.matmul"),
+            ("vector_sum float16 64 Mi", "vector_sum", "", "torch.add")):
+        row = timings[name]
+        ms, lib = row[key + "graph_ms"], row[key + "library_graph_ms"]
+        gbs = row[key + "bytes"] / ms / 1e6
+        parts.append(f"{label} {ms:.4f} ms, {gbs:.1f} GB/s, "
+                     f"{row[key + 'bound_ms'] / ms:.1%} of its bound; "
+                     f"{lib_name} {lib:.4f} ms ({lib / ms:.2f}x the kernel's "
+                     f"time)")
+    print("[timing] redesigned primitives (device time from a CUDA graph): "
+          + "; ".join(parts))
 
 
 # ---------------------------------------------------------------------------
@@ -1265,14 +1292,16 @@ def ulp(torch, x, dtype_name):
                       - (MANTISSA[dtype_name] - 1))
 
 
-def volume_within(torch, got, x64, w64) -> tuple[bool, float, float]:
-    """Per output, |got - want| <= gamma(27) x sum |x_i w_ij| (float64 from
-    the same x and the same rounded W), plus, for a bfloat16 output, its
-    own last rounding, 2**-8 |got|.  Returns (ok, max abs error, largest
-    error as a share of its bound)."""
+def volume_within(torch, got, x64, w64, n_terms=27
+                  ) -> tuple[bool, float, float]:
+    """Per output, |got - want| <= gamma(n_terms) x sum |x_i w_ij|
+    (float64 from the same x and the same rounded W), plus, for a bfloat16
+    output, its own last rounding, 2**-8 |got|.  ``n_terms`` is 27 for
+    any summation of a row, 7 for the stencil's chains.  Returns (ok, max
+    abs error, largest error as a share of its bound)."""
     from repro_torch.kernels.wavesim_volume import volume_kernel_ref
     want = volume_kernel_ref(x64, w64)
-    lim = gamma(27) * volume_kernel_ref(x64.abs(), w64.abs())
+    lim = gamma(n_terms) * volume_kernel_ref(x64.abs(), w64.abs())
     if got.dtype != torch.float32:
         lim = lim + 2.0 ** -8 * got.double().abs()
     err = (got.double() - want).abs()
@@ -1280,11 +1309,45 @@ def volume_within(torch, got, x64, w64) -> tuple[bool, float, float]:
     return bool((err <= lim).all()), float(err.max()), ratio
 
 
+def walk_rows(torch) -> list[int]:
+    """Row counts that end a persistent CTA's walk of the volume kernel
+    at each point of its ring: 1, a tile less or more one row, a tile for
+    every CTA of the grid less or more one row, and a walk that wraps the
+    ring."""
+    from repro_torch.kernels.wavesim_volume import kernel as vk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = vk.CTAS_PER_SM * sms * vk.TILE_ROWS
+    return [1, 255, 257, grid - 1, grid, grid + 1,
+            4 * grid + 3 * vk.TILE_ROWS + 5]
+
+
+def span_lengths(torch, dtype) -> list[int]:
+    """Lengths of ``dtype`` elements at which the vector-sum kernel's
+    spans change shape, each less one, as is and plus one: one row of
+    16-byte chunks, one span of ``UNROLL`` rows, a span and a row, and,
+    for a persistent grid of two CTAs an SM, a span and a span and a row
+    for every CTA."""
+    from repro_torch.kernels.vector_sum import kernel as vk
+    row = vk.THREADS * (16 // dtype.itemsize)
+    unroll, grid = vk.UNROLL, persistent_ctas(torch)
+    return [m * row + d for m in (1, unroll, unroll + 1, grid * unroll,
+                                  grid * (unroll + 1))
+            for d in (-1, 0, 1)]
+
+
+def persistent_ctas(torch) -> int:
+    """Two CTAs an SM: the vector-sum kernel's persistent schedule."""
+    return 2 * torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def wave_kernel_checks(torch) -> None:
     """The three kernels against their plain versions on the card: volume
-    within the float32 bound of its 27-term sums (ragged last tiles, c 1.0
-    and 0.7), flux1d equal at alpha 0.5 and within one ulp at 0.3 (the
-    plain version rounds twice in bfloat16), vector-sum exactly a + b."""
+    within the float32 bounds of 27-term and of 7-term sums (ragged last
+    tiles, c 1.0 and 0.7, the row counts of :func:`walk_rows` on aligned
+    and unaligned bases) and refusing a W off the stencil's pattern;
+    flux1d equal at alpha 0.5 and within one ulp at 0.3 (the plain version
+    rounds twice in bfloat16); vector-sum exactly a + b, also at the
+    lengths of :func:`span_lengths`."""
     from repro_torch.kernels import vector_sum as vs
     from repro_torch.kernels import wavesim_flux as wf
     from repro_torch.kernels import wavesim_volume as wv
@@ -1298,18 +1361,56 @@ def wave_kernel_checks(torch) -> None:
             for c in (1.0, 0.7):
                 w = wv.fused_operator(c, dtype)
                 got = wv.kernel.volume_cuda(x, w)
-                ok, err, ratio = volume_within(torch, got, x64, w.double())
-                n_checks += 1
-                worst[name] = max(worst.get(name, 0.0), ratio)
-                check(ok and got.dtype == dtype,
-                      f"wavesim_volume outside the bound ({dtype}, E={e} "
-                      f"F={f} c={c}): err {err:.3e}, {ratio:.2f} of it")
+                for n_terms in (27, 7):
+                    ok, err, ratio = volume_within(torch, got, x64,
+                                                   w.double(), n_terms)
+                    n_checks += 1
+                    key = f"{name} gamma({n_terms})"
+                    worst[key] = max(worst.get(key, 0.0), ratio)
+                    check(ok and got.dtype == dtype,
+                          f"wavesim_volume outside the gamma({n_terms}) "
+                          f"bound ({dtype}, E={e} F={f} c={c}): err "
+                          f"{err:.3e}, {ratio:.2f} of it")
+        # the persistent walk: rows that end it anywhere in the ring, on an
+        # aligned base (bulk copies, the ragged tile on the plain path) and
+        # one element past it (every tile on the plain path)
+        for rows in walk_rows(torch):
+            buf = torch.randn(rows * 27 + 1, generator=gen,
+                              device="cuda").to(dtype)
+            for off in (0, 1):
+                x = buf[off:off + rows * 27].view(rows, 27)
+                w = wv.fused_operator(0.7, dtype)
+                got = wv.kernel.volume_cuda(x, w)
+                for n_terms in (27, 7):
+                    ok, err, ratio = volume_within(torch, got, x.double(),
+                                                   w.double(), n_terms)
+                    n_checks += 1
+                    key = f"{name} gamma({n_terms})"
+                    worst[key] = max(worst.get(key, 0.0), ratio)
+                    check(ok, f"wavesim_volume outside the gamma({n_terms})"
+                          f" bound ({dtype}, {rows} rows, base offset "
+                          f"{off})")
+        # a W off the stencil's pattern: refused before any launch
+        before = wv.launch_counts["wavesim_volume"]
+        for bad in (0.5, float("nan")):
+            w = wv.fused_operator(1.0, dtype).clone()
+            w[0, 26] = bad                  # nodes (0,0,0) and (2,2,2)
+            try:
+                wv.kernel.volume_cuda(x, w)
+            except ValueError:
+                continue
+            raise SmokeFailure(f"wavesim_volume took an off-pattern W "
+                               f"({dtype}, W[0, 26] = {bad})")
+        check(wv.launch_counts["wavesim_volume"] == before,
+              "wavesim_volume launched on an off-pattern W")
     print(f"[kernels] wavesim_volume float32/bfloat16, (E, F) (1, 1) to "
-          f"(64000, 27), c 1.0/0.7: {n_checks} checks within the float32 "
-          f"bound of 27-term sums (largest error as a share of its bound: "
-          f"float32 {worst['float32']:.3f}, bfloat16 {worst['bfloat16']:.3f}"
-          f"; the bfloat16 bound adds the output's own rounding, which a "
-          f"tie reaches)")
+          f"(64000, 27), c 1.0/0.7, and rows {walk_rows(torch)} on an "
+          f"aligned and an unaligned base: {n_checks} checks within the "
+          f"float32 bounds of 27-term and of the stencil's 7-term sums "
+          f"(largest error as a share of its bound: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+          + "; the bfloat16 bound adds the output's own rounding, which a "
+          "tie reaches); an off-pattern W (0.5, NaN) refused")
 
     n_checks, worst_ulps = 0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1340,13 +1441,16 @@ def wave_kernel_checks(torch) -> None:
     n_checks = 0
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for shape in ((0,), (1,), (7,), (512,), (10_000,), (64 << 20,),
-                      (3, 5, 7)):
+                      (3, 5, 7), *((n,) for n in span_lengths(torch,
+                                                               dtype))):
             a = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             b = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            got = vs.kernel.vector_sum_cuda(a, b)
-            n_checks += 1
-            check(torch.equal(got, vs.vector_sum_ref(a, b)),
-                  f"vector_sum is not a + b ({dtype}, shape {shape})")
+            for ctas in (0, persistent_ctas(torch)):
+                got = vs.kernel.vector_sum_cuda(a, b, ctas=ctas)
+                n_checks += 1
+                check(torch.equal(got, vs.vector_sum_ref(a, b)),
+                      f"vector_sum is not a + b ({dtype}, shape {shape}, "
+                      f"ctas {ctas})")
         buf = torch.randn(2, 10_001, generator=gen, device="cuda").to(dtype)
         a, b = buf[0, 1:], buf[1, 1:]      # one element past 16 bytes
         n_checks += 1
@@ -1354,18 +1458,23 @@ def wave_kernel_checks(torch) -> None:
               f"vector_sum is not a + b on an unaligned view ({dtype})")
     torch.cuda.synchronize()
     print(f"[kernels] vector_sum float32/bfloat16/float16, n 0 to 64 Mi, "
-          f"(3, 5, 7), an unaligned view: {n_checks} checks, each exactly "
-          f"a + b")
+          f"(3, 5, 7), the span boundaries +-1 (float32 "
+          f"{span_lengths(torch, torch.float32)}), one CTA a span and "
+          f"{persistent_ctas(torch)} CTAs sharing the rows, an unaligned "
+          f"view: {n_checks} checks, each exactly a + b")
 
 
 def wave_timings(torch) -> dict:
     """Times at the paper's sizes: volume at ``wavesim.Problem()`` (R =
     1,728,000 rows of 27) and flux1d at E 64,000 x T 243
     (``Problem().face_points``), both in float32 (the wave path's dtype;
-    bfloat16 printed beside), vector-sum at n = 64 Mi in float16 (the
-    paper's elements).  The kernels' products and sums run on the CUDA
-    cores in float32 whatever the dtype, so their operations are reckoned
-    at the float32 rate."""
+    bfloat16 printed beside, and in volume's row as ``bf16_*``),
+    vector-sum at n = 64 Mi in float16 (the paper's elements).  Volume and
+    vector-sum also on the device alone (``graph_ms``, the library call's
+    ``library_graph_ms``: the same calls captured in one CUDA graph).  The
+    kernels' products and sums run on the CUDA cores in float32 whatever
+    the dtype, so their operations are reckoned at the float32 rate; the
+    volume kernel's are the stencil's 189 multiply-adds a row."""
     from repro_torch.core.primitives import vector_sum as vs_core
     from repro_torch.core.primitives import wavesim
     from repro_torch.kernels import vector_sum as vs
@@ -1381,30 +1490,39 @@ def wave_timings(torch) -> dict:
         u = torch.randn(prob.n_elements, prob.n_fields, 3, 3, 3,
                         generator=gen, device="cuda").to(dtype)
         x = u.view(rows, 27)
-        w = wv.fused_operator(1.0, dtype)
+        w, sten = wv.ops.operator(1.0, dtype)     # what the op passes
         w_dev = w.cuda()
-        got = wv.kernel.volume_cuda(x, w)
+        got = wv.kernel.volume_cuda(x, sten)
         _, err, _ = volume_within(torch, got, x.double(), w.double())
-        t_bound, by = bound(2.0 * rows * 27 * item + w.numel() * item,
-                            2.0 * rows * 27 * 27, "float32")
-        row = {"ms": time_ms(torch, lambda i: wv.kernel.volume_cuda(x, w),
-                             20),
+        nbytes = 2.0 * rows * 27 * item + sten.numel() * 4
+        t_bound, by = bound(nbytes, 2.0 * rows * sten.numel(), "float32")
+        row = {"ms": time_ms(torch, lambda i: wv.kernel.volume_cuda(
+                   x, sten), 20),
+               "graph_ms": graph_ms(torch, lambda i: wv.kernel.volume_cuda(
+                   x, sten), 20),
                "plain_ms": time_ms(torch, lambda i: wv.volume_kernel_ref(
                    x, w_dev), 10),
                "library_ms": time_ms(torch, lambda i: torch.matmul(
                    x, w_dev), 20),
+               "library_graph_ms": graph_ms(torch, lambda i: torch.matmul(
+                   x, w_dev), 20),
                "bound_ms": t_bound, "bound_by": by, "max_abs_err": err,
+               "bytes": nbytes,
                "shape": f"Problem(): R={rows} rows of 27, {name}"}
         einsum_ms = time_ms(torch, lambda i: wv.volume_ref(u), 3, reps=3)
         line = (f"[timing] wavesim_volume ({row['shape']}): kernel_ms "
-                f"{row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, "
-                f"library_ms (torch.matmul) {row['library_ms']:.4f}, "
-                f"bound_ms {t_bound:.4f} ({by}), max_abs_err vs float64 "
-                f"{err:.3e}; the core einsums {einsum_ms:.4f} ms")
+                f"{row['ms']:.4f}, device only {row['graph_ms']:.4f}; "
+                f"plain_ms {row['plain_ms']:.4f}, library_ms "
+                f"(torch.matmul) {row['library_ms']:.4f}, device only "
+                f"{row['library_graph_ms']:.4f}; bound_ms {t_bound:.4f} "
+                f"({by}), max_abs_err vs float64 {err:.3e}; the core "
+                f"einsums {einsum_ms:.4f} ms")
         if dtype == torch.float32:
             out["wavesim_volume"] = row
             print(line)
         else:
+            out["wavesim_volume"].update(
+                {f"bf16_{k}": v for k, v in row.items() if k != "shape"})
             extra.append(line)
         del u, x, got
 
@@ -1442,15 +1560,26 @@ def wave_timings(torch) -> dict:
     t_bound, by = bound(3.0 * n * 2, float(n), "float32")
     row = {"ms": time_ms(torch, lambda i: vs.kernel.vector_sum_cuda(a, b),
                          20),
+           "graph_ms": graph_ms(torch, lambda i: vs.kernel.vector_sum_cuda(
+               a, b), 20),
            "plain_ms": time_ms(torch, lambda i: vs.vector_sum_ref(a, b), 20),
            "library_ms": time_ms(torch, lambda i: torch.add(a, b), 20),
+           "library_graph_ms": graph_ms(torch, lambda i: torch.add(a, b),
+                                        20),
+           "persistent_graph_ms": graph_ms(
+               torch, lambda i: vs.kernel.vector_sum_cuda(
+                   a, b, ctas=persistent_ctas(torch)), 20),
            "bound_ms": t_bound, "bound_by": by, "max_abs_err": err,
-           "shape": f"n={n} float16"}
+           "bytes": 3.0 * n * 2, "shape": f"n={n} float16"}
     out["vector_sum"] = row
     print(f"[timing] vector_sum ({row['shape']}): kernel_ms "
-          f"{row['ms']:.4f}, plain_ms (a + b) {row['plain_ms']:.4f}, "
-          f"library_ms (torch.add) {row['library_ms']:.4f}, bound_ms "
-          f"{t_bound:.4f} ({by}), max_abs_err vs a + b {err:.3e}")
+          f"{row['ms']:.4f}, device only {row['graph_ms']:.4f}; plain_ms "
+          f"(a + b) {row['plain_ms']:.4f}, library_ms (torch.add) "
+          f"{row['library_ms']:.4f}, device only "
+          f"{row['library_graph_ms']:.4f}; bound_ms {t_bound:.4f} ({by}), "
+          f"max_abs_err vs a + b {err:.3e}; the kernel on a persistent "
+          f"grid of {persistent_ctas(torch)} CTAs, device only "
+          f"{row['persistent_graph_ms']:.4f}")
     for line in extra:
         print(line)
     return out
@@ -1853,6 +1982,7 @@ def main() -> int:
         from repro_torch.kernels.vector_sum import kernel as vsum_kernel
         from repro_torch.kernels.wavesim_flux import kernel as flux_kernel
         from repro_torch.kernels.wavesim_volume import kernel as vol_kernel
+        from repro_torch.launch import sass_check
     except ImportError as err:
         print(f"chip_smoke: the port is not importable: {err}",
               file=sys.stderr)
@@ -1876,11 +2006,23 @@ def main() -> int:
             "ss_gemm": ssgemm_kernel, "push_scatter": push_kernel,
             "wavesim_volume": vol_kernel, "wavesim_flux": flux_kernel,
             "vector_sum": vsum_kernel, "moe_group_gemm": group_kernel}
-    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(mods) + 1) as pool:
+        # beside the builds: what the volume kernel compiles to
+        sass = pool.submit(
+            sass_check.report,
+            pathlib.Path(vol_kernel.__file__).parent / "csrc" / "volume.cu",
+            vol_kernel.STAGES)
         secs = dict(zip(mods, pool.map(build, mods.values())))
+        sass = sass.result()
     print(f"[build] {len(mods)} extensions built at once in "
           f"{time.perf_counter() - t0:.1f}s ("
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()) + ")")
+    for line in sass_check.lines(sass):
+        print(line)
+    check(sass_check.stencil_loop_ok(sass),
+          "wavesim_volume: the stencil's multiply-adds do not compile to "
+          "189 FFMAs a row with constant-bank weights and no LDC, LDL or "
+          "STL among them, or the kernel spills")
 
     worst = kernel_checks(torch)
     kernel_checks(torch, MOE_GEO)
@@ -1899,8 +2041,8 @@ def main() -> int:
             "library_graph_ms", "host_us", "splits", "bytes") if k in row})
     timings["group_gemm"] = group_gemm_timing(torch)
     timings.update(primitive_timings(torch))
-    redesign_line(timings)
     timings.update(wave_timings(torch))
+    redesign_line(timings)
     for name in ("ssgemm_masked", "ssgemm_compact", "push_scatter",
                  "wavesim_volume", "flux1d", "vector_sum"):
         worst[name] = timings[name]["max_abs_err"]
@@ -1963,9 +2105,10 @@ def main() -> int:
         # library_graph_ms), the wrapper's host_us and their split count
         rows[-1].update({k: v for k, v in t.items()
                          if (k.startswith(("tiles", "prefill_", "down_",
-                                           "d128_", "n16_"))
+                                           "d128_", "n16_", "bf16_"))
                              or k in ("graph_ms", "library_graph_ms",
-                                      "host_us", "splits"))
+                                      "host_us", "splits",
+                                      "persistent_graph_ms"))
                          and not k.endswith(("flops", "bytes"))})
         if name == "group_gemm":     # the join's calls take the wgmma file
             rows[-1]["prefill_source"] = ("src/repro_torch/kernels/"

@@ -7,6 +7,15 @@ compiled for ``sm_90a`` with ``torch.utils.cpp_extension.load`` at the
 first launch, into ``build/vector_sum`` at the repository root.
 Importing this module builds nothing.
 
+What bounds the kernel on an H100 is device-memory bytes (two arrays in,
+one out, one add an element).  The design (``vector_sum.cu``'s header)
+is a pure stream: rows of ``THREADS`` 16-byte chunks, one CTA for every
+contiguous span of ``UNROLL`` rows, ``UNROLL`` loads of a and of b in
+flight a thread before its first store, streaming loads and evict-first
+stores.  ``ctas=`` asks for a persistent schedule instead (that many
+CTAs, each an even share of the rows), which ``chip_smoke.py`` times
+beside the default.
+
 The wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take; it allocates the output with
 ``torch.empty`` and launches on PyTorch's current stream.  The plain
@@ -23,6 +32,8 @@ import torch
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "vector_sum.cu")
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+THREADS = 512                       # 16-byte chunks of a row (kThreads)
+UNROLL = 8                          # rows of a span (kUnroll)
 
 launch_counts = {"vector_sum": 0}
 
@@ -71,16 +82,21 @@ def _check(name: str, t: torch.Tensor, dtypes, dev) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def vector_sum_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def vector_sum_cuda(a: torch.Tensor, b: torch.Tensor, *,
+                    ctas: int = 0) -> torch.Tensor:
     """Launch the kernel.  a, b of one shape and dtype (float32, bfloat16
     or float16), contiguous, on the card; any shape, at any element
-    offset.  Returns a + b, equal bit for bit to PyTorch's."""
+    offset.  ``ctas`` 0 (the default) runs one CTA for every span of
+    ``UNROLL`` rows; a positive ``ctas`` shares the rows out to that many
+    CTAs.  Returns a + b, equal bit for bit to PyTorch's."""
     _check("a", a, _DTYPES, a.device)
     _check("b", b, (a.dtype,), a.device)
     if a.shape != b.shape:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ")
+    if not isinstance(ctas, int) or ctas < 0:
+        raise ValueError(f"ctas must be an int >= 0, got {ctas!r}")
     out = torch.empty_like(a, memory_format=torch.contiguous_format)
     if a.numel():                    # empty: nothing to launch
-        load_extension().vector_sum(a, b, out)
+        load_extension().vector_sum(a, b, out, ctas)
         launch_counts["vector_sum"] += 1
     return out

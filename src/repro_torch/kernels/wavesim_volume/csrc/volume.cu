@@ -1,6 +1,7 @@
 // DGM volume term for sm_90a: rhs rows = u rows @ W, with W the fused
 // 27 x 27 reference derivative operator (the sum of the three directional
-// Kronecker operators times c, stored transposed).
+// Kronecker operators times c, stored transposed), taken as its 7-point
+// stencil.
 //
 // Replaces the TPU kernel src/repro/kernels/wavesim_volume/kernel.py
 // (`volume_kernel`).  Same function: x [R, 27] (one row per element and
@@ -9,27 +10,43 @@
 // the TPU each grid step stages 256 rows padded to 32 lanes through VMEM
 // and multiplies them by the resident W on the MXU.
 //
+// The stencil.  W[i, j] can be nonzero only where nodes i and j differ in
+// at most one of (i, j, k): 7 inputs an output, 189 of the 729 entries.
+// The wrapper hands the kernel those 189 values (kernel.py::
+// stencil_operator, which refuses a W with anything off the pattern), in
+// the order of in_node() below: for output j, its 7 inputs in ascending
+// node order.  Each output is a chain of 7 fused multiply-adds from 0 in
+// that order, in float32.  The dense chain of 27 in node order takes the
+// same 7 products in the same order plus 20 products by an exact zero,
+// which leave a nonzero sum as it is, so for finite x the two agree bit
+// for bit apart from the sign of a zero sum; the error bound tightens from
+// gamma(27) to gamma(7) times the sum of |terms|.
+//
 // What bounds it on an H100: device-memory bytes.  Every row is read once
 // and written once (108 bytes a row in float32, 54 in bfloat16) against
-// 729 multiply-adds, 6.75 operations per byte in float32 and 13.5 in
-// bfloat16: below the CUDA cores' float32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20), so the bytes set the bound.
+// 189 multiply-adds, 3.5 and 7 operations a byte: a tenth (float32) and a
+// sixth (bfloat16) of what the CUDA cores could issue in the time the
+// bytes take.
 //
-// What the design does about it: one CTA of 256 threads per tile of 256
-// rows (6,912 contiguous values, as the TPU's tile).  The CTA loads the
-// tile with coalesced 16-byte loads (a scalar path where u or out is not
-// 16-byte aligned, and for the ragged end of the last tile) into shared
-// memory, widened to float32; the rows are read in place, 27 wide, with
-// no padding.  Each thread then computes one row: its 27 values in
-// registers, each output a chain of 27 fused multiply-adds in node order,
-// written back over its own row in shared memory.  The row stride of 27
-// floats is odd, so a warp's 32 rows fall in 32 different banks.  W is a
-// kernel parameter (the constant bank): every lane of a warp reads the
-// same entry at once, which the constant cache broadcasts, and the
-// multiply-adds take it as an operand with no load of their own.  The
-// tile then goes back to device memory through 16-byte stores in x's
-// dtype.  The products are dense (729 a row); the Kronecker structure
-// would need 243.
+// What the design does about it: persistent CTAs, kCtasPerSm an SM, each
+// walking the 256-row tiles blockIdx.x, blockIdx.x + gridDim.x, ... over a
+// ring of kStages tile stages in shared memory, in x's dtype (27,648 bytes
+// a stage in float32, 13,824 in bfloat16: both multiples of 16, so every
+// tile starts as aligned as the tensor does).  One thread fills a stage
+// with one TMA bulk copy (cp.async.bulk, completing on the stage's
+// mbarrier) and keeps the loads kStages - 1 tiles ahead of the compute.
+// Each thread computes one row from the stage: the row stride of 27
+// values is odd, so a warp's rows fall in distinct banks; bfloat16 is
+// widened to float32 in registers; the 189 stencil values are a
+// __grid_constant__ parameter, so each multiply-add takes its weight from
+// the constant bank as an operand, with no load of its own.  Results go
+// back over the thread's own row of the stage, and one thread sends the
+// tile home with one bulk store (bulk_group), which overlaps the next
+// tile's compute; a stage is refilled only once its store has read it
+// (wait_group.read).  Tiles the bulk copies cannot take (every tile when x
+// or out is not 16-byte aligned, else the ragged last tile) go through a
+// plain path after the walk: coalesced element loads into a stage, the
+// same row compute, coalesced element stores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -38,12 +55,32 @@
 namespace wavesim_volume {
 
 constexpr int kNodes = 27;
-constexpr int kRows = 256;                 // rows of a tile = threads of a CTA
-constexpr int kTile = kRows * kNodes;      // 6,912 values
+constexpr int kTerms = 7;                    // inputs of an output
+constexpr int kStencil = kNodes * kTerms;    // 189
+constexpr int kRows = 256;                   // rows of a tile = threads
+constexpr int kTile = kRows * kNodes;        // 6,912 values
+constexpr int kStages = 3;
+constexpr int kCtasPerSm = 2;
+constexpr int kMaxDevices = 64;
 
-struct Operator {
-  float w[kNodes * kNodes];                // W[i * 27 + j]
+struct Stencil {
+  float s[kStencil];                         // s[j * 7 + t]
 };
+
+// Input node t (0..6) of output node j: the nodes that differ from j in at
+// most one of (i, j, k), in ascending order.
+__host__ __device__ constexpr int in_node(int j, int t) {
+  const int a = j / 9, b = j / 3 % 3, c = j % 3;
+  if (t < a) return t * 9 + b * 3 + c;                  // i below
+  t -= a;
+  if (t < b) return a * 9 + t * 3 + c;                  // j below
+  t -= b;
+  if (t < 3) return a * 9 + b * 3 + t;                  // k, j itself
+  t -= 3;
+  if (t < 2 - b) return a * 9 + (b + 1 + t) * 3 + c;    // j above
+  t -= 2 - b;
+  return (a + 1 + t) * 9 + b * 3 + c;                   // i above
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -54,107 +91,216 @@ __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) {
   *out = __float2bfloat16(x);
 }
 
-// One 16-byte chunk of the tile, widened into shared memory (4 float32
-// values, or 8 bfloat16), and back.
-__device__ __forceinline__ void widen(const uint4& raw, float* dst, float) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&raw);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void widen(const uint4& raw, float* dst,
-                                      __nv_bfloat16) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(p[0]), b = __bfloat1622float2(p[1]);
-  const float2 c = __bfloat1622float2(p[2]), d = __bfloat1622float2(p[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
 }
-__device__ __forceinline__ uint4 narrow(const float* src, float) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  return *reinterpret_cast<const uint4*>(&v);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
-__device__ __forceinline__ uint4 narrow(const float* src, __nv_bfloat16) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  uint4 raw;
-  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
-  p[0] = __floats2bfloat162_rn(a.x, a.y);
-  p[1] = __floats2bfloat162_rn(a.z, a.w);
-  p[2] = __floats2bfloat162_rn(b.x, b.y);
-  p[3] = __floats2bfloat162_rn(b.z, b.w);
-  return raw;
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+// `bytes` contiguous bytes from device memory into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
+      : "memory");
+}
+// `bytes` contiguous bytes from shared memory to device memory, as one
+// bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n"
+      :: "l"(reinterpret_cast<uint64_t>(dst)), "r"(src), "r"(bytes)
+      : "memory");
+}
+// At most N bulk groups still reading their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// This thread's writes to shared memory, visible to the bulk copies.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One row in place: its 27 values into registers, then each output a
+// chain of 7 fused multiply-adds, written over the row.
+template <typename T>
+__device__ __forceinline__ void row_apply(T* row, const Stencil& op) {
+  float x[kNodes];
+#pragma unroll
+  for (int i = 0; i < kNodes; ++i) x[i] = to_f32(row[i]);
+#pragma unroll
+  for (int j = 0; j < kNodes; ++j) {
+    float acc = 0.f;
+#pragma unroll
+    for (int t = 0; t < kTerms; ++t)
+      acc = fmaf(x[in_node(j, t)], op.s[j * kTerms + t], acc);
+    from_f32(acc, row + j);
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kRows, kCtasPerSm)
 volume_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t rows,
-              bool aligned, const __grid_constant__ Operator op) {
-  __shared__ __align__(16) float tile[kTile];
-  constexpr int kVec = 16 / sizeof(T);     // values per 16-byte chunk
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int n_rows = static_cast<int>(
-      rows - row0 < kRows ? rows - row0 : kRows);
-  const int n = n_rows * kNodes;
-  // a tile is 27,648 (float32) or 13,824 (bfloat16) bytes, a multiple of
-  // 16, so every tile starts as aligned as the tensor does
-  const T* src = x + row0 * kNodes;
-  T* dst = out + row0 * kNodes;
-  const int n_vec = aligned ? n / kVec : 0;
+              int bulk, const __grid_constant__ Stencil op) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr uint32_t kTileBytes = kTile * sizeof(T);
+  T* stage = reinterpret_cast<T*>(smem);
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t bars = ring + kStages * kTileBytes;
+  const int64_t grid = gridDim.x;
+  const int64_t n_tiles = (rows + kRows - 1) / kRows;
+  // tiles moved by bulk copies: the whole ones, when x and out are aligned
+  const int64_t n_bulk = bulk ? rows / kRows : 0;
+  const int64_t mine = n_bulk > blockIdx.x
+                           ? (n_bulk - 1 - blockIdx.x) / grid + 1 : 0;
+  auto tile_of = [&](int64_t k) { return blockIdx.x + k * grid; };
 
-#pragma unroll 4
-  for (int v = threadIdx.x; v < n_vec; v += kRows)
-    widen(reinterpret_cast<const uint4*>(src)[v], tile + v * kVec, T());
-  for (int e = n_vec * kVec + threadIdx.x; e < n; e += kRows)
-    tile[e] = to_f32(src[e]);
-  __syncthreads();
-
-  if (threadIdx.x < n_rows) {
-    float* row = tile + threadIdx.x * kNodes;
-    float xr[kNodes];
-#pragma unroll
-    for (int i = 0; i < kNodes; ++i) xr[i] = row[i];
-#pragma unroll
-    for (int j = 0; j < kNodes; ++j) {
-      float acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < kNodes; ++i)
-        acc = fmaf(xr[i], op.w[i * kNodes + j], acc);
-      row[j] = acc;                        // this thread's row only
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < kStages - 1 && s < mine; ++s) {
+      mbar_expect_tx(bars + 8 * s, kTileBytes);
+      bulk_load(ring + s * kTileBytes, x + tile_of(s) * kTile, kTileBytes,
+                bars + 8 * s);
     }
   }
   __syncthreads();
 
-#pragma unroll 4
-  for (int v = threadIdx.x; v < n_vec; v += kRows)
-    reinterpret_cast<uint4*>(dst)[v] = narrow(tile + v * kVec, T());
-  for (int e = n_vec * kVec + threadIdx.x; e < n; e += kRows)
-    from_f32(tile[e], dst + e);
+  for (int64_t k = 0; k < mine; ++k) {
+    const int s = static_cast<int>(k % kStages);
+    mbar_wait(bars + 8 * s, static_cast<uint32_t>((k / kStages) & 1));
+    row_apply(stage + s * kTile + threadIdx.x * kNodes, op);
+    fence_async_shared();
+    __syncthreads();                   // the whole tile is in the stage
+    if (threadIdx.x == 0) {
+      bulk_store(out + tile_of(k) * kTile, ring + s * kTileBytes,
+                 kTileBytes);
+      const int64_t ahead = k + kStages - 1;
+      if (ahead < mine) {
+        // stage (k - 1) % kStages: refilled once tile k - 1's store has
+        // read it
+        bulk_wait_read<1>();
+        const int s2 = static_cast<int>(ahead % kStages);
+        mbar_expect_tx(bars + 8 * s2, kTileBytes);
+        bulk_load(ring + s2 * kTileBytes, x + tile_of(ahead) * kTile,
+                  kTileBytes, bars + 8 * s2);
+      }
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait_all();
+  __syncthreads();                     // no copy touches the ring now
+
+  // the plain path, on stage 0: the tiles past n_bulk, dealt out in the
+  // walk's own order (tile t to CTA t % grid)
+  for (int64_t t = n_bulk + (blockIdx.x + grid - n_bulk % grid) % grid;
+       t < n_tiles; t += grid) {
+    const int64_t row0 = t * kRows;
+    const int n_rows = static_cast<int>(
+        rows - row0 < kRows ? rows - row0 : kRows);
+    const int n = n_rows * kNodes;
+    const T* src = x + row0 * kNodes;
+    T* dst = out + row0 * kNodes;
+    for (int e = threadIdx.x; e < n; e += kRows) stage[e] = src[e];
+    __syncthreads();
+    if (threadIdx.x < n_rows) row_apply(stage + threadIdx.x * kNodes, op);
+    __syncthreads();
+    for (int e = threadIdx.x; e < n; e += kRows) dst[e] = stage[e];
+    __syncthreads();                   // before the next tile's loads
+  }
 }
 
 template <typename T>
-cudaError_t launch_typed(const void* x, void* out, int64_t rows,
-                         const Operator& op, cudaStream_t stream) {
+constexpr int smem_bytes() {
+  return kStages * kTile * static_cast<int>(sizeof(T)) + 8 * kStages;
+}
+
+// SMs of each device, read once a device.
+static int sm_count(int device) {
+  static int sms[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return 0;
+  if (sms[device] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                               device) != cudaSuccess)
+      return 0;
+    sms[device] = n;
+  }
+  return sms[device];
+}
+
+template <typename T>
+static cudaError_t launch_typed(const void* x, void* out, int64_t rows,
+                                const Stencil& op, int device,
+                                cudaStream_t stream) {
+  // the ring's shared memory is past the 48 KB a launch gets by default:
+  // raised once a device
+  static bool raised[kMaxDevices] = {};
+  const int sms = sm_count(device);
+  if (sms == 0) return cudaErrorInvalidDevice;
+  if (!raised[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        volume_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes<T>());
+    if (err != cudaSuccess) return err;
+    raised[device] = true;
+  }
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int64_t tiles = (rows + kRows - 1) / kRows;
-  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
-  volume_kernel<T><<<static_cast<unsigned>(tiles), kRows, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), rows, aligned, op);
+  const int64_t cap = static_cast<int64_t>(sms) * kCtasPerSm;
+  const int grid = static_cast<int>(tiles < cap ? tiles : cap);
+  volume_kernel<T><<<grid, kRows, smem_bytes<T>(), stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), rows, aligned ? 1 : 0,
+      op);
   return cudaGetLastError();
 }
 
 }  // namespace wavesim_volume
 
 // Plain C++ entry point for the binding (no PyTorch headers here).  dtype 0
-// is float32, 1 bfloat16; w holds the 729 float32 values of W (host
-// memory), row-major W[i][j].  Returns the launch status; rows >= 1.
+// is float32, 1 bfloat16; s holds the 189 float32 stencil values (host
+// memory), s[j * 7 + t] for output j and its input in_node(j, t); device
+// is x's device index.  Returns the launch status; rows >= 1.
 cudaError_t wavesim_volume_launch(int dtype, const void* x, void* out,
-                                  int64_t rows, const float* w,
+                                  int64_t rows, const float* s, int device,
                                   cudaStream_t stream) {
   using namespace wavesim_volume;
-  if (rows < 1) return cudaErrorInvalidValue;
-  Operator op;
-  for (int i = 0; i < kNodes * kNodes; ++i) op.w[i] = w[i];
-  if (dtype == 0) return launch_typed<float>(x, out, rows, op, stream);
+  if (rows < 1 || device < 0 || device >= kMaxDevices)
+    return cudaErrorInvalidValue;
+  Stencil op;
+  for (int i = 0; i < kStencil; ++i) op.s[i] = s[i];
+  if (dtype == 0)
+    return launch_typed<float>(x, out, rows, op, device, stream);
   if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(x, out, rows, op, stream);
+    return launch_typed<__nv_bfloat16>(x, out, rows, op, device, stream);
   return cudaErrorInvalidValue;
 }

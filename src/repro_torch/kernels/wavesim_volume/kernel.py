@@ -7,14 +7,29 @@ compiled for ``sm_90a`` with ``torch.utils.cpp_extension.load`` at the
 first launch, into ``build/wavesim_volume`` at the repository root.
 Importing this module builds nothing.
 
-The operator ``W`` is a launch constant: the kernel takes its 729 values
-by value among its parameters (the GPU's constant bank), the analogue of
-the TPU kernel's resident ``W`` block and of the paper's operator entries
-broadcast as immediates.  So the wrapper takes ``W`` as a CPU tensor; it
-checks device, dtype, shape and contiguity and raises on anything the
-kernel does not take, allocates the output with ``torch.empty`` and
-launches on PyTorch's current stream.  The plain version lives in
-:mod:`.ref` and the routing by the tensor's device in :mod:`.ops`.
+What bounds the kernel on an H100 is device-memory bytes: each row of 27
+values is read once and written once.  The design (``volume.cu``'s
+header): persistent CTAs, ``CTAS_PER_SM`` an SM, each walking tiles of
+``TILE_ROWS`` rows over a ring of three stages in shared memory that TMA
+bulk copies fill and empty, one thread a row.
+
+The stencil.  The fused operator ``W`` is the sum of three Kronecker
+products, so ``W[i, j]`` can be nonzero only where nodes i and j differ in
+at most one of (i, j, k): 7 inputs for each output, 189 of the 729
+entries (``STENCIL_NODES``; some are zero, such as the centre node's
+diagonal, and stay in the list).  :func:`stencil_operator` takes those 189
+values out of a ``W`` and raises on a ``W`` with anything off that
+pattern; every ``W`` that :func:`fused_operator` builds passes.  The
+kernel takes the stencil by value among its parameters (the GPU's
+constant bank), the analogue of the TPU kernel's resident ``W`` block,
+and sums each output's 7 terms in ascending node order in float32, which
+for finite inputs equals the dense 27-term chain bit for bit apart from
+the sign of a zero.  So the wrapper takes ``W`` or its stencil as a CPU
+tensor; it checks device, dtype, shape and contiguity and raises on
+anything the kernel does not take, allocates the output with
+``torch.empty`` and launches on PyTorch's current stream.  The plain
+version lives in :mod:`.ref` and the routing by the tensor's device in
+:mod:`.ops`, which keeps the stencil of each (c, dtype).
 ``launch_counts`` counts launches.
 """
 from __future__ import annotations
@@ -30,6 +45,28 @@ from repro_torch.core.primitives.wavesim import NODES
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "volume.cu")
 _DTYPES = (torch.float32, torch.bfloat16)
+TERMS = 7                           # inputs of an output (kTerms)
+TILE_ROWS = 256                     # rows of a tile (kRows)
+STAGES = 3                          # tiles of the ring (kStages)
+CTAS_PER_SM = 2                     # the persistent grid (kCtasPerSm)
+
+
+def _stencil_nodes() -> np.ndarray:
+    """[27, 7]: for each output node j, the input nodes that differ from j
+    in at most one of (i, j, k), ascending (``in_node`` in volume.cu)."""
+    out = np.empty((NODES, TERMS), np.int64)
+    for j in range(NODES):
+        a, b, c = j // 9, j // 3 % 3, j % 3
+        near = {i * 9 + b * 3 + c for i in range(3)}
+        near |= {a * 9 + y * 3 + c for y in range(3)}
+        near |= {a * 9 + b * 3 + z for z in range(3)}
+        out[j] = sorted(near)
+    return out
+
+
+STENCIL_NODES = _stencil_nodes()
+_PATTERN = np.zeros((NODES, NODES), bool)      # [input, output]
+_PATTERN[STENCIL_NODES.ravel(), np.repeat(np.arange(NODES), TERMS)] = True
 
 launch_counts = {"wavesim_volume": 0}
 
@@ -84,6 +121,25 @@ def fused_operator(c: float = 1.0,
     return torch.from_numpy(np.ascontiguousarray(w.T)).to(dtype)
 
 
+def stencil_operator(w: torch.Tensor) -> torch.Tensor:
+    """The 189 values of a CPU ``W`` [27, 27] in the kernel's layout
+    (row-vector @ W) on the stencil's pattern, as float32 [189]: entry
+    ``j * 7 + t`` is ``W[STENCIL_NODES[j, t], j]``.  Raises ValueError if
+    any entry off the pattern is nonzero (or NaN)."""
+    if not isinstance(w, torch.Tensor):
+        raise TypeError(f"w must be a tensor, got {type(w).__name__}")
+    if w.device.type != "cpu" or tuple(w.shape) != (NODES, NODES):
+        raise ValueError(f"w must be a CPU [{NODES}, {NODES}] tensor, got "
+                         f"{tuple(w.shape)} on {w.device}")
+    wn = w.to(torch.float32).numpy()
+    off = wn[~_PATTERN]
+    if (off != 0).any():
+        raise ValueError(f"w has {int((off != 0).sum())} nonzero entries "
+                         f"off the 7-point stencil")
+    vals = wn[STENCIL_NODES, np.arange(NODES)[:, None]]
+    return torch.from_numpy(np.ascontiguousarray(vals.reshape(-1)))
+
+
 def _check(name: str, t: torch.Tensor, dtypes, device_type: str) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
@@ -101,15 +157,29 @@ def _check(name: str, t: torch.Tensor, dtypes, device_type: str) -> None:
 
 def volume_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the kernel.  x [R, 27] float32 or bfloat16 on the card (the
-    element x field rows of u, read in place), w [27, 27] in x's dtype on
-    the CPU.  Returns x @ w [R, 27], summed in float32, in x's dtype."""
+    element x field rows of u, read in place); w on the CPU, either the
+    operator [27, 27] in x's dtype, which must lie on the stencil's
+    pattern, or its stencil, the float32 [189] of
+    :func:`stencil_operator`.  Returns x @ W [R, 27], summed in float32,
+    in x's dtype."""
     _check("x", x, _DTYPES, "cuda")
-    _check("w", w, (x.dtype,), "cpu")
-    if w.shape[0] != NODES:
-        raise ValueError(f"w must be [{NODES}, {NODES}], got "
-                         f"{tuple(w.shape)}")
+    if not isinstance(w, torch.Tensor):
+        raise TypeError(f"w must be a tensor, got {type(w).__name__}")
+    if w.dim() == 1:
+        if (w.device.type != "cpu" or w.dtype != torch.float32
+                or w.numel() != NODES * TERMS or not w.is_contiguous()):
+            raise ValueError(f"a stencil must be {NODES * TERMS} contiguous "
+                             f"float32 values on the CPU, got "
+                             f"{tuple(w.shape)} {w.dtype} on {w.device}")
+        s = w
+    else:
+        _check("w", w, (x.dtype,), "cpu")
+        if w.shape[0] != NODES:
+            raise ValueError(f"w must be [{NODES}, {NODES}], got "
+                             f"{tuple(w.shape)}")
+        s = stencil_operator(w)
     out = torch.empty_like(x)
     if x.shape[0]:                   # no rows: nothing to launch
-        load_extension().volume(x, w.to(torch.float32), out)
+        load_extension().volume(x, s, out)
         launch_counts["wavesim_volume"] += 1
     return out

@@ -599,13 +599,14 @@ def _ulp(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(m)) - (_MANTISSA[dtype] - 1))
 
 
-def _volume_within(got, x64, w64, dtype) -> bool:
-    """Per output, |got - want| <= gamma(27) x sum |x_i w_ij|, plus, for a
+def _volume_within(got, x64, w64, dtype, n_terms=27) -> bool:
+    """Per output, |got - want| <= gamma(n_terms) x sum |x_i w_ij| (27 for
+    any summation of a row, 7 for the stencil's chains), plus, for a
     bfloat16 output, its own rounding (2**-8 |got|), with want and the sum
     of magnitudes in float64 from the same x and the same rounded W."""
     want = wv.volume_kernel_ref(x64, w64)
     mag = wv.volume_kernel_ref(x64.abs(), w64.abs())
-    lim = _gamma(27) * mag
+    lim = _gamma(n_terms) * mag
     if dtype != torch.float32:
         lim = lim + 2.0 ** -8 * got.double().abs()
     return bool(((got.double() - want).abs() <= lim).all())
@@ -686,6 +687,71 @@ def test_volume_wrapper_refuses_what_the_kernel_does_not_take():
         wv.volume(torch.zeros(4, 3, 27, device="cuda"))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,f", VOLUME_SHAPES)
+@pytest.mark.parametrize("c", [1.0, 0.7])
+def test_volume_kernel_within_the_stencil_bound(dtype, e, f, c):
+    """Each output is a chain of its 7 stencil terms, so the kernel holds
+    to gamma(7) x sum |terms| against float64, not only gamma(27)."""
+    gen = torch.Generator(device="cuda").manual_seed(3 * e + f)
+    u = torch.randn(e, f, 3, 3, 3, generator=gen, device="cuda").to(dtype)
+    w = wv.fused_operator(c, dtype)
+    got = wv.volume(u, c)
+    torch.cuda.synchronize()
+    assert _volume_within(got.reshape(-1, 27), u.reshape(-1, 27).double(),
+                          w.double(), dtype, n_terms=7)
+
+
+def _walk_rows(which: int) -> int:
+    """Row counts that end a persistent CTA's walk anywhere in its ring:
+    1, a tile less or more one row, a tile for every CTA of the grid less,
+    at and more one row, and a walk that wraps the ring."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = wv.kernel.CTAS_PER_SM * sms * wv.kernel.TILE_ROWS
+    return [1, 255, 257, grid - 1, grid, grid + 1,
+            4 * grid + 3 * wv.kernel.TILE_ROWS + 5][which]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", range(7))
+@pytest.mark.parametrize("offset", [0, 1])
+def test_volume_kernel_walk_ends(dtype, which, offset):
+    """The walk over row counts that stop it mid-ring, on an aligned base
+    (bulk copies; a ragged last tile on the plain path) and one element
+    past it (every tile on the plain path): within gamma(27) and
+    gamma(7)."""
+    rows = _walk_rows(which)
+    gen = torch.Generator(device="cuda").manual_seed(rows + offset)
+    buf = torch.randn(rows * 27 + 1, generator=gen, device="cuda").to(dtype)
+    x = buf[offset:offset + rows * 27].view(rows, 27)
+    w = wv.fused_operator(0.7, dtype)
+    before = wv.launch_counts["wavesim_volume"]
+    got = wv.kernel.volume_cuda(x, w)
+    assert wv.launch_counts["wavesim_volume"] == before + 1
+    torch.cuda.synchronize()
+    for n_terms in (27, 7):
+        assert _volume_within(got, x.double(), w.double(), dtype, n_terms)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_volume_wrapper_refuses_an_off_pattern_w(dtype):
+    """A W with a nonzero (or NaN) entry off the 7-point pattern, and a
+    stencil that is not 189 float32 values on the CPU, raise before any
+    launch."""
+    x = torch.zeros(64, 27, device="cuda").to(dtype)
+    before = wv.launch_counts["wavesim_volume"]
+    for bad in (0.5, float("nan")):
+        w = wv.fused_operator(1.0, dtype).clone()
+        w[0, 26] = bad
+        with pytest.raises(ValueError):
+            wv.kernel.volume_cuda(x, w)
+    s = wv.ops.operator(1.0, dtype)[1]
+    for wrong in (s[:188], s.double(), s.cuda()):
+        with pytest.raises(ValueError):
+            wv.kernel.volume_cuda(x, wrong)
+    assert wv.launch_counts["wavesim_volume"] == before
+
+
 FLUX_SHAPES = [(1, 9), (4, 9), (600, 27), (1024, 128), (64000, 243)]
 
 
@@ -761,6 +827,37 @@ def test_vector_sum_kernel_unaligned(dtype):
     assert torch.equal(got, a + b)
 
 
+def _span_length(dtype: torch.dtype, which: int) -> int:
+    """Lengths at which the kernel's spans change shape, less one, as is
+    and plus one: one row of 16-byte chunks, one span of UNROLL rows, a
+    span and a row, and, for a persistent grid of two CTAs an SM, a span
+    and a span and a row for every CTA."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = vs.kernel.THREADS * (16 // dtype.itemsize)
+    unroll, grid = vs.kernel.UNROLL, 2 * sms
+    spans = (1, unroll, unroll + 1, grid * unroll, grid * (unroll + 1))
+    return spans[which // 3] * row + which % 3 - 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("which", range(15))
+@pytest.mark.parametrize("persistent", [False, True])
+def test_vector_sum_kernel_at_span_boundaries(dtype, which, persistent):
+    """Exactly a + b where a span ends on, one element before or one
+    element past a row, a span, or the grid; with one CTA a span (the
+    default) and with two CTAs an SM sharing the rows out."""
+    n = _span_length(dtype, which)
+    ctas = (2 * torch.cuda.get_device_properties(0).multi_processor_count
+            if persistent else 0)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    a = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    got = vs.kernel.vector_sum_cuda(a, b, ctas=ctas)
+    torch.cuda.synchronize()
+    assert torch.equal(got, vs.vector_sum_ref(a, b))
+
+
 def test_vector_sum_wrapper_refuses_what_the_kernel_does_not_take():
     a = torch.zeros(16, device="cuda")
     run_ = vs.kernel.vector_sum_cuda
@@ -776,6 +873,8 @@ def test_vector_sum_wrapper_refuses_what_the_kernel_does_not_take():
         run_(a, a[:8])
     with pytest.raises(ValueError):                 # through the op
         vs.vector_sum(a, a[:8])
+    with pytest.raises(ValueError):                 # a negative grid
+        run_(a, a, ctas=-1)
 
 
 def test_wave_demo_through_kernel_matches_cpu_plain_path():

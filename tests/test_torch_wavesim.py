@@ -1,8 +1,10 @@
 """Port DGM wave step vs the JAX package: the fused operator (exactly),
 the core volume, flux and step (float32), the volume op against the JAX
 Pallas kernel and the flux1d op against the JAX op (interpret mode, as
-the JAX tests run them on the CPU), the constant-field zeros and
-linearity, and the 40-step demo of ``examples/wave_demo.py`` against the
+the JAX tests run them on the CPU), the volume kernel's 7-point stencil
+(taken from every fused operator exactly, refused off its pattern, the
+op's cached copy), the constant-field zeros and linearity, and the
+40-step demo of ``examples/wave_demo.py`` against the
 port's ``launch.wave_demo.run``.  On the CPU the port's ops run the
 kernels' plain versions; the CUDA kernels are held against those same
 versions on the card by ``tests/test_torch_cuda.py``.
@@ -84,6 +86,82 @@ def test_fused_operator_equals_jax(dtype, c):
     assert got.dtype == tdt and got.shape == (27, 27)
     np.testing.assert_array_equal(_np(got), want[:27, :27])
     assert not want[27:].any() and not want[:, 27:].any()
+
+
+@pytest.mark.parametrize("dtype", sorted(_DT))
+@pytest.mark.parametrize("c", [1.0, 0.7, -2.5])
+def test_stencil_operator_takes_every_fused_operator(dtype, c):
+    """Every W that ``fused_operator`` builds lies on the 7-point pattern:
+    ``stencil_operator`` takes its 189 values, zeros on the pattern (the
+    centre node's diagonal) included, as float32."""
+    tdt, _ = _DT[dtype]
+    s = wavesim_volume.stencil_operator(wavesim_volume.fused_operator(c, tdt))
+    assert s.shape == (189,) and s.dtype == torch.float32
+    assert s.is_contiguous() and s.device.type == "cpu"
+    nodes = wavesim_volume.kernel.STENCIL_NODES
+    assert nodes.shape == (27, 7)
+    for j in range(27):                 # ascending, j itself among them
+        assert list(nodes[j]) == sorted(set(nodes[j])) and j in nodes[j]
+    centre = 13 * 7 + list(nodes[13]).index(13)
+    assert float(s[centre]) == 0.0
+
+
+@pytest.mark.parametrize("dtype", sorted(_DT))
+@pytest.mark.parametrize("c", [1.0, 0.7, -2.5])
+def test_stencil_scattered_back_equals_w(dtype, c):
+    """The 189 values put back at (STENCIL_NODES[j, t], j), zeros
+    elsewhere, give W exactly."""
+    tdt, _ = _DT[dtype]
+    w = wavesim_volume.fused_operator(c, tdt)
+    s = wavesim_volume.stencil_operator(w)
+    nodes = wavesim_volume.kernel.STENCIL_NODES
+    back = torch.zeros(27, 27)
+    back[torch.from_numpy(nodes.reshape(-1)),
+         torch.arange(27).repeat_interleave(7)] = s
+    assert torch.equal(back, w.float())
+
+
+@pytest.mark.parametrize("entry,value", [((0, 26), 0.5), ((26, 0), -1e-30),
+                                         ((4, 20), float("nan")),
+                                         ((13, 0), 2.0)])
+def test_stencil_operator_refuses_off_pattern(entry, value):
+    """One nonzero (or NaN) entry where the two nodes differ in two or
+    three of (i, j, k) raises; so do a W on the wrong shape and a
+    non-tensor."""
+    w = wavesim_volume.fused_operator(0.7).clone()
+    w[entry] = value
+    with pytest.raises(ValueError):
+        wavesim_volume.stencil_operator(w)
+    with pytest.raises(ValueError):
+        wavesim_volume.stencil_operator(torch.zeros(27, 32))
+    with pytest.raises(TypeError):
+        wavesim_volume.stencil_operator(np.zeros((27, 27)))
+
+
+def test_stencil_chain_computes_the_dense_product():
+    """Each output as the sum of its 7 stencil terms, in float64, equals x
+    @ W: the stencil's node order pairs each value with its input."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((50, 27)))
+    w = wavesim_volume.fused_operator(-2.5).double()
+    s = wavesim_volume.stencil_operator(w).double().view(27, 7)
+    nodes = torch.from_numpy(wavesim_volume.kernel.STENCIL_NODES)
+    got = (x[:, nodes] * s).sum(-1)
+    torch.testing.assert_close(got, x @ w, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", sorted(_DT))
+@pytest.mark.parametrize("c", [1.0, 0.7])
+def test_volume_op_caches_its_stencil(dtype, c):
+    """The op builds W and its stencil once for each (c, dtype): the
+    cached pair is the same object on a second call and equals a fresh
+    one."""
+    tdt, _ = _DT[dtype]
+    w, s = wavesim_volume.ops.operator(c, tdt)
+    assert wavesim_volume.ops.operator(c, tdt)[1] is s
+    fresh = wavesim_volume.fused_operator(c, tdt)
+    assert torch.equal(w, fresh)
+    assert torch.equal(s, wavesim_volume.stencil_operator(fresh))
 
 
 def test_problem_sizes_match_jax():
@@ -229,6 +307,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.zeros(4, 27)
     with pytest.raises(ValueError):
         wavesim_volume.kernel.volume_cuda(x, wavesim_volume.fused_operator())
+    with pytest.raises(ValueError):
+        wavesim_volume.kernel.volume_cuda(
+            x, wavesim_volume.ops.operator(1.0, torch.float32)[1])
     with pytest.raises(ValueError):
         wavesim_flux.kernel.flux1d_cuda(x, x)
 
