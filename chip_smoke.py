@@ -47,8 +47,8 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    wave flux1d, (E, T) from (1, 9) to (64000, 243), alpha 0.5 (equal to
    the plain version) and 0.3 (within one ulp); vector-sum in float32,
    bfloat16 and float16 from 0 to 64 Mi elements, a 3-D shape, the
-   lengths where its spans change shape +-1, on its default grid and on a
-   persistent one, and an unaligned view (exactly a + b).  The summing kernels are held per
+   lengths where its spans change shape +-1, and an unaligned view
+   (exactly a + b).  The summing kernels are held per
    output to the worst-case bound of float32 summation against float64
    results from the same inputs.  Then the time of each kernel, of its
    plain version and of one library call (``scaled_dot_product_attention``,
@@ -65,7 +65,7 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    us a call; ss-gemm's two routes side by side at N 2-16; volume (both
    dtypes) and vector-sum on the device alone too, against
    ``torch.matmul`` and ``torch.add`` timed the same way (``[timing]
-   redesigned primitives``), vector-sum also on a persistent grid;
+   redesigned primitives``);
 4. serve, paged and dense: full-width qwen2-0.5b (seeded random bfloat16
    weights) through ``repro_torch.launch.serve.run``: 16 requests,
    prompts of 64-512 tokens, 64 new tokens each, batch 8, max_len 1024,
@@ -104,8 +104,9 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*``, the
-decode, volume and vector-sum rows their device-only ``graph_ms`` and
-the library call's ``library_graph_ms``, volume's row its bfloat16 times
+attention, volume and vector-sum rows their device-only ``graph_ms``,
+all but prefill's the library call's ``library_graph_ms`` beside it,
+volume's row its bfloat16 times
 as ``bf16_*``, the grouped GEMM's row the join's as ``prefill_*`` and
 ``down_*``, the ss-gemm rows N 16's as ``n16_*``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -123,6 +124,11 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.device import sm_count
+    from repro_torch.launch.timing import graph_ms, host_us, time_ms
+except ImportError:         # main() reports that the port is missing
+    sm_count = graph_ms = host_us = time_ms = None
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core rate
@@ -167,66 +173,6 @@ def paged_inputs(torch, rng, *, b, depths, n_pages, p_max, dtype, layers=1,
             tbl[i][j] = int(perm.pop())
     table = torch.tensor(tbl, dtype=torch.int32, device=dev)
     return k, v, table
-
-
-def time_ms(torch, fn, calls: int, reps: int = 5) -> float:
-    """Median over ``reps`` of the mean time of ``calls`` launches, by CUDA
-    events (after a warm-up)."""
-    fn(0)
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(calls):
-            fn(i)
-        end.record()
-        torch.cuda.synchronize()
-        samples.append(start.elapsed_time(end) / calls)
-    return statistics.median(samples)
-
-
-def graph_ms(torch, fn, calls: int, reps: int = 5) -> float:
-    """Device time per call, without host time: ``calls`` calls captured
-    in one CUDA graph after a warm-up on a side stream, the graph replayed
-    between CUDA events; the median of ``reps`` replays over ``calls``."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for i in range(3):
-            fn(i)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(calls):
-            fn(i)
-    graph.replay()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        samples.append(start.elapsed_time(end) / calls)
-    del graph
-    return statistics.median(samples)
-
-
-def host_us(torch, fn, calls: int = 200) -> float:
-    """Host time of one call, in us: ``calls`` calls enqueued back to back,
-    timed on the host clock before the device has finished them."""
-    fn(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(calls):
-        fn(i)
-    took = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return took / calls * 1e6
 
 
 def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
@@ -276,6 +222,7 @@ def kernel_checks(torch, geo=(HQ, HKV, D)) -> dict:
     from repro_torch.kernels.paged_attn import kernel, ops, ref, split
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     hq, hkv, d = geo
     at = f"Hq={hq} Hkv={hkv} D={d}"
     worst = {"paged_decode": 0.0, "paged_prefill": 0.0}
@@ -284,7 +231,7 @@ def kernel_checks(torch, geo=(HQ, HKV, D)) -> dict:
     # at and past every rank boundary, in batches of 8
     bound = 64 * PS
     splits = split.split_count(8, hkv, hq // hkv, bound,
-                               split.sm_count(torch.device("cuda", 0)))
+                               sm_count(torch.device("cuda", 0)))
     lengths = sorted({0, 1, 15, 16, 17, 100, 333, 512, 576, bound}
                      | set(split.boundary_lengths(splits, bound)))
     for dtype in (torch.bfloat16, torch.float32):
@@ -297,7 +244,7 @@ def kernel_checks(torch, geo=(HQ, HKV, D)) -> dict:
                                      n_pages=512, p_max=64, dtype=dtype,
                                      hkv=hkv, d=d)
             kp, vp = poisoned(torch, k[0], v[0], tbl, batch, 512)
-            q = torch.randn(8, hq, d, device=dev).to(dtype)
+            q = torch.randn(8, hq, d, generator=gen, device=dev).to(dtype)
             ln = torch.tensor(batch, dtype=torch.int32, device=dev)
             got = ops.paged_attn(q, kp, vp, tbl, ln)
             check(kernel.last_splits["paged_decode"] == splits,
@@ -330,7 +277,8 @@ def kernel_checks(torch, geo=(HQ, HKV, D)) -> dict:
             k, v, tbl = paged_inputs(torch, rng, b=8, depths=kvl,
                                      n_pages=512, p_max=64, dtype=dtype,
                                      hkv=hkv, d=d)
-            q = torch.randn(8, lq, hq, d, device=dev).to(dtype)
+            q = torch.randn(8, lq, hq, d, generator=gen,
+                            device=dev).to(dtype)
             off = torch.tensor(offs, dtype=torch.int32, device=dev)
             kv = torch.tensor(kvl, dtype=torch.int32, device=dev)
             got = ops.paged_prefill_attn(q, k[0], v[0], tbl, off, kv)
@@ -347,7 +295,8 @@ def kernel_checks(torch, geo=(HQ, HKV, D)) -> dict:
     # non-joining rows of a join: all-sentinel tables must not fault
     k, v, tbl = paged_inputs(torch, rng, b=2, depths=[64, 0], n_pages=8,
                              p_max=4, dtype=torch.bfloat16, hkv=hkv, d=d)
-    q = torch.randn(2, 64, hq, d, device=dev).to(torch.bfloat16)
+    q = torch.randn(2, 64, hq, d, generator=gen,
+                    device=dev).to(torch.bfloat16)
     z = torch.zeros(2, dtype=torch.int32, device=dev)
     out = ops.paged_prefill_attn(q, k[0], v[0], tbl, z, z + 64)
     torch.cuda.synchronize()
@@ -367,6 +316,7 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
     from repro_torch.kernels.paged_attn import kernel, ops, ref, split
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     dtype, name, b = torch.bfloat16, "bfloat16", 8
     hq, hkv, d = geo
     item = 2
@@ -377,7 +327,7 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
                              p_max=64, dtype=dtype, layers=layers,
                              hkv=hkv, d=d)
     ctbl = ops._clamp_table(tbl, k.shape[1])
-    q = torch.randn(b, hq, d, device=dev).to(dtype)
+    q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     kg, vg, mask = sdpa_inputs(torch, k[0], v[0], tbl,
                                (ln - 1)[:, None], ln)
@@ -396,13 +346,13 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
                                               enable_gqa=True)
     kernel.last_splits["paged_decode"] = None
     out["paged_decode"] = {
-        "ms": time_ms(torch, decode, layers * 4),
-        "graph_ms": graph_ms(torch, decode, layers * 4),
-        "host_us": host_us(torch, decode),
-        "plain_ms": time_ms(torch, lambda i: ref.paged_attn_ref(
+        "ms": time_ms(decode, layers * 4),
+        "graph_ms": graph_ms(decode, layers * 4),
+        "host_us": host_us(decode),
+        "plain_ms": time_ms(lambda i: ref.paged_attn_ref(
             q, k[i % layers], v[i % layers], tbl, ln).to(dtype), layers),
-        "library_ms": time_ms(torch, sdpa, layers * 4),
-        "library_graph_ms": graph_ms(torch, sdpa, layers * 4),
+        "library_ms": time_ms(sdpa, layers * 4),
+        "library_graph_ms": graph_ms(sdpa, layers * 4),
         "bound_ms": t_bound, "bound_by": by, "bytes": nbytes,
         "shape": f"B={b} Hq={hq} Hkv={hkv} D={d} ps={PS} lengths={lengths}"}
     # the cluster size the timed calls launched, held to the schedule's
@@ -410,7 +360,7 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
         "paged_decode"]
     check(launched == split.split_count(b, hkv, hq // hkv,
                                         ctbl.shape[1] * PS,
-                                        split.sm_count(dev)),
+                                        sm_count(dev)),
           f"paged_decode timing: launched {launched} ranks a cluster, not "
           "the schedule's count")
 
@@ -419,7 +369,7 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
                              p_max=64, dtype=dtype, layers=layers,
                              hkv=hkv, d=d)
     ctbl = ops._clamp_table(tbl, k.shape[1])
-    q = torch.randn(b, lq, hq, d, device=dev).to(dtype)
+    q = torch.randn(b, lq, hq, d, generator=gen, device=dev).to(dtype)
     off = torch.zeros(b, dtype=torch.int32, device=dev)
     kv = off + lq
     pos = off[:, None] + torch.arange(lq, device=dev)[None, :]
@@ -430,11 +380,13 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
               + tbl.numel() * 4 + 2 * b * 4)
     t_bound, by = bound(nbytes, 4.0 * hq * d * visible, name)
     out["paged_prefill"] = {
-        "ms": time_ms(torch, lambda i: kernel.paged_prefill_attn_cuda(
+        "ms": time_ms(lambda i: kernel.paged_prefill_attn_cuda(
             q, k[i % layers], v[i % layers], ctbl, off, kv), layers),
-        "plain_ms": time_ms(torch, lambda i: ref.paged_prefill_attn_ref(
+        "graph_ms": graph_ms(lambda i: kernel.paged_prefill_attn_cuda(
+            q, k[i % layers], v[i % layers], ctbl, off, kv), layers),
+        "plain_ms": time_ms(lambda i: ref.paged_prefill_attn_ref(
             q, k[i % layers], v[i % layers], tbl, off, kv), layers, reps=3),
-        "library_ms": time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask, enable_gqa=True), layers),
         "bound_ms": t_bound, "bound_by": by, "flops": 4.0 * hq * d * visible,
         "shape": f"B={b} Lq={lq} q_offset=0 kv_len={lq} Hq={hq} Hkv={hkv} "
@@ -445,6 +397,8 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
               f"library_ms {row['library_ms']:.4f}, bound_ms "
               f"{row['bound_ms']:.4f} ({row['bound_by']})")
     print_device_times("paged_decode", name, out["paged_decode"])
+    print(f"[timing] paged_prefill {name} device only: graph_ms "
+          f"{out['paged_prefill']['graph_ms']:.4f}")
     return out
 
 
@@ -477,7 +431,7 @@ def stripe_checks(torch) -> float:
                 cap = s if s_cap is None else s_cap
                 splits = split.split_count(
                     b, hkv, hq // hkv, cap,
-                    split.sm_count(torch.device("cuda", 0)))
+                    sm_count(torch.device("cuda", 0)))
                 lengths = sorted({0, 1, 63, 64, 65, 300, 700, 1100}
                                  | set(split.boundary_lengths(splits, cap)))
                 errs, finite, zero = [], True, True
@@ -558,21 +512,21 @@ def stripe_timing(torch, geo=(HQ, HKV, D), layers=24) -> dict:
             enable_gqa=True)
     kernel.last_splits["decode_attn"] = None
     row = {
-        "ms": time_ms(torch, decode, layers * 4),
-        "graph_ms": graph_ms(torch, decode, layers * 4),
-        "host_us": host_us(torch, decode),
-        "plain_ms": time_ms(torch, lambda i: decode_attn_ref(
+        "ms": time_ms(decode, layers * 4),
+        "graph_ms": graph_ms(decode, layers * 4),
+        "host_us": host_us(decode),
+        "plain_ms": time_ms(lambda i: decode_attn_ref(
             q, k[i % layers, :, :cap], v[i % layers, :, :cap],
             ln).to(dtype), layers),
-        "library_ms": time_ms(torch, sdpa, layers * 4),
-        "library_graph_ms": graph_ms(torch, sdpa, layers * 4),
+        "library_ms": time_ms(sdpa, layers * 4),
+        "library_graph_ms": graph_ms(sdpa, layers * 4),
         "bound_ms": t_bound, "bound_by": by, "bytes": nbytes,
         "shape": f"B={b} Hq={hq} Hkv={hkv} D={d} S={max_len + 1} "
                  f"s_cap={cap} lengths={lengths}"}
     # the cluster size the timed calls launched, held to the schedule's
     row["splits"] = launched = kernel.last_splits["decode_attn"]
     check(launched == split.split_count(b, hkv, hq // hkv, cap,
-                                        split.sm_count(dev)),
+                                        sm_count(dev)),
           f"decode_attn timing: launched {launched} ranks a cluster, not "
           "the schedule's count")
     print(f"[timing] decode_attn {name} ({row['shape']}): kernel_ms "
@@ -731,11 +685,11 @@ def group_gemm_timing(torch) -> dict:
         total, skipped = tiles.tolist()
         calls = 20 if c == 1 else 5
         rows[label] = {
-            "ms": time_ms(torch, lambda i: mg.kernel.group_gemm_cuda(
+            "ms": time_ms(lambda i: mg.kernel.group_gemm_cuda(
                 xe, w, cnt), calls),
-            "plain_ms": time_ms(torch, lambda i: mg.group_gemm_ref(
+            "plain_ms": time_ms(lambda i: mg.group_gemm_ref(
                 xe, w, cnt), 3, reps=3),
-            "library_ms": time_ms(torch, lambda i: torch.bmm(xe, w), calls),
+            "library_ms": time_ms(lambda i: torch.bmm(xe, w), calls),
             "bound_ms": t_bound, "bound_by": by, "max_abs_err": err,
             "flops": flops, "tiles_skipped": skipped, "tiles": total,
             "shape": f"E={e} C={c} D={d} F={f} bf16, {n_rows} live rows in "
@@ -1156,7 +1110,7 @@ def primitive_timings(torch) -> dict:
             idx = torch.argsort(-mask, stable=True)[:max(live, 1)].to(
                 torch.int32)
             nl = torch.tensor([live], dtype=torch.int32, device="cuda")
-            lib = time_ms(torch, lambda i: torch.matmul(a, b), 20)
+            lib = time_ms(lambda i: torch.matmul(a, b), 20)
             c_out = torch.empty(m, n, device="cuda")
             for kname, run, bare, plain, extra_bytes in (
                     ("ssgemm_masked",
@@ -1177,8 +1131,8 @@ def primitive_timings(torch) -> dict:
                         sg.ssgemm_compact_ref(a64, b64, idx, nl, bk))
                 err = float((got.double() - want).abs().max())
                 t_bound, by = bound(nbytes + extra_bytes, flops, "bfloat16")
-                row = {"ms": time_ms(torch, run, 50),
-                       "plain_ms": time_ms(torch, plain, 5, reps=3),
+                row = {"ms": time_ms(run, 50),
+                       "plain_ms": time_ms(plain, 5, reps=3),
                        "library_ms": lib, "bound_ms": t_bound,
                        "bound_by": by, "max_abs_err": err,
                        "shape": f"M={m} K={k} N={n} bk={bk} bf16 {label}, "
@@ -1189,7 +1143,7 @@ def primitive_timings(torch) -> dict:
                         f"bound_ms {t_bound:.4f} ({by}), max_abs_err vs "
                         f"float64 {err:.3e}; through the binding entry, "
                         f"without the Python wrapper, "
-                        f"{time_ms(torch, bare, 50):.4f} ms")
+                        f"{time_ms(bare, 50):.4f} ms")
                 main = (kname, label) in (("ssgemm_masked", "make_skinny"),
                                           ("ssgemm_compact", "clustered"))
                 if main and n == 4:
@@ -1218,15 +1172,15 @@ def primitive_timings(torch) -> dict:
               float((cold.double() - want_cold).abs().max()))
     t_bound, by = bound(12.0 * u + 4 * hot, float(u), "float32")
     out["push_scatter"] = {
-        "ms": time_ms(torch, lambda i: ps.kernel.push_scatter_cuda(
+        "ms": time_ms(lambda i: ps.kernel.push_scatter_cuda(
             slots, contrib, hot), 50),
-        "plain_ms": time_ms(torch, lambda i: ps.push_scatter_kernel_ref(
+        "plain_ms": time_ms(lambda i: ps.push_scatter_kernel_ref(
             slots, contrib, hot), 10, reps=3),
-        "library_ms": time_ms(torch, lambda i: values.index_add(
+        "library_ms": time_ms(lambda i: values.index_add(
             0, d, contrib), 50),
         "bound_ms": t_bound, "bound_by": by, "max_abs_err": err,
         "shape": f"{g.name}: U={u} updates, hot={hot}"}
-    op_ms = time_ms(torch, lambda i: ps.push_scatter(values, contrib, d), 10,
+    op_ms = time_ms(lambda i: ps.push_scatter(values, contrib, d), 10,
                     reps=3)
     row = out["push_scatter"]
     print(f"[timing] push_scatter ({row['shape']}): kernel_ms "
@@ -1254,11 +1208,11 @@ def ssgemm_route_timings(torch, a, bk: int) -> None:
         check(sg.route(a, b, bk) == "tensor_core",
               "ss-gemm: Problem() bf16 does not take the tensor-core route")
         out = torch.empty(a.shape[0], n, device="cuda")
-        tc = time_ms(torch, lambda i: sg.kernel.ssgemm_masked_cuda(
+        tc = time_ms(lambda i: sg.kernel.ssgemm_masked_cuda(
             a, b, mask, bk), 50)
-        cc = time_ms(torch, lambda i: ext.ssgemm_masked(a, b, mask, bk, out),
+        cc = time_ms(lambda i: ext.ssgemm_masked(a, b, mask, bk, out),
                      50)
-        lib = time_ms(torch, lambda i: torch.matmul(a, b), 50)
+        lib = time_ms(lambda i: torch.matmul(a, b), 50)
         parts.append(f"N {n}: tensor-core {tc:.4f}, CUDA-core {cc:.4f}, "
                      f"torch.matmul {lib:.4f}")
     print("[timing] ssgemm_masked routes, M=16384 K=4096 bf16 make_skinny "
@@ -1266,9 +1220,9 @@ def ssgemm_route_timings(torch, a, bk: int) -> None:
     a32, b32 = a.float(), b.float()
     check(sg.route(a32, b32, bk) == "cuda_core",
           "ss-gemm: float32 does not take the CUDA-core route")
-    f32 = time_ms(torch, lambda i: sg.kernel.ssgemm_masked_cuda(
+    f32 = time_ms(lambda i: sg.kernel.ssgemm_masked_cuda(
         a32, b32, mask, bk), 20)
-    lib = time_ms(torch, lambda i: torch.matmul(a32, b32), 20)
+    lib = time_ms(lambda i: torch.matmul(a32, b32), 20)
     t_bound, by = bound(a32.numel() * 4 + b32.numel() * 4 + a.shape[0] * 64,
                         2.0 * a32.numel() * 16, "float32")
     print(f"[timing] ssgemm_masked float32 route (CUDA-core walk), M=16384 "
@@ -1315,29 +1269,22 @@ def walk_rows(torch) -> list[int]:
     every CTA of the grid less or more one row, and a walk that wraps the
     ring."""
     from repro_torch.kernels.wavesim_volume import kernel as vk
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = sm_count(torch.device("cuda", 0))
     grid = vk.CTAS_PER_SM * sms * vk.TILE_ROWS
     return [1, 255, 257, grid - 1, grid, grid + 1,
             4 * grid + 3 * vk.TILE_ROWS + 5]
 
 
-def span_lengths(torch, dtype) -> list[int]:
+def span_lengths(dtype) -> list[int]:
     """Lengths of ``dtype`` elements at which the vector-sum kernel's
     spans change shape, each less one, as is and plus one: one row of
-    16-byte chunks, one span of ``UNROLL`` rows, a span and a row, and,
-    for a persistent grid of two CTAs an SM, a span and a span and a row
-    for every CTA."""
+    16-byte chunks, one span of ``UNROLL`` rows, a span and a row, five
+    spans, and five spans and a row."""
     from repro_torch.kernels.vector_sum import kernel as vk
-    row = vk.THREADS * (16 // dtype.itemsize)
-    unroll, grid = vk.UNROLL, persistent_ctas(torch)
-    return [m * row + d for m in (1, unroll, unroll + 1, grid * unroll,
-                                  grid * (unroll + 1))
+    row, unroll = vk.THREADS * (16 // dtype.itemsize), vk.UNROLL
+    return [m * row + d for m in (1, unroll, unroll + 1, 5 * unroll,
+                                  5 * unroll + 1)
             for d in (-1, 0, 1)]
-
-
-def persistent_ctas(torch) -> int:
-    """Two CTAs an SM: the vector-sum kernel's persistent schedule."""
-    return 2 * torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def wave_kernel_checks(torch) -> None:
@@ -1359,8 +1306,8 @@ def wave_kernel_checks(torch) -> None:
             x = torch.randn(e * f, 27, generator=gen, device="cuda").to(dtype)
             x64 = x.double()
             for c in (1.0, 0.7):
-                w = wv.fused_operator(c, dtype)
-                got = wv.kernel.volume_cuda(x, w)
+                w, sten = wv.ops.operator(c, dtype)
+                got = wv.kernel.volume_cuda(x, sten)
                 for n_terms in (27, 7):
                     ok, err, ratio = volume_within(torch, got, x64,
                                                    w.double(), n_terms)
@@ -1379,8 +1326,8 @@ def wave_kernel_checks(torch) -> None:
                               device="cuda").to(dtype)
             for off in (0, 1):
                 x = buf[off:off + rows * 27].view(rows, 27)
-                w = wv.fused_operator(0.7, dtype)
-                got = wv.kernel.volume_cuda(x, w)
+                w, sten = wv.ops.operator(0.7, dtype)
+                got = wv.kernel.volume_cuda(x, sten)
                 for n_terms in (27, 7):
                     ok, err, ratio = volume_within(torch, got, x.double(),
                                                    w.double(), n_terms)
@@ -1390,17 +1337,20 @@ def wave_kernel_checks(torch) -> None:
                     check(ok, f"wavesim_volume outside the gamma({n_terms})"
                           f" bound ({dtype}, {rows} rows, base offset "
                           f"{off})")
-        # a W off the stencil's pattern: refused before any launch
+        # a W off the stencil's pattern has no stencil, and the wrapper
+        # takes nothing but a stencil: refused before any launch
         before = wv.launch_counts["wavesim_volume"]
         for bad in (0.5, float("nan")):
             w = wv.fused_operator(1.0, dtype).clone()
             w[0, 26] = bad                  # nodes (0,0,0) and (2,2,2)
-            try:
-                wv.kernel.volume_cuda(x, w)
-            except ValueError:
-                continue
-            raise SmokeFailure(f"wavesim_volume took an off-pattern W "
-                               f"({dtype}, W[0, 26] = {bad})")
+            for refuse in (lambda: wv.stencil_operator(w),
+                           lambda: wv.kernel.volume_cuda(x, w)):
+                try:
+                    refuse()
+                except ValueError:
+                    continue
+                raise SmokeFailure(f"wavesim_volume took an off-pattern W "
+                                   f"({dtype}, W[0, 26] = {bad})")
         check(wv.launch_counts["wavesim_volume"] == before,
               "wavesim_volume launched on an off-pattern W")
     print(f"[kernels] wavesim_volume float32/bfloat16, (E, F) (1, 1) to "
@@ -1441,16 +1391,13 @@ def wave_kernel_checks(torch) -> None:
     n_checks = 0
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for shape in ((0,), (1,), (7,), (512,), (10_000,), (64 << 20,),
-                      (3, 5, 7), *((n,) for n in span_lengths(torch,
-                                                               dtype))):
+                      (3, 5, 7), *((n,) for n in span_lengths(dtype))):
             a = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             b = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            for ctas in (0, persistent_ctas(torch)):
-                got = vs.kernel.vector_sum_cuda(a, b, ctas=ctas)
-                n_checks += 1
-                check(torch.equal(got, vs.vector_sum_ref(a, b)),
-                      f"vector_sum is not a + b ({dtype}, shape {shape}, "
-                      f"ctas {ctas})")
+            got = vs.kernel.vector_sum_cuda(a, b)
+            n_checks += 1
+            check(torch.equal(got, vs.vector_sum_ref(a, b)),
+                  f"vector_sum is not a + b ({dtype}, shape {shape})")
         buf = torch.randn(2, 10_001, generator=gen, device="cuda").to(dtype)
         a, b = buf[0, 1:], buf[1, 1:]      # one element past 16 bytes
         n_checks += 1
@@ -1459,9 +1406,8 @@ def wave_kernel_checks(torch) -> None:
     torch.cuda.synchronize()
     print(f"[kernels] vector_sum float32/bfloat16/float16, n 0 to 64 Mi, "
           f"(3, 5, 7), the span boundaries +-1 (float32 "
-          f"{span_lengths(torch, torch.float32)}), one CTA a span and "
-          f"{persistent_ctas(torch)} CTAs sharing the rows, an unaligned "
-          f"view: {n_checks} checks, each exactly a + b")
+          f"{span_lengths(torch.float32)}), an unaligned view: {n_checks} "
+          f"checks, each exactly a + b")
 
 
 def wave_timings(torch) -> dict:
@@ -1496,20 +1442,20 @@ def wave_timings(torch) -> dict:
         _, err, _ = volume_within(torch, got, x.double(), w.double())
         nbytes = 2.0 * rows * 27 * item + sten.numel() * 4
         t_bound, by = bound(nbytes, 2.0 * rows * sten.numel(), "float32")
-        row = {"ms": time_ms(torch, lambda i: wv.kernel.volume_cuda(
+        row = {"ms": time_ms(lambda i: wv.kernel.volume_cuda(
                    x, sten), 20),
-               "graph_ms": graph_ms(torch, lambda i: wv.kernel.volume_cuda(
+               "graph_ms": graph_ms(lambda i: wv.kernel.volume_cuda(
                    x, sten), 20),
-               "plain_ms": time_ms(torch, lambda i: wv.volume_kernel_ref(
+               "plain_ms": time_ms(lambda i: wv.volume_kernel_ref(
                    x, w_dev), 10),
-               "library_ms": time_ms(torch, lambda i: torch.matmul(
+               "library_ms": time_ms(lambda i: torch.matmul(
                    x, w_dev), 20),
-               "library_graph_ms": graph_ms(torch, lambda i: torch.matmul(
+               "library_graph_ms": graph_ms(lambda i: torch.matmul(
                    x, w_dev), 20),
                "bound_ms": t_bound, "bound_by": by, "max_abs_err": err,
                "bytes": nbytes,
                "shape": f"Problem(): R={rows} rows of 27, {name}"}
-        einsum_ms = time_ms(torch, lambda i: wv.volume_ref(u), 3, reps=3)
+        einsum_ms = time_ms(lambda i: wv.volume_ref(u), 3, reps=3)
         line = (f"[timing] wavesim_volume ({row['shape']}): kernel_ms "
                 f"{row['ms']:.4f}, device only {row['graph_ms']:.4f}; "
                 f"plain_ms {row['plain_ms']:.4f}, library_ms "
@@ -1534,9 +1480,9 @@ def wave_timings(torch) -> dict:
         err = max(float((g.double() - w_.double()).abs().max())
                   for g, w_ in zip(got, want))
         t_bound, by = bound(4.0 * e * t * item, 4.0 * e * t, "float32")
-        row = {"ms": time_ms(torch, lambda i: wf.kernel.flux1d_cuda(
+        row = {"ms": time_ms(lambda i: wf.kernel.flux1d_cuda(
                    hi, lo, 0.5), 20),
-               "plain_ms": time_ms(torch, lambda i: wf.flux1d_ref(
+               "plain_ms": time_ms(lambda i: wf.flux1d_ref(
                    hi, lo, 0.5), 10),
                "library_ms": None, "bound_ms": t_bound, "bound_by": by,
                "max_abs_err": err, "shape": f"E={e} T={t}, {name}"}
@@ -1558,17 +1504,14 @@ def wave_timings(torch) -> dict:
     got = vs.kernel.vector_sum_cuda(a, b)
     err = float((got.double() - vs_core.reference(a, b).double()).abs().max())
     t_bound, by = bound(3.0 * n * 2, float(n), "float32")
-    row = {"ms": time_ms(torch, lambda i: vs.kernel.vector_sum_cuda(a, b),
+    row = {"ms": time_ms(lambda i: vs.kernel.vector_sum_cuda(a, b),
                          20),
-           "graph_ms": graph_ms(torch, lambda i: vs.kernel.vector_sum_cuda(
+           "graph_ms": graph_ms(lambda i: vs.kernel.vector_sum_cuda(
                a, b), 20),
-           "plain_ms": time_ms(torch, lambda i: vs.vector_sum_ref(a, b), 20),
-           "library_ms": time_ms(torch, lambda i: torch.add(a, b), 20),
-           "library_graph_ms": graph_ms(torch, lambda i: torch.add(a, b),
+           "plain_ms": time_ms(lambda i: vs.vector_sum_ref(a, b), 20),
+           "library_ms": time_ms(lambda i: torch.add(a, b), 20),
+           "library_graph_ms": graph_ms(lambda i: torch.add(a, b),
                                         20),
-           "persistent_graph_ms": graph_ms(
-               torch, lambda i: vs.kernel.vector_sum_cuda(
-                   a, b, ctas=persistent_ctas(torch)), 20),
            "bound_ms": t_bound, "bound_by": by, "max_abs_err": err,
            "bytes": 3.0 * n * 2, "shape": f"n={n} float16"}
     out["vector_sum"] = row
@@ -1577,9 +1520,7 @@ def wave_timings(torch) -> dict:
           f"(a + b) {row['plain_ms']:.4f}, library_ms (torch.add) "
           f"{row['library_ms']:.4f}, device only "
           f"{row['library_graph_ms']:.4f}; bound_ms {t_bound:.4f} ({by}), "
-          f"max_abs_err vs a + b {err:.3e}; the kernel on a persistent "
-          f"grid of {persistent_ctas(torch)} CTAs, device only "
-          f"{row['persistent_graph_ms']:.4f}")
+          f"max_abs_err vs a + b {err:.3e}")
     for line in extra:
         print(line)
     return out
@@ -1784,7 +1725,7 @@ def dense_join_rows(torch) -> None:
         toks = torch.randint(0, cfg.vocab, (8, width), generator=gen,
                              device="cuda")
         last = torch.full((8,), width - 1, dtype=torch.long, device="cuda")
-        ms = {j: time_ms(torch, lambda i, j=j: model.prefill(
+        ms = {j: time_ms(lambda i, j=j: model.prefill(
             params, {"tokens": toks[:j]}, width, dtype=torch.bfloat16,
             last_pos=last[:j]), 3, reps=3) for j in (1, 4, 8)}
         print(f"[join] {ARCH} dense join prefill at width {width}: joining "
@@ -2107,8 +2048,7 @@ def main() -> int:
                          if (k.startswith(("tiles", "prefill_", "down_",
                                            "d128_", "n16_", "bf16_"))
                              or k in ("graph_ms", "library_graph_ms",
-                                      "host_us", "splits",
-                                      "persistent_graph_ms"))
+                                      "host_us", "splits"))
                          and not k.endswith(("flops", "bytes"))})
         if name == "group_gemm":     # the join's calls take the wgmma file
             rows[-1]["prefill_source"] = ("src/repro_torch/kernels/"

@@ -2,11 +2,15 @@
 
 Entry points default to ``"cuda"``.  The CPU is used only when a caller
 asks for it (the tests do); a CUDA request on a machine without a GPU
-raises instead of quietly running somewhere else.
+raises instead of quietly running somewhere else.  :func:`sm_count` is
+the one place the port reads the card's SM count, which the persistent
+and split schedules of its kernels are sized from.
 """
 from __future__ import annotations
 
 import torch
+
+_SMS: dict[int, int] = {}
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -18,3 +22,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of the CUDA ``device``, read once a device."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device.index] = n
+    return n

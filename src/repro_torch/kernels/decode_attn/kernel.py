@@ -23,6 +23,8 @@ import threading
 
 import torch
 
+from repro_torch.device import sm_count
+
 from ..paged_attn import split
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -114,7 +116,7 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
                              "reads rows in 16-byte chunks)")
-    splits = split.split_count(b, hkv, hq // hkv, s_cap, split.sm_count(dev))
+    splits = split.split_count(b, hkv, hq // hkv, s_cap, sm_count(dev))
     ext = load_extension()
     out = torch.empty_like(q)
     ext.decode_attn(q, k, v, lengths, s_cap, out, splits)

@@ -27,6 +27,8 @@ import threading
 
 import torch
 
+from repro_torch.device import sm_count
+
 from . import split
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -130,7 +132,7 @@ def paged_attn_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          "in 16-byte chunks)")
     splits = split.split_count(q.shape[0], hkv, hq // hkv,
                                table.shape[1] * k_pages.shape[1],
-                               split.sm_count(dev))
+                               sm_count(dev))
     ext = load_extension()
     out = torch.empty_like(q)
     ext.paged_decode(q, k_pages, v_pages, table, lengths, out, splits)

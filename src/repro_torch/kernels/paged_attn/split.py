@@ -9,10 +9,11 @@ through distributed shared memory in the same launch.  ``split_count``
 picks ``splits`` from numbers the host knows without a device sync: the
 batch, the KV heads, G, the key bound of the call (the table's width in
 keys for the paged kernel, ``s_cap`` for the dense one) and the card's SM
-count.  The kernels compute each rank's range on the device from
-``lengths[b]`` (``rank_range`` in ``decode_split.cuh``); no op runs
-:func:`split_range` or :func:`boundary_lengths`, which the checks use as
-the host's mirror of that schedule.
+count (:func:`repro_torch.device.sm_count`).  The kernels compute each
+rank's range on the device from ``lengths[b]`` (``rank_range`` in
+``decode_split.cuh``); no op runs :func:`split_range` or
+:func:`boundary_lengths`, which the checks use as the host's mirror of
+that schedule.
 """
 from __future__ import annotations
 
@@ -20,22 +21,10 @@ TILE = 16          # keys; every range starts on a multiple (kTile)
 MAX_SPLITS = 8     # the portable cluster size (kMaxSplits)
 CTA_ROWS = 2       # query rows a CTA keeps (kCtaRows)
 
-_SMS: dict[int, int] = {}
-
 
 def row_groups(group: int) -> int:
     """CTAs that share the ``group`` query heads of one KV head."""
     return -(-max(int(group), 1) // CTA_ROWS)
-
-
-def sm_count(device) -> int:
-    """SMs of the CUDA ``device`` (a ``torch.device``), read once a device."""
-    n = _SMS.get(device.index)
-    if n is None:
-        import torch
-        n = torch.cuda.get_device_properties(device).multi_processor_count
-        _SMS[device.index] = n
-    return n
 
 
 def split_count(batch: int, hkv: int, group: int, key_bound: int,

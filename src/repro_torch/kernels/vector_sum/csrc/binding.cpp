@@ -10,13 +10,11 @@
 #include <c10/cuda/CUDAStream.h>
 
 cudaError_t vector_sum_launch(int dtype, const void* a, const void* b,
-                              void* out, int64_t n, int64_t ctas,
-                              cudaStream_t stream);
+                              void* out, int64_t n, cudaStream_t stream);
 
 // a, b of one shape and dtype (float32, bfloat16 or float16) -> out = a + b,
-// written here; ctas 0 for the default schedule
-void vector_sum(torch::Tensor a, torch::Tensor b, torch::Tensor out,
-                int64_t ctas) {
+// written here
+void vector_sum(torch::Tensor a, torch::Tensor b, torch::Tensor out) {
   for (const auto* t : {&a, &b, &out})
     TORCH_CHECK(t->is_cuda() && t->is_contiguous() &&
                     t->sizes() == a.sizes() &&
@@ -30,11 +28,11 @@ void vector_sum(torch::Tensor a, torch::Tensor b, torch::Tensor out,
   if (a.scalar_type() == torch::kFloat16) dtype = 2;
   TORCH_CHECK(dtype >= 0, "vector_sum takes float32, bfloat16 or float16, "
               "got ", a.scalar_type());
-  TORCH_CHECK(a.numel() >= 1 && ctas >= 0);
+  TORCH_CHECK(a.numel() >= 1);
   const c10::cuda::CUDAGuard guard(a.device());
   const cudaError_t err = vector_sum_launch(
       dtype, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-      ctas, c10::cuda::getCurrentCUDAStream().stream());
+      c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == cudaSuccess, "vector_sum launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

@@ -12,19 +12,17 @@
 //
 // What the design does about it: a pure stream.  Where a, b and out are
 // all 16-byte aligned, the flat length is cut into rows of kThreads
-// 16-byte chunks, and each CTA takes one contiguous span of rows: by
-// default kUnroll rows (64 KB of each array), one CTA for every span.  A
-// thread issues kUnroll loads of a and of b, one in each row of its span,
-// before its first store, so neighbouring warps read neighbouring 512-byte
-// lines in order; the loads carry the streaming hint (ld.global.cs) and
-// the stores evict-first (st.global.cs), so the output does not push the
-// lines being read out of L2.  The grid follows from the length alone: no
-// device query.  A caller may instead ask for `ctas` CTAs, each taking an
-// even share of the rows in groups of kUnroll (a persistent schedule; on
-// an H100 at 64 Mi float16 elements, two CTAs an SM measured slower than
-// one CTA a span, so it is not the default).  The last span may be
-// ragged and takes the same loop with each chunk masked; the elements past
-// the last whole chunk go through a scalar loop in the last CTA, and every
+// 16-byte chunks, and each CTA takes one contiguous span of kUnroll rows
+// (64 KB of each array), one CTA for every span.  A thread issues kUnroll
+// loads of a and of b, one in each row of its span, before its first
+// store, so neighbouring warps read neighbouring 512-byte lines in order;
+// the loads carry the streaming hint (ld.global.cs) and the stores
+// evict-first (st.global.cs), so the output does not push the lines being
+// read out of L2.  The grid follows from the length alone: no device
+// query.  (A persistent grid of two CTAs an SM, each an even share of the
+// spans, measured 5% slower on an H100 at 64 Mi float16 elements.)  The
+// last span may be ragged and masks each chunk; the elements past the
+// last whole chunk go through a scalar loop in the last CTA, and every
 // element does when a pointer is not aligned (a grid-stride scalar loop).
 // Nothing is padded.  Each sum is taken in float32 and rounded once; for
 // two bfloat16 or float16 values that is the correctly rounded sum
@@ -85,12 +83,11 @@ __device__ __forceinline__ uint4 add16(const uint4& a, const uint4& b,
   return out;
 }
 
-// The CTA's span: rows [blockIdx.x * span, (blockIdx.x + 1) * span).
+// The CTA's span: rows [blockIdx.x * kUnroll, (blockIdx.x + 1) * kUnroll).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 vector_sum_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                  T* __restrict__ out, int64_t n, int64_t span,
-                  bool aligned) {
+                  T* __restrict__ out, int64_t n, bool aligned) {
   constexpr int kVec = 16 / sizeof(T);
   if (!aligned) {
     const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -102,39 +99,35 @@ vector_sum_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
   const int64_t n_vec = n / kVec;
   const int64_t whole = n_vec / kThreads;     // rows with no missing chunk
-  const int64_t r0 = blockIdx.x * span;
-  const int64_t r1 = r0 + span;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kUnroll;
+  const int64_t v0 = r * kThreads + threadIdx.x;
   const uint4* a4 = reinterpret_cast<const uint4*>(a);
   const uint4* b4 = reinterpret_cast<const uint4*>(b);
   uint4* o4 = reinterpret_cast<uint4*>(out);
-  for (int64_t r = r0; r < r1; r += kUnroll) {
-    const int64_t v0 = r * kThreads + threadIdx.x;
-    uint4 x[kUnroll], y[kUnroll];
-    if (r + kUnroll <= r1 && r + kUnroll <= whole) {
+  uint4 x[kUnroll], y[kUnroll];
+  if (r + kUnroll <= whole) {
 #pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        x[j] = __ldcs(a4 + v0 + j * kThreads);
-        y[j] = __ldcs(b4 + v0 + j * kThreads);
+    for (int j = 0; j < kUnroll; ++j) {
+      x[j] = __ldcs(a4 + v0 + j * kThreads);
+      y[j] = __ldcs(b4 + v0 + j * kThreads);
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j)
+      __stcs(o4 + v0 + j * kThreads, add16(x[j], y[j], T()));
+  } else {                                    // the ragged last span
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int64_t v = v0 + j * kThreads;
+      x[j] = y[j] = make_uint4(0, 0, 0, 0);
+      if (v < n_vec) {
+        x[j] = __ldcs(a4 + v);
+        y[j] = __ldcs(b4 + v);
       }
+    }
 #pragma unroll
-      for (int j = 0; j < kUnroll; ++j)
-        __stcs(o4 + v0 + j * kThreads, add16(x[j], y[j], T()));
-    } else {                                  // a ragged end
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        const int64_t v = v0 + j * kThreads;
-        x[j] = y[j] = make_uint4(0, 0, 0, 0);
-        if (r + j < r1 && v < n_vec) {
-          x[j] = __ldcs(a4 + v);
-          y[j] = __ldcs(b4 + v);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        const int64_t v = v0 + j * kThreads;
-        if (r + j < r1 && v < n_vec)
-          __stcs(o4 + v, add16(x[j], y[j], T()));
-      }
+    for (int j = 0; j < kUnroll; ++j) {
+      const int64_t v = v0 + j * kThreads;
+      if (v < n_vec) __stcs(o4 + v, add16(x[j], y[j], T()));
     }
   }
   if (blockIdx.x == gridDim.x - 1)
@@ -144,44 +137,32 @@ vector_sum_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
 template <typename T>
 static cudaError_t launch_typed(const void* a, const void* b, void* out,
-                                int64_t n, int64_t ctas,
-                                cudaStream_t stream) {
+                                int64_t n, cudaStream_t stream) {
   const bool aligned = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
   // rows of kThreads chunks when aligned, of kThreads elements otherwise
   const int64_t work = aligned ? n / (16 / sizeof(T)) : n;
   const int64_t rows = (work + kThreads - 1) / kThreads;
-  // rows a CTA: kUnroll by default, else an even share of ctas, in
-  // groups of kUnroll
-  int64_t span = kUnroll;
-  if (ctas > 0) {
-    const int64_t groups = (rows + kUnroll - 1) / kUnroll;
-    span = (groups + ctas - 1) / ctas * kUnroll;
-  }
-  const int64_t grid = rows < 1 ? 1 : (rows + span - 1) / span;
+  const int64_t grid = rows < 1 ? 1 : (rows + kUnroll - 1) / kUnroll;
   if (grid > 0x7fffffff) return cudaErrorInvalidValue;
   vector_sum_kernel<T><<<static_cast<unsigned>(grid), kThreads, 0,
                          stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<T*>(out), n, span, aligned);
+      static_cast<T*>(out), n, aligned);
   return cudaGetLastError();
 }
 
 }  // namespace vector_sum
 
 // Plain C++ entry point for the binding (no PyTorch headers here).  dtype 0
-// is float32, 1 bfloat16, 2 float16; n >= 1; ctas 0 for one CTA a span of
-// kUnroll rows, else the CTAs to share the rows out to.  Returns the
-// launch status.
+// is float32, 1 bfloat16, 2 float16; n >= 1.  Returns the launch status.
 cudaError_t vector_sum_launch(int dtype, const void* a, const void* b,
-                              void* out, int64_t n, int64_t ctas,
-                              cudaStream_t stream) {
+                              void* out, int64_t n, cudaStream_t stream) {
   using namespace vector_sum;
-  if (n < 1 || ctas < 0) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch_typed<float>(a, b, out, n, ctas, stream);
-  if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(a, b, out, n, ctas, stream);
-  if (dtype == 2) return launch_typed<__half>(a, b, out, n, ctas, stream);
+  if (n < 1) return cudaErrorInvalidValue;
+  if (dtype == 0) return launch_typed<float>(a, b, out, n, stream);
+  if (dtype == 1) return launch_typed<__nv_bfloat16>(a, b, out, n, stream);
+  if (dtype == 2) return launch_typed<__half>(a, b, out, n, stream);
   return cudaErrorInvalidValue;
 }

@@ -12,9 +12,7 @@ one out, one add an element).  The design (``vector_sum.cu``'s header)
 is a pure stream: rows of ``THREADS`` 16-byte chunks, one CTA for every
 contiguous span of ``UNROLL`` rows, ``UNROLL`` loads of a and of b in
 flight a thread before its first store, streaming loads and evict-first
-stores.  ``ctas=`` asks for a persistent schedule instead (that many
-CTAs, each an even share of the rows), which ``chip_smoke.py`` times
-beside the default.
+stores.
 
 The wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take; it allocates the output with
@@ -82,21 +80,17 @@ def _check(name: str, t: torch.Tensor, dtypes, dev) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def vector_sum_cuda(a: torch.Tensor, b: torch.Tensor, *,
-                    ctas: int = 0) -> torch.Tensor:
+def vector_sum_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the kernel.  a, b of one shape and dtype (float32, bfloat16
     or float16), contiguous, on the card; any shape, at any element
-    offset.  ``ctas`` 0 (the default) runs one CTA for every span of
-    ``UNROLL`` rows; a positive ``ctas`` shares the rows out to that many
-    CTAs.  Returns a + b, equal bit for bit to PyTorch's."""
+    offset.  One CTA for every span of ``UNROLL`` rows.  Returns a + b,
+    equal bit for bit to PyTorch's."""
     _check("a", a, _DTYPES, a.device)
     _check("b", b, (a.dtype,), a.device)
     if a.shape != b.shape:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ")
-    if not isinstance(ctas, int) or ctas < 0:
-        raise ValueError(f"ctas must be an int >= 0, got {ctas!r}")
     out = torch.empty_like(a, memory_format=torch.contiguous_format)
     if a.numel():                    # empty: nothing to launch
-        load_extension().vector_sum(a, b, out, ctas)
+        load_extension().vector_sum(a, b, out)
         launch_counts["vector_sum"] += 1
     return out

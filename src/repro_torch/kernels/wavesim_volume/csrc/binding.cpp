@@ -10,13 +10,14 @@
 #include <c10/cuda/CUDAStream.h>
 
 cudaError_t wavesim_volume_launch(int dtype, const void* x, void* out,
-                                  int64_t rows, const float* s, int device,
+                                  int64_t rows, const float* s, int grid,
                                   cudaStream_t stream);
 
 // x [R, 27] float32 or bfloat16 on the card, s [189] float32 on the host
 // (the operator's 7-point stencil, passed to the kernel by value) -> out =
-// x @ W, in x's dtype, written here
-void volume(torch::Tensor x, torch::Tensor s, torch::Tensor out) {
+// x @ W, in x's dtype, written here, by `grid` persistent CTAs
+void volume(torch::Tensor x, torch::Tensor s, torch::Tensor out,
+            int64_t grid) {
   for (const auto* t : {&x, &out})
     TORCH_CHECK(t->is_cuda() && t->is_contiguous() && t->dim() == 2 &&
                     t->size(1) == 27,
@@ -31,12 +32,13 @@ void volume(torch::Tensor x, torch::Tensor s, torch::Tensor out) {
                   s.scalar_type() == torch::kFloat32 && s.numel() == 189,
               "volume takes the stencil as 189 contiguous float32 values on "
               "the host");
-  TORCH_CHECK(x.size(0) >= 1);
+  TORCH_CHECK(x.size(0) >= 1 && grid >= 1 &&
+              grid <= (x.size(0) + 255) / 256);
   const c10::cuda::CUDAGuard guard(x.device());
   const cudaError_t err = wavesim_volume_launch(
       x.scalar_type() == torch::kFloat32 ? 0 : 1, x.data_ptr(),
-      out.data_ptr(), x.size(0), s.data_ptr<float>(), x.get_device(),
-      c10::cuda::getCurrentCUDAStream().stream());
+      out.data_ptr(), x.size(0), s.data_ptr<float>(),
+      static_cast<int>(grid), c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == cudaSuccess, "volume launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

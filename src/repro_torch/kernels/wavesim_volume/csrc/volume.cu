@@ -28,11 +28,12 @@
 // sixth (bfloat16) of what the CUDA cores could issue in the time the
 // bytes take.
 //
-// What the design does about it: persistent CTAs, kCtasPerSm an SM, each
-// walking the 256-row tiles blockIdx.x, blockIdx.x + gridDim.x, ... over a
-// ring of kStages tile stages in shared memory, in x's dtype (27,648 bytes
-// a stage in float32, 13,824 in bfloat16: both multiples of 16, so every
-// tile starts as aligned as the tensor does).  One thread fills a stage
+// What the design does about it: persistent CTAs, kCtasPerSm an SM (the
+// wrapper sizes the grid from the SM count), each walking the 256-row
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ... over a ring of kStages
+// tile stages in shared memory, in x's dtype (27,648 bytes a stage in
+// float32, 13,824 in bfloat16: both multiples of 16, so every tile
+// starts as aligned as the tensor does).  One thread fills a stage
 // with one TMA bulk copy (cp.async.bulk, completing on the stage's
 // mbarrier) and keeps the loads kStages - 1 tiles ahead of the compute.
 // Each thread computes one row from the stage: the row stride of 27
@@ -61,7 +62,6 @@ constexpr int kRows = 256;                   // rows of a tile = threads
 constexpr int kTile = kRows * kNodes;        // 6,912 values
 constexpr int kStages = 3;
 constexpr int kCtasPerSm = 2;
-constexpr int kMaxDevices = 64;
 
 struct Stencil {
   float s[kStencil];                         // s[j * 7 + t]
@@ -243,41 +243,19 @@ constexpr int smem_bytes() {
   return kStages * kTile * static_cast<int>(sizeof(T)) + 8 * kStages;
 }
 
-// SMs of each device, read once a device.
-static int sm_count(int device) {
-  static int sms[kMaxDevices] = {};
-  if (device < 0 || device >= kMaxDevices) return 0;
-  if (sms[device] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
-                               device) != cudaSuccess)
-      return 0;
-    sms[device] = n;
-  }
-  return sms[device];
-}
-
+// The grid is the wrapper's: one CTA a tile up to kCtasPerSm an SM, from
+// the SM count it reads once a device (kernel.py::volume_cuda).
 template <typename T>
 static cudaError_t launch_typed(const void* x, void* out, int64_t rows,
-                                const Stencil& op, int device,
+                                const Stencil& op, int grid,
                                 cudaStream_t stream) {
-  // the ring's shared memory is past the 48 KB a launch gets by default:
-  // raised once a device
-  static bool raised[kMaxDevices] = {};
-  const int sms = sm_count(device);
-  if (sms == 0) return cudaErrorInvalidDevice;
-  if (!raised[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        volume_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes<T>());
-    if (err != cudaSuccess) return err;
-    raised[device] = true;
-  }
+  // the ring's shared memory is past the 48 KB a launch gets by default
+  const cudaError_t err = cudaFuncSetAttribute(
+      volume_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<T>());
+  if (err != cudaSuccess) return err;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int64_t tiles = (rows + kRows - 1) / kRows;
-  const int64_t cap = static_cast<int64_t>(sms) * kCtasPerSm;
-  const int grid = static_cast<int>(tiles < cap ? tiles : cap);
   volume_kernel<T><<<grid, kRows, smem_bytes<T>(), stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), rows, aligned ? 1 : 0,
       op);
@@ -288,19 +266,20 @@ static cudaError_t launch_typed(const void* x, void* out, int64_t rows,
 
 // Plain C++ entry point for the binding (no PyTorch headers here).  dtype 0
 // is float32, 1 bfloat16; s holds the 189 float32 stencil values (host
-// memory), s[j * 7 + t] for output j and its input in_node(j, t); device
-// is x's device index.  Returns the launch status; rows >= 1.
+// memory), s[j * 7 + t] for output j and its input in_node(j, t); grid
+// is the persistent grid, 1 to the tiles of 256 rows.  Returns the launch
+// status; rows >= 1.
 cudaError_t wavesim_volume_launch(int dtype, const void* x, void* out,
-                                  int64_t rows, const float* s, int device,
+                                  int64_t rows, const float* s, int grid,
                                   cudaStream_t stream) {
   using namespace wavesim_volume;
-  if (rows < 1 || device < 0 || device >= kMaxDevices)
+  if (rows < 1 || grid < 1 || grid > (rows + kRows - 1) / kRows)
     return cudaErrorInvalidValue;
   Stencil op;
   for (int i = 0; i < kStencil; ++i) op.s[i] = s[i];
   if (dtype == 0)
-    return launch_typed<float>(x, out, rows, op, device, stream);
+    return launch_typed<float>(x, out, rows, op, grid, stream);
   if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(x, out, rows, op, device, stream);
+    return launch_typed<__nv_bfloat16>(x, out, rows, op, grid, stream);
   return cudaErrorInvalidValue;
 }

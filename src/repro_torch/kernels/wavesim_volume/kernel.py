@@ -9,7 +9,8 @@ Importing this module builds nothing.
 
 What bounds the kernel on an H100 is device-memory bytes: each row of 27
 values is read once and written once.  The design (``volume.cu``'s
-header): persistent CTAs, ``CTAS_PER_SM`` an SM, each walking tiles of
+header): persistent CTAs, ``CTAS_PER_SM`` an SM (the grid sized here from
+:func:`repro_torch.device.sm_count`), each walking tiles of
 ``TILE_ROWS`` rows over a ring of three stages in shared memory that TMA
 bulk copies fill and empty, one thread a row.
 
@@ -24,10 +25,12 @@ kernel takes the stencil by value among its parameters (the GPU's
 constant bank), the analogue of the TPU kernel's resident ``W`` block,
 and sums each output's 7 terms in ascending node order in float32, which
 for finite inputs equals the dense 27-term chain bit for bit apart from
-the sign of a zero.  So the wrapper takes ``W`` or its stencil as a CPU
-tensor; it checks device, dtype, shape and contiguity and raises on
-anything the kernel does not take, allocates the output with
-``torch.empty`` and launches on PyTorch's current stream.  The plain
+the sign of a zero.  So the wrapper takes the stencil, never ``W``: a
+caller gets it from :func:`stencil_operator` (the op from
+:func:`.ops.operator`, once a (c, dtype)).  The wrapper checks device,
+dtype, shape and contiguity and raises on anything the kernel does not
+take, allocates the output with ``torch.empty`` and launches on
+PyTorch's current stream.  The plain
 version lives in :mod:`.ref` and the routing by the tensor's device in
 :mod:`.ops`, which keeps the stencil of each (c, dtype).
 ``launch_counts`` counts launches.
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.primitives.wavesim import NODES
+from repro_torch.device import sm_count
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "volume.cu")
@@ -155,31 +159,28 @@ def _check(name: str, t: torch.Tensor, dtypes, device_type: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def volume_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def volume_cuda(x: torch.Tensor, stencil: torch.Tensor) -> torch.Tensor:
     """Launch the kernel.  x [R, 27] float32 or bfloat16 on the card (the
-    element x field rows of u, read in place); w on the CPU, either the
-    operator [27, 27] in x's dtype, which must lie on the stencil's
-    pattern, or its stencil, the float32 [189] of
-    :func:`stencil_operator`.  Returns x @ W [R, 27], summed in float32,
-    in x's dtype."""
+    element x field rows of u, read in place); ``stencil`` the float32
+    [189] of :func:`stencil_operator` on the CPU.  Runs one CTA a tile of
+    ``TILE_ROWS`` rows, at most ``CTAS_PER_SM`` for each SM of the card.
+    Returns x @ W [R, 27], summed in float32, in x's dtype."""
     _check("x", x, _DTYPES, "cuda")
-    if not isinstance(w, torch.Tensor):
-        raise TypeError(f"w must be a tensor, got {type(w).__name__}")
-    if w.dim() == 1:
-        if (w.device.type != "cpu" or w.dtype != torch.float32
-                or w.numel() != NODES * TERMS or not w.is_contiguous()):
-            raise ValueError(f"a stencil must be {NODES * TERMS} contiguous "
-                             f"float32 values on the CPU, got "
-                             f"{tuple(w.shape)} {w.dtype} on {w.device}")
-        s = w
-    else:
-        _check("w", w, (x.dtype,), "cpu")
-        if w.shape[0] != NODES:
-            raise ValueError(f"w must be [{NODES}, {NODES}], got "
-                             f"{tuple(w.shape)}")
-        s = stencil_operator(w)
+    if not isinstance(stencil, torch.Tensor):
+        raise TypeError(f"stencil must be a tensor, got "
+                        f"{type(stencil).__name__}")
+    if (stencil.device.type != "cpu" or stencil.dim() != 1
+            or stencil.numel() != NODES * TERMS
+            or not stencil.is_contiguous()):
+        raise ValueError(f"stencil must be {NODES * TERMS} contiguous values "
+                         f"on the CPU, got {tuple(stencil.shape)} on "
+                         f"{stencil.device}")
+    if stencil.dtype != torch.float32:
+        raise TypeError(f"stencil dtype {stencil.dtype} is not float32")
     out = torch.empty_like(x)
     if x.shape[0]:                   # no rows: nothing to launch
-        load_extension().volume(x, s, out)
+        tiles = -(-x.shape[0] // TILE_ROWS)
+        grid = min(tiles, CTAS_PER_SM * sm_count(x.device))
+        load_extension().volume(x, stencil, out, grid)
         launch_counts["wavesim_volume"] += 1
     return out

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.device import sm_count
 from repro_torch.kernels import decode_attn as dattn
 from repro_torch.kernels import moe_group_gemm as mg
 from repro_torch.kernels import push_scatter as ps
@@ -91,7 +92,7 @@ def _split_batches(splits, hkv, group, bound, lengths):
     """Batches of slot lengths that cover ``lengths``, each of the one
     size (the largest up to len(lengths), or the least that makes it)
     for which the wrappers pick ``splits`` CTAs a slot and row group."""
-    sms = split.sm_count(torch.device("cuda", torch.cuda.current_device()))
+    sms = sm_count(torch.device("cuda", torch.cuda.current_device()))
     sizes = [b for b in range(1, 600)
              if split.split_count(b, hkv, group, bound, sms) == splits]
     b = max(x for x in sizes if x <= max(len(lengths), sizes[0]))
@@ -659,8 +660,8 @@ def test_volume_kernel_unaligned_rows(dtype):
     rows = 700
     buf = torch.randn(rows * 27 + 1, device="cuda").to(dtype)
     x = buf[1:].view(rows, 27)
-    w = wv.fused_operator(0.7, dtype)
-    got = wv.kernel.volume_cuda(x, w)
+    w, stencil = wv.ops.operator(0.7, dtype)
+    got = wv.kernel.volume_cuda(x, stencil)
     torch.cuda.synchronize()
     assert _volume_within(got, x.double(), w.double(), dtype)
 
@@ -668,21 +669,22 @@ def test_volume_kernel_unaligned_rows(dtype):
 def test_volume_wrapper_refuses_what_the_kernel_does_not_take():
     x = torch.zeros(64, 27, device="cuda")
     w = wv.fused_operator()
+    s = wv.stencil_operator(w)
     run_ = wv.kernel.volume_cuda
     with pytest.raises(ValueError):                 # x on the CPU
-        run_(x.cpu(), w)
+        run_(x.cpu(), s)
     with pytest.raises(TypeError):                  # float16
-        run_(x.half(), w.half())
-    with pytest.raises(TypeError):                  # W in another dtype
-        run_(x, w.to(torch.bfloat16))
-    with pytest.raises(ValueError):                 # W on the card
-        run_(x, w.cuda())
+        run_(x.half(), s)
+    with pytest.raises(TypeError):                  # stencil not float32
+        run_(x, s.to(torch.bfloat16))
+    with pytest.raises(ValueError):                 # stencil on the card
+        run_(x, s.cuda())
     with pytest.raises(ValueError):                 # not contiguous
-        run_(torch.zeros(27, 64, device="cuda").t(), w)
+        run_(torch.zeros(27, 64, device="cuda").t(), s)
     with pytest.raises(ValueError):                 # rows padded to 32
-        run_(torch.zeros(64, 32, device="cuda"), w)
-    with pytest.raises(ValueError):                 # W of the wrong shape
-        run_(x, torch.zeros(32, 27))
+        run_(torch.zeros(64, 32, device="cuda"), s)
+    with pytest.raises(ValueError):                 # W, not its stencil
+        run_(x, w)
     with pytest.raises(ValueError):                 # not [E, F, 3, 3, 3]
         wv.volume(torch.zeros(4, 3, 27, device="cuda"))
 
@@ -706,7 +708,7 @@ def _walk_rows(which: int) -> int:
     """Row counts that end a persistent CTA's walk anywhere in its ring:
     1, a tile less or more one row, a tile for every CTA of the grid less,
     at and more one row, and a walk that wraps the ring."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = sm_count(torch.device("cuda", torch.cuda.current_device()))
     grid = wv.kernel.CTAS_PER_SM * sms * wv.kernel.TILE_ROWS
     return [1, 255, 257, grid - 1, grid, grid + 1,
             4 * grid + 3 * wv.kernel.TILE_ROWS + 5][which]
@@ -724,9 +726,9 @@ def test_volume_kernel_walk_ends(dtype, which, offset):
     gen = torch.Generator(device="cuda").manual_seed(rows + offset)
     buf = torch.randn(rows * 27 + 1, generator=gen, device="cuda").to(dtype)
     x = buf[offset:offset + rows * 27].view(rows, 27)
-    w = wv.fused_operator(0.7, dtype)
+    w, stencil = wv.ops.operator(0.7, dtype)
     before = wv.launch_counts["wavesim_volume"]
-    got = wv.kernel.volume_cuda(x, w)
+    got = wv.kernel.volume_cuda(x, stencil)
     assert wv.launch_counts["wavesim_volume"] == before + 1
     torch.cuda.synchronize()
     for n_terms in (27, 7):
@@ -735,20 +737,24 @@ def test_volume_kernel_walk_ends(dtype, which, offset):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_volume_wrapper_refuses_an_off_pattern_w(dtype):
-    """A W with a nonzero (or NaN) entry off the 7-point pattern, and a
-    stencil that is not 189 float32 values on the CPU, raise before any
-    launch."""
+    """A W with a nonzero (or NaN) entry off the 7-point pattern has no
+    stencil, the wrapper takes no W, and a stencil that is not 189
+    float32 values on the CPU is refused: all before any launch."""
     x = torch.zeros(64, 27, device="cuda").to(dtype)
     before = wv.launch_counts["wavesim_volume"]
     for bad in (0.5, float("nan")):
         w = wv.fused_operator(1.0, dtype).clone()
         w[0, 26] = bad
         with pytest.raises(ValueError):
+            wv.stencil_operator(w)
+        with pytest.raises(ValueError):
             wv.kernel.volume_cuda(x, w)
     s = wv.ops.operator(1.0, dtype)[1]
-    for wrong in (s[:188], s.double(), s.cuda()):
+    for wrong in (s[:188], s.cuda()):
         with pytest.raises(ValueError):
             wv.kernel.volume_cuda(x, wrong)
+    with pytest.raises(TypeError):
+        wv.kernel.volume_cuda(x, s.double())
     assert wv.launch_counts["wavesim_volume"] == before
 
 
@@ -830,30 +836,25 @@ def test_vector_sum_kernel_unaligned(dtype):
 def _span_length(dtype: torch.dtype, which: int) -> int:
     """Lengths at which the kernel's spans change shape, less one, as is
     and plus one: one row of 16-byte chunks, one span of UNROLL rows, a
-    span and a row, and, for a persistent grid of two CTAs an SM, a span
-    and a span and a row for every CTA."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    span and a row, five spans, and five spans and a row."""
     row = vs.kernel.THREADS * (16 // dtype.itemsize)
-    unroll, grid = vs.kernel.UNROLL, 2 * sms
-    spans = (1, unroll, unroll + 1, grid * unroll, grid * (unroll + 1))
+    unroll = vs.kernel.UNROLL
+    spans = (1, unroll, unroll + 1, 5 * unroll, 5 * unroll + 1)
     return spans[which // 3] * row + which % 3 - 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("which", range(15))
-@pytest.mark.parametrize("persistent", [False, True])
-def test_vector_sum_kernel_at_span_boundaries(dtype, which, persistent):
-    """Exactly a + b where a span ends on, one element before or one
-    element past a row, a span, or the grid; with one CTA a span (the
-    default) and with two CTAs an SM sharing the rows out."""
+def test_vector_sum_kernel_at_span_boundaries(dtype, which):
+    """Exactly a + b where the length ends on, one element before or one
+    element past a row, a span, or a span and a row (the last CTA's
+    ragged span and its scalar tail)."""
     n = _span_length(dtype, which)
-    ctas = (2 * torch.cuda.get_device_properties(0).multi_processor_count
-            if persistent else 0)
     gen = torch.Generator(device="cuda").manual_seed(n)
     a = torch.randn(n, generator=gen, device="cuda").to(dtype)
     b = torch.randn(n, generator=gen, device="cuda").to(dtype)
-    got = vs.kernel.vector_sum_cuda(a, b, ctas=ctas)
+    got = vs.kernel.vector_sum_cuda(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got, vs.vector_sum_ref(a, b))
 
@@ -873,8 +874,6 @@ def test_vector_sum_wrapper_refuses_what_the_kernel_does_not_take():
         run_(a, a[:8])
     with pytest.raises(ValueError):                 # through the op
         vs.vector_sum(a, a[:8])
-    with pytest.raises(ValueError):                 # a negative grid
-        run_(a, a, ctas=-1)
 
 
 def test_wave_demo_through_kernel_matches_cpu_plain_path():
