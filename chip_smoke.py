@@ -70,11 +70,18 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    weights) through ``repro_torch.launch.serve.run``: 16 requests,
    prompts of 64-512 tokens, 64 new tokens each, batch 8, max_len 1024,
    8 steps per segment; paged with pages of 16, then dense stripes; each
-   path's kernel launches are counted over its own run only;
+   layout with its decode segments replayed as one CUDA graph per bucket
+   (the default, the main path) and eagerly, each run a first wave and a
+   warm wave of the same prompts after ``reset_stats``: tok/s of both
+   waves, the seconds spent capturing, TTFT and TPOT, peak memory; equal
+   greedy streams from graphs and eager, and from both waves; each run's
+   kernel launches are counted over its own run only, exactly (a graph's
+   launches count at each replay);
 5. agreement: short float32 runs with the same weights: each layout with
-   the CUDA kernels on the card against the plain path on the CPU, and the
-   dense layout against the paged one on the card: equal greedy streams,
-   or a difference shown to sit at a logit near-tie;
+   the CUDA kernels (graphed) on the card against the plain path on the
+   CPU and against the eager loop on the card, and the dense layout
+   against the paged one on the card: equal greedy streams, or a
+   difference shown to sit at a logit near-tie;
 6. primitives at the paper's sizes, through the public ops: ss-gemm on
    ``ss_gemm.Problem()`` (M 16,384 x K 4,096, bfloat16) for N 2, 4, 8 and
    16, with ``make_skinny`` data and with a clustered B (45% of 256-row
@@ -92,20 +99,22 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    ``vector_sum`` (64 Mi float16 elements) through their public ops;
 8. MoE agreement: full-width moonshot-v1-16b-a3b cut to 1 dense + 2 MoE
    layers, seeded float32 weights, each layout's CUDA kernels on the card
-   against the plain path on the CPU and dense against paged on the card
-   (batch 2, capacities of 1-15, so choices drop): equal greedy streams or
-   a difference at a logit near-tie; the grouped GEMM's launches counted;
+   against the plain path on the CPU, graphed against eager on the card
+   and dense against paged on the card (batch 2, capacities of 1-15, so
+   choices drop): equal greedy streams or a difference at a logit
+   near-tie; the grouped GEMM's launches counted, graphed and eager;
 9. MoE serve: full-width, full-depth moonshot-v1-16b-a3b (48 layers, 64
-   experts top-6, seeded bfloat16 weights built in place, about 58 GB)
-   through ``repro_torch.launch.serve.run``, paged with pages of 16, the
-   qwen serve cell's traffic; launches of the grouped GEMM (3 per MoE
-   layer and forward call) and of both paged kernels checked, tok/s and
-   peak device memory printed.
+   experts top-6, seeded bfloat16 weights built in place once, about 58
+   GB) through ``repro_torch.launch.serve.run``, paged with pages of 16,
+   the qwen serve cell's traffic, graphed and eager as in phase 4;
+   launches of the grouped GEMM (3 per MoE layer and forward call) and of
+   both paged kernels checked, tok/s of both waves, capture seconds and
+   peak device memory with graphs printed.
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*``, the
 attention, volume and vector-sum rows their device-only ``graph_ms``,
-all but prefill's the library call's ``library_graph_ms`` beside it,
+the library call's ``library_graph_ms`` beside it,
 volume's row its bfloat16 times
 as ``bf16_*``, the grouped GEMM's row the join's as ``prefill_*`` and
 ``down_*``, the ss-gemm rows N 16's as ``n16_*``), the
@@ -141,6 +150,7 @@ ARCH = "qwen2-0.5b"
 HQ, HKV, D, PS = 14, 2, 64, 16
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_GEO = (16, 16, 128)                   # its Hq, Hkv, head_dim (G 1)
+SMI = ""                                  # nvidia-smi's name, power limit
 
 
 class SmokeFailure(RuntimeError):
@@ -388,6 +398,8 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
             q, k[i % layers], v[i % layers], tbl, off, kv), layers, reps=3),
         "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask, enable_gqa=True), layers),
+        "library_graph_ms": graph_ms(lambda i: F.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask, enable_gqa=True), layers),
         "bound_ms": t_bound, "bound_by": by, "flops": 4.0 * hq * d * visible,
         "shape": f"B={b} Lq={lq} q_offset=0 kv_len={lq} Hq={hq} Hkv={hkv} "
                  f"D={d} ps={PS}"}
@@ -398,7 +410,8 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
               f"{row['bound_ms']:.4f} ({row['bound_by']})")
     print_device_times("paged_decode", name, out["paged_decode"])
     print(f"[timing] paged_prefill {name} device only: graph_ms "
-          f"{out['paged_prefill']['graph_ms']:.4f}")
+          f"{out['paged_prefill']['graph_ms']:.4f}; SDPA library_graph_ms "
+          f"{out['paged_prefill']['library_graph_ms']:.4f}")
     return out
 
 
@@ -1670,41 +1683,92 @@ def read_counts() -> dict:
             **moe_group_gemm.launch_counts}
 
 
-def serve_full_width(torch, paged: bool) -> dict:
-    """One path's serve run; returns that run's kernel launches."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import run
-    cfg = get_config(ARCH)
-    requests, max_new, batch, sync = 16, 64, 8, 8
-    layout = "paged" if paged else "dense"
-    reset_counts()
-    res = run(ARCH, requests=requests, max_new=max_new, batch=batch,
-              max_len=1024, paged=paged, page_size=16, sync_every=sync,
-              seed=0, prompt_len=(64, 513), dtype=torch.bfloat16,
-              device="cuda")
-    counts = read_counts()
-    lens = sorted(len(p) for p in res["prompts"].values())
-    print(f"[serve] {layout}: prompts {lens[0]}-{lens[-1]} tokens; tok/s "
-          f"{res['tok_per_s']:.1f}; launches {counts}")
-    check(sorted(res["results"]) == list(range(requests)),
-          f"serve {layout}: missing requests")
-    for rid, toks in res["results"].items():
-        check(len(toks) == max_new and all(0 <= t < cfg.vocab for t in toks),
-              f"serve {layout}: request {rid} returned {len(toks)} tokens")
-    steps = cfg.n_layers * sync * res["segments"]
+def check_serve_launches(res: dict, counts: dict, cfg, label: str,
+                         paged: bool) -> None:
+    """The decode kernels' launches of one serve run, exact: a decode
+    graph's launches count at each replay, so the counts equal those of
+    the eager loop over the same segments."""
+    steps = cfg.n_layers * res["sync_every"] * res["segments"]
     if paged:
         check(counts["paged_prefill"] == cfg.n_layers * res["joins"],
-              "serve paged: prefill launches != layers x joins")
+              f"serve {label}: prefill launches != layers x joins")
         check(counts["paged_decode"] == steps,
-              "serve paged: decode launches != layers x steps")
+              f"serve {label}: decode launches != layers x steps")
         check(counts["decode_attn"] == 0,
-              "serve paged: the dense decode kernel was launched")
+              f"serve {label}: the dense decode kernel was launched")
     else:
         check(counts["decode_attn"] == steps,
-              "serve dense: decode_attn launches != layers x steps")
+              f"serve {label}: decode_attn launches != layers x steps")
         check(counts["paged_decode"] == counts["paged_prefill"] == 0,
-              "serve dense: a paged kernel was launched")
-    return counts
+              f"serve {label}: a paged kernel was launched")
+
+
+def serve_both(torch, arch, params, label: str, **kw) -> dict:
+    """One serve cell through ``repro_torch.launch.serve.run``, with CUDA
+    graphs (the default: the main path, whose launches are counted) and
+    eagerly (kernel by kernel), each a first and a warm wave.  The warm
+    wave gives the first wave's tokens, and graphs give the eager run's
+    greedy streams.  Returns {"graphs": (result, launches), "eager": ...};
+    each run's launches and peak device memory (``peak_gib``, the weights
+    included) are its own run's."""
+    from repro_torch.launch.serve import run
+    out = {}
+    for mode, graphs in (("graphs", None), ("eager", False)):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res = run(arch, params=params, graphs=graphs, device="cuda", **kw)
+        counts = read_counts()
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["sync_every"] = kw["sync_every"]
+        out[mode] = (res, counts)
+        print(f"[serve] {label}, {mode}: tok/s first wave "
+              f"{res['tok_per_s']:.1f} (capture included), warm wave "
+              f"{res['warm_tok_per_s']:.1f}; {res['graph_count']} graphs, "
+              f"{res['capture_s']:.3f}s capturing; {res['joins']} joins, "
+              f"{res['segments']} segments over both waves; TTFT p50 "
+              f"{res['latency']['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+              f"{res['latency']['tpot_p50_s'] * 1e3:.2f} ms (warm); peak "
+              f"device memory {res['peak_gib']:.2f} GiB; launches {counts}; "
+              f"{SMI}")
+        check(res["graphs"] == (mode == "graphs")
+              and (res["graph_count"] > 0) == (mode == "graphs"),
+              f"serve {label} {mode}: graphs {res['graph_count']}")
+        check(res["warm_results"] == res["results"],
+              f"serve {label} {mode}: the warm wave's tokens differ from "
+              "the first wave's")
+    diff = [rid for rid, toks in out["graphs"][0]["results"].items()
+            if toks != out["eager"][0]["results"][rid]]
+    print(f"[serve] {label}: greedy streams, graphs vs eager: "
+          f"{len(out['graphs'][0]['results']) - len(diff)}/"
+          f"{len(out['graphs'][0]['results'])} equal")
+    check(not diff, f"serve {label}: graphs and eager streams differ for "
+          f"requests {diff}")
+    return out
+
+
+def serve_full_width(torch, params, paged: bool) -> dict:
+    """One layout's serve cell, graphed and eager; returns the graphed
+    run's kernel launches (the main path's)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    requests, max_new = 16, 64
+    layout = "paged" if paged else "dense"
+    runs = serve_both(torch, ARCH, params, f"{ARCH} {layout}",
+                      requests=requests, max_new=max_new, batch=8,
+                      max_len=1024, paged=paged, page_size=16, sync_every=8,
+                      seed=0, prompt_len=(64, 513), dtype=torch.bfloat16)
+    for mode, (res, counts) in runs.items():
+        lens = sorted(len(p) for p in res["prompts"].values())
+        check(sorted(res["results"]) == list(range(requests)),
+              f"serve {layout} {mode}: missing requests")
+        for rid, toks in res["results"].items():
+            check(len(toks) == max_new
+                  and all(0 <= t < cfg.vocab for t in toks),
+                  f"serve {layout} {mode}: request {rid} returned "
+                  f"{len(toks)} tokens")
+        check_serve_launches(res, counts, cfg, f"{layout} {mode}", paged)
+    print(f"[serve] {layout}: prompts {lens[0]}-{lens[-1]} tokens")
+    return runs["graphs"][1]
 
 
 def dense_join_rows(torch) -> None:
@@ -1772,14 +1836,23 @@ def agreement(torch) -> None:
         layout = "paged" if paged else "dense"
         on_card = run(ARCH, device="cuda", params=params, paged=paged,
                       **kw)["results"]
+        eager = run(ARCH, device="cuda", params=params, paged=paged,
+                    graphs=False, **kw)["results"]
         on_cpu = run(ARCH, device="cpu", params=cpu_params, paged=paged,
                      **kw)
         prompts, on_cpu = on_cpu["prompts"], on_cpu["results"]
         ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
                              on_card[rid], want, f"{layout} request {rid}")
                    for rid, want in on_cpu.items())
-        print(f"[agree] float32 greedy streams, {layout}, CUDA kernels vs "
-              f"CPU plain path: {len(on_cpu) - ties}/{len(on_cpu)} equal, "
+        print(f"[agree] float32 greedy streams, {layout}, CUDA kernels "
+              f"(graphs) vs CPU plain path: {len(on_cpu) - ties}/"
+              f"{len(on_cpu)} equal, {ties} at near-ties")
+        ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
+                             on_card[rid], want, f"{layout} graphs vs eager "
+                             f"request {rid}")
+                   for rid, want in eager.items())
+        print(f"[agree] float32 greedy streams on the card, {layout}, "
+              f"graphs vs eager: {len(eager) - ties}/{len(eager)} equal, "
               f"{ties} at near-ties")
         streams[layout] = on_card
     ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
@@ -1822,14 +1895,22 @@ def moe_agreement(torch) -> None:
     streams = {}
     for paged in (True, False):
         layout = "paged" if paged else "dense"
-        reset_counts()
-        res = run(cfg, device="cuda", params=params, paged=paged, **kw)
-        counts = read_counts()
-        calls = res["joins"] + kw["sync_every"] * res["segments"]
-        check(counts["group_gemm"] == 3 * 2 * calls,
-              f"moe agreement {layout}: group_gemm launches "
-              f"{counts['group_gemm']} != 3 x 2 MoE layers x {calls} calls")
-        on_card = res["results"]
+        runs = {}
+        for mode, graphs in (("graphs", None), ("eager", False)):
+            reset_counts()
+            res = run(cfg, device="cuda", params=params, paged=paged,
+                      graphs=graphs, **kw)
+            counts = read_counts()
+            calls = res["joins"] + kw["sync_every"] * res["segments"]
+            check(counts["group_gemm"] == 3 * 2 * calls,
+                  f"moe agreement {layout} {mode}: group_gemm launches "
+                  f"{counts['group_gemm']} != 3 x 2 MoE layers x {calls} "
+                  "calls")
+            check((res["graph_count"] > 0) == (mode == "graphs"),
+                  f"moe agreement {layout} {mode}: {res['graph_count']} "
+                  "graphs")
+            runs[mode] = res["results"]
+        on_card = runs["graphs"]
         on_cpu = run(cfg, device="cpu", params=cpu_params, paged=paged,
                      **kw)
         prompts, on_cpu = on_cpu["prompts"], on_cpu["results"]
@@ -1838,8 +1919,15 @@ def moe_agreement(torch) -> None:
                              f"{rid}")
                    for rid, want in on_cpu.items())
         print(f"[agree] moe float32 greedy streams, {layout}, CUDA kernels "
-              f"vs CPU plain path: {len(on_cpu) - ties}/{len(on_cpu)} "
-              f"equal, {ties} at near-ties; launches {counts}")
+              f"(graphs) vs CPU plain path: {len(on_cpu) - ties}/"
+              f"{len(on_cpu)} equal, {ties} at near-ties; launches {counts}")
+        ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
+                             on_card[rid], want, f"moe {layout} graphs vs "
+                             f"eager request {rid}")
+                   for rid, want in runs["eager"].items())
+        print(f"[agree] moe float32 greedy streams on the card, {layout}, "
+              f"graphs vs eager: {len(on_cpu) - ties}/{len(on_cpu)} equal, "
+              f"{ties} at near-ties")
         streams[layout] = on_card
     ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
                          streams["dense"][rid], want, f"moe dense vs paged "
@@ -1852,49 +1940,46 @@ def moe_agreement(torch) -> None:
 
 def moe_serve(torch) -> dict:
     """Full-width, full-depth moonshot (48 layers: 1 dense + 47 MoE;
-    seeded bfloat16 weights built in place) through
+    seeded bfloat16 weights built in place once) through
     ``repro_torch.launch.serve.run``, paged with pages of 16: 16 requests,
     prompts of 64-512 tokens, 64 new tokens each, batch 8, max_len 1024,
-    8 steps per segment.  Returns the run's kernel launches."""
+    8 steps per segment; with graphs (the main path) and eagerly, each a
+    first and a warm wave.  Returns the graphed run's kernel launches."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import run
+    from repro_torch.models.model_zoo import Model
     cfg = get_config(MOE_ARCH)
-    requests, max_new, batch, sync = 16, 64, 8, 8
+    requests, max_new = 16, 64
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
     t0 = time.perf_counter()
-    res = run(MOE_ARCH, requests=requests, max_new=max_new, batch=batch,
-              max_len=1024, paged=True, page_size=16, sync_every=sync,
-              seed=0, prompt_len=(64, 513), dtype=torch.bfloat16,
-              device="cuda")
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    lens = sorted(len(p) for p in res["prompts"].values())
-    steps = sync * res["segments"]
+    params = Model(cfg).init(0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    runs = serve_both(torch, MOE_ARCH, params, f"moe paged {cfg.name}",
+                      requests=requests, max_new=max_new, batch=8,
+                      max_len=1024, paged=True, page_size=16, sync_every=8,
+                      seed=0, prompt_len=(64, 513), dtype=torch.bfloat16)
     n_moe = sum(s.count for s in cfg.resolved_segments()
                 if s.kind.value == "moe")
+    for mode, (res, counts) in runs.items():
+        steps = res["sync_every"] * res["segments"]
+        check(sorted(res["results"]) == list(range(requests)),
+              f"serve moe {mode}: missing requests")
+        for rid, toks in res["results"].items():
+            check(len(toks) == max_new
+                  and all(0 <= t < cfg.vocab for t in toks),
+                  f"serve moe {mode}: request {rid} returned {len(toks)} "
+                  "tokens")
+        check(counts["group_gemm"] == 3 * n_moe * (res["joins"] + steps),
+              f"serve moe {mode}: group_gemm launches != 3 x MoE layers x "
+              "(joins + decode steps)")
+        check_serve_launches(res, counts, cfg, f"moe {mode}", True)
+    res, counts = runs["graphs"]
+    lens = sorted(len(p) for p in res["prompts"].values())
     print(f"[serve] moe paged {cfg.name}: prompts {lens[0]}-{lens[-1]} "
-          f"tokens; tok/s {res['tok_per_s']:.1f} ({res['tokens']} tokens "
-          f"in {res['seconds']:.2f}s; {wall:.1f}s with the weights' "
-          f"init); {res['joins']} joins, {res['segments']} segments; peak "
-          f"device memory {peak:.2f} GiB; launches {counts}")
-    check(sorted(res["results"]) == list(range(requests)),
-          "serve moe: missing requests")
-    for rid, toks in res["results"].items():
-        check(len(toks) == max_new and all(0 <= t < cfg.vocab for t in toks),
-              f"serve moe: request {rid} returned {len(toks)} tokens")
-    check(counts["group_gemm"] == 3 * n_moe * (res["joins"] + steps),
-          "serve moe: group_gemm launches != 3 x MoE layers x (joins + "
-          "decode steps)")
-    check(counts["paged_prefill"] == cfg.n_layers * res["joins"],
-          "serve moe: prefill launches != layers x joins")
-    check(counts["paged_decode"] == cfg.n_layers * steps,
-          "serve moe: decode launches != layers x steps")
-    check(counts["decode_attn"] == 0,
-          "serve moe: the dense decode kernel was launched")
-    del res
+          f"tokens; weights built in {built:.1f}s; peak device memory with "
+          f"graphs {res['peak_gib']:.2f} GiB, eager "
+          f"{runs['eager'][0]['peak_gib']:.2f} GiB; {SMI}")
+    del runs, res, params
     torch.cuda.empty_cache()
     return counts
 
@@ -1935,6 +2020,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    global SMI
+    SMI = smi
     print(f"[device] {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; allow_tf32 off for matmul and cuDNN")
 
@@ -1987,9 +2074,14 @@ def main() -> int:
     for name in ("ssgemm_masked", "ssgemm_compact", "push_scatter",
                  "wavesim_volume", "flux1d", "vector_sum"):
         worst[name] = timings[name]["max_abs_err"]
-    counts = serve_full_width(torch, paged=True)
-    dense_counts = serve_full_width(torch, paged=False)
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.configs import get_config
+    params = Model(get_config(ARCH)).init(0, device="cuda",
+                                          dtype=torch.bfloat16)
+    counts = serve_full_width(torch, params, paged=True)
+    dense_counts = serve_full_width(torch, params, paged=False)
     counts["decode_attn"] = dense_counts["decode_attn"]
+    del params
     dense_join_rows(torch)
     agreement(torch)
     counts.update(primitives_ss_gemm(torch))

@@ -13,8 +13,10 @@ The wrapper checks device, dtype, shape, contiguity, alignment, the group
 size and ``s_cap``, and raises on anything the kernel does not take; it
 allocates the output with ``torch.empty`` and launches on PyTorch's
 current stream.  The plain version lives in :mod:`.ref` and the routing by
-the tensors' device in :mod:`.ops`.  ``launch_counts`` counts launches;
-``last_splits`` holds the cluster size of the last launch.
+the tensors' device in :mod:`.ops`.  ``launch_counts`` counts launches
+(a launch captured in a CUDA graph counts at each replay:
+:mod:`repro_torch.kernels.launches`); ``last_splits`` holds the cluster
+size of the last launch (or capture).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch.device import sm_count
 
+from .. import launches
 from ..paged_attn import split
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -120,6 +123,6 @@ def decode_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ext = load_extension()
     out = torch.empty_like(q)
     ext.decode_attn(q, k, v, lengths, s_cap, out, splits)
-    launch_counts["decode_attn"] += 1
+    launches.count(launch_counts, "decode_attn")
     last_splits["decode_attn"] = splits
     return out

@@ -19,7 +19,9 @@ kernel), 64 x 64 for float32.  Given ``tiles``, the kernel counts on the
 card the tiles it ran and those it skipped; :func:`tile_counts` is what
 the tiling rule predicts.
 The plain version lives in :mod:`.ref` and the routing by the tensors'
-device in :mod:`.ops`.  ``launch_counts`` counts launches.
+device in :mod:`.ops`.  ``launch_counts`` counts launches (a launch
+captured in a CUDA graph counts at each replay:
+:mod:`repro_torch.kernels.launches`).
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ import pathlib
 import threading
 
 import torch
+
+from .. import launches
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "group_gemm.cu", "group_gemm_sm90.cu")
@@ -152,5 +156,5 @@ def group_gemm_cuda(xe: torch.Tensor, w: torch.Tensor,
     out = torch.empty((e, c, f), dtype=torch.float32, device=dev)
     if out.numel():                  # nothing to write: nothing to launch
         load_extension().group_gemm(xe, w, counts, bm, out, tiles)
-        launch_counts["group_gemm"] += 1
+        launches.count(launch_counts, "group_gemm")
     return out

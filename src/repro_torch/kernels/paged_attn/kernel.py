@@ -18,7 +18,9 @@ anything the kernel does not take; it allocates the output with
 launches: the plain versions live in :mod:`.ref` and the routing between
 the two, by the tensors' device, in :mod:`.ops`.  ``launch_counts`` counts
 the launches of each kernel, so a run can show that its path went through
-them; ``last_splits`` holds the cluster size of the last decode launch.
+them (a launch captured in a CUDA graph counts at each replay:
+:mod:`repro_torch.kernels.launches`); ``last_splits`` holds the cluster
+size of the last decode launch (or capture).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.device import sm_count
 
+from .. import launches
 from . import split
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -136,7 +139,7 @@ def paged_attn_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     ext = load_extension()
     out = torch.empty_like(q)
     ext.paged_decode(q, k_pages, v_pages, table, lengths, out, splits)
-    launch_counts["paged_decode"] += 1
+    launches.count(launch_counts, "paged_decode")
     last_splits["paged_decode"] = splits
     return out
 
@@ -159,5 +162,5 @@ def paged_prefill_attn_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     ext = load_extension()
     out = torch.empty_like(q)
     ext.paged_prefill(q, k_pages, v_pages, table, q_offset, kv_len, out)
-    launch_counts["paged_prefill"] += 1
+    launches.count(launch_counts, "paged_prefill")
     return out

@@ -21,6 +21,8 @@ import threading
 
 import torch
 
+from .. import launches
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "push_scatter.cu")
 MAX_HOT = 48 * 1024 // 4       # float slots in the default 48 KB of smem
@@ -93,5 +95,5 @@ def push_scatter_cuda(dst_hot: torch.Tensor, val: torch.Tensor,
     cold = torch.empty_like(val)
     load_extension().push_scatter(dst_hot, val, hot_acc, cold)
     if val.numel():                  # no updates: hot_acc zeroed, no launch
-        launch_counts["push_scatter"] += 1
+        launches.count(launch_counts, "push_scatter")
     return hot_acc, cold

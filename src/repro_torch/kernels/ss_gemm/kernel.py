@@ -28,6 +28,8 @@ import threading
 
 import torch
 
+from .. import launches
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "ss_gemm.cu", "ss_gemm_tc.cu")
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -137,8 +139,8 @@ def ssgemm_masked_cuda(a: torch.Tensor, b: torch.Tensor,
         launch = (ext.ssgemm_masked_tc if path == "tensor_core"
                   else ext.ssgemm_masked)
         launch(a, b, block_mask, bk, out)
-        launch_counts["ssgemm_masked"] += 1
-        route_counts[path] += 1
+        launches.count(launch_counts, "ssgemm_masked")
+        launches.count(route_counts, path)
     return out
 
 
@@ -164,6 +166,6 @@ def ssgemm_compact_cuda(a: torch.Tensor, b: torch.Tensor,
         launch = (ext.ssgemm_compact_tc if path == "tensor_core"
                   else ext.ssgemm_compact)
         launch(a, b, block_idx, n_live, bk, out)
-        launch_counts["ssgemm_compact"] += 1
-        route_counts[path] += 1
+        launches.count(launch_counts, "ssgemm_compact")
+        launches.count(route_counts, path)
     return out

@@ -27,6 +27,8 @@ import threading
 
 import torch
 
+from .. import launches
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "vector_sum.cu")
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -92,5 +94,5 @@ def vector_sum_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a, memory_format=torch.contiguous_format)
     if a.numel():                    # empty: nothing to launch
         load_extension().vector_sum(a, b, out)
-        launch_counts["vector_sum"] += 1
+        launches.count(launch_counts, "vector_sum")
     return out

@@ -20,6 +20,8 @@ import threading
 
 import torch
 
+from .. import launches
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "flux1d.cu")
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -87,5 +89,5 @@ def flux1d_cuda(hi: torch.Tensor, lo: torch.Tensor, alpha: float = 0.5
     fhi, flo = torch.empty_like(hi), torch.empty_like(lo)
     if hi.numel():                   # no entries: nothing to launch
         load_extension().flux1d(hi, lo, float(alpha), fhi, flo)
-        launch_counts["flux1d"] += 1
+        launches.count(launch_counts, "flux1d")
     return fhi, flo

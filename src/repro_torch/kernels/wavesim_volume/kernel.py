@@ -46,6 +46,8 @@ import torch
 from repro_torch.core.primitives.wavesim import NODES
 from repro_torch.device import sm_count
 
+from .. import launches
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("binding.cpp", "volume.cu")
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -182,5 +184,5 @@ def volume_cuda(x: torch.Tensor, stencil: torch.Tensor) -> torch.Tensor:
         tiles = -(-x.shape[0] // TILE_ROWS)
         grid = min(tiles, CTAS_PER_SM * sm_count(x.device))
         load_extension().volume(x, stencil, out, grid)
-        launch_counts["wavesim_volume"] += 1
+        launches.count(launch_counts, "wavesim_volume")
     return out

@@ -1,22 +1,30 @@
 """Where a decode segment's time goes, on the GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--paged] \
-      [--arch moonshot-v1-16b-a3b]
+      [--arch moonshot-v1-16b-a3b] [--eager]
 
 Fills every slot of the batcher with the serve cell's requests
 (``--arch`` at full width, qwen2-0.5b by default, seeded bf16 weights
 built in place, prompts of 64-512 tokens, max_len 1024; dense stripes,
 or pages of 16 with ``--paged``), joins them, runs one decode segment to
-warm up, then traces ``--segments`` more under ``torch.profiler``. Each
-segment is the serving path's own: the decode loop, the one host read of
-its tokens and their collection. It prints: wall time per decode step
-(host clock, synchronised), once without the tracer and once under it;
-device busy time per step (sum of kernel times on the one stream, from
-the traced run); the device's idle share against each of the two walls
-(the untraced one is the serving path's own; the tracer slows the host);
-kernels launched per step; the kernels that take the most device time;
-and the host ops that take the most CPU time under the tracer. The last
-line is a JSON summary. ``--trace PATH`` also writes the Chrome trace.
+warm up (with graphs, the default, that segment is the bucket's eager
+warm-up and its capture; ``--eager`` runs every segment kernel by
+kernel), then traces ``--segments`` more under ``torch.profiler``; a
+capture inside the timed segments fails the run. Each segment is the
+serving path's own: the decode loop (a graph replay, or the eager loop),
+the one host read of its tokens and their collection. It prints: wall
+time per decode step (host clock, synchronised), once without the tracer
+and once under it; device busy time per step (sum of the device events'
+times on the one stream, from the traced run: the kernels a replayed
+graph runs are traced one by one, as CUPTI reports them); the device's
+idle share against each of the two walls (the untraced one is the
+serving path's own; the tracer slows the host); device kernels (and
+copies) per step; host launch calls per step (the CUDA calls that
+launch a kernel or a graph: ``cudaLaunchKernel``,
+``cudaLaunchKernelExC``, ``cuLaunchKernel*``, ``cudaGraphLaunch``); the
+kernels that take the most device time; and the host ops that take the
+most CPU time under the tracer. The last line is a JSON summary.
+``--trace PATH`` also writes the Chrome trace.
 """
 from __future__ import annotations
 
@@ -42,12 +50,16 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                 "cuGraphLaunch")
+
+
 def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
                    max_len: int = 1024, page_size: int = 16,
                    sync_every: int = 8, segments: int = 2,
                    prompt_len: tuple[int, int] = (64, 513), seed: int = 0,
-                   paged: bool = False, device: str = "cuda",
-                   trace: str | None = None) -> dict:
+                   paged: bool = False, graphs: bool = True,
+                   device: str = "cuda", trace: str | None = None) -> dict:
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("profiling measures the GPU: device must be cuda")
@@ -57,7 +69,7 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
     scfg = ServeConfig(max_len=max_len, batch=batch, sync_every=sync_every,
                        paged=paged, page_size=page_size)
     max_new = sync_every * (2 * segments + 2)  # nobody retires mid-run
-    b = Batcher(model, params, scfg, seed=seed)
+    b = Batcher(model, params, scfg, seed=seed, graphs=graphs)
     rng = np.random.default_rng(seed)
     for rid in range(batch):
         n = int(rng.integers(*prompt_len))
@@ -69,6 +81,7 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
 
     segment()
     torch.cuda.synchronize(dev)
+    captured = b.graph_count
     t0 = time.perf_counter()
     for _ in range(segments):
         segment()
@@ -81,6 +94,9 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
             segment()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
+    if b.graph_count != captured:
+        raise RuntimeError("a decode graph was captured inside the timed "
+                           "segments: the bucket changed after the warm-up")
     steps = segments * sync_every
     # device-side events: kernels and copies, one stream, so their sum is
     # the device's busy time
@@ -94,9 +110,12 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
+    n_host_launch = sum(e.count for e in host
+                        if e.key.startswith(_LAUNCH_CALLS))
     summary = {
         "device": torch.cuda.get_device_name(dev),
         "layout": "paged" if paged else "dense",
+        "mode": f"{b.graph_count} CUDA graphs" if graphs else "eager",
         "steps": steps, "batch": batch,
         "wall_ms_per_step": wall_plain * 1e3 / steps,
         "wall_ms_per_step_traced": wall * 1e3 / steps,
@@ -104,6 +123,7 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
         "idle_share": max(0.0, 1.0 - busy_us / 1e6 / wall_plain),
         "idle_share_traced": max(0.0, 1.0 - busy_us / 1e6 / wall),
         "kernels_per_step": n_launch / steps,
+        "host_launches_per_step": n_host_launch / steps,
         "top": [{"kernel": e.key[:80], "ms_per_step":
                  _device_us(e) / 1e3 / steps, "calls_per_step":
                  e.count / steps} for e in top],
@@ -111,14 +131,16 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
                                  e.self_cpu_time_total / 1e3 / steps,
                                  "calls_per_step": e.count / steps}
                                 for e in host[:12]]}
-    print(f"[profile] {cfg.name} {summary['layout']}, batch {batch}, "
+    print(f"[profile] {cfg.name} {summary['layout']} "
+          f"({summary['mode']}), batch {batch}, "
           f"{steps} decode steps on "
           f"{summary['device']}: wall {summary['wall_ms_per_step']:.2f} "
           f"ms/step ({summary['wall_ms_per_step_traced']:.2f} traced), "
           f"device busy {summary['device_busy_ms_per_step']:.2f} ms/step, "
           f"idle share {summary['idle_share']:.1%} "
           f"({summary['idle_share_traced']:.1%} of the traced wall), "
-          f"{summary['kernels_per_step']:.0f} kernels/step")
+          f"{summary['kernels_per_step']:.0f} kernels/step, "
+          f"{summary['host_launches_per_step']:.3f} host launch calls/step")
     for row in summary["top"]:
         print(f"[profile]   {row['ms_per_step']:.3f} ms/step "
               f"({row['calls_per_step']:.0f} calls)  {row['kernel']}")
@@ -139,11 +161,14 @@ def main() -> None:
     ap.add_argument("--sync-every", type=int, default=8)
     ap.add_argument("--paged", action="store_true",
                     help="profile the paged pool (default: dense stripes)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode loop kernel by kernel (default: "
+                         "replay one CUDA graph per bucket)")
     ap.add_argument("--trace", default=None, metavar="PATH")
     args = ap.parse_args()
     profile_decode(args.arch, batch=args.batch, segments=args.segments,
                    sync_every=args.sync_every, paged=args.paged,
-                   trace=args.trace)
+                   graphs=not args.eager, trace=args.trace)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@ the primitive ops, of one source tree, so that two trees (a change and
 its parent) can be compared on one card.
 
   python src/repro_torch/launch/serve_ab.py [--src DIR] \\
-      [--arch qwen2-0.5b] [--layouts paged dense] [--reps 2]
+      [--arch qwen2-0.5b] [--layouts paged dense] [--reps 2] [--graphs-ab]
   python src/repro_torch/launch/serve_ab.py --primitives [--src DIR] \\
       [--steps 5]
 
@@ -20,9 +20,15 @@ least and the median of 7 such runs), then serves the cell of
 ``chip_smoke.py`` (16 requests, prompts of 64-512 tokens, 64 new tokens
 each, batch 8, max_len 1024, pages of 16, 8 steps per host sync, seeded
 random weights) ``--reps`` times for each layout, after one short run
-that warms up.  The weights are built once.  Compare two trees in one
-machine, alternating them over several processes: tok/s is host-bound,
-and the host's speed drifts over minutes.
+that warms up.  The weights are built once.  Each serve run is a first
+wave and, where the tree's ``launch.serve.run`` makes one, a warm wave of
+the same prompts into the warm batcher; both waves' tok/s are kept.
+Compare two trees in one machine, alternating them over several
+processes: tok/s drifts with the host's speed over minutes.
+``--graphs-ab`` compares, on the one tree, decode segments replayed as
+CUDA graphs (the default) against the eager loop (``graphs=False``),
+alternating the two within each repetition (graphs, eager, then eager,
+graphs).
 
 ``--primitives``: at ``wavesim.Problem()`` (R = 1,728,000 rows of 27), in
 float32 and bfloat16, the public op ``wavesim_volume.volume`` and
@@ -96,17 +102,28 @@ def serve(torch, timing, args) -> dict:
     print(f"[serve_ab] {args.src}: wrapper host us a call {host}",
           flush=True)
     params = Model(cfg).init(0, device=dev, dtype=torch.bfloat16)
-    tok_s = {}
+    modes = ((("graphs", {}), ("eager", {"graphs": False}))
+             if args.graphs_ab else (("default", {}),))
+    tok_s, warm_tok_s = {}, {}
     for layout in args.layouts:
         paged = layout == "paged"
         kw = dict(batch=8, max_len=1024, paged=paged, page_size=16,
                   sync_every=8, seed=0, dtype=torch.bfloat16, device=dev,
                   params=params)
-        run(cfg, requests=2, max_new=8, prompt_len=(64, 65), **kw)
-        tok_s[layout] = [run(cfg, requests=16, max_new=64,
-                             prompt_len=(64, 513), **kw)["tok_per_s"]
-                         for _ in range(args.reps)]
-    return {"arch": cfg.name, "host_us": host, "tok_per_s": tok_s}
+        for _, extra in modes:
+            run(cfg, requests=2, max_new=8, prompt_len=(64, 65), **kw,
+                **extra)
+        for rep in range(args.reps):
+            for mode, extra in (modes if rep % 2 == 0 else modes[::-1]):
+                res = run(cfg, requests=16, max_new=64,
+                          prompt_len=(64, 513), **kw, **extra)
+                key = f"{layout} {mode}"
+                tok_s.setdefault(key, []).append(res["tok_per_s"])
+                if "warm_tok_per_s" in res:
+                    warm_tok_s.setdefault(key, []).append(
+                        res["warm_tok_per_s"])
+    return {"arch": cfg.name, "host_us": host, "tok_per_s": tok_s,
+            "warm_tok_per_s": warm_tok_s}
 
 
 def primitives(torch, timing, args) -> dict:
@@ -161,6 +178,9 @@ def main() -> None:
     ap.add_argument("--layouts", nargs="+", default=["paged", "dense"],
                     choices=["paged", "dense"])
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--graphs-ab", action="store_true",
+                    help="serve with CUDA graphs and eagerly, alternating, "
+                         "on this one tree")
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
     args.src = str(pathlib.Path(args.src).resolve())

@@ -13,12 +13,18 @@ reaches it: every attention call is bounded to the first ``max_len`` rows.
 
 Paged layout (:class:`PagedKVCache`): K/V pages live in one pooled
 allocation per layer shared by every slot, and ``table`` names each slot's
-pages in order.  The pool holds ``n_pages + 1`` pages: ids
-``0 .. n_pages - 1`` are the live pages the allocator hands out, and the
-last one is the sink.  The allocator's sentinel id is ``n_pages`` (see
-:class:`repro_torch.serve.kvpool.KVPool`), so a write through an
-unallocated entry, or past the table's width, is redirected to the sink
-where JAX drops it.  No read of live data ever comes from the sink.
+pages in order.  The pool holds ``n_pages + 2`` pages: ids
+``0 .. n_pages - 1`` are the live pages the allocator hands out.  Page
+``n_pages`` is the allocator's sentinel id (see
+:class:`repro_torch.serve.kvpool.KVPool`) and no write ever reaches it, so
+a read through an unallocated entry sees zeros, as JAX's read of a
+never-written page does.  Page ``n_pages + 1`` is the sink: a write
+through an unallocated entry, or past the table's width, goes there where
+JAX drops it.  Many rows write the sink at once, so its content differs
+from run to run on the card; no read reaches it.  (Reads of unallocated
+entries do happen: a join's padding positions and a retired slot's decode
+read them, and in a MoE model those rows take expert capacity from the
+live ones, so what they read must not vary.)
 
 A masked write with a data-dependent shape would cost a host sync per
 call; the sinks keep every write's shape fixed.
@@ -43,8 +49,8 @@ class KVCache(NamedTuple):
 
 
 class PagedKVCache(NamedTuple):
-    k: torch.Tensor           # [n_pages + 1, page_size, Hkv, D] (+1: sink)
-    v: torch.Tensor           # [n_pages + 1, page_size, Hkv, D]
+    k: torch.Tensor           # [n_pages + 2, page_size, Hkv, D]: + zero
+    v: torch.Tensor           # page (the sentinel's) and the sink
     table: torch.Tensor       # [B, P] int32 page ids
     length: torch.Tensor      # [B] int32: tokens filled per slot
 
@@ -137,8 +143,9 @@ def paged_write_index(table: torch.Tensor, length: torch.Tensor,
     ``length[b] + t`` goes to page ``table[b, (length[b] + t) // ps]`` at
     offset ``% ps``.  Positions whose logical page is past the table's
     width, or whose entry is not a live page (a sentinel id >= n_live), are
-    masked out: their address is the sink page ``n_live``.  Every layer of
-    a forward writes at the same addresses, so the forward computes them
+    masked out: their address is the sink page ``n_live + 1``, so the
+    sentinel's own page ``n_live`` is never written.  Every layer of a
+    forward writes at the same addresses, so the forward computes them
     once."""
     dev = table.device
     p_max = table.shape[1]
@@ -148,7 +155,7 @@ def paged_write_index(table: torch.Tensor, length: torch.Tensor,
     page = torch.gather(table.to(torch.int64), 1,
                         logical.clamp(max=p_max - 1))
     live = (logical < p_max) & (page >= 0) & (page < n_live)
-    page = torch.where(live, page, torch.full_like(page, n_live))
+    page = torch.where(live, page, torch.full_like(page, n_live + 1))
     return page.reshape(-1), (pos % page_size).reshape(-1)
 
 
@@ -156,7 +163,7 @@ def _paged_insert(pool: torch.Tensor, vals: torch.Tensor,
                   table: torch.Tensor, length: torch.Tensor,
                   index: tuple[torch.Tensor, torch.Tensor] | None = None
                   ) -> torch.Tensor:
-    """Write ``vals`` [B, L, ...] into the page pool [n_pages + 1, ps, ...]
+    """Write ``vals`` [B, L, ...] into the page pool [n_pages + 2, ps, ...]
     in place, at the addresses of :func:`paged_write_index` (``index``,
     when the caller has computed them).  A join's non-joining rows carry
     all-sentinel tables, so their writes reach the sink and never another
@@ -164,7 +171,7 @@ def _paged_insert(pool: torch.Tensor, vals: torch.Tensor,
     is rollback-safe for speculative verify, as in JAX."""
     if index is None:
         index = paged_write_index(table, length, vals.shape[1],
-                                  pool.shape[0] - 1, pool.shape[1])
+                                  pool.shape[0] - 2, pool.shape[1])
     page, offset = index
     b, l = vals.shape[:2]
     pool[page, offset] = vals.reshape((b * l,) + tuple(vals.shape[2:])
@@ -204,7 +211,7 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     if isinstance(cache, PagedKVCache):
         if write_index is None:
             write_index = paged_write_index(
-                cache.table, cache.length, n, cache.k.shape[0] - 1,
+                cache.table, cache.length, n, cache.k.shape[0] - 2,
                 cache.k.shape[1])
         kp = _paged_insert(cache.k, k, cache.table, cache.length, write_index)
         vp = _paged_insert(cache.v, v, cache.table, cache.length, write_index)

@@ -7,7 +7,7 @@ layers (``[n_layers, ...]``), and the JAX ``lax.scan`` over a segment
 becomes a Python loop that indexes layer ``i`` of every stacked leaf (a
 view, no copy).  The caches are stacked the same way, dense stripes as
 ``[n_layers, B, max_len + 1, Hkv, D]`` and paged pools as
-``[n_layers, n_pages + 1, page_size, Hkv, D]``, and written in place.
+``[n_layers, n_pages + 2, page_size, Hkv, D]``, and written in place.
 """
 from __future__ import annotations
 
@@ -41,13 +41,15 @@ def init_paged_caches(cfg: ArchConfig, batch: int, n_pages: int,
                       page_size: int, dtype: torch.dtype = torch.bfloat16,
                       device: str | torch.device = "cuda") -> list:
     """One ``{"k", "v"}`` pool per segment, stacked over its layers, each
-    ``[layers, n_pages + 1, page_size, kv_heads, head_dim]``: ``n_pages``
-    live pages shared by every slot through the page table, plus the sink
-    page that takes masked-out writes (see :mod:`.attention`).  ``batch``
-    is unused by attention pools; it is kept for the JAX signature."""
+    ``[layers, n_pages + 2, page_size, kv_heads, head_dim]``: ``n_pages``
+    live pages shared by every slot through the page table, then the
+    sentinel's page, which stays zero for reads through unallocated
+    entries, and the sink page that takes masked-out writes (see
+    :mod:`.attention`).  ``batch`` is unused by attention pools; it is kept
+    for the JAX signature."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    shape = (n_pages + 1, page_size, cfg.kv_heads, cfg.resolved_head_dim)
+    shape = (n_pages + 2, page_size, cfg.kv_heads, cfg.resolved_head_dim)
     return [{"k": torch.zeros((seg.count,) + shape, dtype=dtype, device=dev),
              "v": torch.zeros((seg.count,) + shape, dtype=dtype, device=dev)}
             for seg in cfg.resolved_segments()]
@@ -123,7 +125,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     index = None
     if caches is not None and pages is not None:
         # every layer writes its K/V at the same pool addresses
-        n_live, ps = caches[0]["k"].shape[1] - 1, caches[0]["k"].shape[2]
+        n_live, ps = caches[0]["k"].shape[1] - 2, caches[0]["k"].shape[2]
         index = paged_write_index(pages, cache_len, length, n_live, ps)
     elif caches is not None and per_slot:
         index = dense_write_index(cache_len, length,

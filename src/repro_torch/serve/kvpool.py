@@ -20,8 +20,10 @@ and retirement returns every page exactly once.
 
 This class is pure host bookkeeping — no torch.  The device sees only the
 ``table`` array ([slots, max_pages] int32, unallocated entries =
-``sentinel`` = ``n_pages``, i.e. one past the pool's live pages, so writes
-through them land in the pooled caches' sink page and are never read);
+``sentinel`` = ``n_pages``, i.e. one past the pool's live pages: the
+pooled caches' page of that id is never written, so reads through an
+unallocated entry see zeros, and writes through one land in the sink page
+after it, which is never read);
 the scheduler uploads (a column-slice of) it around each decode segment.
 
 Prefix-cache lifecycle (PR 3, :mod:`repro.serve.prefixcache`): a page is

@@ -1115,3 +1115,195 @@ def test_ssgemm_ops_take_strided_views(dtype):
                 sg.ssgemm(at, bs)):
         torch.cuda.synchronize()
         assert _within_bound(got, want, bnd, 300)
+
+
+# ---------------------------------------------------------------------------
+# the decode segment as one CUDA graph per bucket
+# ---------------------------------------------------------------------------
+
+def _moe_cut():
+    """Full-width moonshot cut to 1 dense + 2 MoE layers (``chip_smoke.py``
+    phase 8's model)."""
+    import dataclasses
+    from repro_torch.configs.base import BlockKind, Segment
+    full = get_config("moonshot-v1-16b-a3b")
+    return dataclasses.replace(full, n_layers=3, segments=(
+        Segment(BlockKind.DENSE, 1), Segment(BlockKind.MOE, 2)))
+
+
+def _served(cfg, params, *, graphs, paged, requests, max_new=9, batch=2,
+            sync_every=4, eos=None, temperature=0.0, seed=0, hooks=None):
+    """Serve ``requests`` in float32 (max_len 64, pages of 8); returns
+    the results, the batcher and the decode kernels' launches of the
+    run."""
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import Batcher
+    b = Batcher(Model(cfg), params, ServeConfig(
+        max_len=64, batch=batch, dtype=torch.float32, sync_every=sync_every,
+        paged=paged, page_size=8, temperature=temperature), eos_id=eos,
+        seed=seed, graphs=graphs)
+    if hooks is not None:
+        hooks(b)
+    for rid, p in requests:
+        b.submit(rid, p)
+    for mod in (kernel, dattn, mg):
+        mod.reset_launch_counts()
+    res = b.run(max_new=max_new)
+    torch.cuda.synchronize()
+    counts = {**kernel.launch_counts, **dattn.launch_counts,
+              **mg.launch_counts}
+    return res, b, counts
+
+
+def _prompts(vocab, n, seed=0, lo=3, hi=20):
+    rng = np.random.default_rng(seed)
+    return [(rid, rng.integers(0, vocab, size=int(rng.integers(lo, hi))
+                               ).tolist()) for rid in range(n)]
+
+
+@pytest.mark.parametrize("arch", ["qwen", "moonshot"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_graphed_segments_match_eager(arch, paged):
+    """Reduced qwen2-0.5b and phase 8's 3-layer full-width moonshot, in
+    float32: the batcher replaying one CUDA graph per bucket gives the
+    eager loop's greedy tokens, and the decode kernels' launches (counted
+    at each replay from the capture's tally) equal the eager run's."""
+    cfg = (get_config("qwen2-0.5b").reduced() if arch == "qwen"
+           else _moe_cut())
+    params = init_params(cfg, 0, device="cuda")
+    requests = _prompts(cfg.vocab, 5)
+    eager, eb, eager_counts = _served(cfg, params, graphs=False,
+                                      paged=paged, requests=requests)
+    graphed, gb, counts = _served(cfg, params, graphs=None, paged=paged,
+                                  requests=requests)
+    assert gb.graphs and not eb.graphs and gb.graph_count >= 1
+    assert gb.capture_seconds > 0.0
+    assert graphed == eager
+    assert counts == eager_counts
+    steps = gb.segments * 4
+    decode = "paged_decode" if paged else "decode_attn"
+    assert counts[decode] == cfg.n_layers * steps
+    if arch == "moonshot":
+        assert counts["group_gemm"] == 3 * 2 * (gb.joins + steps)
+
+
+def test_graph_replays_around_a_join():
+    """An EOS retires one slot early, so a join refills it between two
+    replays of one bucket's graph: the graph must read the joined rows
+    (the state is written in place), and the tokens are the eager
+    run's."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_params(cfg, 0, device="cuda")
+    requests = _prompts(cfg.vocab, 6, seed=3)
+    free, _, _ = _served(cfg, params, graphs=False, paged=True,
+                         requests=requests, max_new=12, sync_every=3)
+    eos = free[1][4]
+    events = []
+
+    def hooks(b):
+        loop, refill = b._loop, b._refill
+
+        def logged_loop(steps, cap):
+            drv = loop(steps, cap)
+            events.append(("replay" if drv.graph is not None else "eager",
+                           (steps, cap)))
+            return drv
+
+        def logged_refill(max_new):
+            joins = b.joins
+            refill(max_new)
+            if b.joins > joins:
+                events.append(("join", None))
+        b._loop, b._refill = logged_loop, logged_refill
+    want, _, _ = _served(cfg, params, graphs=False, paged=True,
+                         requests=requests, max_new=12, sync_every=3,
+                         eos=eos)
+    got, _, _ = _served(cfg, params, graphs=None, paged=True,
+                        requests=requests, max_new=12, sync_every=3,
+                        eos=eos, hooks=hooks)
+    assert got == want
+    assert any(len(v) < 12 for v in got.values())
+    joins = [j for j, (kind, _) in enumerate(events) if kind == "join"]
+    around = [(i, j, k) for j in joins for i in range(j)
+              for k in range(j + 1, len(events))
+              if events[i][0] == "replay" and events[i] == events[k]]
+    assert around, events
+
+
+def test_bucket_change_mid_run_captures_a_graph_per_bucket():
+    """Dense rows bounded by ``kv_cap``: as the slots deepen the bucket
+    moves from 16 to 32 to 64 rows, each bucket gets its own graph, and
+    the tokens are the eager run's."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_params(cfg, 0, device="cuda")
+    requests = _prompts(cfg.vocab, 4, seed=5, lo=3, hi=8)
+    want, _, eager_counts = _served(cfg, params, graphs=False, paged=False,
+                                    requests=requests, max_new=40,
+                                    sync_every=2)
+    got, b, counts = _served(cfg, params, graphs=None, paged=False,
+                             requests=requests, max_new=40, sync_every=2)
+    assert got == want and counts == eager_counts
+    caps = {cap for _, cap in b._loops}
+    assert {16, 32} <= caps
+    assert b.graph_count >= 2
+
+
+def test_sampled_graph_draws_fresh_noise_and_a_seed_repeats():
+    """At a temperature above 0 each replay of a graph draws new noise
+    from the batcher's generator (registered with the graph), and a seed
+    reproduces the draws; without registration the capture raises."""
+    from repro_torch.serve.engine import GraphedLoop, sample_tokens
+    logits = torch.zeros(4, 1000, device="cuda")
+    tok = torch.zeros(4, 1, dtype=torch.int32, device="cuda")
+
+    def loop(params, tok, caches, lengths, done, remaining, gen,
+             pages=None):
+        draws = torch.stack([sample_tokens(logits, 1.0, gen)
+                             for _ in range(3)])
+        tok.copy_(draws[-1][:, None])
+        return draws
+
+    def draws(seed, sampled=True):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        drv = GraphedLoop(loop, stream=torch.cuda.Stream(),
+                          pool=torch.cuda.graph_pool_handle(),
+                          sampled=sampled)
+        return [drv(None, tok, [], None, None, None, gen).clone()
+                for _ in range(4)]
+    a, b = draws(7), draws(7)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert len({tuple(x.flatten().tolist()) for x in a}) == 4
+    assert not torch.equal(draws(8)[2], a[2])
+    with pytest.raises(RuntimeError):
+        draws(7, sampled=False)
+
+
+def test_sampled_batcher_is_graphed_and_a_seed_repeats():
+    """A sampled batcher (temperature 0.8) replays graphs, and two runs
+    from one seed give the same tokens."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_params(cfg, 0, device="cuda")
+    requests = _prompts(cfg.vocab, 5)
+    runs = [_served(cfg, params, graphs=None, paged=True, requests=requests,
+                    temperature=0.8, seed=seed) for seed in (1, 1, 2)]
+    assert all(b.graphs and b.graph_count >= 1 for _, b, _ in runs)
+    assert runs[0][0] == runs[1][0]
+    assert runs[0][0] != runs[2][0]
+    for res, _, _ in runs:
+        assert all(len(v) == 9 and all(0 <= t < cfg.vocab for t in v)
+                   for v in res.values())
+
+
+def test_graph_refuses_a_rebound_state_tensor():
+    """A replay reads the captured addresses, so a graphed loop called with a
+    state tensor other than the captured one raises."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_params(cfg, 0, device="cuda")
+    _, b, _ = _served(cfg, params, graphs=None, paged=False,
+                      requests=_prompts(cfg.vocab, 2), sync_every=2)
+    key, drv = next((k, d) for k, d in b._loops.items()
+                    if d.graph is not None)
+    with pytest.raises(RuntimeError, match="captured"):
+        drv(b.params, b.tok.clone(), b.caches, b.lengths, b.done,
+            b.remaining, b.gen)

@@ -174,7 +174,9 @@ def test_sentinel_rows_leave_other_pages_intact(models):
 @pytest.mark.parametrize("length", [[0, 5], [14, 3], [20, 0]])
 def test_paged_insert_matches_jax_drop_semantics(length):
     """Positions past the table width and sentinel entries drop in JAX;
-    in the port they go to the sink page and every live page matches."""
+    in the port they go to the sink page, the sentinel's own page stays
+    zero (reads through sentinel entries see zeros), and every live page
+    matches."""
     rng = np.random.default_rng(sum(length))
     n, ps, p = 6, 4, 3
     pool = rng.standard_normal((n, ps, 1, 2)).astype(np.float32)
@@ -183,11 +185,50 @@ def test_paged_insert_matches_jax_drop_semantics(length):
     ln = np.asarray(length, np.int32)
     want = jax_attention._paged_insert(jnp.asarray(pool), jnp.asarray(vals),
                                        jnp.asarray(tbl), jnp.asarray(ln))
-    sinked = np.concatenate([pool, np.zeros((1, ps, 1, 2), np.float32)])
+    sinked = np.concatenate([pool, np.zeros((2, ps, 1, 2), np.float32)])
     got = attention._paged_insert(torch.from_numpy(sinked),
                                   torch.from_numpy(vals),
                                   torch.from_numpy(tbl), torch.from_numpy(ln))
     np.testing.assert_array_equal(got[:n].numpy(), np.asarray(want))
+    assert not got[n].any()
+
+
+def test_unallocated_reads_do_not_see_the_sink(models):
+    """A row whose table entries are unallocated (a retired slot's decode,
+    a join's padding past its pages) reads the sentinel's page, which no
+    write reaches, so its logits do not depend on what the sink holds.  In
+    a MoE model such rows take expert capacity from the live ones, and on
+    the card many rows write the sink at once, so they must not read it."""
+    cfg, _, _, tmodel, tparams = models
+    rng = np.random.default_rng(12)
+    tbl = _table(rng, 2, 3)
+    tbl[1] = N_PAGES                             # a retired slot's row
+    tbl = torch.from_numpy(tbl)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 1)))
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 8)))
+    lengths = torch.tensor([20, 9], dtype=torch.int32)
+    outs = []
+    for junk in (False, True):
+        fill = np.random.default_rng(13)
+        caches = tmodel.init_paged_caches(2, N_PAGES, PS, torch.float32,
+                                          device="cpu")
+        for c in caches:
+            for name in ("k", "v"):
+                c[name][:, :N_PAGES] = torch.from_numpy(fill.standard_normal(
+                    c[name][:, :N_PAGES].shape).astype(np.float32))
+                if junk:
+                    c[name][:, N_PAGES + 1] = 1e4
+        logits, caches = tmodel.decode_step(tparams, toks, caches, lengths,
+                                            dtype=torch.float32, pages=tbl)
+        first, caches = tmodel.prefill_paged(
+            tparams, {"tokens": prompts}, caches, tbl, dtype=torch.float32,
+            cache_len=lengths)
+        outs.append((logits, first))
+        for c in caches:
+            for name in ("k", "v"):
+                assert not c[name][:, N_PAGES].any()  # never written
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
 
 
 def test_cache_free_forward_matches_paged_prefill(models):
@@ -332,7 +373,8 @@ def test_dense_prefill_and_decode_match_jax(models):
 def test_dense_join_writes_only_the_joining_rows(models):
     """The dense join writes the joining slots only: the other slots'
     stripes, tokens, lengths and flags stay bit-for-bit, and the joining
-    slot's state and rows match the JAX join's."""
+    slot's state and rows match the JAX join's.  The slot state is written
+    in place: the join returns the tensors it was given."""
     cfg, jmodel, jparams, tmodel, tparams = models
     rng = np.random.default_rng(6)
     b, max_len = 3, 32
@@ -347,6 +389,7 @@ def test_dense_join_writes_only_the_joining_rows(models):
     done = torch.tensor([False, True, False])
     remaining = torch.tensor([3, 0, 4], dtype=torch.int32)
     prompt = rng.integers(0, cfg.vocab, size=(1, 8)).astype(np.int32)
+    state0 = [t.clone() for t in (tok, lengths, done, remaining)]
     join = make_join(tmodel, ServeConfig(max_len=max_len, batch=b,
                                          dtype=torch.float32), eos_id=None)
     caches, tok2, len2, done2, rem2, first = join(
@@ -357,11 +400,11 @@ def test_dense_join_writes_only_the_joining_rows(models):
         for name in ("k", "v"):
             assert torch.equal(c[name][:, [0, 2]], c0[name][:, [0, 2]])
             assert torch.equal(c[name][:, 1, 8:], c0[name][:, 1, 8:])
+    assert all(x is y for x, y in zip((tok2, len2, done2, rem2),
+                                      (tok, lengths, done, remaining)))
     keep = [0, 2]
-    assert torch.equal(tok2[keep], tok[keep])
-    assert torch.equal(len2[keep], lengths[keep])
-    assert torch.equal(done2[keep], done[keep])
-    assert torch.equal(rem2[keep], remaining[keep])
+    for got, was in zip((tok2, len2, done2, rem2), state0):
+        assert torch.equal(got[keep], was[keep])
     assert first.shape == (1,)
 
     jjoin = jax_make_join(jmodel, JaxServeConfig(max_len=max_len, batch=b,
@@ -371,9 +414,8 @@ def test_dense_join_writes_only_the_joining_rows(models):
     prompts[1] = prompt[0]
     jcaches = jmodel.init_caches(b, max_len, jnp.float32)
     jcaches, jtok, jlen, jdone, jrem, _, jfirst = jjoin(
-        jparams, jcaches, jnp.asarray(tok.numpy()),
-        jnp.asarray(lengths.numpy()), jnp.asarray(done.numpy()),
-        jnp.asarray(remaining.numpy()), jnp.asarray([False, True, False]),
+        jparams, jcaches, *(jnp.asarray(t.numpy()) for t in state0),
+        jnp.asarray([False, True, False]),
         jnp.asarray(prompts), jnp.asarray([1, 5, 1], jnp.int32),
         jnp.asarray([4, 4, 4], jnp.int32), jax.random.key(0))
     assert int(first[0]) == int(jfirst[1])

@@ -232,6 +232,7 @@ def test_dense_join_prefills_every_row_as_jax_does():
     lengths = torch.tensor([11, 0, 20], dtype=torch.int32)
     done = torch.tensor([False, True, False])
     remaining = torch.tensor([3, 0, 4], dtype=torch.int32)
+    state0 = [t.clone() for t in (tok, lengths, done, remaining)]
     join = make_join(tmodel, ServeConfig(max_len=max_len, batch=b,
                                          dtype=torch.float32), eos_id=None)
     caches, tok2, len2, done2, rem2, first = join(
@@ -250,8 +251,7 @@ def test_dense_join_prefills_every_row_as_jax_does():
     prompts[1] = prompt[0]
     jcaches, jtok, jlen, jdone, jrem, _, jfirst = jjoin(
         jparams, jmodel.init_caches(b, max_len, jnp.float32),
-        jnp.asarray(tok.numpy()), jnp.asarray(lengths.numpy()),
-        jnp.asarray(done.numpy()), jnp.asarray(remaining.numpy()),
+        *(jnp.asarray(t.numpy()) for t in state0),
         jnp.asarray([False, True, False]), jnp.asarray(prompts),
         jnp.asarray([1, 5, 1], jnp.int32), jnp.asarray([4, 4, 4], jnp.int32),
         jax.random.key(0))
