@@ -54,7 +54,10 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    plain version and of one library call (``scaled_dot_product_attention``,
    ``torch.bmm``, ``torch.matmul``, ``index_add``, ``torch.add``;
    yardsticks the port never calls), beside the least time the card could
-   take for the same work; the attention kernels also at moonshot's
+   take for the same work; the prefill kernel also as the speculative
+   verify at the features phase's shape (8 slots, Lq 5, depths 320-600),
+   on the device alone too, beside SDPA and the decode kernel's time at
+   the same depths times 5; the attention kernels also at moonshot's
    geometry over 48 layers, the grouped GEMM at decode and at a join (its
    gate/up and its down projection) with its tiles skipped, and the
    achieved TFLOP/s and share of the bound of the kernels redesigned for
@@ -76,12 +79,24 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    waves, the seconds spent capturing, TTFT and TPOT, peak memory; equal
    greedy streams from graphs and eager, and from both waves; each run's
    kernel launches are counted over its own run only, exactly (a graph's
-   launches count at each replay);
+   launches count at each replay).  Then the serving features, paged:
+   16 requests of a seeded 256-token shared prefix and a 64-256-token
+   suffix, (a) with the prefix cache, chunked prefill (128) and a round
+   budget (256 tokens), (b) with speculation (k 4) as well, each graphed
+   and eager, and the same traffic with every feature off: prefix,
+   chunk and speculation statistics, both waves' tok/s and latencies;
+   graphed and eager streams equal for (a) and (b), prefix hits,
+   skipped prefill and chunk continuations in the first wave, and the
+   launches exact (speculating, the prefill kernel runs once a layer for
+   each join and each verify step, the decode kernel never);
 5. agreement: short float32 runs with the same weights: each layout with
    the CUDA kernels (graphed) on the card against the plain path on the
    CPU and against the eager loop on the card, and the dense layout
-   against the paged one on the card: equal greedy streams, or a
-   difference shown to sit at a logit near-tie;
+   against the paged one on the card; then paged behind a 32-token shared
+   prefix with the prefix cache, chunks of 16 and speculation (k 3), card
+   against CPU (with equal prefix, spec and chunk statistics where the
+   streams are equal) and features on against off on the card: equal
+   greedy streams, or a difference shown to sit at a logit near-tie;
 6. primitives at the paper's sizes, through the public ops: ss-gemm on
    ``ss_gemm.Problem()`` (M 16,384 x K 4,096, bfloat16) for N 2, 4, 8 and
    16, with ``make_skinny`` data and with a clustered B (45% of 256-row
@@ -113,6 +128,7 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*``, the
+prefill row the verify's as ``verify_*``, the
 attention, volume and vector-sum rows their device-only ``graph_ms``,
 the library call's ``library_graph_ms`` beside it,
 volume's row its bfloat16 times
@@ -413,6 +429,75 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
           f"{out['paged_prefill']['graph_ms']:.4f}; SDPA library_graph_ms "
           f"{out['paged_prefill']['library_graph_ms']:.4f}")
     return out
+
+
+def verify_timing(torch, layers=24) -> dict:
+    """The speculative verify at the features phase's serve shape: qwen,
+    bfloat16, 8 slots, Lq = k+1 = 5 query tokens at decode depths of
+    320-600 (``paged_prefill_tc.cu``: 5 x 7 = 35 query rows a (slot, KV
+    head), one CTA each).  Back-to-back calls and one CUDA graph of them,
+    its bytes bound, the plain version, SDPA on the gathered pages, and
+    the decode kernel at the same depths times 5 (the five tokens decoded
+    one by one).  Keys ``verify_*`` of the paged_prefill row."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attn import kernel, ops, ref
+    rng = np.random.default_rng(2)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    dtype, name, b, lq, item = torch.bfloat16, "bfloat16", 8, 5, 2
+    offs = [int(x) for x in rng.integers(320, 601 - lq, size=b)]
+    kvl = [o + lq for o in offs]
+    k, v, tbl = paged_inputs(torch, rng, b=b, depths=kvl, n_pages=512,
+                             p_max=64, dtype=dtype, layers=layers)
+    ctbl = ops._clamp_table(tbl, k.shape[1])
+    q = torch.randn(b, lq, HQ, D, generator=gen, device=dev).to(dtype)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    kv = torch.tensor(kvl, dtype=torch.int32, device=dev)
+    pos = off[:, None] + torch.arange(lq, device=dev)[None, :]
+    kg, vg, mask = sdpa_inputs(torch, k[0], v[0], tbl, pos, kv)
+    q4 = q.permute(0, 2, 1, 3).contiguous()
+    qd = q[:, -1].contiguous()
+    visible = sum(o * lq + lq * (lq + 1) // 2 for o in offs)
+    nbytes = (2 * q.numel() * item + sum(kvl) * HKV * D * item * 2
+              + tbl.numel() * 4 + 2 * b * 4)
+    t_bound, by = bound(nbytes, 4.0 * HQ * D * visible, name)
+
+    def verify(i):
+        return kernel.paged_prefill_attn_cuda(q, k[i % layers],
+                                              v[i % layers], ctbl, off, kv)
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask,
+                                              enable_gqa=True)
+
+    def decode(i):
+        return kernel.paged_attn_cuda(qd, k[i % layers], v[i % layers],
+                                      ctbl, kv)
+    row = {"verify_ms": time_ms(verify, layers * 4),
+           "verify_graph_ms": graph_ms(verify, layers * 4),
+           "verify_plain_ms": time_ms(lambda i: ref.paged_prefill_attn_ref(
+               q, k[i % layers], v[i % layers], tbl, off, kv), layers,
+               reps=3),
+           "verify_library_ms": time_ms(sdpa, layers * 4),
+           "verify_library_graph_ms": graph_ms(sdpa, layers * 4),
+           "verify_decode5_graph_ms": 5 * graph_ms(decode, layers * 4),
+           "verify_bound_ms": t_bound, "verify_bound_by": by,
+           "verify_bytes": nbytes}
+    err = (verify(0).float() - ref.paged_prefill_attn_ref(
+        q.float(), k[0].float(), v[0].float(), tbl, off, kv)).abs().max()
+    check(float(err) <= TOL[name], "verify timing: the kernel disagrees")
+    print(f"[timing] paged_prefill verify {name} (B={b} Lq={lq} Hq={HQ} "
+          f"Hkv={HKV} D={D} ps={PS} q_offset={offs}): kernel_ms "
+          f"{row['verify_ms']:.4f}, device graph_ms "
+          f"{row['verify_graph_ms']:.4f} "
+          f"({t_bound / row['verify_graph_ms']:.1%} of the {by} bound "
+          f"{t_bound:.4f}), plain_ms {row['verify_plain_ms']:.4f}, SDPA "
+          f"library_ms {row['verify_library_ms']:.4f} (device "
+          f"{row['verify_library_graph_ms']:.4f}), paged_decode at the "
+          f"same depths x 5 (device) {row['verify_decode5_graph_ms']:.4f}; "
+          f"max_abs_err {float(err):.3e}; {SMI}")
+    return row
 
 
 def print_device_times(kname: str, dtype_name: str, row: dict) -> None:
@@ -1684,12 +1769,23 @@ def read_counts() -> dict:
 
 
 def check_serve_launches(res: dict, counts: dict, cfg, label: str,
-                         paged: bool) -> None:
+                         paged: bool, spec: bool = False) -> None:
     """The decode kernels' launches of one serve run, exact: a decode
     graph's launches count at each replay, so the counts equal those of
-    the eager loop over the same segments."""
+    the eager loop over the same segments.  With speculation (``spec``)
+    every decode step is a verify, a prefill-kernel call at Lq = k+1, so
+    the prefill kernel runs once a layer for each join and each step, and
+    the decode kernel never."""
     steps = cfg.n_layers * res["sync_every"] * res["segments"]
-    if paged:
+    if spec:
+        check(counts["paged_prefill"]
+              == cfg.n_layers * res["joins"] + steps,
+              f"serve {label}: prefill launches != layers x (joins + "
+              "verify steps)")
+        check(counts["paged_decode"] == counts["decode_attn"] == 0,
+              f"serve {label}: a decode kernel was launched while "
+              "speculating")
+    elif paged:
         check(counts["paged_prefill"] == cfg.n_layers * res["joins"],
               f"serve {label}: prefill launches != layers x joins")
         check(counts["paged_decode"] == steps,
@@ -1703,14 +1799,16 @@ def check_serve_launches(res: dict, counts: dict, cfg, label: str,
               f"serve {label}: a paged kernel was launched")
 
 
-def serve_both(torch, arch, params, label: str, **kw) -> dict:
+def serve_both(torch, arch, params, label: str, warm_gate: bool = True,
+               **kw) -> dict:
     """One serve cell through ``repro_torch.launch.serve.run``, with CUDA
     graphs (the default: the main path, whose launches are counted) and
     eagerly (kernel by kernel), each a first and a warm wave.  The warm
-    wave gives the first wave's tokens, and graphs give the eager run's
-    greedy streams.  Returns {"graphs": (result, launches), "eager": ...};
-    each run's launches and peak device memory (``peak_gib``, the weights
-    included) are its own run's."""
+    wave gives the first wave's tokens (gated unless ``warm_gate`` is
+    off: then the equal streams are counted), and graphs give the eager
+    run's greedy streams.  Returns {"graphs": (result, launches), "eager":
+    ...}; each run's launches and peak device memory (``peak_gib``, the
+    weights included) are its own run's."""
     from repro_torch.launch.serve import run
     out = {}
     for mode, graphs in (("graphs", None), ("eager", False)):
@@ -1733,9 +1831,10 @@ def serve_both(torch, arch, params, label: str, **kw) -> dict:
         check(res["graphs"] == (mode == "graphs")
               and (res["graph_count"] > 0) == (mode == "graphs"),
               f"serve {label} {mode}: graphs {res['graph_count']}")
-        check(res["warm_results"] == res["results"],
-              f"serve {label} {mode}: the warm wave's tokens differ from "
-              "the first wave's")
+        if warm_gate:
+            check(res["warm_results"] == res["results"],
+                  f"serve {label} {mode}: the warm wave's tokens differ "
+                  "from the first wave's")
     diff = [rid for rid, toks in out["graphs"][0]["results"].items()
             if toks != out["eager"][0]["results"][rid]]
     print(f"[serve] {label}: greedy streams, graphs vs eager: "
@@ -1769,6 +1868,189 @@ def serve_full_width(torch, params, paged: bool) -> dict:
         check_serve_launches(res, counts, cfg, f"{layout} {mode}", paged)
     print(f"[serve] {layout}: prompts {lens[0]}-{lens[-1]} tokens")
     return runs["graphs"][1]
+
+
+FEATURES = {
+    "a": dict(prefix_cache=True, prefill_chunk=128, prefill_round_tokens=256),
+    "b": dict(prefix_cache=True, prefill_chunk=128, prefill_round_tokens=256,
+              speculate_k=4, speculate_ngram=2)}
+
+
+def _wave_split(res: dict) -> str:
+    """Where a warm wave's seconds went: its joins (host clock, each
+    stalling decode) and the rest, over its decode segments."""
+    join, segs = res["join"], res["segments"] - res["first_segments"]
+    join_s = join["joins"] * join["mean_join_s"]
+    rest = res["warm_seconds"] - join_s
+    return (f"warm wave {res['warm_seconds'] * 1e3:.1f} ms: "
+            f"{join['joins']} joins {join_s * 1e3:.1f} ms, {segs} segments "
+            f"and collection {rest * 1e3:.1f} ms "
+            f"({rest / max(1, segs * res['sync_every']) * 1e3:.2f} ms a "
+            "step)")
+
+
+def _equal_streams(a: dict, b: dict) -> int:
+    return sum(a[rid] == b[rid] for rid in a)
+
+
+def serve_features(torch, params) -> dict:
+    """The serving features on the paged path: full-width qwen2-0.5b,
+    bfloat16, pages of 16; 16 requests, each a seeded 256-token system
+    prefix and a private suffix of 64-256 tokens, 64 new tokens each,
+    batch 8, max_len 1024, 8 steps a segment.  (a) the prefix cache,
+    chunks of 128 and a round budget of 256 tokens; (b) (a) and
+    speculation, k 4, n-gram 2; each graphed and eager, a first and a
+    warm wave; then the same traffic graphed with the prefix cache alone
+    and with every feature off.
+
+    Gated: graphed and eager streams equal for (a) and (b) (the same
+    kernels in the same order); 64 in-vocab tokens a request; prefix hits
+    and skipped prefill tokens in the first wave; chunk continuations;
+    exact launches (with speculation the prefill kernel once a layer for
+    each join and each verify step, the decode kernel never).  Not
+    gated: a warm wave against its first (with the cache on the warm
+    wave prefills only suffixes, in other shapes, so bfloat16 rounding
+    may move a token) and features on against off; both are printed as
+    counts of equal streams, and where (b) parts from off, how close the
+    two tokens were (``bf16_divergence``).  Returns (b)'s graphed
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run
+    cfg = get_config(ARCH)
+    requests, max_new = 16, 64
+    kw = dict(requests=requests, max_new=max_new, batch=8, max_len=1024,
+              paged=True, page_size=16, sync_every=8, seed=0,
+              shared_prefix=256, prompt_len=(64, 257), dtype=torch.bfloat16)
+    streams = {}
+    for name, feats in FEATURES.items():
+        spec = "speculate_k" in feats
+        label = f"{ARCH} features ({name})"
+        runs = serve_both(torch, ARCH, params, label, warm_gate=False,
+                          **kw, **feats)
+        for mode, (res, counts) in runs.items():
+            check(sorted(res["results"]) == list(range(requests)),
+                  f"serve {label} {mode}: missing requests")
+            for rid, toks in res["results"].items():
+                check(len(toks) == max_new
+                      and all(0 <= t < cfg.vocab for t in toks),
+                      f"serve {label} {mode}: request {rid} returned "
+                      f"{len(toks)} tokens")
+            check_serve_launches(res, counts, cfg, f"{label} {mode}", True,
+                                 spec=spec)
+            pre, join, sp = res["prefix"], res["first_join"], res["spec"]
+            wpre, wsp, lat = res["warm_prefix"], res["warm_spec"], \
+                res["latency"]
+            first_lat = res["first_latency"]
+            print(f"[features] {label}, {mode}: first wave: prefix hits "
+                  f"{pre['hits']}/{pre['admits']}, hit rate "
+                  f"{pre['hit_rate']:.3f}, prefill tokens computed "
+                  f"{pre['prefill_computed']}, skipped "
+                  f"{pre['prefill_skipped']}; {join['joins']} joins, "
+                  f"{join['chunk_joins']} chunk continuations, "
+                  f"{join['budget_deferrals']} deferrals, max join "
+                  f"{join['max_join_s'] * 1e3:.1f} ms; spec "
+                  f"{sp['steps']} verify steps, acceptance "
+                  f"{sp['acceptance_rate']:.3f}, "
+                  f"{sp['tokens_per_step']:.3f} tokens a step; TTFT p50 "
+                  f"{first_lat['ttft_p50_s'] * 1e3:.1f} / p95 "
+                  f"{first_lat['ttft_p95_s'] * 1e3:.1f} ms, TPOT p50 "
+                  f"{first_lat['tpot_p50_s'] * 1e3:.2f} / p95 "
+                  f"{first_lat['tpot_p95_s'] * 1e3:.2f} ms. Warm wave: "
+                  f"hit rate {wpre['hit_rate']:.3f}, skipped "
+                  f"{wpre['prefill_skipped']}, acceptance "
+                  f"{wsp['acceptance_rate']:.3f}, "
+                  f"{wsp['tokens_per_step']:.3f} tokens a step; TTFT p50 "
+                  f"{lat['ttft_p50_s'] * 1e3:.1f} / p95 "
+                  f"{lat['ttft_p95_s'] * 1e3:.1f} ms, TPOT p50 "
+                  f"{lat['tpot_p50_s'] * 1e3:.2f} / p95 "
+                  f"{lat['tpot_p95_s'] * 1e3:.2f} ms; {_wave_split(res)}; "
+                  f"warm streams equal "
+                  f"to the first wave's "
+                  f"{_equal_streams(res['warm_results'], res['results'])}"
+                  f"/{requests}; {SMI}")
+            check(pre["hits"] > 0 and pre["prefill_skipped"] > 0,
+                  f"serve {label} {mode}: no prefix hit in the first wave")
+            check(join["chunk_joins"] > 0,
+                  f"serve {label} {mode}: no chunk continuation")
+            check(not spec or sp["steps"] > 0,
+                  f"serve {label} {mode}: no verify step")
+        streams[name] = runs["graphs"][0]["results"]
+        if spec:
+            launched = runs["graphs"][1]
+    for name, feats in (("prefix cache alone", dict(prefix_cache=True)),
+                        ("off", {})):
+        reset_counts()
+        res = run(ARCH, params=params, device="cuda", **kw, **feats)
+        counts = read_counts()
+        res["sync_every"] = kw["sync_every"]
+        check_serve_launches(res, counts, cfg, f"features {name}", True)
+        check(not feats or res["prefix"]["hits"] > 0,
+              f"serve features {name}: no prefix hit")
+        streams[name] = res["results"]
+        first, warm = res["first_latency"], res["latency"]
+        print(f"[features] {ARCH} features {name}, graphs: tok/s first "
+              f"wave {res['tok_per_s']:.1f}, warm wave "
+              f"{res['warm_tok_per_s']:.1f}; first wave: prefix hits "
+              f"{res['prefix']['hits']}/{res['prefix']['admits']}, prefill "
+              f"tokens computed {res['prefix']['prefill_computed']}, "
+              f"skipped {res['prefix']['prefill_skipped']}, "
+              f"{res['first_join']['joins']} joins, max join "
+              f"{res['first_join']['max_join_s'] * 1e3:.1f} ms; TTFT p50 "
+              f"{first['ttft_p50_s'] * 1e3:.1f} / p95 "
+              f"{first['ttft_p95_s'] * 1e3:.1f} ms, TPOT p50 "
+              f"{first['tpot_p50_s'] * 1e3:.2f} / p95 "
+              f"{first['tpot_p95_s'] * 1e3:.2f} ms; warm wave: skipped "
+              f"{res['warm_prefix']['prefill_skipped']}, TTFT p50 "
+              f"{warm['ttft_p50_s'] * 1e3:.1f} / p95 "
+              f"{warm['ttft_p95_s'] * 1e3:.1f} ms, TPOT p50 "
+              f"{warm['tpot_p50_s'] * 1e3:.2f} / p95 "
+              f"{warm['tpot_p95_s'] * 1e3:.2f} ms; {_wave_split(res)}; "
+              f"launches {counts}; {SMI}")
+    off = streams["off"]
+    print(f"[features] bfloat16 greedy streams equal (not gated): (a) vs "
+          f"off {_equal_streams(streams['a'], off)}/{requests}, (b) vs off "
+          f"{_equal_streams(streams['b'], off)}/{requests}, prefix cache "
+          f"alone vs off "
+          f"{_equal_streams(streams['prefix cache alone'], off)}/{requests}")
+    bf16_divergence(torch, params, cfg, runs["graphs"][0]["prompts"],
+                    streams["b"], off)
+    return launched
+
+
+def bf16_divergence(torch, params, cfg, prompts, got, want) -> None:
+    """Where two bfloat16 greedy streams of one prompt part, how close the
+    two tokens were: the gap between their logits from a float32 forward
+    of the same (bfloat16-valued) weights over the prompt and the common
+    prefix, beside the spread of those logits (their standard deviation)
+    and the margin of the top token over the third.  Printed, not
+    gated."""
+    from repro_torch.models.transformer import forward, logits_fn
+    params32 = _cast(torch, params, torch.float32)
+    rows = []
+    for rid, toks in got.items():
+        diff = [j for j, (a, b) in enumerate(zip(toks, want[rid])) if a != b]
+        if not diff:
+            continue
+        i = diff[0]
+        seq = torch.tensor([prompts[rid] + want[rid][:i]],
+                           device=params["embed"]["table"].device)
+        with torch.no_grad():
+            hidden, _ = forward(params32, {"tokens": seq}, cfg,
+                                dtype=torch.float32)
+            logits = logits_fn(params32, hidden[:, -1:], cfg)[0, 0]
+        top = torch.topk(logits, 3).values
+        rows.append((i, abs(float(logits[toks[i]] - logits[want[rid][i]])),
+                     float(logits.std()), float(top[0] - top[2])))
+    del params32
+    torch.cuda.empty_cache()
+    if rows:
+        print(f"[features] bfloat16 streams with and without speculation "
+              f"part at tokens {[r[0] for r in rows]}; float32 logit gaps "
+              f"there {[round(r[1], 4) for r in rows]} (max "
+              f"{max(r[1] for r in rows):.4f}), logit std "
+              f"{statistics.median(r[2] for r in rows):.4f} (median), "
+              f"top-1 over top-3 margin "
+              f"{statistics.median(r[3] for r in rows):.4f} (median)")
 
 
 def dense_join_rows(torch) -> None:
@@ -1862,6 +2144,64 @@ def agreement(torch) -> None:
     print(f"[agree] float32 greedy streams on the card, dense kernel vs "
           f"paged kernels: {len(prompts) - ties}/{len(prompts)} equal, "
           f"{ties} at near-ties")
+    feature_agreement(torch, params, cpu_params, kw)
+
+
+def feature_agreement(torch, params, cpu_params, kw) -> None:
+    """float32, phase 5's traffic behind a 32-token shared prefix, paged,
+    with the prefix cache, chunks of 16 and speculation (k 3): the card
+    (graphed) against the CPU plain path, and features on against off on
+    the card.  Equal streams, or a first difference at a near-tie; where
+    the card's and the CPU's streams are all equal, their prefix, spec
+    and chunk statistics are equal too (both waves)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run
+    cfg = get_config(ARCH)
+    shared = dict(kw, paged=True, shared_prefix=32)
+    feats = dict(prefix_cache=True, prefill_chunk=16, speculate_k=3)
+    reset_counts()
+    on_card = run(ARCH, device="cuda", params=params, **shared, **feats)
+    counts = read_counts()
+    on_card["sync_every"] = kw["sync_every"]
+    check_serve_launches(on_card, counts, cfg, "feature agreement", True,
+                         spec=True)
+    on_cpu = run(ARCH, device="cpu", params=cpu_params, **shared, **feats)
+    off_card = run(ARCH, device="cuda", params=params, **shared)
+    prompts = on_cpu["prompts"]
+    ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
+                         on_card["results"][rid], want,
+                         f"features request {rid}")
+               for rid, want in on_cpu["results"].items())
+    same = ties == 0 and on_card["warm_results"] == on_cpu["warm_results"]
+    stats = ("prefix", "spec", "warm_prefix", "warm_spec")
+    if same:
+        for key in stats:
+            check(on_card[key] == on_cpu[key],
+                  f"feature agreement: {key} differs, card {on_card[key]} "
+                  f"vs CPU {on_cpu[key]}")
+        for key in ("joins", "chunk_joins", "budget_deferrals"):
+            check(on_card["first_join"][key] == on_cpu["first_join"][key]
+                  and on_card["join"][key] == on_cpu["join"][key],
+                  f"feature agreement: join {key} differs")
+    pre, sp, join = on_card["prefix"], on_card["spec"], on_card["first_join"]
+    print(f"[agree] float32 greedy streams, paged with the prefix cache, "
+          f"chunks of 16 and speculation k 3, CUDA kernels (graphs) vs CPU "
+          f"plain path: {len(prompts) - ties}/{len(prompts)} equal, {ties} "
+          f"at near-ties; statistics "
+          f"{'equal' if same else 'not compared (streams differ)'}: prefix "
+          f"hits {pre['hits']}/{pre['admits']}, skipped "
+          f"{pre['prefill_skipped']}, {join['chunk_joins']} chunk "
+          f"continuations, {sp['steps']} verify steps, acceptance "
+          f"{sp['acceptance_rate']:.3f}; launches {counts}")
+    check(pre["hits"] > 0 and join["chunk_joins"] > 0 and sp["steps"] > 0,
+          "feature agreement: a feature did not act")
+    ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
+                         on_card["results"][rid], want,
+                         f"features on vs off request {rid}")
+               for rid, want in off_card["results"].items())
+    print(f"[agree] float32 greedy streams on the card, features on vs "
+          f"off: {len(prompts) - ties}/{len(prompts)} equal, {ties} at "
+          f"near-ties")
 
 
 def moe_cut(layers_moe: int):
@@ -1984,6 +2324,14 @@ def moe_serve(torch) -> dict:
     return counts
 
 
+def _cast(torch, tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(torch, v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(torch, v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
 def _to(torch, tree, device):
     if isinstance(tree, dict):
         return {k: _to(torch, v, device) for k, v in tree.items()}
@@ -2060,6 +2408,7 @@ def main() -> int:
     push_checks(torch)
     wave_kernel_checks(torch)
     timings = kernel_timings(torch)
+    timings["paged_prefill"].update(verify_timing(torch))
     timings["decode_attn"] = stripe_timing(torch)
     at_d128 = kernel_timings(torch, MOE_GEO, layers=48)
     at_d128["decode_attn"] = stripe_timing(torch, MOE_GEO, layers=48)
@@ -2081,6 +2430,7 @@ def main() -> int:
     counts = serve_full_width(torch, params, paged=True)
     dense_counts = serve_full_width(torch, params, paged=False)
     counts["decode_attn"] = dense_counts["decode_attn"]
+    serve_features(torch, params)
     del params
     dense_join_rows(torch)
     agreement(torch)
@@ -2138,7 +2488,8 @@ def main() -> int:
         # library_graph_ms), the wrapper's host_us and their split count
         rows[-1].update({k: v for k, v in t.items()
                          if (k.startswith(("tiles", "prefill_", "down_",
-                                           "d128_", "n16_", "bf16_"))
+                                           "d128_", "n16_", "bf16_",
+                                           "verify_"))
                              or k in ("graph_ms", "library_graph_ms",
                                       "host_us", "splits"))
                          and not k.endswith(("flops", "bytes"))})

@@ -1,7 +1,7 @@
 """Where a decode segment's time goes, on the GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--paged] \
-      [--arch moonshot-v1-16b-a3b] [--eager]
+      [--arch moonshot-v1-16b-a3b] [--eager] [--speculate K]
 
 Fills every slot of the batcher with the serve cell's requests
 (``--arch`` at full width, qwen2-0.5b by default, seeded bf16 weights
@@ -9,7 +9,9 @@ built in place, prompts of 64-512 tokens, max_len 1024; dense stripes,
 or pages of 16 with ``--paged``), joins them, runs one decode segment to
 warm up (with graphs, the default, that segment is the bucket's eager
 warm-up and its capture; ``--eager`` runs every segment kernel by
-kernel), then traces ``--segments`` more under ``torch.profiler``; a
+kernel), then traces ``--segments`` more under ``torch.profiler``
+(with ``--speculate K``, paged only, every step is a draft-K verify
+step, and the tokens it commits a step are printed too); a
 capture inside the timed segments fails the run. Each segment is the
 serving path's own: the decode loop (a graph replay, or the eager loop),
 the one host read of its tokens and their collection. It prints: wall
@@ -59,7 +61,8 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
                    sync_every: int = 8, segments: int = 2,
                    prompt_len: tuple[int, int] = (64, 513), seed: int = 0,
                    paged: bool = False, graphs: bool = True,
-                   device: str = "cuda", trace: str | None = None) -> dict:
+                   device: str = "cuda", trace: str | None = None,
+                   speculate_k: int | None = None) -> dict:
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("profiling measures the GPU: device must be cuda")
@@ -67,8 +70,10 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
     model = Model(cfg)
     params = model.init(seed, device=dev, dtype=torch.bfloat16)
     scfg = ServeConfig(max_len=max_len, batch=batch, sync_every=sync_every,
-                       paged=paged, page_size=page_size)
-    max_new = sync_every * (2 * segments + 2)  # nobody retires mid-run
+                       paged=paged, page_size=page_size,
+                       speculate_k=speculate_k)
+    # nobody retires mid-run, though a verify step commits up to k+1
+    max_new = sync_every * (2 * segments + 2) * ((speculate_k or 0) + 1)
     b = Batcher(model, params, scfg, seed=seed, graphs=graphs)
     rng = np.random.default_rng(seed)
     for rid in range(batch):
@@ -87,6 +92,7 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
         segment()
     torch.cuda.synchronize(dev)
     wall_plain = time.perf_counter() - t0
+    committed = b.metrics.value("spec.emitted")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -116,7 +122,9 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
         "device": torch.cuda.get_device_name(dev),
         "layout": "paged" if paged else "dense",
         "mode": f"{b.graph_count} CUDA graphs" if graphs else "eager",
-        "steps": steps, "batch": batch,
+        "steps": steps, "batch": batch, "speculate_k": speculate_k,
+        "tokens_per_step": ((b.metrics.value("spec.emitted") - committed)
+                            / steps if speculate_k else float(batch)),
         "wall_ms_per_step": wall_plain * 1e3 / steps,
         "wall_ms_per_step_traced": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
@@ -131,9 +139,13 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
                                  e.self_cpu_time_total / 1e3 / steps,
                                  "calls_per_step": e.count / steps}
                                 for e in host[:12]]}
+    kind = (f"verify steps (k {speculate_k}, "
+            f"{summary['tokens_per_step']:.2f} tokens committed a step "
+            "over the batch)"
+            if speculate_k else "decode steps")
     print(f"[profile] {cfg.name} {summary['layout']} "
           f"({summary['mode']}), batch {batch}, "
-          f"{steps} decode steps on "
+          f"{steps} {kind} on "
           f"{summary['device']}: wall {summary['wall_ms_per_step']:.2f} "
           f"ms/step ({summary['wall_ms_per_step_traced']:.2f} traced), "
           f"device busy {summary['device_busy_ms_per_step']:.2f} ms/step, "
@@ -164,11 +176,14 @@ def main() -> None:
     ap.add_argument("--eager", action="store_true",
                     help="run the decode loop kernel by kernel (default: "
                          "replay one CUDA graph per bucket)")
+    ap.add_argument("--speculate", type=int, default=None, metavar="K",
+                    help="profile the draft-K verify loop (needs --paged)")
     ap.add_argument("--trace", default=None, metavar="PATH")
     args = ap.parse_args()
     profile_decode(args.arch, batch=args.batch, segments=args.segments,
                    sync_every=args.sync_every, paged=args.paged,
-                   graphs=not args.eager, trace=args.trace)
+                   graphs=not args.eager, trace=args.trace,
+                   speculate_k=args.speculate)
 
 
 if __name__ == "__main__":

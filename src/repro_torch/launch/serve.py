@@ -15,6 +15,17 @@ kernel by kernel instead.  The requests are served twice: a first wave
 (capture included) and, after ``reset_stats``, a warm wave of the same
 prompts into the warm batcher; both waves' tok/s are printed, with the
 warm wave's latencies.
+
+The paged pool's serving features, as in ``repro.launch.serve``:
+``--prefix-cache`` (with ``--shared-prefix N``, a seeded system prompt of
+N tokens before every request's own), ``--prefill-chunk`` and
+``--prefill-round-tokens``, and ``--speculate K`` (with
+``--speculate-ngram``).  Each ``[serve]`` line
+then adds its wave's hit rate and skipped prefill tokens, chunk
+continuations, longest join and deferrals, and acceptance and tokens a
+verify step.  With the prefix cache on, the warm wave of the same prompts
+finds every full prompt page cached, so it prefills far less than the
+first wave.
 """
 from __future__ import annotations
 
@@ -42,12 +53,19 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
         total_pages: int | None = None, prompt_len: tuple[int, int] = (4, 12),
         dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda", params=None,
-        graphs: bool | None = None) -> dict:
+        graphs: bool | None = None, prefix_cache: bool = False,
+        shared_prefix: int = 0, prefill_chunk: int | None = None,
+        prefill_round_tokens: int | None = None,
+        speculate_k: int | None = None, speculate_ngram: int = 2) -> dict:
     """Serve ``requests`` random prompts (lengths drawn from
     ``prompt_len`` = [lo, hi), tokens from ``seed``) from dense stripes,
     or from the paged pool with ``paged``, and print requests, tokens and
-    tok/s.  ``arch`` is a registry name or a config (one cut in depth,
-    say).  ``params`` (from the port's init or the bridge) replaces the
+    tok/s.  ``shared_prefix`` tokens, drawn from the seed before the
+    prompts, go in front of every prompt (a system prompt for
+    ``prefix_cache``); ``prefill_chunk``, ``prefill_round_tokens``,
+    ``speculate_k`` and ``speculate_ngram`` go to ``ServeConfig``.
+    ``arch`` is a registry name or a config (one cut in depth, say).
+    ``params`` (from the port's init or the bridge) replaces the
     seeded random weights when given; it is cast for serving in
     ``dtype``.  ``graphs`` goes to the batcher (None: CUDA graphs on the
     card, eager on the CPU).  The same prompts are then served a second
@@ -55,9 +73,13 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
 
     Returns the first wave's ``results`` and ``tok_per_s`` (capture
     included), the warm wave's ``warm_results``, ``warm_tok_per_s``,
-    ``latency`` (``latency_stats``) and ``join`` (``join_stats``), and
-    ``capture_s`` and ``graph_count``; ``joins`` and ``segments`` count
-    both waves."""
+    ``latency`` (``latency_stats``) and ``join`` (``join_stats``, with
+    its chunk fields), and ``capture_s`` and ``graph_count``; ``joins``
+    and ``segments`` count both waves.  ``prefix``, ``spec``,
+    ``first_join``, ``first_latency`` and ``first_segments`` are the
+    first wave's ``prefix_stats``, ``spec_stats``, ``join_stats``,
+    ``latency_stats`` and decode segments, ``warm_prefix``,
+    ``warm_spec`` and ``warm_seconds`` the warm wave's."""
     dev = resolve_device(device)
     cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     if reduced:
@@ -71,14 +93,19 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
     scfg = ServeConfig(max_len=max_len, batch=batch, dtype=dtype,
                        sync_every=sync_every, temperature=temperature,
                        paged=paged, page_size=page_size,
-                       total_pages=total_pages)
+                       total_pages=total_pages, prefix_cache=prefix_cache,
+                       prefill_chunk=prefill_chunk,
+                       prefill_round_tokens=prefill_round_tokens,
+                       speculate_k=speculate_k,
+                       speculate_ngram=speculate_ngram)
     b = Batcher(model, params, scfg, eos_id=eos_id, seed=seed,
                 graphs=graphs)
     rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab, size=shared_prefix).tolist()
     prompts = {}
     for rid in range(requests):
         n = int(rng.integers(prompt_len[0], prompt_len[1]))
-        prompts[rid] = rng.integers(0, cfg.vocab, size=n).tolist()
+        prompts[rid] = system + rng.integers(0, cfg.vocab, size=n).tolist()
 
     def wave(first_rid: int) -> tuple[dict, float]:
         for rid, p in prompts.items():
@@ -100,15 +127,20 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
               else f"dense stripes {batch}x{max_len}")
     mode = (f"{b.graph_count} CUDA graphs, {b.capture_seconds:.3f}s "
             "capturing" if b.graphs else "eager")
+    first = {"prefix": b.prefix_stats(), "spec": b.spec_stats(),
+             "first_join": b.join_stats(),
+             "first_latency": b.latency_stats(),
+             "first_segments": b.segments}
     print(f"[serve] {len(results)} requests, {toks} tokens in {dt:.3f}s "
-          f"({toks / dt:.1f} tok/s on {where}, {cfg.name}, {layout}, "
-          f"{b.joins} joins, {b.segments} decode segments, {mode})")
+          f"({toks / dt:.1f} tok/s on {where}, {cfg.name}, {layout}"
+          f"{_features(b)}, {b.joins} joins, {b.segments} decode segments, "
+          f"{mode})")
     b.reset_stats()
     warm_results, warm_dt = wave(requests)
     lat, join = b.latency_stats(), b.join_stats()
     warm_toks = sum(len(v) for v in warm_results.values())
     print(f"[serve] warm wave: {warm_toks} tokens in {warm_dt:.3f}s "
-          f"({warm_toks / warm_dt:.1f} tok/s); TTFT p50 "
+          f"({warm_toks / warm_dt:.1f} tok/s{_features(b)}); TTFT p50 "
           f"{lat['ttft_p50_s'] * 1e3:.1f} ms, p95 "
           f"{lat['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
           f"{lat['tpot_p50_s'] * 1e3:.2f} ms; {join['joins']} joins, "
@@ -116,10 +148,36 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
     return {"results": results, "prompts": prompts, "tokens": toks,
             "seconds": dt, "tok_per_s": toks / dt,
             "warm_results": warm_results,
-            "warm_tok_per_s": warm_toks / warm_dt, "latency": lat,
+            "warm_tok_per_s": warm_toks / warm_dt, "warm_seconds": warm_dt,
+            "latency": lat,
             "join": join, "graphs": b.graphs, "joins": b.joins,
             "segments": b.segments, "capture_s": b.capture_seconds,
-            "graph_count": b.graph_count}
+            "graph_count": b.graph_count, **first,
+            "warm_prefix": b.prefix_stats(), "warm_spec": b.spec_stats()}
+
+
+def _features(b: Batcher) -> str:
+    """The ``[serve]`` line's suffixes for the serving features that are
+    on, from the current wave's stats, in ``repro.launch.serve``'s words."""
+    cfg, out = b.cfg, ""
+    if cfg.prefill_chunk:
+        j = b.join_stats()
+        out += (f" + chunked prefill ({cfg.prefill_chunk} tok/chunk, "
+                f"{j['chunk_joins']} continuations, max join stall "
+                f"{j['max_join_s'] * 1e3:.0f}ms)")
+        if cfg.prefill_round_tokens:
+            out += (f" + round budget ({cfg.prefill_round_tokens} tok, "
+                    f"{j['budget_deferrals']} deferrals)")
+    if cfg.prefix_cache:
+        p = b.prefix_stats()
+        out += (f" + prefix cache (hit rate {p['hit_rate']:.0%}, "
+                f"{p['prefill_skipped']} prefill tokens skipped)")
+    if cfg.speculate_k:
+        sp = b.spec_stats()
+        out += (f" + speculative k={cfg.speculate_k} (acceptance "
+                f"{sp['acceptance_rate']:.0%}, "
+                f"{sp['tokens_per_step']:.2f} tok/step)")
+    return out
 
 
 def main() -> None:
@@ -150,6 +208,28 @@ def main() -> None:
     ap.add_argument("--eager", action="store_true",
                     help="run the decode loop kernel by kernel on the GPU "
                          "instead of replaying one CUDA graph per bucket")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="shared-prefix radix cache over the page pool "
+                         "(needs --paged): requests matching a cached "
+                         "page-aligned prompt prefix share its pages and "
+                         "prefill only their suffix")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="put this many shared system-prompt tokens in "
+                         "front of every request (for --prefix-cache)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill (needs --paged): prefill each "
+                         "prompt's uncached suffix at most this many "
+                         "tokens a join round (a multiple of --page-size)")
+    ap.add_argument("--prefill-round-tokens", type=int, default=None,
+                    help="cap the prefill tokens (chunks and admissions) "
+                         "one refill round may take, deferring the rest")
+    ap.add_argument("--speculate", type=int, default=None,
+                    help="self-speculative decoding (needs --paged, "
+                         "greedy): draft this many tokens a step from the "
+                         "slot's own history and verify them in one "
+                         "multi-token paged attention call")
+    ap.add_argument("--speculate-ngram", type=int, default=2,
+                    help="history-match width of the draft lookup")
     args = ap.parse_args()
     run(args.arch, reduced=args.reduced, requests=args.requests,
         max_new=args.max_new, batch=args.batch, max_len=args.max_len,
@@ -158,7 +238,11 @@ def main() -> None:
         paged=args.paged, page_size=args.page_size,
         total_pages=args.total_pages, prompt_len=tuple(args.prompt_len),
         dtype=_DTYPES[args.dtype], device=args.device,
-        graphs=False if args.eager else None)
+        graphs=False if args.eager else None,
+        prefix_cache=args.prefix_cache, shared_prefix=args.shared_prefix,
+        prefill_chunk=args.prefill_chunk,
+        prefill_round_tokens=args.prefill_round_tokens,
+        speculate_k=args.speculate, speculate_ngram=args.speculate_ngram)
 
 
 if __name__ == "__main__":

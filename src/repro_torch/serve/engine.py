@@ -14,6 +14,13 @@ bucket as one CUDA graph (:class:`GraphedLoop`) and replayed once a
 segment: one host launch a segment instead of one a kernel.  The emitted
 tokens are read once, by the scheduler, per segment.  On the CPU, or when
 asked, the loop runs eagerly.
+
+Self-speculative decoding (``speculate_k``) swaps the one-token step for a
+draft-k verify step: :func:`ngram_propose` drafts k tokens from each
+slot's own token history, one ``Model.decode_step`` at Lq = k+1 (the paged
+prefill kernel) checks them, and each slot commits the longest agreeing
+prefix plus the model's bonus token.  The history is one more tensor the
+loop writes in place, so the speculative loop is graphed the same way.
 """
 from __future__ import annotations
 
@@ -31,11 +38,12 @@ PAD_TOKEN = -1    # emitted-slot sentinel: "slot was already retired"
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The served subset of ``repro.serve.engine.ServeConfig``.  Features
-    the port does not serve yet (prefix cache, chunked prefill,
-    speculation, optimistic admission, overload control, tracing) have no
-    fields here.  ``paged`` picks the KV layout: dense per-slot stripes
-    of ``max_len`` rows (the default, as in JAX), or fixed-size pages in
-    one pooled allocation with per-slot page tables."""
+    the port does not serve yet (optimistic admission, overload control,
+    tracing) have no fields here.  ``paged`` picks the KV layout: dense
+    per-slot stripes of ``max_len`` rows (the default, as in JAX), or
+    fixed-size pages in one pooled allocation with per-slot page tables.
+    The prefix cache, chunked prefill and speculation need ``paged``; the
+    batcher checks them as JAX's does."""
     max_len: int
     batch: int
     dtype: torch.dtype = torch.bfloat16
@@ -44,6 +52,10 @@ class ServeConfig:
     paged: bool = False          # paged pool instead of dense stripes
     page_size: int = 16          # KV rows per page (paged)
     total_pages: int | None = None   # pool size; None -> batch * max pages
+    # shared-prefix radix cache (serve/prefixcache.py): full prompt pages
+    # are registered in a radix tree; later requests map the matched
+    # pages (KVPool.share) and prefill only their suffix
+    prefix_cache: bool = False
     # admission policy: "fifo" keeps strict head-of-line order; the opt-in
     # "skip-ahead" scans up to ``admission_lookahead`` queued requests for
     # the first one whose pages fit when the head does not.  A bypassed
@@ -55,6 +67,24 @@ class ServeConfig:
     admission: str = "fifo"
     admission_lookahead: int = 8
     admission_max_skips: int = 8
+    # chunked prefill: a joining prompt's uncached suffix is prefilled at
+    # most ``prefill_chunk`` tokens a refill round (a multiple of
+    # ``page_size``), the slot PREFILLING (done-latched on the device) in
+    # between, so live slots' decode segments interleave with the chunks.
+    # None: the whole suffix in one join
+    prefill_chunk: int | None = None
+    # decode-priority budget: the prefill tokens (continuations and new
+    # admissions) one refill round may take; the first piece of a round
+    # always goes through, later ones are deferred (``join_stats``)
+    prefill_round_tokens: int | None = None
+    # self-speculative decoding (greedy): each decode step drafts
+    # ``speculate_k`` tokens from the slot's history (``ngram_propose``,
+    # match width ``speculate_ngram``) and verifies all k+1 in one paged
+    # prefill-kernel call; a committed token is the verify's own argmax,
+    # so the tokens are the plain greedy loop's up to rounding (the verify
+    # runs other kernels than a decode step)
+    speculate_k: int | None = None
+    speculate_ngram: int = 2
 
     def __post_init__(self):
         if self.max_len <= 0 or self.batch <= 0 or self.page_size <= 0:
@@ -90,9 +120,55 @@ def sample_tokens(logits: torch.Tensor, temperature: float,
                         dim=-1).to(torch.int32)
 
 
+def ngram_propose(history: torch.Tensor, lengths: torch.Tensor, *,
+                  k: int, n: int) -> torch.Tensor:
+    """Draft ``k`` continuation tokens a slot from its own token history,
+    as :func:`repro.serve.engine.ngram_propose` does: no draft model, a
+    prompt and output lookup.
+
+    ``history`` [B, S] holds each slot's known tokens (the prompt, then
+    every committed output token); position ``lengths[b]`` is the current
+    token, and nothing past it is read.  The tail ``n``-gram ``history[b,
+    L-n+1 .. L]`` is matched against every earlier window; the most recent
+    match, at start ``p``, gives a period ``d = (L - n + 1) - p``, and the
+    draft extrapolates it: position ``L + 1 + t`` copies ``L + 1 + t - d``,
+    from the history when that is at most ``L``, else from an earlier
+    draft of this call.  No match gives ``d = 1``: repeat the current
+    token.  Returns [B, k] in the history's dtype, on its device, with no
+    host read (so it can be captured in a CUDA graph)."""
+    b, s = history.shape
+    dev = history.device
+    ln = lengths.to(torch.int64)
+    idx = torch.arange(s, device=dev)
+    match = torch.ones((b, s), dtype=torch.bool, device=dev)
+    for j in range(n):
+        shifted = history[:, torch.clamp(idx + j, max=s - 1)]      # [B, S]
+        tail_j = torch.gather(
+            history, 1, torch.clamp(ln - n + 1 + j, 0, s - 1)[:, None])
+        match &= shifted == tail_j
+    # candidate starts: the window lies wholly below the tail's own, so
+    # the continuation position p + n is a known token (p <= L - n)
+    valid = idx[None, :] <= (ln - n)[:, None]
+    p = torch.where(match & valid, idx[None, :], -1).amax(dim=1)    # [B]
+    d = torch.where(p >= 0, ln - n + 1 - p, 1)                      # >= 1
+    drafts: list[torch.Tensor] = []
+    for t in range(k):
+        src = ln + 1 + t - d                                        # [B]
+        from_hist = torch.gather(history, 1,
+                                 torch.clamp(src, 0, s - 1)[:, None])[:, 0]
+        if drafts:
+            prev = torch.stack(drafts, dim=1)                       # [B, t]
+            from_draft = torch.gather(
+                prev, 1, torch.clamp(t - d, 0, t - 1)[:, None])[:, 0]
+        else:
+            from_draft = from_hist
+        drafts.append(torch.where(src <= ln, from_hist, from_draft))
+    return torch.stack(drafts, dim=1)                               # [B, k]
+
+
 def make_decode_loop(model: Model, cfg: ServeConfig, *, steps: int,
                      eos_id: int | None, kv_cap: int | None = None,
-                     paged: bool = False):
+                     paged: bool = False, speculate_k: int = 0):
     """Build the multi-token decode driver.
 
     Returns ``loop(params, tok, caches, lengths, done, remaining, gen,
@@ -111,7 +187,24 @@ def make_decode_loop(model: Model, cfg: ServeConfig, *, steps: int,
     segment (the scheduler's ``_kv_cap``); None reads every row.  Paged:
     the loop takes ``pages``, the [B, P_cap] slice of the page table,
     constant across the segment (admission reserved every slot's worst
-    case), and the slice plays ``kv_cap``'s role."""
+    case), and the slice plays ``kv_cap``'s role.
+
+    With ``speculate_k`` = k > 0 (paged and greedy only) each step is a
+    draft-k verify step, as in JAX's ``spec_loop``: ``loop(params, tok,
+    caches, lengths, done, remaining, gen, history, pages)``, where
+    ``history`` [B, max_len + 1] int32 holds each slot's known tokens
+    (position ``lengths[b]`` the current one) and is written in place.  Its
+    last column is no position: it takes the writes JAX drops (``mode=
+    "drop"``), and the drafter reads the first ``max_len`` columns only.
+    :func:`ngram_propose` drafts k tokens, one ``decode_step`` at Lq = k+1
+    at depth ``lengths`` gives the model's greedy token at every position,
+    and a slot commits the longest prefix of drafts that agree plus the
+    model's bonus token (1 to k+1 tokens), cut at an EOS inside the
+    window, the remaining budget and ``max_len``.  ``lengths`` advances by
+    the committed count: the K/V rows written past it are overwritten by
+    the next verify (rollback by not advancing; admission reserved the
+    k-token overhang).  ``emitted`` is [steps, B, k+1] with PAD_TOKEN past
+    each step's committed count."""
     temp = cfg.temperature
 
     def loop(params, tok, caches, lengths, done, remaining, gen, pages=None):
@@ -140,7 +233,70 @@ def make_decode_loop(model: Model, cfg: ServeConfig, *, steps: int,
         for held, final in zip(state, (tok, lengths, done, remaining)):
             held.copy_(final)
         return torch.stack(emitted)
-    return loop
+
+    if not speculate_k:
+        return loop
+    if not paged:
+        raise ValueError("speculate_k requires the paged loop")
+    k, spec_n = speculate_k, cfg.speculate_ngram
+
+    def spec_loop(params, tok, caches, lengths, done, remaining, gen,
+                  history, pages):
+        state = (tok, lengths, done, remaining)
+        corpus = history[:, :cfg.max_len]          # the drafter's view
+        dev = tok.device
+        jidx = torch.arange(k + 1, device=dev)[None, :]
+        rows = torch.arange(tok.shape[0], device=dev)[:, None].expand(
+            -1, k + 1)
+        emitted = []
+        for _ in range(steps):
+            drafts = ngram_propose(corpus, lengths, k=k, n=spec_n)
+            qtok = torch.cat([tok, drafts], dim=1)                 # [B, k+1]
+            # Lq = k+1 at per-slot depth ``lengths``: K/V written at
+            # lengths .. lengths + k, causal attention through the pages
+            logits, caches = model.decode_step(
+                params, qtok, caches, lengths, dtype=cfg.dtype, pages=pages)
+            out = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            # accepted: the longest prefix of drafts equal to the model's
+            # own greedy token one position earlier; commit them and the
+            # model's bonus token after them
+            agree = (drafts == out[:, :-1]).to(torch.int32)        # [B, k]
+            adv = (torch.cumprod(agree, dim=1).sum(dim=1) + 1).to(
+                torch.int32)                                       # 1..k+1
+            if eos_id is not None:
+                hit = out == eos_id
+                first_eos = torch.argmax(hit.to(torch.int32), dim=1)
+                adv = torch.minimum(adv, torch.where(
+                    hit.any(dim=1), first_eos + 1, k + 1).to(torch.int32))
+            adv = torch.minimum(adv, remaining)            # token budget
+            adv = torch.minimum(adv, cfg.max_len - lengths)  # window cap
+            adv = torch.where(done, 0, adv)
+            commit = jidx < adv[:, None]                           # [B, k+1]
+            emitted.append(torch.where(commit, out, PAD_TOKEN))
+            last = torch.gather(out, 1,
+                                (adv - 1).clamp_min(0)[:, None].long())
+            # committed token j becomes known history at lengths + 1 + j
+            # (position lengths holds the current token); the rest, and a
+            # commit at max_len, go to the spare column
+            wpos = torch.where(commit, lengths[:, None] + 1 + jidx,
+                               cfg.max_len).clamp(max=cfg.max_len)
+            history[rows, wpos] = out
+            if eos_id is None:
+                eos_last = torch.zeros_like(done)
+            else:
+                # an EOS inside the window cut adv at itself, so if it was
+                # committed at all it is the last committed token
+                eos_last = (last[:, 0] == eos_id) & (adv > 0)
+            remaining = remaining - adv
+            lengths = lengths + adv
+            new_done = (done | eos_last | (remaining <= 0)
+                        | (lengths >= cfg.max_len))
+            tok = torch.where((adv > 0)[:, None], last, tok)
+            done = new_done
+        for held, final in zip(state, (tok, lengths, done, remaining)):
+            held.copy_(final)
+        return torch.stack(emitted)                       # [steps, B, k+1]
+    return spec_loop
 
 
 def _addresses(tree) -> tuple[int, ...]:
@@ -166,8 +322,9 @@ class GraphedLoop:
     stream into one ``torch.cuda.CUDAGraph``, in the memory pool ``pool``
     that all of a batcher's graphs share, and every later call replays
     it.  A graph reads the addresses it was captured with, so every call
-    must pass the same state, cache and page tensors: a call with one
-    rebound raises.  With ``sampled`` (a temperature above 0) the
+    must pass the same state, cache and page tensors (and, for the
+    speculative loop, the same token history): a call with one rebound
+    raises.  With ``sampled`` (a temperature above 0) the
     sampling generator is registered with the graph, so each replay
     draws fresh noise and a seed reproduces a run.  A capture that fails
     raises; nothing falls back to the eager loop.
@@ -190,15 +347,18 @@ class GraphedLoop:
         self._captured_at: tuple[int, ...] = ()
 
     def __call__(self, params, tok, caches, lengths, done, remaining, gen,
-                 pages=None) -> torch.Tensor:
-        args = (params, tok, caches, lengths, done, remaining, gen, pages)
+                 *rest) -> torch.Tensor:
+        """``rest`` is what the loop takes after ``gen``: nothing (dense),
+        ``(pages,)`` (paged) or ``(history, pages)`` (speculative)."""
+        args = (params, tok, caches, lengths, done, remaining, gen) + rest
         at = _addresses(args[1:])
         if self.graph is not None:
             if at != self._captured_at:
                 raise RuntimeError(
                     "a decode graph was called with tensors other than "
                     "the ones it was captured with: the slot state, the "
-                    "caches and the page table must be written in place")
+                    "caches, the page table and the token history must be "
+                    "written in place")
             self.graph.replay()
             launches.replayed(self.launches)
             return self.emitted

@@ -41,17 +41,49 @@ charging each request it passes one skip; a request skipped
 ``cfg.admission_max_skips`` times becomes a barrier that nothing passes
 until it fits.  Dense stripes admit on a free slot alone.
 
+Prefix cache (``cfg.prefix_cache``, paged; :mod:`.prefixcache`):
+admission matches the prompt against a radix tree of page-aligned cached
+chunks, maps the matched pages into the slot (``KVPool.share``) and
+prefills only the uncached suffix, at that depth; a hit needs free pages
+for suffix and budget only.  The pages the first chunk covers are
+registered before the join, so queue-mates of the same round already hit
+(the join writes a page before any row of it reads one).  A retiring
+slot's registered pages park evictable-cached, reclaimed LRU and
+leaf-first when the pool runs short.
+
+Chunked prefill (``cfg.prefill_chunk``, paged): a prompt's uncached
+suffix is prefilled in page-aligned chunks, one a refill round, the slot
+PREFILLING in between (done-latched on the device: no sampling, PAD
+emissions), so the live slots' decode segments run between the chunks.
+Each continuation is a join at the filled depth; only the last chunk
+samples a first token (``commit_mask``).  ``cfg.prefill_round_tokens``
+caps the prefill tokens of one round: continuations past it wait a round
+and admission stops (``join_stats()["budget_deferrals"]``); the first
+piece of a round always goes through.
+
+Self-speculative decoding (``cfg.speculate_k``, paged, greedy): decode
+segments run the draft-k verify loop (``engine.make_decode_loop``), 1 to
+k+1 tokens a slot and step, the plain greedy loop's tokens up to
+rounding.
+Admission reserves the speculation window (prompt + budget + k tokens:
+a verify writes K/V up to ``lengths + k``), and so does ``run``'s
+up-front check.  The drafter reads a device ``history`` [B, max_len + 1]
+written in place: the prompt at admission and the first token at commit
+here, the committed tokens by the loop.  ``_collect`` walks each step's
+burst and feeds ``spec_stats``.
+
 Accounting, at the host sync points as in JAX: time to first token (run
 start to the join that sampled it), time per output token, queue wait and
 join seconds go into a :class:`~repro_torch.serve.telemetry.
-MetricsRegistry` (``latency_stats``, ``join_stats``); KV use is sampled
-once a segment (``kv_utilization``); ``reset_stats`` clears them between
-waves.
+MetricsRegistry` (``latency_stats``, ``join_stats``), and so do the
+prefill, prefix, chunk and speculation counters (``prefix_stats``,
+``spec_stats``); KV use is sampled once a segment (``kv_utilization``);
+``reset_stats`` clears them between waves.
 
-Not yet ported (later slices): the prefix cache, chunked prefill,
-speculation, optimistic admission with preemption, cancellation,
-deadlines, the watchdog and overload control, tracing and attribution.
-Their counters read 0 in the stats, as they do in JAX with them off.
+Not yet ported (later slices): optimistic admission with preemption,
+cancellation, deadlines, the watchdog and overload control, tracing and
+attribution.  Their counters read 0 in the stats, as they do in JAX with
+them off.
 """
 from __future__ import annotations
 
@@ -64,6 +96,7 @@ import torch
 from .engine import (PAD_TOKEN, GraphedLoop, ServeConfig, make_decode_loop,
                      make_join, make_paged_join)
 from .kvpool import KVPool
+from .prefixcache import PrefixCache
 from .telemetry import MetricsRegistry
 from ..models.model_zoo import Model
 
@@ -95,6 +128,39 @@ class ContinuousBatcher:
             raise ValueError("graphs=True needs a CUDA device: on the CPU "
                              "the decode loop runs eagerly")
         self.graphs = graphs
+        # the feature checks of repro.serve.scheduler, in its order and
+        # words (its hybrid-SSM checks wait for the SSM model's port)
+        if cfg.prefill_chunk is not None:
+            if not cfg.paged:
+                raise ValueError("prefill_chunk requires paged=True "
+                                 "(chunks resume through the page table)")
+            if cfg.prefill_chunk <= 0:
+                raise ValueError("prefill_chunk must be positive")
+            if cfg.prefill_chunk % cfg.page_size:
+                raise ValueError(
+                    f"prefill_chunk {cfg.prefill_chunk} must be a multiple "
+                    f"of page_size {cfg.page_size} (chunk boundaries must "
+                    "never land inside a shared prefix page)")
+        if cfg.prefill_round_tokens is not None \
+                and cfg.prefill_round_tokens <= 0:
+            raise ValueError("prefill_round_tokens must be positive")
+        self.spec_k = cfg.speculate_k or 0
+        if cfg.speculate_k is not None:
+            if not cfg.paged:
+                raise ValueError(
+                    "speculate_k requires paged=True (the verify step "
+                    "writes and rolls back through the page table)")
+            if cfg.speculate_k < 1:
+                raise ValueError("speculate_k must be >= 1")
+            if cfg.speculate_ngram < 1:
+                raise ValueError("speculate_ngram must be >= 1")
+            if cfg.temperature != 0.0:
+                raise ValueError(
+                    "speculate_k is greedy-only for now: acceptance is "
+                    "defined by exact argmax agreement (temperature 0)")
+        if cfg.prefix_cache and not cfg.paged:
+            raise ValueError("prefix_cache requires paged=True "
+                             "(shared pages live in the block pool)")
         if graphs:
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(dev)
@@ -110,15 +176,20 @@ class ContinuousBatcher:
             self.caches = model.init_caches(b, cfg.max_len, cfg.dtype,
                                             device=dev)
             self._join = make_join(model, cfg, eos_id=eos_id)
-        # decode loops by (steps, kv_cap) (dense) or (steps, P_cap)
-        # (paged): the eager loop, or its graph
-        self._loops: dict[tuple[int, int | None], object] = {}
+        self.prefix = PrefixCache(self.pool) if cfg.prefix_cache else None
+        # decode loops by (steps, kv_cap, spec) (dense) or (steps, P_cap,
+        # spec) (paged): the eager loop, or its graph
+        self._loops: dict[tuple[int, int | None, bool], object] = {}
         self._pages: dict[int, torch.Tensor] = {}   # P_cap -> [B, P_cap]
         self.tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
         self.lengths = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.done = torch.ones((b,), dtype=torch.bool, device=dev)
         self.remaining = torch.zeros((b,), dtype=torch.int32, device=dev)
         self.gen = torch.Generator(device=dev).manual_seed(seed)
+        # the drafter's token history (speculation only): [B, max_len]
+        # positions and a spare column that takes the writes JAX drops
+        self.history = (torch.zeros((b, cfg.max_len + 1), dtype=torch.int32,
+                                    device=dev) if self.spec_k else None)
         self.queue: collections.deque[tuple[int, list[int]]] = \
             collections.deque()
         self.results: dict[int, list[int]] = {}
@@ -127,6 +198,12 @@ class ContinuousBatcher:
         self.slot_rid: list[int | None] = [None] * b
         self.slot_budget = [0] * b
         self.slot_len = [0] * b          # tokens in each slot's cache
+        # chunked prefill: a slot with pending suffix tokens is PREFILLING
+        # (done-latched on the device); ``slot_filled`` is its resident
+        # prompt depth, ``slot_prompt`` the whole prompt
+        self.slot_pending: list[list[int]] = [[] for _ in range(b)]
+        self.slot_prompt: list[list[int] | None] = [None] * b
+        self.slot_filled = [0] * b
         self.admit_order: list[int] = []
         # skip-ahead aging: times each queued rid has been bypassed
         self._skips: dict[int, int] = {}
@@ -143,6 +220,31 @@ class ContinuousBatcher:
         self._first_tok_t: dict[int, float] = {}
         self._submit_t: dict[int, float] = {}
 
+    # counter views over the registry, under JAX's attribute names
+    @property
+    def prefill_computed(self) -> int:
+        return int(self.metrics.value("prefill.computed_tokens"))
+
+    @property
+    def prefill_skipped(self) -> int:
+        return int(self.metrics.value("prefill.skipped_tokens"))
+
+    @property
+    def prefix_admits(self) -> int:
+        return int(self.metrics.value("prefix.admits"))
+
+    @property
+    def prefix_hits(self) -> int:
+        return int(self.metrics.value("prefix.hits"))
+
+    @property
+    def chunk_joins(self) -> int:
+        return int(self.metrics.value("join.chunk_continuations"))
+
+    @property
+    def budget_deferrals(self) -> int:
+        return int(self.metrics.value("join.budget_deferrals"))
+
     def submit(self, rid: int, prompt: list[int]) -> None:
         if not prompt:
             raise ValueError("empty prompt")
@@ -150,15 +252,17 @@ class ContinuousBatcher:
         self._submit_t[rid] = time.perf_counter()
 
     def _loop(self, steps: int, cap: int | None = None):
-        """The decode loop of ``(steps, cap)``: ``cap`` is ``kv_cap`` on
-        the dense path and the page table slice's width on the paged one.
-        With graphs, the bucket's :class:`GraphedLoop`."""
-        key = (steps, cap)
+        """The decode loop of ``(steps, cap, spec)``: ``cap`` is
+        ``kv_cap`` on the dense path and the page table slice's width on
+        the paged one, and ``spec`` whether it is the speculative loop
+        (the key JAX's batcher uses).  With graphs, the bucket's
+        :class:`GraphedLoop`."""
+        key = (steps, cap, bool(self.spec_k))
         if key not in self._loops:
             loop = make_decode_loop(
                 self.model, self.cfg, steps=steps, eos_id=self.eos,
                 kv_cap=None if self.cfg.paged else cap,
-                paged=self.cfg.paged)
+                paged=self.cfg.paged, speculate_k=self.spec_k)
             if self.graphs:
                 loop = GraphedLoop(loop, stream=self._capture_stream,
                                    pool=self._graph_pool,
@@ -208,26 +312,34 @@ class ContinuousBatcher:
 
     def _admit_next(self, slot: int, max_new: int):
         """Pop and reserve the next admissible queued request for
-        ``slot``: ``(rid, prompt)`` or None.  Dense, the queue head (a
-        free slot is enough).  Paged, a request whose worst case (prompt +
-        budget) the pool can hold, which is then reserved: FIFO takes the
+        ``slot``: ``(rid, prompt, matched_tokens)`` or None.  Dense, the
+        queue head (a free slot is enough).  Paged, a request whose worst
+        case (prompt + budget + speculation window) the pool can hold,
+        beside the pages of its prompt that the prefix cache matches: those
+        are shared into the slot and the rest is reserved.  FIFO takes the
         head or nothing; skip-ahead scans a window of
         ``admission_lookahead`` requests, charges each one it passes a
         skip, and never passes one whose skips reached
-        ``admission_max_skips``."""
+        ``admission_max_skips``.  With the prefix cache, the prompt pages
+        that the request's first chunk covers are registered at once, so
+        the round's later admissions already match them."""
         if not self.queue:
             return None
         if self.pool is None:
             rid, p = self.queue.popleft()
             self.admit_order.append(rid)
             self._note_admitted(rid)
-            return rid, p
+            return rid, p, 0
         window = 1
         if self.cfg.admission == "skip-ahead":
             window = min(len(self.queue), self.cfg.admission_lookahead)
         for qi in range(window):
             rid, p = self.queue[qi]
-            if not self.pool.can_admit(len(p) + max_new):
+            ceiling = len(p) + max_new + self.spec_k
+            matched, mtoks = [], 0
+            if self.prefix is not None:
+                matched, mtoks = self.prefix.match(p)
+            if not self.pool.can_admit(ceiling, shared_pages=matched):
                 if self._skips.get(rid, 0) >= self.cfg.admission_max_skips:
                     break                # aged out: a barrier until it fits
                 continue
@@ -238,9 +350,48 @@ class ContinuousBatcher:
             self._skips.pop(rid, None)
             self.admit_order.append(rid)
             self._note_admitted(rid)
-            self.pool.reserve(slot, len(p) + max_new)
-            return rid, p
+            if matched:
+                # the matched chain's refcounts go above 1
+                self.pool.share(slot, matched)
+                total = self.pool.pages_for(ceiling)
+                if total > len(matched):
+                    self.pool.extend(slot, total - len(matched))
+            else:
+                self.pool.reserve(slot, ceiling)
+            if self.prefix is not None:
+                chunk = self.cfg.prefill_chunk
+                covered = (len(p) if chunk is None
+                           else min(len(p), mtoks + chunk))
+                self._register_covered(slot, p, covered)
+                self.metrics.inc("prefix.admits")
+                self.metrics.inc("prefix.hits", int(bool(mtoks)))
+            return rid, p, mtoks
         return None
+
+    def _register_covered(self, slot: int, prompt: list[int],
+                          covered: int) -> None:
+        """Insert ``prompt``'s full pages up to ``covered`` resident
+        tokens into the radix tree (chunks already there are kept, so a
+        continuation extends the chain)."""
+        ps = self.pool.page_size
+        n_full = min(covered, len(prompt)) // ps
+        if n_full:
+            self.prefix.insert(prompt[:n_full * ps],
+                               self.pool.slot_pages(slot)[:n_full])
+
+    def _release_slot(self, slot: int) -> None:
+        """Return ``slot``'s pages: registered prefix pages whose refcount
+        reaches 0 park evictable-cached, the rest go back to the free
+        list.  Clears the slot's prefill state."""
+        if self.pool is not None:
+            cacheable = frozenset()
+            if self.prefix is not None:
+                cacheable = self.prefix.registered_pages(
+                    self.pool.slot_pages(slot))
+            self.pool.release(slot, cacheable=cacheable)
+        self.slot_pending[slot] = []
+        self.slot_prompt[slot] = None
+        self.slot_filled[slot] = 0
 
     def _retire(self, slot: int, rid: int, out: list[int],
                 now: float) -> None:
@@ -248,95 +399,197 @@ class ContinuousBatcher:
         time per output token (requests of more than one token)."""
         self.results[rid] = out
         self.slot_rid[slot] = None
-        if self.pool is not None:
-            self.pool.release(slot)
+        self._release_slot(slot)
         if (self._clock0 is not None and len(out) > 1
                 and rid in self._first_tok_t):
             tpot = (now - self._first_tok_t[rid]) / (len(out) - 1)
             if tpot > 0.0:
                 self.metrics.observe("lat.tpot_s", tpot)
 
+    def _write_history(self, writes: list[tuple[int, int, list[int]]]
+                       ) -> None:
+        """Write ``tokens`` at ``history[slot, start:]`` for each (slot,
+        start, tokens) of ``writes``, in place, in one indexed write."""
+        if not writes:
+            return
+        rows = [slot for slot, _, toks in writes for _ in toks]
+        cols = [start + j for _, start, toks in writes
+                for j in range(len(toks))]
+        vals = [t for _, _, toks in writes for t in toks]
+        dev = self.history.device
+        self.history[torch.tensor(rows, device=dev),
+                     torch.tensor(cols, device=dev)] = torch.tensor(
+                         vals, dtype=torch.int32, device=dev)
+
     def _refill(self, max_new: int) -> None:
-        take: list[tuple[int, int, list[int]]] = []
-        for slot in range(self.cfg.batch):
-            if self.slot_rid[slot] is not None:
+        """One refill round, as JAX's: the PREFILLING slots' next chunks
+        first, then new admissions into free slots (the first chunk of
+        each), within ``prefill_round_tokens``; one join prefills every
+        piece at its slot's resident depth, and the slots whose prompt it
+        completes sample their first token."""
+        chunk = self.cfg.prefill_chunk
+        round_cap = self.cfg.prefill_round_tokens
+        round_used = 0
+        # (slot, rid, piece tokens, depth before the piece, commits?)
+        take: list[tuple[int, int, list[int], int, bool]] = []
+        history: list[tuple[int, int, list[int]]] = []
+        # 1. PREFILLING slots: their pages this piece covers are registered
+        #    before the admission scan, so queue-mates can match them (the
+        #    join writes them before any row reads them)
+        for slot, rid in enumerate(self.slot_rid):
+            if rid is None or not self.slot_pending[slot]:
                 continue
+            if round_cap is not None and round_used >= round_cap:
+                self.metrics.inc("join.budget_deferrals")
+                continue
+            pend = self.slot_pending[slot]
+            piece = pend[:chunk] if chunk else list(pend)
+            depth = self.slot_filled[slot]
+            if self.prefix is not None:
+                self._register_covered(slot, self.slot_prompt[slot],
+                                       depth + len(piece))
+            take.append((slot, rid, piece, depth, len(piece) == len(pend)))
+            self.metrics.inc("join.chunk_continuations")
+            round_used += len(piece)
+        # 2. new admissions into free slots
+        free = [i for i, r in enumerate(self.slot_rid) if r is None]
+        for fi, slot in enumerate(free):
+            if not self.queue:
+                break
+            if round_cap is not None and round_used >= round_cap:
+                # every (free slot, queued request) pair left is deferred
+                self.metrics.inc("join.budget_deferrals",
+                                 min(len(free) - fi, len(self.queue)))
+                break
             cand = self._admit_next(slot, max_new)
             if cand is None:
                 break
-            take.append((slot,) + cand)
+            rid, p, mtoks = cand
+            suffix = p[mtoks:]
+            piece = suffix[:chunk] if chunk else suffix
+            self.slot_prompt[slot] = p
+            self.slot_pending[slot] = suffix     # trimmed after the join
+            take.append((slot, rid, piece, mtoks,
+                         len(piece) == len(suffix)))
+            round_used += len(piece)
+            if self.history is not None:
+                history.append((slot, 0, p))     # the drafter's corpus
         if not take:
             return
         t0 = time.perf_counter()
         b, dev = self.cfg.batch, self.device
-        width = _pow2_bucket(max(len(p) for _, _, p in take), lo=8,
-                             hi=self.cfg.max_len)
+        # the join prefills only each row's uncached piece, so its width
+        # shrinks with the hit depth and is bounded by the chunk
+        width = _pow2_bucket(max(len(piece) for _, _, piece, _, _ in take),
+                             lo=8, hi=self.cfg.max_len)
+        for _, _, piece, _, _ in take:
+            self.metrics.inc("prefill.computed_tokens", len(piece))
 
         def up(a):
             return torch.as_tensor(a, device=dev)
         if self.pool is None:
             prompts = np.zeros((len(take), width), np.int32)
-            for j, (_, _, p) in enumerate(take):
-                prompts[j, :len(p)] = p
+            for j, (_, _, piece, _, _) in enumerate(take):
+                prompts[j, :len(piece)] = piece
             *_, first = self._join(
                 self.params, self.caches, self.tok, self.lengths, self.done,
-                self.remaining, up(np.asarray([slot for slot, _, _ in take])),
-                up(prompts),
-                up(np.asarray([len(p) for _, _, p in take], np.int32)),
+                self.remaining,
+                up(np.asarray([slot for slot, *_ in take])), up(prompts),
+                up(np.asarray([len(piece) for _, _, piece, _, _ in take],
+                              np.int32)),
                 up(np.full((len(take),), max_new, np.int32)), self.gen)
-            first = dict(zip((slot for slot, _, _ in take),
+            first = dict(zip((slot for slot, *_ in take),
                              first.cpu().numpy().tolist()))
         else:
             join_mask = np.zeros((b,), bool)
+            commit_mask = np.zeros((b,), bool)
             prompts = np.zeros((b, width), np.int32)
             plens = np.ones((b,), np.int32)
-            for slot, _, p in take:
+            prefix_lens = np.zeros((b,), np.int32)
+            for slot, _, piece, depth, commit in take:
                 join_mask[slot] = True
-                prompts[slot, :len(p)] = p
-                plens[slot] = len(p)
-            mask_t = up(join_mask)
+                commit_mask[slot] = commit
+                prompts[slot, :len(piece)] = piece
+                plens[slot] = len(piece)
+                prefix_lens[slot] = depth
             *_, first = self._join(
                 self.params, self.caches, self.tok, self.lengths, self.done,
-                self.remaining, mask_t, up(prompts), up(plens),
+                self.remaining, up(join_mask), up(prompts), up(plens),
                 up(np.full((b,), max_new, np.int32)), self.gen,
-                up(self.pool.table), up(np.zeros((b,), np.int32)), mask_t)
+                up(self.pool.table), up(prefix_lens), up(commit_mask))
             first = first.cpu().numpy()
         now = time.perf_counter()
         self.joins += 1
-        for slot, rid, p in take:
+        for slot, rid, piece, depth, commit in take:
+            if self.slot_rid[slot] is None:       # a new admission
+                # cached-prefix tokens the join did not compute
+                self.metrics.inc("prefill.skipped_tokens", depth)
+            self.slot_filled[slot] = depth + len(piece)
+            self.slot_pending[slot] = self.slot_pending[slot][len(piece):]
+            self.slot_len[slot] = self.slot_filled[slot]
+            if not commit:
+                self.slot_rid[slot] = rid         # PREFILLING: occupied,
+                self.slot_budget[slot] = max_new  # frozen on the device
+                continue
             tokv = int(first[slot])
             out = [tokv]
             self.outputs[rid] = out
-            self.slot_len[slot] = len(p)
             if self._clock0 is not None and rid not in self._first_tok_t:
                 self._first_tok_t[rid] = now
                 self.metrics.observe("lat.ttft_s", now - self._clock0)
+            if self.history is not None:
+                # the current token, on which the first verify's tail
+                # n-gram ends
+                history.append((slot, self.slot_filled[slot], [tokv]))
             if (self.eos is not None and tokv == self.eos) or max_new <= 1:
                 self._retire(slot, rid, out, now)     # retired at commit
             else:
                 self.slot_rid[slot] = rid
                 self.slot_budget[slot] = max_new
+        if self.history is not None:
+            self._write_history(history)
         self.metrics.observe("join.seconds", time.perf_counter() - t0)
 
     def _collect(self, emitted: np.ndarray) -> None:
-        """Drain one segment's emitted block [steps, B] into per-request
-        outputs, with the device's retirement rules."""
+        """Drain one segment's emitted block into per-request outputs,
+        with the device's retirement rules.  The plain loop emits [steps,
+        B]; the speculative one [steps, B, k+1], each step a burst of 1 to
+        k+1 committed tokens ended by PAD (a PAD ends the step's burst,
+        not the slot), whose lengths feed ``spec_stats``.  PREFILLING
+        slots emit only PAD and are skipped."""
+        if emitted.ndim == 2:
+            emitted = emitted[:, :, None]
+        steps, _, width = emitted.shape
         now = time.perf_counter()
         for i, rid in enumerate(self.slot_rid):
-            if rid is None:
+            if rid is None or self.slot_pending[i]:
                 continue
             out = self.outputs[rid]
             appended = 0
-            for t in range(emitted.shape[0]):
-                v = int(emitted[t, i])
-                if v == PAD_TOKEN:
-                    break
-                out.append(v)
-                appended += 1
-                self.slot_len[i] += 1
-                if ((self.eos is not None and v == self.eos)
-                        or len(out) >= self.slot_budget[i]):
-                    self._retire(i, rid, out, now)
+            for t in range(steps):
+                burst = 0
+                for j in range(width):
+                    v = int(emitted[t, i, j])
+                    if v == PAD_TOKEN:
+                        break
+                    out.append(v)
+                    burst += 1
+                    appended += 1
+                    self.slot_len[i] += 1
+                    if ((self.eos is not None and v == self.eos)
+                            or len(out) >= self.slot_budget[i]):
+                        self._retire(i, rid, out, now)
+                        break
+                if self.spec_k and burst:
+                    # one verify step: burst - 1 accepted drafts and the
+                    # model's bonus token
+                    self.metrics.inc("spec.steps")
+                    self.metrics.inc("spec.proposed", self.spec_k)
+                    self.metrics.inc("spec.accepted", burst - 1)
+                    self.metrics.inc("spec.emitted", burst)
+                if self.slot_rid[i] is None or burst == 0:
+                    # retired, or the device's done latch fired: every
+                    # later step of the segment is PAD
                     break
             if appended == 0 and self.slot_rid[i] is not None:
                 raise RuntimeError(
@@ -346,10 +599,10 @@ class ContinuousBatcher:
     def _decode_segment(self, steps: int) -> torch.Tensor:
         """Run one decode segment of ``steps`` steps over the live slots,
         bounded by the page cap (paged) or ``_kv_cap`` (dense); returns the
-        emitted tokens [steps, B] on the device.  Paged, the bucket's
-        persistent slice of the page table is refilled from the host's
-        table first (``copy_``): a graph reads the address it was captured
-        with."""
+        emitted tokens, [steps, B] ([steps, B, k+1] speculating), on the
+        device.  Paged, the bucket's persistent slice of the page table is
+        refilled from the host's table first (``copy_``): a graph reads
+        the address it was captured with."""
         if self.pool is not None:
             cap = self._page_cap()
             pages = self._pages.get(cap)
@@ -359,7 +612,8 @@ class ContinuousBatcher:
                     device=self.device)
             pages.copy_(torch.from_numpy(
                 np.ascontiguousarray(self.pool.table[:, :cap])))
-            extra = (pages,)
+            extra = (pages,) if self.history is None else (self.history,
+                                                           pages)
         else:
             cap = self._kv_cap(steps)
             extra = ()
@@ -371,7 +625,9 @@ class ContinuousBatcher:
 
     def run(self, max_new: int = 16) -> dict[int, list[int]]:
         """Drain the queue: refill slots, run decode segments, read the
-        emitted tokens back once per segment."""
+        emitted tokens back once per segment.  No segment runs while
+        every live slot is PREFILLING: the next round takes their next
+        chunks."""
         if max_new <= 0:
             while self.queue:
                 rid, _ = self.queue.popleft()
@@ -379,23 +635,28 @@ class ContinuousBatcher:
             return self.results
         if self._clock0 is None:
             self._clock0 = time.perf_counter()
+        # the speculation window counts toward the worst case: a verify
+        # writes K/V (and needs table width) up to lengths + speculate_k
+        window = self.spec_k
         for rid, prompt in self.queue:
-            if len(prompt) + max_new > self.cfg.max_len:
+            if len(prompt) + max_new + window > self.cfg.max_len:
                 raise ValueError(
                     f"request {rid}: prompt {len(prompt)} + max_new "
-                    f"{max_new} exceeds max_len {self.cfg.max_len}")
-            if self.pool is not None and (
-                    self.pool.pages_for(len(prompt) + max_new)
-                    > min(self.pool.n_pages, self.pool.max_pages)):
+                    f"{max_new}"
+                    + (f" + speculation window {window}" if window else "")
+                    + f" exceeds max_len {self.cfg.max_len}")
+            if self.pool is None:
+                continue
+            need = self.pool.pages_for(len(prompt) + max_new + window)
+            if need > min(self.pool.n_pages, self.pool.max_pages):
                 raise ValueError(
-                    f"request {rid}: needs "
-                    f"{self.pool.pages_for(len(prompt) + max_new)} pages, "
-                    f"pool holds {self.pool.n_pages} "
-                    f"(max {self.pool.max_pages}/slot)")
+                    f"request {rid}: needs {need} pages, pool holds "
+                    f"{self.pool.n_pages} (max {self.pool.max_pages}/slot)")
         steps = max(1, self.cfg.sync_every)
         while self.queue or any(r is not None for r in self.slot_rid):
             self._refill(max_new)
-            if not any(r is not None for r in self.slot_rid):
+            if not any(r is not None and not self.slot_pending[i]
+                       for i, r in enumerate(self.slot_rid)):
                 continue
             self._sample_kv()
             self._collect(self._decode_segment(steps).cpu().numpy())
@@ -431,8 +692,10 @@ class ContinuousBatcher:
 
     def join_stats(self) -> dict:
         """Join latency: every join stalls the live slots' decode for its
-        duration.  ``chunk_joins`` and ``budget_deferrals`` read 0:
-        chunked prefill is not ported."""
+        duration, which chunked prefill bounds.  ``chunk_joins`` counts
+        the continuation pieces (0 unchunked), ``budget_deferrals`` the
+        pieces ``prefill_round_tokens`` pushed to a later round (0
+        uncapped)."""
         m = self.metrics
         n = m.count("join.seconds")
         return {"joins": n,
@@ -444,14 +707,54 @@ class ContinuousBatcher:
     def reset_stats(self) -> None:
         """Zero the per-wave measurement state, so that a wave re-submitted
         into a warm batcher (its graphs captured) is measured alone: the
-        registry's counters and histograms, the run clock, the first-token
-        stamps and the KV samples.  Operational state stays: the slot
-        table, the queued requests' submit stamps and skips, the admission
-        order, the captured graphs, and ``joins`` and ``segments``."""
+        registry's counters (prefill, prefix, chunk and speculation ones
+        among them) and histograms, the run clock, the first-token stamps
+        and the KV samples.  Operational state stays: the slot table, the
+        queued requests' submit stamps and skips, the admission order, the
+        prefix cache's contents, the captured graphs, and ``joins`` and
+        ``segments``."""
         self._clock0 = None
         self._first_tok_t.clear()
         self.metrics.reset()
         self.kv_samples = []
+
+    def prefix_stats(self) -> dict:
+        """Prefix-cache effectiveness: prefill tokens computed and skipped
+        (token hit rate), request hits and the cache's residency.  With
+        the cache off every token is computed and the rates read 0."""
+        total = self.prefill_computed + self.prefill_skipped
+        return {"enabled": self.prefix is not None,
+                "prefill_computed": self.prefill_computed,
+                "prefill_skipped": self.prefill_skipped,
+                "hit_rate": self.prefill_skipped / total if total else 0.0,
+                "admits": self.prefix_admits,
+                "hits": self.prefix_hits,
+                "cached_pages": (self.pool.cached_pages
+                                 if self.pool is not None else 0),
+                "radix_entries": (self.prefix.n_entries
+                                  if self.prefix is not None else 0),
+                "evicted_pages": (self.prefix.evicted_pages
+                                  if self.prefix is not None else 0)}
+
+    def spec_stats(self) -> dict:
+        """Self-speculation: ``acceptance_rate`` = accepted drafts /
+        proposed drafts, ``tokens_per_step`` = committed tokens a verify
+        step (1.0: no draft ever accepted, k+1: every one).  Zeros with
+        speculation off."""
+        m = self.metrics
+        steps = int(m.value("spec.steps"))
+        proposed = int(m.value("spec.proposed"))
+        accepted = int(m.value("spec.accepted"))
+        emitted = int(m.value("spec.emitted"))
+        return {"enabled": bool(self.spec_k),
+                "k": self.spec_k,
+                "steps": steps,
+                "proposed": proposed,
+                "accepted": accepted,
+                "acceptance_rate": (accepted / proposed
+                                    if proposed else 0.0),
+                "tokens_per_step": (emitted / steps
+                                    if steps else 0.0)}
 
     def latency_stats(self) -> dict:
         """Per-request latency observed at host sync points: time to first

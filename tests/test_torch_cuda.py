@@ -1132,17 +1132,18 @@ def _moe_cut():
 
 
 def _served(cfg, params, *, graphs, paged, requests, max_new=9, batch=2,
-            sync_every=4, eos=None, temperature=0.0, seed=0, hooks=None):
-    """Serve ``requests`` in float32 (max_len 64, pages of 8); returns
-    the results, the batcher and the decode kernels' launches of the
-    run."""
+            sync_every=4, eos=None, temperature=0.0, seed=0, hooks=None,
+            **features):
+    """Serve ``requests`` in float32 (max_len 64, pages of 8, the serving
+    ``features`` given: prefix cache, chunks, speculation); returns the
+    results, the batcher and the decode kernels' launches of the run."""
     from repro_torch.models.model_zoo import Model
     from repro_torch.serve.engine import ServeConfig
     from repro_torch.serve.scheduler import Batcher
     b = Batcher(Model(cfg), params, ServeConfig(
         max_len=64, batch=batch, dtype=torch.float32, sync_every=sync_every,
-        paged=paged, page_size=8, temperature=temperature), eos_id=eos,
-        seed=seed, graphs=graphs)
+        paged=paged, page_size=8, temperature=temperature, **features),
+        eos_id=eos, seed=seed, graphs=graphs)
     if hooks is not None:
         hooks(b)
     for rid, p in requests:
@@ -1244,7 +1245,7 @@ def test_bucket_change_mid_run_captures_a_graph_per_bucket():
     got, b, counts = _served(cfg, params, graphs=None, paged=False,
                              requests=requests, max_new=40, sync_every=2)
     assert got == want and counts == eager_counts
-    caps = {cap for _, cap in b._loops}
+    caps = {cap for _, cap, _ in b._loops}
     assert {16, 32} <= caps
     assert b.graph_count >= 2
 
@@ -1307,3 +1308,69 @@ def test_graph_refuses_a_rebound_state_tensor():
     with pytest.raises(RuntimeError, match="captured"):
         drv(b.params, b.tok.clone(), b.caches, b.lengths, b.done,
             b.remaining, b.gen)
+
+
+# ---------------------------------------------------------------------------
+# the serving features: prefix cache, chunked prefill, speculation
+# ---------------------------------------------------------------------------
+
+SPEC = dict(speculate_k=3, prefix_cache=True, prefill_chunk=8)
+
+
+def _spec_prompts(vocab):
+    """Five prompts behind a 16-token shared prefix, one of them long
+    enough to chunk."""
+    system = _prompts(vocab, 1, seed=11, lo=16, hi=17)[0][1]
+    return [(rid, system + p) for rid, p in _prompts(vocab, 5, seed=12,
+                                                     lo=2, hi=26)]
+
+
+def test_spec_bucket_is_captured_and_replayed():
+    """Reduced qwen2-0.5b, float32, with speculation, the prefix cache and
+    chunks of 8: the graphed batcher gives the eager loop's tokens, and
+    the verify launches, counted at each replay, are the eager run's: the
+    prefill kernel once a layer for each join and each verify step, the
+    decode kernel never."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_params(cfg, 0, device="cuda")
+    requests = _spec_prompts(cfg.vocab)
+    want, eb, eager_counts = _served(cfg, params, graphs=False, paged=True,
+                                     requests=requests, max_new=12, **SPEC)
+    replays = []
+
+    def hooks(b):
+        loop = b._loop
+
+        def logged(steps, cap):
+            drv = loop(steps, cap)
+            replays.append(drv.graph is not None)
+            return drv
+        b._loop = logged
+    got, gb, counts = _served(cfg, params, graphs=None, paged=True,
+                              requests=requests, max_new=12, hooks=hooks,
+                              **SPEC)
+    assert got == want and counts == eager_counts
+    assert gb.graph_count >= 1 and any(replays)
+    assert all(spec for _, _, spec in gb._loops)
+    steps = gb.segments * 4
+    assert counts["paged_prefill"] == cfg.n_layers * (gb.joins + steps)
+    assert counts["paged_decode"] == 0
+    assert gb.spec_stats() == eb.spec_stats()
+    assert gb.spec_stats()["steps"] > 0 and gb.prefix_stats()["hits"] > 0
+    assert gb.chunk_joins > 0
+
+
+def test_spec_graph_refuses_a_rebound_history():
+    """The token history is one of the tensors a speculative graph reads:
+    a call with another history tensor raises."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_params(cfg, 0, device="cuda")
+    _, b, _ = _served(cfg, params, graphs=None, paged=True,
+                      requests=_spec_prompts(cfg.vocab), **SPEC)
+    (steps, cap, _), drv = next((k, d) for k, d in b._loops.items()
+                                if d.graph is not None)
+    pages = b._pages[cap]
+    with pytest.raises(RuntimeError, match="captured"):
+        drv(b.params, b.tok, b.caches, b.lengths, b.done, b.remaining,
+            b.gen, b.history.clone(), pages)
+

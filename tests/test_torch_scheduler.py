@@ -359,7 +359,7 @@ def test_slot_state_keeps_its_tensors(setup, paged):
     if paged:
         assert pages_at and all(t.shape == (2, cap)
                                 for cap, t in b._pages.items())
-        assert {cap for _, cap in b._loops} == set(b._pages)
+        assert {cap for _, cap, _ in b._loops} == set(b._pages)
 
 
 def test_graphs_on_the_cpu_refused(setup):

@@ -193,8 +193,8 @@ def test_dense_batcher_matches_paged_batcher_and_reference(setup, sync_every):
     want = reference_decode(model, tparams,
                             ServeConfig(dtype=torch.float32, **SCFG),
                             requests, MAX_NEW, eos_id=eos)
-    assert len({k for k, _ in bd._loops}) == 1
-    assert any(cap is not None for _, cap in bd._loops)
+    assert len({k for k, _, _ in bd._loops}) == 1
+    assert any(cap is not None for _, cap, _ in bd._loops)
     for rid, prompt in requests:
         assert dense[rid] == paged[rid], rid
         _assert_same_or_near_tie(cfg, tparams, prompt, dense[rid], want[rid])
@@ -257,6 +257,7 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.kernels.decode_attn.ops",
             "repro_torch.kernels.decode_attn.ref",
             "repro_torch.serve.reference",
+            "repro_torch.serve.prefixcache",
             "repro_torch.launch.profile_serve",
             "repro_torch.core.primitives.graphs",
             "repro_torch.core.primitives.push",
