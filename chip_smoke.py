@@ -88,15 +88,31 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    graphed and eager streams equal for (a) and (b), prefix hits,
    skipped prefill and chunk continuations in the first wave, and the
    launches exact (speculating, the prefill kernel runs once a layer for
-   each join and each verify step, the decode kernel never);
+   each join and each verify step, the decode kernel never).  Then
+   optimistic admission on the paged cell's traffic and a pool of 152
+   pages (160 preempt once; 152 is the largest below it, in steps of 8,
+   that preempts at least twice), graphed and eager, and graphed the
+   same with a chaos slot failure at round 3 and reserve admission on
+   that pool: preemptions, recomputed tokens, peak live slots and KV use
+   against reserve, tok/s and latencies of both waves; gated: graphed =
+   eager, the warm wave = the first, at least 2 preemptions, every
+   preempted request completed, one slot failure, a drained pool
+   (``KVPool.check``) and exact launches (resume joins count as joins);
+   bf16 streams against phase 4's 512-page run are counted, with the
+   float32 margin where they part;
 5. agreement: short float32 runs with the same weights: each layout with
    the CUDA kernels (graphed) on the card against the plain path on the
    CPU and against the eager loop on the card, and the dense layout
    against the paged one on the card; then paged behind a 32-token shared
    prefix with the prefix cache, chunks of 16 and speculation (k 3), card
    against CPU (with equal prefix, spec and chunk statistics where the
-   streams are equal) and features on against off on the card: equal
-   greedy streams, or a difference shown to sit at a logit near-tie;
+   streams are equal) and features on against off on the card; then
+   optimistic admission on a 5-page pool (one wave of 4 requests, 16 new
+   tokens, batch 2, through the ``Batcher``: it preempts), plain, with a
+   chaos slot failure and with the prefix cache, card against CPU (equal
+   ``preempt_stats`` where the streams are equal), graphed against eager
+   and against reserve on an ample pool: equal greedy streams, or a
+   difference shown to sit at a logit near-tie;
 6. primitives at the paper's sizes, through the public ops: ss-gemm on
    ``ss_gemm.Problem()`` (M 16,384 x K 4,096, bfloat16) for N 2, 4, 8 and
    16, with ``make_skinny`` data and with a clustered B (45% of 256-row
@@ -1845,9 +1861,9 @@ def serve_both(torch, arch, params, label: str, warm_gate: bool = True,
     return out
 
 
-def serve_full_width(torch, params, paged: bool) -> dict:
+def serve_full_width(torch, params, paged: bool) -> tuple[dict, dict]:
     """One layout's serve cell, graphed and eager; returns the graphed
-    run's kernel launches (the main path's)."""
+    run's result and kernel launches (the main path's)."""
     from repro_torch.configs import get_config
     cfg = get_config(ARCH)
     requests, max_new = 16, 64
@@ -1867,7 +1883,7 @@ def serve_full_width(torch, params, paged: bool) -> dict:
                   f"{len(toks)} tokens")
         check_serve_launches(res, counts, cfg, f"{layout} {mode}", paged)
     print(f"[serve] {layout}: prompts {lens[0]}-{lens[-1]} tokens")
-    return runs["graphs"][1]
+    return runs["graphs"]
 
 
 FEATURES = {
@@ -2013,17 +2029,19 @@ def serve_features(torch, params) -> dict:
           f"alone vs off "
           f"{_equal_streams(streams['prefix cache alone'], off)}/{requests}")
     bf16_divergence(torch, params, cfg, runs["graphs"][0]["prompts"],
-                    streams["b"], off)
+                    streams["b"], off, "[features] bfloat16 streams with "
+                    "and without speculation")
     return launched
 
 
-def bf16_divergence(torch, params, cfg, prompts, got, want) -> None:
+def bf16_divergence(torch, params, cfg, prompts, got, want,
+                    what: str) -> None:
     """Where two bfloat16 greedy streams of one prompt part, how close the
     two tokens were: the gap between their logits from a float32 forward
     of the same (bfloat16-valued) weights over the prompt and the common
     prefix, beside the spread of those logits (their standard deviation)
-    and the margin of the top token over the third.  Printed, not
-    gated."""
+    and the margin of the top token over the third.  Printed after
+    ``what``, not gated."""
     from repro_torch.models.transformer import forward, logits_fn
     params32 = _cast(torch, params, torch.float32)
     rows = []
@@ -2044,13 +2062,151 @@ def bf16_divergence(torch, params, cfg, prompts, got, want) -> None:
     del params32
     torch.cuda.empty_cache()
     if rows:
-        print(f"[features] bfloat16 streams with and without speculation "
-              f"part at tokens {[r[0] for r in rows]}; float32 logit gaps "
+        print(f"{what} part at tokens {[r[0] for r in rows]}; float32 logit gaps "
               f"there {[round(r[1], 4) for r in rows]} (max "
               f"{max(r[1] for r in rows):.4f}), logit std "
               f"{statistics.median(r[2] for r in rows):.4f} (median), "
               f"top-1 over top-3 margin "
               f"{statistics.median(r[3] for r in rows):.4f} (median)")
+
+
+# the preemption cell's pool: 160 pages preempt once in the first wave on
+# phase 4's traffic, and 152 is the largest pool below it, in steps of 8,
+# that preempts at least twice (PERF.md, section 4)
+PREEMPT_PAGES = 152
+
+
+def _preempt_line(res: dict, wave: str) -> str:
+    """One wave's preemption, KV and latency numbers, for a print."""
+    k, u, lat = ((res["preempt"], res["kv_util"], res["first_latency"])
+                 if wave == "first" else
+                 (res["warm_preempt"], res["warm_kv_util"], res["latency"]))
+    return (f"{wave} wave: {k['preemptions']} preemptions of "
+            f"{k['preempted_requests']} requests, {k['recompute_tokens']} "
+            f"tokens recomputed, recomputed_ok {k['recomputed_ok']}, "
+            f"{k['slot_failures']} slot failures; peak live slots "
+            f"{u['peak_live_slots']}, mean KV util {u['mean_util']:.4f}; "
+            f"TTFT p50 {lat['ttft_p50_s'] * 1e3:.1f} / p95 "
+            f"{lat['ttft_p95_s'] * 1e3:.1f} ms, TPOT p50 "
+            f"{lat['tpot_p50_s'] * 1e3:.2f} / p95 "
+            f"{lat['tpot_p95_s'] * 1e3:.2f} ms, queue wait p50 "
+            f"{lat['queue_wait_p50_s'] * 1e3:.1f} / p95 "
+            f"{lat['queue_wait_p95_s'] * 1e3:.1f} ms")
+
+
+def serve_preempt(torch, params, reference: dict) -> dict:
+    """Optimistic admission on phase 4's paged traffic (full-width
+    qwen2-0.5b, bf16, 16 requests of 64-512 tokens, 64 new tokens, batch
+    8, max_len 1024, pages of 16, 8 steps a segment) on a pool smaller than
+    its worst case, ``PREEMPT_PAGES``: graphed and eager; beside it,
+    graphed, a ``ChaosInjector(fail_slot_at={3: "deepest"},
+    check_invariants=True)`` run and reserve admission on the same pool;
+    each run a first and a warm wave.  ``reference`` is phase 4's graphed
+    paged run (reserve on 512 pages: no preemption).
+
+    Gated: graphed = eager streams (both waves); the warm wave = the first
+    (scheduling depends on counts, not time, so both waves preempt
+    alike); at least 2 first-wave preemptions; ``recomputed_ok`` in both
+    waves of the optimistic and chaos runs; one chaos slot failure;
+    ``pool.check()`` with no page in use after each run; 64 in-vocab
+    tokens a request; exact launches (resume joins are joins).  Printed:
+    the preemption, KV-use and latency numbers of both waves, tok/s,
+    graphs and capture seconds, and the optimistic and chaos streams
+    against the reference's as counts of equal bf16 streams, with the
+    float32 margin at each first difference of the optimistic run's.
+    Returns the optimistic graphed run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run
+    from repro_torch.serve.chaos import ChaosInjector
+    cfg = get_config(ARCH)
+    requests, max_new = 16, 64
+    kw = dict(requests=requests, max_new=max_new, batch=8, max_len=1024,
+              paged=True, page_size=16, sync_every=8, seed=0,
+              prompt_len=(64, 513), dtype=torch.bfloat16)
+
+    def one(label: str, graphs, **extra) -> tuple[dict, dict]:
+        reset_counts()
+        res = run(ARCH, params=params, graphs=graphs, device="cuda", **kw,
+                  **extra)
+        counts = read_counts()
+        res["sync_every"] = kw["sync_every"]
+        pool = res.pop("pool")
+        pool.check()
+        check(pool.used_pages == 0,
+              f"preempt {label}: {pool.used_pages} pages still in use")
+        check(sorted(res["results"]) == list(range(requests)),
+              f"preempt {label}: missing requests")
+        for rid, toks in res["results"].items():
+            check(len(toks) == max_new
+                  and all(0 <= t < cfg.vocab for t in toks),
+                  f"preempt {label}: request {rid} returned {len(toks)} "
+                  "tokens")
+        check_serve_launches(res, counts, cfg, f"preempt {label}", True)
+        check(counts["paged_prefill"] > 0 and counts["paged_decode"] > 0,
+              f"preempt {label}: a paged kernel was not launched")
+        print(f"[preempt] {ARCH} {label}: tok/s first wave "
+              f"{res['tok_per_s']:.1f} (capture included), warm wave "
+              f"{res['warm_tok_per_s']:.1f}; {res['graph_count']} graphs, "
+              f"{res['capture_s']:.3f}s capturing; {res['joins']} joins, "
+              f"{res['segments']} segments over both waves; "
+              f"{_preempt_line(res, 'first')}; "
+              f"{_preempt_line(res, 'warm')}; launches {counts}; {SMI}")
+        return res, counts
+
+    t0 = time.perf_counter()
+    pages = PREEMPT_PAGES
+    opt, launched = one(f"optimistic {pages} pages, graphs", None,
+                        optimistic=True, total_pages=pages)
+    eager, _ = one(f"optimistic {pages} pages, eager", False,
+                   optimistic=True, total_pages=pages)
+    chaos, _ = one(f"optimistic {pages} pages + slot failure, graphs", None,
+                   optimistic=True, total_pages=pages,
+                   chaos=ChaosInjector(fail_slot_at={3: "deepest"},
+                                       check_invariants=True))
+    res_same, _ = one(f"reserve {pages} pages, graphs", None,
+                      total_pages=pages)
+    for key in ("results", "warm_results"):
+        diff = [rid for rid, toks in opt[key].items()
+                if toks != eager[key][rid]]
+        check(not diff, f"preempt optimistic: graphs and eager streams "
+              f"differ ({key}) for requests {diff}")
+    for res in (opt, eager):
+        check(res["warm_results"] == res["results"],
+              "preempt optimistic: the warm wave's tokens differ from the "
+              "first wave's")
+        check(res["preempt"]["preemptions"] >= 2,
+              "preempt optimistic: fewer than 2 first-wave preemptions")
+    for res in (opt, eager, chaos):
+        check(res["preempt"]["recomputed_ok"]
+              and res["warm_preempt"]["recomputed_ok"],
+              "preempt: a preempted request did not complete")
+    check(chaos["preempt"]["slot_failures"] == 1,
+          f"preempt chaos: {chaos['preempt']['slot_failures']} slot "
+          "failures, not 1")
+    ref = reference["results"]
+    u, r = opt["kv_util"], res_same["kv_util"]
+    print(f"[preempt] {pages} pages, first wave, optimistic against reserve "
+          f"on the same pool: peak live slots {u['peak_live_slots']} / "
+          f"{r['peak_live_slots']}, mean KV util {u['mean_util']:.4f} / "
+          f"{r['mean_util']:.4f}; tok/s first wave {opt['tok_per_s']:.1f} / "
+          f"{res_same['tok_per_s']:.1f}, warm {opt['warm_tok_per_s']:.1f} / "
+          f"{res_same['warm_tok_per_s']:.1f}; phase 4's paged run (512 "
+          f"pages) {reference['tok_per_s']:.1f} / "
+          f"{reference['warm_tok_per_s']:.1f}; {SMI}")
+    print(f"[preempt] bfloat16 greedy streams equal (not gated): optimistic "
+          f"vs reserve on 512 pages {_equal_streams(opt['results'], ref)}/"
+          f"{requests}, reserve on {pages} vs 512 "
+          f"{_equal_streams(res_same['results'], ref)}/{requests}, chaos "
+          f"vs 512 {_equal_streams(chaos['results'], ref)}/{requests}; "
+          f"chaos warm wave vs its first "
+          f"{_equal_streams(chaos['warm_results'], chaos['results'])}/"
+          f"{requests}")
+    bf16_divergence(torch, params, cfg, opt["prompts"], opt["results"], ref,
+                    f"[preempt] bfloat16 streams, optimistic on {pages} pages "
+                    "against reserve on 512,")
+    print(f"[preempt] phase 4's preemption runs took "
+          f"{time.perf_counter() - t0:.1f}s")
+    return launched
 
 
 def dense_join_rows(torch) -> None:
@@ -2145,6 +2301,108 @@ def agreement(torch) -> None:
           f"paged kernels: {len(prompts) - ties}/{len(prompts)} equal, "
           f"{ties} at near-ties")
     feature_agreement(torch, params, cpu_params, kw)
+    preempt_agreement(torch, params, cpu_params)
+
+
+def _serve_once(torch, cfg, params, prompts: dict, graphs=None, chaos=None,
+                **scfg):
+    """One wave of ``prompts`` (16 new tokens each) through a fresh paged
+    ``Batcher`` in float32 (batch 2, max_len 128, pages of 16, 4 steps a
+    segment) on the device of ``params``; returns the batcher and the
+    kernel launches of its run."""
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import Batcher
+    b = Batcher(Model(cfg), params, ServeConfig(
+        max_len=128, batch=2, dtype=torch.float32, sync_every=4, paged=True,
+        page_size=16, **scfg), graphs=graphs, chaos=chaos)
+    for rid, p in prompts.items():
+        b.submit(rid, p)
+    reset_counts()
+    b.run(max_new=16)
+    return b, read_counts()
+
+
+def preempt_agreement(torch, params, cpu_params) -> None:
+    """float32, optimistic admission on a 5-page pool, one wave of 4
+    seeded requests of 16-40 tokens (16 new tokens, batch 2, pages of 16:
+    the first two admissions need 4 pages optimistic and 6 reserved, so
+    the run preempts): plain, with a ``fail_slot_at={3: "deepest"}``
+    chaos injector, and with the prefix cache (the resumes match their
+    own pages).  Each the card (graphed) against the CPU plain path,
+    graphed against eager on the card, and against reserve admission on
+    an ample pool on the card: equal streams or a first difference at a
+    near-tie; where the card's and the CPU's streams are all equal, their
+    ``preempt_stats`` (events included) are equal too.  Gated:
+    preemptions, every preempted request completed, one slot failure
+    with chaos, skipped prefill with the prefix cache, exact launches, a
+    drained pool."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.serve.chaos import ChaosInjector
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    prompts = {rid: rng.integers(0, cfg.vocab,
+                                 size=int(rng.integers(16, 40))).tolist()
+               for rid in range(4)}
+    ample, _ = _serve_once(torch, cfg, params, prompts)
+    variants = {"plain": ({}, None),
+                "slot failure": ({}, {3: "deepest"}),
+                "prefix cache": (dict(prefix_cache=True), None)}
+    for name, (feats, fail) in variants.items():
+        def go(p, graphs=None):
+            chaos = (ChaosInjector(fail_slot_at=fail, check_invariants=True)
+                     if fail else None)
+            b, counts = _serve_once(torch, cfg, p, prompts, graphs=graphs,
+                                    chaos=chaos, total_pages=5,
+                                    admission_mode="optimistic", **feats)
+            b.pool.check()
+            check(b.pool.used_pages == 0,
+                  f"preempt agreement {name}: pages still in use")
+            return b, counts
+        on_card, counts = go(params)
+        check_serve_launches({"joins": on_card.joins,
+                              "segments": on_card.segments,
+                              "sync_every": 4}, counts, cfg,
+                             f"preempt agreement {name}", True)
+        eager, _ = go(params, graphs=False)
+        on_cpu, _ = go(cpu_params)
+        k = on_card.preempt_stats()
+        check(k["preemptions"] > 0 and k["recomputed_ok"],
+              f"preempt agreement {name}: no preemption, or one that did "
+              "not complete")
+        check(not fail or k["slot_failures"] == 1,
+              f"preempt agreement {name}: {k['slot_failures']} slot "
+              "failures")
+        skipped = on_card.prefix_stats()["prefill_skipped"]
+        check(not feats or skipped > 0,
+              f"preempt agreement {name}: no resume matched its pages")
+        ties = {}
+        for other, want in (("CPU", on_cpu), ("eager", eager),
+                            ("reserve", ample)):
+            ties[other] = sum(
+                _near_tie(torch, cpu_params, cfg, prompts[rid],
+                          on_card.results[rid], toks,
+                          f"preempt {name} vs {other} request {rid}")
+                for rid, toks in want.results.items())
+        if ties["CPU"] == 0:
+            check(k == on_cpu.preempt_stats(),
+                  f"preempt agreement {name}: preempt_stats differ, card "
+                  f"{k} vs CPU {on_cpu.preempt_stats()}")
+        n = len(prompts)
+        print(f"[agree] float32 greedy streams, optimistic on 5 pages, "
+              f"{name}: CUDA kernels (graphs) vs CPU plain path "
+              f"{n - ties['CPU']}/{n} equal, graphs vs eager "
+              f"{n - ties['eager']}/{n}, vs reserve on an ample pool "
+              f"{n - ties['reserve']}/{n} (the rest at near-ties); "
+              f"preempt_stats "
+              f"{'equal' if ties['CPU'] == 0 else 'not compared'}: "
+              f"{k['preemptions']} preemptions, {k['recompute_tokens']} "
+              f"tokens recomputed, {k['slot_failures']} slot failures, "
+              f"prefill skipped {skipped}; launches {counts}")
+    print(f"[agree] the optimistic agreement runs took "
+          f"{time.perf_counter() - t0:.1f}s")
 
 
 def feature_agreement(torch, params, cpu_params, kw) -> None:
@@ -2427,10 +2685,12 @@ def main() -> int:
     from repro_torch.configs import get_config
     params = Model(get_config(ARCH)).init(0, device="cuda",
                                           dtype=torch.bfloat16)
-    counts = serve_full_width(torch, params, paged=True)
-    dense_counts = serve_full_width(torch, params, paged=False)
+    paged_ref, counts = serve_full_width(torch, params, paged=True)
+    dense_counts = serve_full_width(torch, params, paged=False)[1]
     counts["decode_attn"] = dense_counts["decode_attn"]
     serve_features(torch, params)
+    serve_preempt(torch, params, paged_ref)
+    del paged_ref
     del params
     dense_join_rows(torch)
     agreement(torch)

@@ -19,13 +19,15 @@ warm wave's latencies.
 The paged pool's serving features, as in ``repro.launch.serve``:
 ``--prefix-cache`` (with ``--shared-prefix N``, a seeded system prompt of
 N tokens before every request's own), ``--prefill-chunk`` and
-``--prefill-round-tokens``, and ``--speculate K`` (with
-``--speculate-ngram``).  Each ``[serve]`` line
-then adds its wave's hit rate and skipped prefill tokens, chunk
-continuations, longest join and deferrals, and acceptance and tokens a
-verify step.  With the prefix cache on, the warm wave of the same prompts
-finds every full prompt page cached, so it prefills far less than the
-first wave.
+``--prefill-round-tokens``, ``--speculate K`` (with
+``--speculate-ngram``), and ``--optimistic`` (admission on the prompt's
+pages, on-demand growth, preemption with recompute on resume; size the
+pool with ``--total-pages`` below the worst case for it to preempt).  Each
+``[serve]`` line then adds its wave's hit rate and skipped prefill tokens,
+chunk continuations, longest join and deferrals, acceptance and tokens a
+verify step, and preemptions and recomputed tokens.  With the prefix
+cache on, the warm wave of the same prompts finds every full prompt page
+cached, so it prefills far less than the first wave.
 """
 from __future__ import annotations
 
@@ -56,14 +58,17 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
         graphs: bool | None = None, prefix_cache: bool = False,
         shared_prefix: int = 0, prefill_chunk: int | None = None,
         prefill_round_tokens: int | None = None,
-        speculate_k: int | None = None, speculate_ngram: int = 2) -> dict:
+        speculate_k: int | None = None, speculate_ngram: int = 2,
+        optimistic: bool = False, chaos=None) -> dict:
     """Serve ``requests`` random prompts (lengths drawn from
     ``prompt_len`` = [lo, hi), tokens from ``seed``) from dense stripes,
     or from the paged pool with ``paged``, and print requests, tokens and
     tok/s.  ``shared_prefix`` tokens, drawn from the seed before the
     prompts, go in front of every prompt (a system prompt for
     ``prefix_cache``); ``prefill_chunk``, ``prefill_round_tokens``,
-    ``speculate_k`` and ``speculate_ngram`` go to ``ServeConfig``.
+    ``speculate_k`` and ``speculate_ngram`` go to ``ServeConfig``, and
+    ``optimistic`` sets its ``admission_mode``; ``chaos`` (a
+    :class:`~repro_torch.serve.chaos.ChaosInjector`) goes to the batcher.
     ``arch`` is a registry name or a config (one cut in depth, say).
     ``params`` (from the port's init or the bridge) replaces the
     seeded random weights when given; it is cast for serving in
@@ -79,7 +84,11 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
     ``first_join``, ``first_latency`` and ``first_segments`` are the
     first wave's ``prefix_stats``, ``spec_stats``, ``join_stats``,
     ``latency_stats`` and decode segments, ``warm_prefix``,
-    ``warm_spec`` and ``warm_seconds`` the warm wave's."""
+    ``warm_spec`` and ``warm_seconds`` the warm wave's.  ``preempt`` and
+    ``warm_preempt`` are each wave's ``preempt_stats`` without its
+    events, ``kv_util`` and ``warm_kv_util`` each wave's
+    ``kv_utilization``, and ``pool`` the batcher's page pool (None,
+    dense)."""
     dev = resolve_device(device)
     cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     if reduced:
@@ -97,9 +106,11 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
                        prefill_chunk=prefill_chunk,
                        prefill_round_tokens=prefill_round_tokens,
                        speculate_k=speculate_k,
-                       speculate_ngram=speculate_ngram)
+                       speculate_ngram=speculate_ngram,
+                       admission_mode="optimistic" if optimistic
+                       else "reserve")
     b = Batcher(model, params, scfg, eos_id=eos_id, seed=seed,
-                graphs=graphs)
+                graphs=graphs, chaos=chaos)
     rng = np.random.default_rng(seed)
     system = rng.integers(0, cfg.vocab, size=shared_prefix).tolist()
     prompts = {}
@@ -130,7 +141,8 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
     first = {"prefix": b.prefix_stats(), "spec": b.spec_stats(),
              "first_join": b.join_stats(),
              "first_latency": b.latency_stats(),
-             "first_segments": b.segments}
+             "first_segments": b.segments, "preempt": _preempt(b),
+             "kv_util": b.kv_utilization()}
     print(f"[serve] {len(results)} requests, {toks} tokens in {dt:.3f}s "
           f"({toks / dt:.1f} tok/s on {where}, {cfg.name}, {layout}"
           f"{_features(b)}, {b.joins} joins, {b.segments} decode segments, "
@@ -153,7 +165,14 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
             "join": join, "graphs": b.graphs, "joins": b.joins,
             "segments": b.segments, "capture_s": b.capture_seconds,
             "graph_count": b.graph_count, **first,
-            "warm_prefix": b.prefix_stats(), "warm_spec": b.spec_stats()}
+            "warm_prefix": b.prefix_stats(), "warm_spec": b.spec_stats(),
+            "warm_preempt": _preempt(b), "warm_kv_util": b.kv_utilization(),
+            "pool": b.pool}
+
+
+def _preempt(b: Batcher) -> dict:
+    """``preempt_stats`` without its events list."""
+    return {k: v for k, v in b.preempt_stats().items() if k != "events"}
 
 
 def _features(b: Batcher) -> str:
@@ -177,6 +196,11 @@ def _features(b: Batcher) -> str:
         out += (f" + speculative k={cfg.speculate_k} (acceptance "
                 f"{sp['acceptance_rate']:.0%}, "
                 f"{sp['tokens_per_step']:.2f} tok/step)")
+    if cfg.admission_mode == "optimistic":
+        k = b.preempt_stats()
+        out += (f" + optimistic admission ({k['preemptions']} "
+                f"preemptions, {k['recompute_tokens']} tokens "
+                "recomputed)")
     return out
 
 
@@ -230,6 +254,10 @@ def main() -> None:
                          "multi-token paged attention call")
     ap.add_argument("--speculate-ngram", type=int, default=2,
                     help="history-match width of the draft lookup")
+    ap.add_argument("--optimistic", action="store_true",
+                    help="optimistic admission (needs --paged): admit on "
+                         "prompt pages only, grow on demand, preempt + "
+                         "recompute under pool pressure")
     args = ap.parse_args()
     run(args.arch, reduced=args.reduced, requests=args.requests,
         max_new=args.max_new, batch=args.batch, max_len=args.max_len,
@@ -242,7 +270,8 @@ def main() -> None:
         prefix_cache=args.prefix_cache, shared_prefix=args.shared_prefix,
         prefill_chunk=args.prefill_chunk,
         prefill_round_tokens=args.prefill_round_tokens,
-        speculate_k=args.speculate, speculate_ngram=args.speculate_ngram)
+        speculate_k=args.speculate, speculate_ngram=args.speculate_ngram,
+        optimistic=args.optimistic)
 
 
 if __name__ == "__main__":

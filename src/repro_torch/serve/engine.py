@@ -38,12 +38,18 @@ PAD_TOKEN = -1    # emitted-slot sentinel: "slot was already retired"
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The served subset of ``repro.serve.engine.ServeConfig``.  Features
-    the port does not serve yet (optimistic admission, overload control,
-    tracing) have no fields here.  ``paged`` picks the KV layout: dense
-    per-slot stripes of ``max_len`` rows (the default, as in JAX), or
-    fixed-size pages in one pooled allocation with per-slot page tables.
-    The prefix cache, chunked prefill and speculation need ``paged``; the
-    batcher checks them as JAX's does."""
+    the port does not serve yet (overload control, deadlines, tracing)
+    have no fields here.  ``paged`` picks the KV layout: dense per-slot
+    stripes of ``max_len`` rows (the default, as in JAX), or fixed-size
+    pages in one pooled allocation with per-slot page tables.  The prefix
+    cache, chunked prefill, speculation and optimistic admission need
+    ``paged``; the batcher checks them as JAX's does.
+    ``admission_mode="optimistic"`` admits a request on its prompt's pages
+    only and grows each decoding slot's table between segments; when the
+    pool cannot cover the growth, a victim slot (lowest priority, then
+    most pages, then least progress) is preempted and re-queued, and its
+    resume recomputes its KV from prompt + committed tokens through the
+    ordinary (chunked) prefill join."""
     max_len: int
     batch: int
     dtype: torch.dtype = torch.bfloat16
@@ -65,6 +71,20 @@ class ServeConfig:
     # 0 skips makes skip-ahead FIFO.  Dense stripes admit on a free slot
     # alone, so the policy only acts on the paged pool.
     admission: str = "fifo"
+    # admission sizing (needs paged): "reserve" (default) maps the whole
+    # worst case (prompt + max_new + speculation window) at admission, so
+    # a slot can never run out of pages but the pool runs far under its
+    # real capacity whenever outputs finish early.  "optimistic" maps only
+    # the prompt's pages at admission and grows each slot's table on
+    # demand between decode segments; when growth outruns the pool the
+    # scheduler preempts a victim slot (lowest priority, then most pages,
+    # then least progress), parks its dead pages in the pool's preempted
+    # partition and re-queues it; resume recomputes the KV from the
+    # committed history through the chunked-prefill join path, with
+    # prefix-cache hits shortcutting the recompute.  Attention-only in
+    # JAX (a recurrent state cannot be recomputed from a page-aligned
+    # resume); the port serves no SSM model yet.
+    admission_mode: str = "reserve"
     admission_lookahead: int = 8
     admission_max_skips: int = 8
     # chunked prefill: a joining prompt's uncached suffix is prefilled at
@@ -187,7 +207,9 @@ def make_decode_loop(model: Model, cfg: ServeConfig, *, steps: int,
     segment (the scheduler's ``_kv_cap``); None reads every row.  Paged:
     the loop takes ``pages``, the [B, P_cap] slice of the page table,
     constant across the segment (admission reserved every slot's worst
-    case), and the slice plays ``kv_cap``'s role.
+    case, or optimistic admission grew each decoding slot's table over the
+    segment's advance before it), and the slice plays ``kv_cap``'s
+    role.
 
     With ``speculate_k`` = k > 0 (paged and greedy only) each step is a
     draft-k verify step, as in JAX's ``spec_loop``: ``loop(params, tok,

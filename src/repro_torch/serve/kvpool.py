@@ -2,10 +2,9 @@
 
 The port's copy of :mod:`repro.serve.kvpool`, kept whole: it is numpy
 only, and importing it from ``repro.serve`` would pull in JAX.  The
-port's scheduler uses the cached partition (its prefix cache,
-:mod:`repro_torch.serve.prefixcache`); the preemption and chaos
-partitions below are unused so far and stay so that later slices port
-those features onto the same allocator.
+port's scheduler uses every partition: cached (its prefix cache,
+:mod:`repro_torch.serve.prefixcache`), preempted (optimistic admission's
+victims) and held (:mod:`repro_torch.serve.chaos`).
 
 The dense slot table (PR 1) gives every slot a ``[max_len]`` KV stripe, so
 memory is capped by ``slots x max_len`` whether or not those tokens exist —

@@ -17,10 +17,11 @@ Two KV layouts, as in JAX (``cfg.paged``):
   depth.
 - Paged: the slots share one pooled allocation.  A request is admitted
   when the pool can hold its worst case (prompt + budget pages, "reserve"
-  admission); rows outside the join write nothing to live pages; a retired
-  slot's pages go back to the pool at the segment boundary.  Each segment
-  slices the page table to a power-of-two bound on the deepest live slot's
-  page count (page-cap bucketing).
+  admission) or, optimistic, its prompt's pages; rows outside the join
+  write nothing to live pages; a retired slot's pages go back to the pool
+  at the segment boundary.  Each segment slices the page table to a
+  power-of-two bound on the deepest live slot's page count (page-cap
+  bucketing).
 
 The slot state (``tok``, ``lengths``, ``done``, ``remaining``), the
 caches and, paged, one ``[B, P_cap]`` slice of the page table per bucket
@@ -72,16 +73,40 @@ written in place: the prompt at admission and the first token at commit
 here, the committed tokens by the loop.  ``_collect`` walks each step's
 burst and feeds ``spec_stats``.
 
+Optimistic admission (``cfg.admission_mode="optimistic"``, paged): a
+request is admitted on its prompt's pages alone, and before each decode
+segment every decoding slot's table grows to cover the segment's
+worst-case advance (``steps * (k + 1)`` tokens, capped by the slot's
+total budget; ``_ensure_decode_pages``), highest priority first.  When the
+pool cannot cover a growth, a victim is preempted.  The victim policy is
+deterministic: a request preempted ``admission_max_skips`` times is
+protected (picked last), then the lowest priority class (``submit(...,
+priority=)``), the most pages mapped, the least decode progress and the
+lowest slot id.  Preemption registers the victim's full pages in the
+radix tree (with the prefix cache), releases its pages (its dead private
+pages park in the pool's preempted partition), latches its device row
+done in place, and re-queues it at the queue head with prompt = its
+prompt + every committed token.  The resume is recompute-on-resume: an
+ordinary (chunked, prefix-matched) join over that history, whose first
+sampled token is the next one the uninterrupted run would give, with a
+device budget of the tokens still owed.  An often-preempted request
+becomes an admission barrier (the skip-ahead aging), so every preempted
+request completes.  ``chaos=`` (:class:`~repro_torch.serve.chaos.
+ChaosInjector`, paged) forces pool exhaustion, victim choices and slot
+failures (a failure is a preemption) at given scheduling rounds
+(``round``).
+
 Accounting, at the host sync points as in JAX: time to first token (run
 start to the join that sampled it), time per output token, queue wait and
 join seconds go into a :class:`~repro_torch.serve.telemetry.
 MetricsRegistry` (``latency_stats``, ``join_stats``), and so do the
-prefill, prefix, chunk and speculation counters (``prefix_stats``,
-``spec_stats``); KV use is sampled once a segment (``kv_utilization``);
-``reset_stats`` clears them between waves.
+prefill, prefix, chunk, speculation and preemption counters
+(``prefix_stats``, ``spec_stats``, ``preempt_stats``); KV use is sampled
+once a segment (``kv_utilization``); ``reset_stats`` clears them between
+waves.
 
-Not yet ported (later slices): optimistic admission with preemption,
-cancellation, deadlines, the watchdog and overload control, tracing and
+Not yet ported (later slices): cancellation, deadlines, the watchdog and
+overload control (with chaos ``stall_at`` and ``burst_at``), tracing and
 attribution.  Their counters read 0 in the stats, as they do in JAX with
 them off.
 """
@@ -95,7 +120,7 @@ import torch
 
 from .engine import (PAD_TOKEN, GraphedLoop, ServeConfig, make_decode_loop,
                      make_join, make_paged_join)
-from .kvpool import KVPool
+from .kvpool import KVPool, PageError
 from .prefixcache import PrefixCache
 from .telemetry import MetricsRegistry
 from ..models.model_zoo import Model
@@ -114,11 +139,13 @@ class ContinuousBatcher:
     a decode segment runs: None (the default) replays one CUDA graph per
     bucket on a CUDA device and runs the eager loop on the CPU; False runs
     the eager loop on the card too (the A/B of the tests and the chip
-    tools); True on the CPU raises."""
+    tools); True on the CPU raises.  ``chaos`` (paged) is a
+    :class:`~repro_torch.serve.chaos.ChaosInjector` called at the top of
+    every scheduling round."""
 
     def __init__(self, model: Model, params, cfg: ServeConfig,
                  eos_id: int | None = None, seed: int = 0,
-                 graphs: bool | None = None):
+                 graphs: bool | None = None, chaos=None):
         self.model, self.params, self.cfg = model, params, cfg
         self.eos = eos_id
         self.device = dev = params["embed"]["table"].device
@@ -130,6 +157,19 @@ class ContinuousBatcher:
         self.graphs = graphs
         # the feature checks of repro.serve.scheduler, in its order and
         # words (its hybrid-SSM checks wait for the SSM model's port)
+        if cfg.admission_mode not in ("reserve", "optimistic"):
+            raise ValueError(
+                f"unknown admission mode {cfg.admission_mode!r} "
+                "(expected 'reserve' or 'optimistic')")
+        if cfg.admission_mode == "optimistic" and not cfg.paged:
+            raise ValueError(
+                "admission_mode='optimistic' requires paged=True "
+                "(on-demand growth and preemption move pages through "
+                "the pool)")
+        self.chaos = chaos
+        if chaos is not None and not cfg.paged:
+            raise ValueError("chaos injection requires paged=True (its "
+                             "faults move pages through the pool)")
         if cfg.prefill_chunk is not None:
             if not cfg.paged:
                 raise ValueError("prefill_chunk requires paged=True "
@@ -219,6 +259,22 @@ class ContinuousBatcher:
         self._clock0: float | None = None
         self._first_tok_t: dict[int, float] = {}
         self._submit_t: dict[int, float] = {}
+        # optimistic admission and preemption: each request's priority
+        # class (the victim policy evicts the lowest first), each slot's
+        # token ceiling (prompt + remaining budget + speculation window:
+        # what on-demand growth may cover) and the committed tokens that
+        # predate its admission (a resume's prompt already holds them), the
+        # rids between a preemption and their retirement, and each rid's
+        # preemptions
+        self.req_priority: dict[int, int] = {}
+        self.slot_max_tokens = [0] * b
+        self.slot_prior = [0] * b
+        self._resumed: set[int] = set()
+        self._preempt_counts: dict[int, int] = {}
+        self.preempted_rids: set[int] = set()
+        self.preempt_events: list[tuple[int, int, int, str]] = []
+        # scheduling rounds of ``run`` (the chaos injector keys on it)
+        self.round = 0
 
     # counter views over the registry, under JAX's attribute names
     @property
@@ -245,10 +301,21 @@ class ContinuousBatcher:
     def budget_deferrals(self) -> int:
         return int(self.metrics.value("join.budget_deferrals"))
 
-    def submit(self, rid: int, prompt: list[int]) -> None:
+    @property
+    def preemptions(self) -> int:
+        return int(self.metrics.value("preempt.count"))
+
+    @property
+    def preempted_token_recompute(self) -> int:
+        return int(self.metrics.value("preempt.recompute_tokens"))
+
+    def submit(self, rid: int, prompt: list[int], priority: int = 0) -> None:
+        """Queue a request.  ``priority`` is its class for the preemption
+        victim policy: higher values are evicted later."""
         if not prompt:
             raise ValueError("empty prompt")
         self.queue.append((rid, list(prompt)))
+        self.req_priority[rid] = priority
         self._submit_t[rid] = time.perf_counter()
 
     def _loop(self, steps: int, cap: int | None = None):
@@ -295,7 +362,8 @@ class ContinuousBatcher:
 
     def _page_cap(self) -> int:
         """Power-of-two bound on the deepest live slot's allocated page
-        count (allocation covers prompt + budget, so a segment can never
+        count (allocation covers prompt + budget, or optimistic growth
+        covered the segment's advance before it, so a segment can never
         outgrow it)."""
         live = [len(self.pool.slot_pages(i))
                 for i, r in enumerate(self.slot_rid) if r is not None]
@@ -304,7 +372,8 @@ class ContinuousBatcher:
         return _pow2_bucket(max(live), lo=2, hi=self.cfg.max_pages)
 
     def _note_admitted(self, rid: int) -> None:
-        """Close the request's queue-wait interval (opened at submit)."""
+        """Close the request's queue-wait interval (opened at submit and
+        re-opened at each preemption)."""
         t0 = self._submit_t.pop(rid, None)
         if t0 is not None:
             self.metrics.observe("lat.queue_wait_s",
@@ -314,9 +383,11 @@ class ContinuousBatcher:
         """Pop and reserve the next admissible queued request for
         ``slot``: ``(rid, prompt, matched_tokens)`` or None.  Dense, the
         queue head (a free slot is enough).  Paged, a request whose worst
-        case (prompt + budget + speculation window) the pool can hold,
-        beside the pages of its prompt that the prefix cache matches: those
-        are shared into the slot and the rest is reserved.  FIFO takes the
+        case (prompt + budget + speculation window; optimistic, its prompt)
+        the pool can hold, beside the pages of its prompt that the prefix
+        cache matches: those are shared into the slot and the rest is
+        reserved.  A resume's prompt holds its committed tokens, so only
+        the budget still owed counts toward its worst case.  FIFO takes the
         head or nothing; skip-ahead scans a window of
         ``admission_lookahead`` requests, charges each one it passes a
         skip, and never passes one whose skips reached
@@ -330,16 +401,20 @@ class ContinuousBatcher:
             self.admit_order.append(rid)
             self._note_admitted(rid)
             return rid, p, 0
+        optimistic = self.cfg.admission_mode == "optimistic"
         window = 1
         if self.cfg.admission == "skip-ahead":
             window = min(len(self.queue), self.cfg.admission_lookahead)
         for qi in range(window):
             rid, p = self.queue[qi]
-            ceiling = len(p) + max_new + self.spec_k
+            prior = (len(self.outputs.get(rid, ()))
+                     if rid in self._resumed else 0)
+            ceiling = len(p) + (max_new - prior) + self.spec_k
             matched, mtoks = [], 0
             if self.prefix is not None:
                 matched, mtoks = self.prefix.match(p)
-            if not self.pool.can_admit(ceiling, shared_pages=matched):
+            admit_tokens = len(p) if optimistic else ceiling
+            if not self.pool.can_admit(admit_tokens, shared_pages=matched):
                 if self._skips.get(rid, 0) >= self.cfg.admission_max_skips:
                     break                # aged out: a barrier until it fits
                 continue
@@ -350,14 +425,15 @@ class ContinuousBatcher:
             self._skips.pop(rid, None)
             self.admit_order.append(rid)
             self._note_admitted(rid)
+            self.slot_max_tokens[slot] = ceiling
             if matched:
                 # the matched chain's refcounts go above 1
                 self.pool.share(slot, matched)
-                total = self.pool.pages_for(ceiling)
+                total = self.pool.pages_for(admit_tokens)
                 if total > len(matched):
                     self.pool.extend(slot, total - len(matched))
             else:
-                self.pool.reserve(slot, ceiling)
+                self.pool.reserve(slot, admit_tokens)
             if self.prefix is not None:
                 chunk = self.cfg.prefill_chunk
                 covered = (len(p) if chunk is None
@@ -379,19 +455,22 @@ class ContinuousBatcher:
             self.prefix.insert(prompt[:n_full * ps],
                                self.pool.slot_pages(slot)[:n_full])
 
-    def _release_slot(self, slot: int) -> None:
+    def _release_slot(self, slot: int, preempt: bool = False) -> None:
         """Return ``slot``'s pages: registered prefix pages whose refcount
-        reaches 0 park evictable-cached, the rest go back to the free
-        list.  Clears the slot's prefill state."""
+        reaches 0 park evictable-cached, the rest go back to the free list
+        (with ``preempt``, to the pool's preempted partition).  Clears the
+        slot's prefill and admission state."""
         if self.pool is not None:
             cacheable = frozenset()
             if self.prefix is not None:
                 cacheable = self.prefix.registered_pages(
                     self.pool.slot_pages(slot))
-            self.pool.release(slot, cacheable=cacheable)
+            self.pool.release(slot, cacheable=cacheable, preempt=preempt)
         self.slot_pending[slot] = []
         self.slot_prompt[slot] = None
         self.slot_filled[slot] = 0
+        self.slot_prior[slot] = 0
+        self.slot_max_tokens[slot] = 0
 
     def _retire(self, slot: int, rid: int, out: list[int],
                 now: float) -> None:
@@ -399,12 +478,130 @@ class ContinuousBatcher:
         time per output token (requests of more than one token)."""
         self.results[rid] = out
         self.slot_rid[slot] = None
+        self._resumed.discard(rid)
+        self._preempt_counts.pop(rid, None)
         self._release_slot(slot)
         if (self._clock0 is not None and len(out) > 1
                 and rid in self._first_tok_t):
             tpot = (now - self._first_tok_t[rid]) / (len(out) - 1)
             if tpot > 0.0:
                 self.metrics.observe("lat.tpot_s", tpot)
+
+    # ------------------------------------------------------------------
+    # page-level preemption (optimistic admission, chaos slot failure),
+    # from repro.serve.scheduler
+    # ------------------------------------------------------------------
+    def _preempt_slot(self, slot: int, reason: str = "pressure") -> None:
+        """Evict a live slot at a segment boundary: register its covered
+        pages in the radix tree (so the resume can match them), release
+        its pages (unregistered ones park in the pool's preempted
+        partition), latch its device row done, and re-queue the request at
+        the queue head with prompt = everything committed so far, which
+        the ordinary (chunked) prefill join recomputes."""
+        rid = self.slot_rid[slot]
+        if rid is None:
+            raise RuntimeError(f"preempt of empty slot {slot}")
+        prompt = self.slot_prompt[slot]
+        if self.slot_pending[slot]:
+            # PREFILLING: nothing committed under this admission yet; the
+            # resume replays the same prompt from the top
+            resident = self.slot_filled[slot]
+            resume = list(prompt)
+            known = prompt[:resident]
+        else:
+            # DECODING: this admission's prompt and the tokens committed
+            # since (``slot_prior`` marks the split, so a second preemption
+            # never repeats older outputs).  The last committed token has
+            # no KV yet (it is the next step's input): ``known`` stops one
+            # short
+            resident = self.slot_len[slot]
+            resume = list(prompt) + self.outputs[rid][self.slot_prior[slot]:]
+            known = resume[:-1]
+        if self.prefix is not None and resident:
+            # generated-token pages are full pages of real KV too: the
+            # resume matches its own history and recomputes only the tail
+            self._register_covered(slot, known, resident)
+        self._release_slot(slot, preempt=True)
+        self.slot_rid[slot] = None
+        self.slot_len[slot] = 0
+        # freeze the abandoned device row in place (a decode graph reads
+        # the addresses it was captured with): a done-latched row stops
+        # sampling and growing.  Its page-table row is all sentinel after
+        # the release, and the pool's two extra pages are what the latch
+        # relies on: reads through the sentinel see its never-written zero
+        # page, and the row's residual writes land in the never-read sink
+        self.done[slot] = True
+        self.remaining[slot] = 0
+        self.queue.appendleft((rid, resume))
+        self._resumed.add(rid)
+        self.preempted_rids.add(rid)
+        self.metrics.inc("preempt.count")
+        self._submit_t[rid] = time.perf_counter()   # re-open queue wait
+        n = self._preempt_counts[rid] = self._preempt_counts.get(rid, 0) + 1
+        if n >= max(1, self.cfg.admission_max_skips):
+            # an often-preempted request becomes an admission barrier (the
+            # skip-ahead aging) and the victim policy protects it
+            self._skips[rid] = self.cfg.admission_max_skips
+        self.preempt_events.append((self.round, rid, slot, reason))
+
+    def _pick_victim(self) -> int | None:
+        """The victim policy over live slots: barrier-protected last, then
+        the lowest priority class, most pages mapped, least decode
+        progress, lowest slot id.  A chaos override, if armed, replaces
+        the policy for this one decision."""
+        cands = [i for i, r in enumerate(self.slot_rid) if r is not None]
+        if not cands:
+            return None
+        if self.chaos is not None:
+            v = self.chaos.pick_victim(self, list(cands))
+            if v is not None:
+                return v
+        max_skips = max(1, self.cfg.admission_max_skips)
+
+        def key(i: int):
+            rid = self.slot_rid[i]
+            protected = self._preempt_counts.get(rid, 0) >= max_skips
+            progress = (0 if self.slot_pending[i]
+                        else len(self.outputs.get(rid, ())))
+            return (protected, self.req_priority.get(rid, 0),
+                    -len(self.pool.slot_pages(i)), progress, i)
+        return min(cands, key=key)
+
+    def _ensure_decode_pages(self, steps: int) -> None:
+        """Optimistic admission: before a decode segment, grow every
+        decoding slot's table to cover the segment's worst-case advance
+        (``steps * (k + 1)`` tokens, capped by the slot's ceiling),
+        preempting victims when the pool cannot.  Highest priority grows
+        first, so pressure evicts in policy order; a slot picked as its own
+        victim stops there (its demand left with it)."""
+        if self.pool is None or self.cfg.admission_mode != "optimistic":
+            return
+        adv = steps * (self.spec_k + 1)
+        order = sorted(
+            (i for i, r in enumerate(self.slot_rid)
+             if r is not None and not self.slot_pending[i]),
+            key=lambda i: (-self.req_priority.get(self.slot_rid[i], 0), i))
+        for slot in order:
+            if self.slot_rid[slot] is None:
+                continue                  # evicted by an earlier growth
+            cover = min(self.slot_len[slot] + adv,
+                        self.slot_max_tokens[slot])
+            need = (self.pool.pages_for(cover)
+                    - len(self.pool.slot_pages(slot)))
+            if need <= 0:
+                continue
+            while need > (self.pool.free_pages + self.pool.preempted_pages
+                          + self.pool.cached_pages):
+                victim = self._pick_victim()
+                if victim is None:
+                    raise PageError(
+                        f"cannot grow slot {slot} by {need} pages: no "
+                        "live victim left and the pool cannot cover it")
+                self._preempt_slot(victim, reason="pressure")
+                if victim == slot:
+                    break
+            if self.slot_rid[slot] is not None:
+                self.pool.extend(slot, need)
 
     def _write_history(self, writes: list[tuple[int, int, list[int]]]
                        ) -> None:
@@ -482,8 +679,19 @@ class ContinuousBatcher:
         # shrinks with the hit depth and is bounded by the chunk
         width = _pow2_bucket(max(len(piece) for _, _, piece, _, _ in take),
                              lo=8, hi=self.cfg.max_len)
-        for _, _, piece, _, _ in take:
+        budgets = []
+        for _, rid, piece, _, _ in take:
             self.metrics.inc("prefill.computed_tokens", len(piece))
+            budget = max_new
+            if rid in self._resumed:
+                # the direct cost of recompute-on-resume
+                self.metrics.inc("preempt.recompute_tokens", len(piece))
+                # a resume's prompt carries its committed tokens, so its
+                # device budget is the rest, or the done latch fires late
+                prior = len(self.outputs.get(rid, ()))
+                if prior:
+                    budget = max(1, max_new - prior)
+            budgets.append(budget)
 
         def up(a):
             return torch.as_tensor(a, device=dev)
@@ -497,7 +705,7 @@ class ContinuousBatcher:
                 up(np.asarray([slot for slot, *_ in take])), up(prompts),
                 up(np.asarray([len(piece) for _, _, piece, _, _ in take],
                               np.int32)),
-                up(np.full((len(take),), max_new, np.int32)), self.gen)
+                up(np.asarray(budgets, np.int32)), self.gen)
             first = dict(zip((slot for slot, *_ in take),
                              first.cpu().numpy().tolist()))
         else:
@@ -506,16 +714,19 @@ class ContinuousBatcher:
             prompts = np.zeros((b, width), np.int32)
             plens = np.ones((b,), np.int32)
             prefix_lens = np.zeros((b,), np.int32)
-            for slot, _, piece, depth, commit in take:
+            slot_budgets = np.full((b,), max_new, np.int32)
+            for (slot, _, piece, depth, commit), budget in zip(take,
+                                                               budgets):
                 join_mask[slot] = True
                 commit_mask[slot] = commit
                 prompts[slot, :len(piece)] = piece
                 plens[slot] = len(piece)
                 prefix_lens[slot] = depth
+                slot_budgets[slot] = budget
             *_, first = self._join(
                 self.params, self.caches, self.tok, self.lengths, self.done,
                 self.remaining, up(join_mask), up(prompts), up(plens),
-                up(np.full((b,), max_new, np.int32)), self.gen,
+                up(slot_budgets), self.gen,
                 up(self.pool.table), up(prefix_lens), up(commit_mask))
             first = first.cpu().numpy()
         now = time.perf_counter()
@@ -532,8 +743,17 @@ class ContinuousBatcher:
                 self.slot_budget[slot] = max_new  # frozen on the device
                 continue
             tokv = int(first[slot])
-            out = [tokv]
-            self.outputs[rid] = out
+            prev = self.outputs.get(rid) if rid in self._resumed else None
+            # committed tokens that predate this admission: a later
+            # preemption resumes from slot_prompt + outputs[prior:]
+            self.slot_prior[slot] = len(prev) if prev is not None else 0
+            if prev is not None:
+                prev.append(tokv)                 # a resume keeps its
+                out = prev                        # earlier outputs
+            else:
+                out = [tokv]
+                self.outputs[rid] = out
+            # a resumed request keeps its first-token stamp
             if self._clock0 is not None and rid not in self._first_tok_t:
                 self._first_tok_t[rid] = now
                 self.metrics.observe("lat.ttft_s", now - self._clock0)
@@ -541,7 +761,8 @@ class ContinuousBatcher:
                 # the current token, on which the first verify's tail
                 # n-gram ends
                 history.append((slot, self.slot_filled[slot], [tokv]))
-            if (self.eos is not None and tokv == self.eos) or max_new <= 1:
+            if (self.eos is not None and tokv == self.eos) \
+                    or len(out) >= max_new:
                 self._retire(slot, rid, out, now)     # retired at commit
             else:
                 self.slot_rid[slot] = rid
@@ -624,10 +845,11 @@ class ContinuousBatcher:
         return emitted
 
     def run(self, max_new: int = 16) -> dict[int, list[int]]:
-        """Drain the queue: refill slots, run decode segments, read the
-        emitted tokens back once per segment.  No segment runs while
-        every live slot is PREFILLING: the next round takes their next
-        chunks."""
+        """Drain the queue: each scheduling round (``round``; the chaos
+        injector acts at its top) refills slots, grows the optimistic
+        slots' tables, runs one decode segment and reads the emitted tokens
+        back.  No segment runs while every live slot is PREFILLING: the
+        next round takes their next chunks."""
         if max_new <= 0:
             while self.queue:
                 rid, _ = self.queue.popleft()
@@ -639,6 +861,10 @@ class ContinuousBatcher:
         # writes K/V (and needs table width) up to lengths + speculate_k
         window = self.spec_k
         for rid, prompt in self.queue:
+            if rid in self._resumed:
+                # a resume's prompt holds committed tokens; it was checked
+                # at its first admission, and its total never grows
+                continue
             if len(prompt) + max_new + window > self.cfg.max_len:
                 raise ValueError(
                     f"request {rid}: prompt {len(prompt)} + max_new "
@@ -654,7 +880,17 @@ class ContinuousBatcher:
                     f"{self.pool.n_pages} (max {self.pool.max_pages}/slot)")
         steps = max(1, self.cfg.sync_every)
         while self.queue or any(r is not None for r in self.slot_rid):
+            self.round += 1
+            if self.chaos is not None:
+                self.chaos.on_round(self)
             self._refill(max_new)
+            if not any(r is not None and not self.slot_pending[i]
+                       for i, r in enumerate(self.slot_rid)):
+                continue
+            # optimistic: cover the segment's advance, preempting on
+            # pressure; that may evict every decoding slot (a chaos hold),
+            # and then the next round re-admits from the queue
+            self._ensure_decode_pages(steps)
             if not any(r is not None and not self.slot_pending[i]
                        for i, r in enumerate(self.slot_rid)):
                 continue
@@ -709,14 +945,17 @@ class ContinuousBatcher:
         into a warm batcher (its graphs captured) is measured alone: the
         registry's counters (prefill, prefix, chunk and speculation ones
         among them) and histograms, the run clock, the first-token stamps
-        and the KV samples.  Operational state stays: the slot table, the
-        queued requests' submit stamps and skips, the admission order, the
-        prefix cache's contents, the captured graphs, and ``joins`` and
-        ``segments``."""
+        the KV samples and the preemption events.  Operational state stays:
+        the slot table, the queued requests' submit stamps and skips, the
+        in-flight ``_resumed`` and ``_preempt_counts``, the admission
+        order, the prefix cache's contents, the captured graphs, the round
+        counter, and ``joins`` and ``segments``."""
         self._clock0 = None
         self._first_tok_t.clear()
         self.metrics.reset()
         self.kv_samples = []
+        self.preempt_events.clear()
+        self.preempted_rids.clear()
 
     def prefix_stats(self) -> dict:
         """Prefix-cache effectiveness: prefill tokens computed and skipped
@@ -761,10 +1000,11 @@ class ContinuousBatcher:
         token (run start to the join that sampled it), time per output
         token ((retirement - first token) / (tokens - 1), requests of more
         than one token) and queue wait (submit to admission).  Segment
-        syncs quantize them: serving-level numbers, not kernel timings.
-        The preemption, cancellation, deadline and watchdog counters read
-        0 (those features are not ported) and deadline attainment 1.0, as
-        JAX gives with them off."""
+        syncs quantize them: serving-level numbers, not kernel timings.  A
+        preempted request observes one queue wait per admission.  The
+        cancellation, deadline and watchdog counters read 0 (those
+        features are not ported) and deadline attainment 1.0, as JAX gives
+        with them off."""
         m = self.metrics
         return {"requests": m.count("lat.ttft_s"),
                 "ttft_p50_s": m.percentile("lat.ttft_s", 50),
@@ -788,6 +1028,22 @@ class ContinuousBatcher:
         total = int(self.metrics.value("deadline.total"))
         met = int(self.metrics.value("deadline.met"))
         return met / total if total else 1.0
+
+    def preempt_stats(self) -> dict:
+        """Preemptions, the requests preempted, the prefill tokens spent
+        resuming them, chaos slot failures, the events (round, rid, slot,
+        reason), and ``recomputed_ok``: every request ever preempted has
+        retired with a result (True with no preemption)."""
+        ok = all(rid in self.results and rid not in self._resumed
+                 for rid in self.preempted_rids)
+        return {"enabled": self.cfg.admission_mode == "optimistic",
+                "preemptions": self.preemptions,
+                "preempted_requests": len(self.preempted_rids),
+                "recompute_tokens": self.preempted_token_recompute,
+                "slot_failures": (self.chaos.slot_failures
+                                  if self.chaos is not None else 0),
+                "recomputed_ok": ok,
+                "events": list(self.preempt_events)}
 
 
 Batcher = ContinuousBatcher

@@ -6,7 +6,9 @@ step's volume and flux, vector-sum) through their kernels against float64
 oracles or their plain versions, and the wave demo through the volume
 kernel against the plain path on the CPU; the grouped expert GEMM and
 the MoE model (reduced moonshot) served through it, the bfloat16 init
-built in place, and the ops that take strided views.  Every test here is
+built in place, the ops that take strided views, and optimistic
+admission's preemption on graphed segments (the victim's row latched in
+place, graphed against eager).  Every test here is
 marked ``cuda`` and skips without a GPU; on a GPU machine run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1374,3 +1376,61 @@ def test_spec_graph_refuses_a_rebound_history():
         drv(b.params, b.tok, b.caches, b.lengths, b.done, b.remaining,
             b.gen, b.history.clone(), pages)
 
+
+
+# ---------------------------------------------------------------------------
+# optimistic admission and preemption
+# ---------------------------------------------------------------------------
+
+PREEMPT = dict(admission_mode="optimistic", total_pages=8)
+
+
+def test_preemption_latches_the_device_row_in_place():
+    """Reduced qwen2-0.5b, float32, batch 4 on an 8-page pool: optimistic
+    admission preempts, and each victim's row of ``done`` and
+    ``remaining`` is latched in place (done, no budget), so the tensors
+    the decode graphs were captured with keep their addresses."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_params(cfg, 0, device="cuda")
+    seen = []
+
+    def hooks(b):
+        preempt = b._preempt_slot
+
+        def watched(slot, reason="pressure"):
+            before = (b.done.data_ptr(), b.remaining.data_ptr())
+            preempt(slot, reason)
+            seen.append((before, (b.done.data_ptr(), b.remaining.data_ptr()),
+                         bool(b.done[slot]), int(b.remaining[slot])))
+        b._preempt_slot = watched
+    _, b, _ = _served(cfg, params, graphs=None, paged=True,
+                      requests=_prompts(cfg.vocab, 6), max_new=20, batch=4,
+                      hooks=hooks, **PREEMPT)
+    assert b.graph_count >= 1 and seen
+    assert b.preempt_stats()["recomputed_ok"]
+    for before, after, done, remaining in seen:
+        assert before == after and done and remaining == 0
+
+
+def test_graphed_optimistic_run_matches_eager():
+    """The same preempting run graphed and eager: equal tokens, equal
+    preemptions (events included), and equal launches, exact: the
+    prefill kernel once a layer for each join (resume joins included),
+    the decode kernel once a layer for each decode step."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_params(cfg, 0, device="cuda")
+    requests = _prompts(cfg.vocab, 6)
+    want, eb, eager_counts = _served(cfg, params, graphs=False, paged=True,
+                                     requests=requests, max_new=20, batch=4,
+                                     **PREEMPT)
+    got, gb, counts = _served(cfg, params, graphs=None, paged=True,
+                              requests=requests, max_new=20, batch=4,
+                              **PREEMPT)
+    assert got == want and counts == eager_counts
+    assert gb.preempt_stats() == eb.preempt_stats()
+    assert gb.preemptions > 0 and gb.preempted_token_recompute > 0
+    assert gb.graph_count >= 1
+    assert counts["paged_prefill"] == cfg.n_layers * gb.joins
+    assert counts["paged_decode"] == cfg.n_layers * gb.segments * 4
+    gb.pool.check()
+    assert gb.pool.used_pages == 0
