@@ -99,7 +99,23 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    preempted request completed, one slot failure, a drained pool
    (``KVPool.check``) and exact launches (resume joins count as joins);
    bf16 streams against phase 4's 512-page run are counted, with the
-   float32 margin where they part;
+   float32 margin where they part.  Then overload protection and tracing
+   (``[overload]`` lines), graphed: the paged cell traced into a Perfetto
+   file (streams equal to the untraced run's, the file parses, one
+   RETIRE a SUBMIT, every request's attribution partition exact; warm
+   tok/s traced against untraced printed); the features cell's (b)
+   traffic with the degradation ladder forced (pressure 0.01, up 1 round,
+   down 50: a transition, no cancellation, every request complete,
+   launches exact split between plain and verify steps); optimistic
+   admission on 152 pages with the controller at its defaults, SLOs at
+   the paged cell's warm TTFT and TPOT p50 and a chaos burst of 16
+   low-priority requests at round 2 with that TTFT as their deadline
+   (every request in exactly one of results or cancelled, a drained pool;
+   transitions, time in state, sheds, RETRY_AFTER answers, cancels by
+   reason, deadline attainment, tok/s and capture seconds printed); and
+   the watchdog drill, a chaos stall of 12 rounds under an 8-round
+   watchdog (a trip, a ``WatchdogStall`` flight bundle written, the shed
+   request answered RETRY_AFTER, the rest complete, a drained pool);
 5. agreement: short float32 runs with the same weights: each layout with
    the CUDA kernels (graphed) on the card against the plain path on the
    CPU and against the eager loop on the card, and the dense layout
@@ -111,8 +127,12 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    tokens, batch 2, through the ``Batcher``: it preempts), plain, with a
    chaos slot failure and with the prefix cache, card against CPU (equal
    ``preempt_stats`` where the streams are equal), graphed against eager
-   and against reserve on an ample pool: equal greedy streams, or a
-   difference shown to sit at a logit near-tie;
+   and against reserve on an ample pool; then the forced ladder (with the
+   prefix cache and chunks of 16, and with speculation alone, which
+   verifies and then sheds speculation mid-run) and the watchdog drill,
+   each card against CPU, graphed against eager and traced against
+   untraced, with equal transitions, cancellations and rejections: equal
+   greedy streams, or a difference shown to sit at a logit near-tie;
 6. primitives at the paper's sizes, through the public ops: ss-gemm on
    ``ss_gemm.Problem()`` (M 16,384 x K 4,096, bfloat16) for N 2, 4, 8 and
    16, with ``make_skinny`` data and with a clustered B (45% of 256-row
@@ -161,6 +181,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1791,16 +1812,27 @@ def check_serve_launches(res: dict, counts: dict, cfg, label: str,
     the eager loop over the same segments.  With speculation (``spec``)
     every decode step is a verify, a prefill-kernel call at Lq = k+1, so
     the prefill kernel runs once a layer for each join and each step, and
-    the decode kernel never."""
-    steps = cfg.n_layers * res["sync_every"] * res["segments"]
+    the decode kernel never.  Where the degradation controller shed
+    speculation for part of a run, ``res["spec_segments"]`` of its
+    segments ran the verify loop and the rest the plain one: the prefill
+    kernel runs once a layer for each join and each verify step, the
+    decode kernel once a layer for each plain step."""
+    per_segment = cfg.n_layers * res["sync_every"]
+    steps = per_segment * res["segments"]
+    verify = per_segment * res.get("spec_segments",
+                                   res["segments"] if spec else 0)
     if spec:
+        check(verify == steps, f"serve {label}: a segment ran the plain "
+              "loop while speculating")
+    if verify:
         check(counts["paged_prefill"]
-              == cfg.n_layers * res["joins"] + steps,
+              == cfg.n_layers * res["joins"] + verify,
               f"serve {label}: prefill launches != layers x (joins + "
               "verify steps)")
-        check(counts["paged_decode"] == counts["decode_attn"] == 0,
-              f"serve {label}: a decode kernel was launched while "
-              "speculating")
+        check(counts["paged_decode"] == steps - verify
+              and counts["decode_attn"] == 0,
+              f"serve {label}: decode launches != layers x plain steps, "
+              "or the dense decode kernel was launched")
     elif paged:
         check(counts["paged_prefill"] == cfg.n_layers * res["joins"],
               f"serve {label}: prefill launches != layers x joins")
@@ -1928,8 +1960,9 @@ def serve_features(torch, params) -> dict:
     wave prefills only suffixes, in other shapes, so bfloat16 rounding
     may move a token) and features on against off; both are printed as
     counts of equal streams, and where (b) parts from off, how close the
-    two tokens were (``bf16_divergence``).  Returns (b)'s graphed
-    launches."""
+    two tokens were (``bf16_divergence``).  Returns the graphed first
+    waves' greedy streams of (a), (b), the prefix cache alone and all
+    off."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run
     cfg = get_config(ARCH)
@@ -1991,8 +2024,6 @@ def serve_features(torch, params) -> dict:
             check(not spec or sp["steps"] > 0,
                   f"serve {label} {mode}: no verify step")
         streams[name] = runs["graphs"][0]["results"]
-        if spec:
-            launched = runs["graphs"][1]
     for name, feats in (("prefix cache alone", dict(prefix_cache=True)),
                         ("off", {})):
         reset_counts()
@@ -2031,7 +2062,7 @@ def serve_features(torch, params) -> dict:
     bf16_divergence(torch, params, cfg, runs["graphs"][0]["prompts"],
                     streams["b"], off, "[features] bfloat16 streams with "
                     "and without speculation")
-    return launched
+    return streams
 
 
 def bf16_divergence(torch, params, cfg, prompts, got, want,
@@ -2209,6 +2240,228 @@ def serve_preempt(torch, params, reference: dict) -> dict:
     return launched
 
 
+def _overload_line(res: dict, wave: str) -> str:
+    """One wave's overload and SLO numbers, for a print."""
+    o, slo = ((res["overload"], res["slo"]) if wave == "first"
+              else (res["warm_overload"], res["warm_slo"]))
+    ctl = o["controller"]
+    by = {r: n for r, n in o["cancelled_by_reason"].items() if n}
+    tis = {k: round(v, 4) for k, v in ctl["time_in_state"].items()}
+    return (f"{wave} wave: transitions "
+            f"{[(r, a, b) for r, a, b, _, _ in ctl['transitions']]}, end "
+            f"{ctl['state']}, time in state {tis} s; {o['cancellations']} "
+            f"cancelled {by}, {o['shed_requests']} shed, "
+            f"{sum(r['status'] == 'RETRY_AFTER' for r in o['rejections'])} "
+            f"RETRY_AFTER answers; deadline attainment "
+            f"{o['deadline_attainment']:.4f} ({o['deadline_met']}/"
+            f"{o['deadline_total']}); SLO attainment "
+            f"{slo['slo_attainment']:.4f}, burn ttft "
+            f"{slo['burn_rate_ttft']:.2f} / tpot {slo['burn_rate_tpot']:.2f}; "
+            f"watchdog trips {o['watchdog_trips']}")
+
+
+def _drained(res: dict, label: str) -> None:
+    pool = res.pop("pool")
+    pool.check()
+    check(pool.used_pages == 0,
+          f"{label}: {pool.used_pages} pages still in use")
+
+
+def _complete(res: dict, cfg, requests: int, max_new: int,
+              label: str) -> None:
+    """Every request of both waves completed with ``max_new`` in-vocab
+    tokens."""
+    for key in ("results", "warm_results"):
+        check(sorted(res[key]) == list(range(requests)),
+              f"{label}: missing requests ({key})")
+        for rid, toks in res[key].items():
+            check(len(toks) == max_new
+                  and all(0 <= t < cfg.vocab for t in toks),
+                  f"{label}: request {rid} returned {len(toks)} tokens")
+
+
+def serve_overload(torch, params, reference: dict, features: dict) -> None:
+    """Overload protection and tracing on the paged path, full-width
+    qwen2-0.5b in bf16, pages of 16, graphed; each run a first and a warm
+    wave.  ``reference`` is phase 4's untraced paged run, ``features``
+    the features cell's graphed streams.
+
+    - traced: phase 4's traffic with ``telemetry`` and a Perfetto file.
+      Gated: both waves' streams equal to ``reference``'s; the file
+      parses and has ``traceEvents``; every SUBMIT rid has exactly one
+      RETIRE; every request's ``attribution.explain`` partition holds;
+      exact launches.  Printed: warm tok/s traced against untraced.
+    - the forced ladder: the features cell's traffic with (b)'s features
+      and ``overload_degrade_pressure=0.01``, up 1 round, down 50.  Gated:
+      a transition, no cancellation, every request complete, a drained
+      pool, exact launches split between the plain loop (decode kernel a
+      step) and the verify loop (prefill kernel a step).  Printed: the
+      streams equal to (b)'s and (a)'s.
+    - the burst: optimistic admission on ``PREEMPT_PAGES`` pages with the
+      controller on (its defaults), SLOs at ``reference``'s warm TTFT and
+      TPOT p50, and chaos ``burst_at={2: 16}`` whose requests carry a
+      deadline of that TTFT p50.  Gated: every request, the burst's
+      included, ends in exactly one of results or cancelled; a drained
+      pool; the chaos invariant checks each round; exact launches.
+      Printed: transitions and time in state, sheds and RETRY_AFTER
+      answers, cancels by reason, deadline attainment, warm tok/s and
+      capture seconds.
+    - the watchdog drill: phase 4's traffic with chaos ``stall_at={2:
+      12}``, ``watchdog_rounds=8`` and a flight path.  Gated: a trip; the
+      bundle written, its error a ``WatchdogStall``; the shed requests
+      answered RETRY_AFTER; the rest completed; a drained pool; exact
+      launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run
+    from repro_torch.serve.attribution import explain
+    from repro_torch.serve.chaos import ChaosInjector
+    cfg = get_config(ARCH)
+    requests, max_new = 16, 64
+    kw = dict(requests=requests, max_new=max_new, batch=8, max_len=1024,
+              paged=True, page_size=16, sync_every=8, seed=0,
+              prompt_len=(64, 513), dtype=torch.bfloat16)
+    t_all = time.perf_counter()
+    secs = {}
+
+    def one(label: str, **extra) -> tuple[dict, dict]:
+        t0 = time.perf_counter()
+        reset_counts()
+        res = run(ARCH, params=params, device="cuda", **{**kw, **extra})
+        counts = read_counts()
+        secs[label] = time.perf_counter() - t0
+        res["sync_every"] = kw["sync_every"]
+        _drained(res, f"overload {label}")
+        check_serve_launches(res, counts, cfg, f"overload {label}", True)
+        return res, counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = str(pathlib.Path(tmp) / "trace.json")
+        traced, counts = one("traced", trace_out=trace_path)
+        for key in ("results", "warm_results"):
+            check(traced[key] == reference[key], f"overload traced: "
+                  f"streams differ from the untraced run ({key})")
+        with open(trace_path) as f:
+            data = json.load(f)
+        evs = data.get("traceEvents")
+        check(isinstance(evs, list) and bool(evs),
+              "overload traced: no traceEvents in the Perfetto file")
+        submits, retires = {}, {}
+        for e in evs:
+            rid = (e.get("args") or {}).get("rid")
+            if e.get("ph") == "i" and e.get("name") in ("SUBMIT", "RETIRE"):
+                tally = submits if e["name"] == "SUBMIT" else retires
+                tally[rid] = tally.get(rid, 0) + 1
+        check(len(submits) == 2 * requests
+              and all(retires.get(rid) == 1 for rid in submits),
+              "overload traced: a submitted request does not retire once")
+        tracer = traced["tracer"]
+        for rid in tracer.rids():
+            a = explain(tracer, rid)
+            check(a is not None, f"overload traced: rid {rid} unexplained")
+            try:
+                a.check()
+            except AssertionError as err:
+                raise SmokeFailure(f"overload traced: {err}") from err
+        dom = traced["attribution"]["dominant_ttft_component"]
+        print(f"[overload] {ARCH} paged, traced, graphs: warm tok/s "
+              f"{traced['warm_tok_per_s']:.1f} traced against "
+              f"{reference['warm_tok_per_s']:.1f} untraced (phase 4), first "
+              f"wave {traced['tok_per_s']:.1f} / {reference['tok_per_s']:.1f}"
+              f"; {len(tracer.events)} events, {len(tracer.spans)} spans, "
+              f"{len(evs)} Perfetto records; streams equal to the untraced "
+              f"run's in both waves; attribution partitions exact for "
+              f"{len(tracer.rids())} requests, dominant TTFT component "
+              f"{dom} ({traced['attribution']['ttft'][dom]['share']:.3f}); "
+              f"launches {counts}; {SMI}")
+        del traced["tracer"], tracer
+
+        ladder, counts = one(
+            "forced ladder", shared_prefix=256, prompt_len=(64, 257),
+            **FEATURES["b"], overload=True, overload_degrade_pressure=0.01,
+            overload_up_rounds=1, overload_down_rounds=50)
+        _complete(ladder, cfg, requests, max_new, "overload forced ladder")
+        check(len(ladder["overload"]["controller"]["transitions"]) >= 1,
+              "overload forced ladder: no transition")
+        check(not ladder["cancelled"] and not ladder["warm_cancelled"],
+              "overload forced ladder: a request was cancelled")
+        print(f"[overload] {ARCH} features (b) + forced ladder, graphs: "
+              f"tok/s first wave {ladder['tok_per_s']:.1f}, warm "
+              f"{ladder['warm_tok_per_s']:.1f}; {ladder['segments']} "
+              f"segments over both waves, {ladder['spec_segments']} of "
+              f"them verify, {ladder['joins']} joins; "
+              f"{_overload_line(ladder, 'first')}; "
+              f"{_overload_line(ladder, 'warm')}; bfloat16 streams equal "
+              f"(not gated) to (b)'s "
+              f"{_equal_streams(ladder['results'], features['b'])}/"
+              f"{requests}, to (a)'s "
+              f"{_equal_streams(ladder['results'], features['a'])}/"
+              f"{requests}; launches {counts}; {SMI}")
+
+        lat = reference["latency"]
+        ttft, tpot = lat["ttft_p50_s"], lat["tpot_p50_s"]
+        chaos = ChaosInjector(burst_at={2: 16}, burst_deadline_s=ttft,
+                              check_invariants=True)
+        burst, counts = one("burst", optimistic=True,
+                            total_pages=PREEMPT_PAGES, chaos=chaos,
+                            overload=True, ttft_slo=ttft, tpot_slo=tpot)
+        n_burst = sum(n for _, kind, n in chaos.events if kind == "burst")
+        check(n_burst == 16, f"overload burst: {n_burst} burst requests")
+        rid0 = ChaosInjector.BURST_RID0
+        for wave, want, cancelled in (
+                ("first", set(range(requests))
+                 | set(range(rid0, rid0 + n_burst)), burst["cancelled"]),
+                ("warm", set(range(requests, 2 * requests)),
+                 burst["warm_cancelled"])):
+            done = {rid for rid in burst["all_results"] if rid in want}
+            check(done | set(cancelled) == want
+                  and not done & set(cancelled),
+                  f"overload burst: the {wave} wave's requests are not "
+                  "each in exactly one of results or cancelled")
+        print(f"[overload] {ARCH} optimistic {PREEMPT_PAGES} pages + "
+              f"controller + burst of {n_burst} (deadline {ttft * 1e3:.1f}"
+              f" ms, SLOs ttft {ttft * 1e3:.1f} / tpot {tpot * 1e3:.2f} ms)"
+              f", graphs: tok/s first wave {burst['tok_per_s']:.1f}, warm "
+              f"{burst['warm_tok_per_s']:.1f}, {burst['capture_s']:.3f}s "
+              f"capturing; completed {len(burst['results'])}/{requests} "
+              f"+ burst {sum(r >= rid0 for r in burst['all_results'])}/"
+              f"{n_burst} first wave, {len(burst['warm_results'])}/"
+              f"{requests} warm; {_overload_line(burst, 'first')}; "
+              f"{_overload_line(burst, 'warm')}; preemptions "
+              f"{burst['preempt']['preemptions']} / "
+              f"{burst['warm_preempt']['preemptions']}; launches {counts}; "
+              f"{SMI}")
+
+        bundle_path = pathlib.Path(tmp) / "flight.json"
+        drill, counts = one("watchdog drill",
+                            chaos=ChaosInjector(stall_at={2: 12},
+                                                check_invariants=True),
+                            watchdog_rounds=8, flight_path=str(bundle_path))
+        o = drill["overload"]
+        check(o["watchdog_trips"] >= 1, "overload drill: no watchdog trip")
+        check(bundle_path.exists(), "overload drill: no flight bundle")
+        bundle = json.loads(bundle_path.read_text())
+        check(bundle["error"].startswith("WatchdogStall"),
+              f"overload drill: bundle error {bundle['error'][:60]!r}")
+        shed = {r["rid"] for r in o["rejections"]
+                if r["status"] == "RETRY_AFTER"}
+        check(bool(shed) and shed == set(drill["cancelled"]),
+              "overload drill: the shed requests are not the RETRY_AFTER "
+              "answers")
+        check(set(drill["results"]) | shed == set(range(requests))
+              and sorted(drill["warm_results"]) == list(range(requests)),
+              "overload drill: a request neither completed nor was shed")
+        print(f"[overload] {ARCH} watchdog drill (stall 12 rounds from "
+              f"round 2, watchdog 8), graphs: {o['watchdog_trips']} trips, "
+              f"shed {sorted(shed)} with RETRY_AFTER, {len(drill['results'])}"
+              f"/{requests} completed; bundle {bundle['error'][:48]!r}..., "
+              f"{len(bundle['events'])} events, round {bundle['round']}, "
+              f"queue {bundle['queue']}; warm tok/s "
+              f"{drill['warm_tok_per_s']:.1f}; launches {counts}")
+    print(f"[overload] phase 4's overload runs took "
+          f"{time.perf_counter() - t_all:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()) + ")")
+
+
 def dense_join_rows(torch) -> None:
     """What a dense join's prefill costs at full-width qwen, bf16: the
     joining rows alone (J of them, which a dense-MLP model would allow)
@@ -2302,6 +2555,7 @@ def agreement(torch) -> None:
           f"{ties} at near-ties")
     feature_agreement(torch, params, cpu_params, kw)
     preempt_agreement(torch, params, cpu_params)
+    overload_agreement(torch, params, cpu_params, kw)
 
 
 def _serve_once(torch, cfg, params, prompts: dict, graphs=None, chaos=None,
@@ -2402,6 +2656,153 @@ def preempt_agreement(torch, params, cpu_params) -> None:
               f"tokens recomputed, {k['slot_failures']} slot failures, "
               f"prefill skipped {skipped}; launches {counts}")
     print(f"[agree] the optimistic agreement runs took "
+          f"{time.perf_counter() - t0:.1f}s")
+
+
+def ladder_agreement(torch, params, cpu_params, cfg, name: str,
+                     shared: dict, sync_every: int) -> None:
+    """One forced-ladder configuration of ``overload_agreement``: the card
+    graphed against the CPU, eagerly and traced."""
+    from repro_torch.launch.serve import run
+
+    def ladder_run(p, device, **extra) -> dict:
+        reset_counts()
+        res = run(ARCH, device=device, params=p, **shared, **extra)
+        res["counts"] = read_counts()
+        res["sync_every"] = sync_every
+        _drained(res, f"overload agreement ladder {name} {device}")
+        res.pop("tracer")
+        return res
+
+    runs = {"card": ladder_run(params, "cuda"),
+            "eager": ladder_run(params, "cuda", graphs=False),
+            "traced": ladder_run(params, "cuda", telemetry=True),
+            "CPU": ladder_run(cpu_params, "cpu")}
+    card = runs["card"]
+    check_serve_launches(card, card["counts"], cfg,
+                         f"overload agreement ladder {name}", True)
+    ctl = card["overload"]["controller"]
+    check(len(ctl["transitions"]) >= 1 and not card["cancelled"],
+          f"overload agreement ladder {name}: no transition, or a "
+          "cancellation")
+    check(shared.get("prefill_chunk") is not None
+          or 0 < card["spec_segments"] < card["segments"],
+          f"overload agreement ladder {name}: the verify and the plain "
+          "loop did not both run")
+    prompts = card["prompts"]
+    for other in ("CPU", "eager", "traced"):
+        want = runs[other]
+        for key in ("results", "warm_results"):
+            for rid, toks in want[key].items():
+                _near_tie(torch, cpu_params, cfg, prompts[rid],
+                          card[key][rid], toks,
+                          f"ladder {name} {other} {key} request {rid}")
+        for key in ("overload", "warm_overload"):
+            got, exp = card[key], want[key]
+            check(got["controller"]["transitions"]
+                  == exp["controller"]["transitions"]
+                  and got["rejections"] == exp["rejections"]
+                  and got["cancelled_by_reason"]
+                  == exp["cancelled_by_reason"],
+                  f"overload agreement ladder {name}: {key} differs, card "
+                  f"against {other}")
+        check(card["cancelled"] == want["cancelled"]
+              and card["warm_cancelled"] == want["warm_cancelled"]
+              and card["spec_segments"] == want["spec_segments"],
+              f"overload agreement ladder {name}: cancellations or verify "
+              f"segments differ, card against {other}")
+    print(f"[agree] float32 forced ladder ({name}, speculation k 3): card "
+          f"graphed = CPU = eager = traced in streams (near-ties allowed), "
+          f"transitions "
+          f"{[(r, a, b) for r, a, b, _, _ in ctl['transitions']]}, no "
+          f"cancellation; {card['segments']} segments, "
+          f"{card['spec_segments']} verify; {card['graph_count']} graphs; "
+          f"launches {card['counts']}")
+
+
+def overload_agreement(torch, params, cpu_params, kw) -> None:
+    """float32 at phase 5's size: the forced ladder
+    (``overload_degrade_pressure=0.01``, up 1 round, down 50, speculation
+    k 3) on phase 5's traffic behind a 32-token shared prefix, with the
+    prefix cache and chunks of 16 (nothing decodes before the ladder
+    sheds speculation) and with speculation alone (the first segment
+    verifies, then the ladder sheds speculation and the plain loop's
+    graph is captured mid-run), through ``launch.serve.run``; and the
+    watchdog drill (the optimistic agreement's 4 requests, reserve
+    admission, chaos ``stall_at={2: 12}``, ``watchdog_rounds=8``) through
+    the ``Batcher``.  Each on the card graphed, eagerly and traced, and
+    on the CPU.  Gated: the streams equal (or a first difference at a
+    shown near-tie), and the transitions, cancellations and rejections
+    equal, card against CPU, graphed against eager and traced against
+    untraced; a transition, no cancellation and exact launches in the
+    ladder, and both loops run in the speculation-alone ladder; a trip,
+    a shed answered RETRY_AFTER and a ``WatchdogStall`` bundle in the
+    drill; drained pools."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.serve.chaos import ChaosInjector
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    ladder = dict(kw, paged=True, shared_prefix=32, speculate_k=3,
+                  overload=True, overload_degrade_pressure=0.01,
+                  overload_up_rounds=1, overload_down_rounds=50)
+    for name, feats in (("features", dict(prefix_cache=True,
+                                          prefill_chunk=16)),
+                        ("speculation alone", {})):
+        ladder_agreement(torch, params, cpu_params, cfg, name,
+                         dict(ladder, **feats), kw["sync_every"])
+
+    rng = np.random.default_rng(1)
+    prompts = {rid: rng.integers(0, cfg.vocab,
+                                 size=int(rng.integers(16, 40))).tolist()
+               for rid in range(4)}
+
+    def drill(p, graphs=None, telemetry=False):
+        b, counts = _serve_once(
+            torch, cfg, p, prompts, graphs=graphs,
+            chaos=ChaosInjector(stall_at={2: 12}, check_invariants=True),
+            watchdog_rounds=8, telemetry=telemetry)
+        b.pool.check()
+        check(b.pool.used_pages == 0,
+              "overload agreement drill: pages still in use")
+        return b, counts
+
+    drills = {"card": drill(params), "eager": drill(params, graphs=False),
+              "traced": drill(params, telemetry=True),
+              "CPU": drill(cpu_params)}
+    b, counts = drills["card"]
+    o = b.overload_stats()
+    check(o["watchdog_trips"] >= 1 and o["rejections"]
+          and all(r["status"] == "RETRY_AFTER" for r in o["rejections"]),
+          "overload agreement drill: no trip, or no RETRY_AFTER shed")
+    check(b.last_flight_bundle is not None and b.last_flight_bundle[
+        "error"].startswith("WatchdogStall"),
+          "overload agreement drill: no WatchdogStall bundle")
+    check_serve_launches({"joins": b.joins, "segments": b.segments,
+                          "sync_every": 4}, counts, cfg,
+                         "overload agreement drill", True)
+    for other in ("CPU", "eager", "traced"):
+        ob = drills[other][0]
+        check(b.cancelled == ob.cancelled and b.rejections == ob.rejections
+              and b.overload_stats()["watchdog_trips"]
+              == ob.overload_stats()["watchdog_trips"]
+              and set(b.results) == set(ob.results),
+              f"overload agreement drill: card against {other}: "
+              "cancellations, rejections or trips differ")
+        for rid, toks in ob.results.items():
+            _near_tie(torch, cpu_params, cfg, prompts[rid],
+                      b.results[rid], toks, f"drill {other} request {rid}")
+        bundle, obundle = b.last_flight_bundle, ob.last_flight_bundle
+        check(all(bundle[k] == obundle[k]
+                  for k in ("slot_table", "queue", "pool", "round")),
+              f"overload agreement drill: the flight bundles differ, card "
+              f"against {other}")
+    print(f"[agree] float32 watchdog drill: card graphed = CPU = eager = "
+          f"traced in streams, cancellations {b.cancelled}, rejections "
+          f"{[(r['rid'], r['status'], r['round']) for r in b.rejections]}, "
+          f"{o['watchdog_trips']} trips and the bundle's slot table, queue "
+          f"and pool; launches {counts}")
+    print(f"[agree] the overload agreement runs took "
           f"{time.perf_counter() - t0:.1f}s")
 
 
@@ -2688,8 +3089,9 @@ def main() -> int:
     paged_ref, counts = serve_full_width(torch, params, paged=True)
     dense_counts = serve_full_width(torch, params, paged=False)[1]
     counts["decode_attn"] = dense_counts["decode_attn"]
-    serve_features(torch, params)
+    feature_streams = serve_features(torch, params)
     serve_preempt(torch, params, paged_ref)
+    serve_overload(torch, params, paged_ref, feature_streams)
     del paged_ref
     del params
     dense_join_rows(torch)

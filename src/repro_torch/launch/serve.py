@@ -28,6 +28,21 @@ chunk continuations, longest join and deferrals, acceptance and tokens a
 verify step, and preemptions and recomputed tokens.  With the prefix
 cache on, the warm wave of the same prompts finds every full prompt page
 cached, so it prefills far less than the first wave.
+
+Overload protection and tracing, as in ``repro.launch.serve``:
+``--ttft-slo`` / ``--tpot-slo`` set the SLO monitor's targets (each wave
+prints its attainment and burn rates), ``--overload`` arms the
+degradation controller, ``--deadline-s`` / ``--timeout-s`` stamp every
+request, ``--watchdog-rounds`` bounds the rounds without progress, and
+``--trace-out PATH`` records both waves' lifecycle trace, prints the
+dominant TTFT component of the latency attribution and writes the
+Perfetto JSON to PATH.  With any of them, each wave prints its
+cancellations by reason, sheds, deadline attainment, controller state
+and watchdog trips.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --reduced --device cpu --dtype float32 --paged --overload \\
+      --ttft-slo 0.5 --deadline-s 30 --trace-out /tmp/trace.json
 """
 from __future__ import annotations
 
@@ -42,6 +57,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..models.init import cast_for_serving
 from ..models.model_zoo import Model
+from ..serve.attribution import attribution_report
 from ..serve.engine import ServeConfig
 from ..serve.scheduler import Batcher
 
@@ -59,7 +75,12 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
         shared_prefix: int = 0, prefill_chunk: int | None = None,
         prefill_round_tokens: int | None = None,
         speculate_k: int | None = None, speculate_ngram: int = 2,
-        optimistic: bool = False, chaos=None) -> dict:
+        optimistic: bool = False, chaos=None, trace_out: str | None = None,
+        telemetry: bool = False, ttft_slo: float | None = None,
+        tpot_slo: float | None = None, overload: bool = False,
+        deadline_s: float | None = None, timeout_s: float | None = None,
+        watchdog_rounds: int = 100_000, flight_path: str | None = None,
+        **overload_kw) -> dict:
     """Serve ``requests`` random prompts (lengths drawn from
     ``prompt_len`` = [lo, hi), tokens from ``seed``) from dense stripes,
     or from the paged pool with ``paged``, and print requests, tokens and
@@ -69,6 +90,11 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
     ``speculate_k`` and ``speculate_ngram`` go to ``ServeConfig``, and
     ``optimistic`` sets its ``admission_mode``; ``chaos`` (a
     :class:`~repro_torch.serve.chaos.ChaosInjector`) goes to the batcher.
+    ``ttft_slo``, ``tpot_slo``, ``overload``, ``watchdog_rounds``,
+    ``flight_path`` and ``overload_kw`` (``overload_*`` fields) go to
+    ``ServeConfig``; ``telemetry`` (or ``trace_out``) traces both waves,
+    and ``trace_out`` names the Perfetto file to write; ``deadline_s``
+    and ``timeout_s`` go to every ``submit``.
     ``arch`` is a registry name or a config (one cut in depth, say).
     ``params`` (from the port's init or the bridge) replaces the
     seeded random weights when given; it is cast for serving in
@@ -79,8 +105,9 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
     Returns the first wave's ``results`` and ``tok_per_s`` (capture
     included), the warm wave's ``warm_results``, ``warm_tok_per_s``,
     ``latency`` (``latency_stats``) and ``join`` (``join_stats``, with
-    its chunk fields), and ``capture_s`` and ``graph_count``; ``joins``
-    and ``segments`` count both waves.  ``prefix``, ``spec``,
+    its chunk fields), and ``capture_s`` and ``graph_count``; ``joins``,
+    ``segments`` and ``spec_segments`` (those that ran the verify loop)
+    count both waves.  ``prefix``, ``spec``,
     ``first_join``, ``first_latency`` and ``first_segments`` are the
     first wave's ``prefix_stats``, ``spec_stats``, ``join_stats``,
     ``latency_stats`` and decode segments, ``warm_prefix``,
@@ -88,7 +115,15 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
     ``warm_preempt`` are each wave's ``preempt_stats`` without its
     events, ``kv_util`` and ``warm_kv_util`` each wave's
     ``kv_utilization``, and ``pool`` the batcher's page pool (None,
-    dense)."""
+    dense).  ``overload``/``warm_overload``, ``slo``/``warm_slo`` and
+    ``cancelled``/``warm_cancelled`` are each wave's ``overload_stats``,
+    ``slo_stats`` and cancelled requests (rid as submitted: the warm
+    wave's rids follow the first wave's); ``results`` and
+    ``warm_results`` hold the requests that completed, and
+    ``all_results`` every result the batcher holds (a chaos burst's
+    included).  ``tracer``
+    is the batcher's tracer (None untraced) and ``attribution`` its
+    ``attribution_report`` over both waves."""
     dev = resolve_device(device)
     cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     if reduced:
@@ -108,7 +143,11 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
                        speculate_k=speculate_k,
                        speculate_ngram=speculate_ngram,
                        admission_mode="optimistic" if optimistic
-                       else "reserve")
+                       else "reserve",
+                       telemetry=telemetry or bool(trace_out),
+                       ttft_slo_s=ttft_slo, tpot_slo_s=tpot_slo,
+                       overload=overload, watchdog_rounds=watchdog_rounds,
+                       flight_path=flight_path, **overload_kw)
     b = Batcher(model, params, scfg, eos_id=eos_id, seed=seed,
                 graphs=graphs, chaos=chaos)
     rng = np.random.default_rng(seed)
@@ -120,7 +159,8 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
 
     def wave(first_rid: int) -> tuple[dict, float]:
         for rid, p in prompts.items():
-            b.submit(first_rid + rid, p)
+            b.submit(first_rid + rid, p, deadline_s=deadline_s,
+                     timeout_s=timeout_s)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -128,7 +168,8 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
-        return {rid: b.results[first_rid + rid] for rid in prompts}, dt
+        return {rid: b.results[first_rid + rid] for rid in prompts
+                if first_rid + rid in b.results}, dt
 
     results, dt = wave(0)
     toks = sum(len(v) for v in results.values())
@@ -142,11 +183,14 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
              "first_join": b.join_stats(),
              "first_latency": b.latency_stats(),
              "first_segments": b.segments, "preempt": _preempt(b),
-             "kv_util": b.kv_utilization()}
+             "kv_util": b.kv_utilization(), "overload": b.overload_stats(),
+             "slo": b.slo_stats(), "cancelled": dict(b.cancelled)}
     print(f"[serve] {len(results)} requests, {toks} tokens in {dt:.3f}s "
           f"({toks / dt:.1f} tok/s on {where}, {cfg.name}, {layout}"
           f"{_features(b)}, {b.joins} joins, {b.segments} decode segments, "
           f"{mode})")
+    watched = (overload or deadline_s is not None or timeout_s is not None)
+    _overload_lines(b, "first wave", watched)
     b.reset_stats()
     warm_results, warm_dt = wave(requests)
     lat, join = b.latency_stats(), b.join_stats()
@@ -157,17 +201,62 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
           f"{lat['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
           f"{lat['tpot_p50_s'] * 1e3:.2f} ms; {join['joins']} joins, "
           f"mean {join['mean_join_s'] * 1e3:.1f} ms")
+    _overload_lines(b, "warm wave", watched)
+    attribution = None
+    if b.telemetry is not None:
+        attribution = attribution_report(b.telemetry)
+        if attribution["requests"]:
+            dom = attribution["dominant_ttft_component"]
+            print(f"[serve] dominant TTFT component: {dom} "
+                  f"({attribution['ttft'][dom]['share']:.0%} of total TTFT "
+                  f"across {attribution['requests']} requests of both "
+                  "waves)")
+        if trace_out:
+            b.telemetry.to_perfetto(trace_out)
+            print(f"[serve] wrote Perfetto trace -> {trace_out} "
+                  f"({len(b.telemetry.events)} events; open at "
+                  "ui.perfetto.dev)")
     return {"results": results, "prompts": prompts, "tokens": toks,
             "seconds": dt, "tok_per_s": toks / dt,
             "warm_results": warm_results,
             "warm_tok_per_s": warm_toks / warm_dt, "warm_seconds": warm_dt,
             "latency": lat,
             "join": join, "graphs": b.graphs, "joins": b.joins,
-            "segments": b.segments, "capture_s": b.capture_seconds,
+            "segments": b.segments, "spec_segments": b.spec_segments,
+            "capture_s": b.capture_seconds,
             "graph_count": b.graph_count, **first,
             "warm_prefix": b.prefix_stats(), "warm_spec": b.spec_stats(),
             "warm_preempt": _preempt(b), "warm_kv_util": b.kv_utilization(),
-            "pool": b.pool}
+            "warm_overload": b.overload_stats(), "warm_slo": b.slo_stats(),
+            "warm_cancelled": dict(b.cancelled),
+            "all_results": dict(b.results), "tracer": b.telemetry,
+            "attribution": attribution, "pool": b.pool}
+
+
+def _overload_lines(b: Batcher, wave: str, watched: bool) -> None:
+    """The wave's SLO line (with an SLO set) and overload line (with the
+    controller, deadlines or any cancellation), in
+    ``repro.launch.serve``'s words."""
+    slo = b.slo_stats()
+    if slo["enabled"]:
+        ttft, tpot = (f"<={v:.4g}s" if v is not None else " off"
+                      for v in (slo["ttft_slo_s"], slo["tpot_slo_s"]))
+        print(f"[serve] {wave}: SLO attainment {slo['slo_attainment']:.0%} "
+              f"(ttft{ttft}, tpot{tpot}; "
+              f"burn rate ttft {slo['burn_rate_ttft']:.2f} / tpot "
+              f"{slo['burn_rate_tpot']:.2f} over the last "
+              f"{slo['window']} samples)")
+    ost = b.overload_stats()
+    if watched or ost["cancellations"] or ost["watchdog_trips"]:
+        ctl = ost["controller"]
+        by = ", ".join(f"{r}={n}" for r, n
+                       in ost["cancelled_by_reason"].items() if n)
+        print(f"[serve] {wave}: overload: {ost['cancellations']} cancelled "
+              f"({by or 'none'}), {ost['shed_requests']} shed, deadline "
+              f"attainment {ost['deadline_attainment']:.0%} "
+              f"({ost['deadline_met']}/{ost['deadline_total']}), "
+              f"controller {ctl['state']} ({len(ctl['transitions'])} "
+              f"transitions), watchdog trips {ost['watchdog_trips']}")
 
 
 def _preempt(b: Batcher) -> dict:
@@ -258,6 +347,36 @@ def main() -> None:
                     help="optimistic admission (needs --paged): admit on "
                          "prompt pages only, grow on demand, preempt + "
                          "recompute under pool pressure")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record both waves' request-lifecycle trace and "
+                         "write it as Chrome/Perfetto trace_event JSON "
+                         "(open at ui.perfetto.dev); also prints the "
+                         "dominant TTFT component of the latency "
+                         "attribution")
+    ap.add_argument("--ttft-slo", type=float, default=None, metavar="S",
+                    help="TTFT SLO in seconds: each wave reports its "
+                         "per-class attainment and windowed burn rate")
+    ap.add_argument("--tpot-slo", type=float, default=None, metavar="S",
+                    help="per-output-token SLO in seconds (see "
+                         "--ttft-slo)")
+    ap.add_argument("--overload", action="store_true",
+                    help="the SLO-burn/pool-pressure degradation "
+                         "controller (HEALTHY -> DEGRADED -> SHEDDING "
+                         "with hysteresis): sheds speculation, shrinks "
+                         "prefill chunks, freezes optimistic growth, and "
+                         "sheds lowest-priority queued work under "
+                         "sustained overload")
+    ap.add_argument("--deadline-s", type=float, default=None, metavar="S",
+                    help="stamp every request with this completion "
+                         "deadline; expired or unreachable requests are "
+                         "cancelled and their pages reclaimed")
+    ap.add_argument("--timeout-s", type=float, default=None, metavar="S",
+                    help="hard per-request timeout (cancelled with reason "
+                         "'timeout' when exceeded)")
+    ap.add_argument("--watchdog-rounds", type=int, default=100_000,
+                    help="progress watchdog: rounds without progress "
+                         "before the scheduler dumps a flight bundle and "
+                         "force-sheds the blocking request")
     args = ap.parse_args()
     run(args.arch, reduced=args.reduced, requests=args.requests,
         max_new=args.max_new, batch=args.batch, max_len=args.max_len,
@@ -271,7 +390,10 @@ def main() -> None:
         prefill_chunk=args.prefill_chunk,
         prefill_round_tokens=args.prefill_round_tokens,
         speculate_k=args.speculate, speculate_ngram=args.speculate_ngram,
-        optimistic=args.optimistic)
+        optimistic=args.optimistic, trace_out=args.trace_out,
+        ttft_slo=args.ttft_slo, tpot_slo=args.tpot_slo,
+        overload=args.overload, deadline_s=args.deadline_s,
+        timeout_s=args.timeout_s, watchdog_rounds=args.watchdog_rounds)
 
 
 if __name__ == "__main__":

@@ -37,9 +37,10 @@ PAD_TOKEN = -1    # emitted-slot sentinel: "slot was already retired"
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The served subset of ``repro.serve.engine.ServeConfig``.  Features
-    the port does not serve yet (overload control, deadlines, tracing)
-    have no fields here.  ``paged`` picks the KV layout: dense per-slot
+    """``repro.serve.engine.ServeConfig`` without its attention-route
+    fields (``attn_mode``, ``attn_interpret``: the port has one route a
+    call shape, its CUDA kernel on the card and the plain version on the
+    CPU).  ``paged`` picks the KV layout: dense per-slot
     stripes of ``max_len`` rows (the default, as in JAX), or fixed-size
     pages in one pooled allocation with per-slot page tables.  The prefix
     cache, chunked prefill, speculation and optimistic admission need
@@ -105,6 +106,59 @@ class ServeConfig:
     # runs other kernels than a decode step)
     speculate_k: int | None = None
     speculate_ngram: int = 2
+    # telemetry (serve/telemetry.py): when True the batcher builds a
+    # Tracer recording per-request lifecycle events, per-round scheduler
+    # spans and pool-partition gauges (exportable as Perfetto trace_event
+    # JSON).  Off by default; every call site is at a host sync point or
+    # a scheduling-round boundary, never inside a decode segment, and the
+    # one sync it adds (closing the decode-segment span on the device's
+    # time) happens only with it on.
+    telemetry: bool = False
+    # SLO monitor (the batcher's slo_stats): per-request latency targets.
+    # None disables the check for that metric (attainment is vacuously
+    # 1.0); with a target set, every observed TTFT/TPOT is scored against
+    # it per priority class, and ``slo_target`` is the attainment
+    # objective the windowed burn rate is normalized by (burn rate 1.0 =
+    # violating exactly the error budget, > 1.0 = burning it faster than
+    # the target allows).
+    ttft_slo_s: float | None = None
+    tpot_slo_s: float | None = None
+    slo_target: float = 0.9
+    # flight recorder: an always-on bounded ring of lifecycle events
+    # (host dict appends at scheduling-round boundaries: no device sync,
+    # no pool gauge callback).  When a PageError escapes the run loop, or
+    # the watchdog trips, the batcher dumps the last ``flight_events``
+    # events, the pool snapshot, the slot table and the config as a debug
+    # bundle (``Batcher.last_flight_bundle``, written to ``flight_path``
+    # or $REPRO_FLIGHT_PATH when set).
+    flight_recorder: bool = True
+    flight_events: int = 256
+    flight_path: str | None = None
+    # overload protection (serve/overload.py): when True the batcher runs
+    # a DegradationController, a hysteresis ladder HEALTHY -> DEGRADED ->
+    # SHEDDING driven by the windowed SLO burn rate and the pool-pressure
+    # gauge.  DEGRADED sheds speculation and shrinks the prefill chunk;
+    # SHEDDING also freezes optimistic slot growth (admission reverts to
+    # worst-case reservation) and sheds lowest-priority queued work with
+    # a retryable RETRY_AFTER rejection.  Degradation changes when and
+    # whether work runs, never its tokens.  Deadline/timeout cancellation
+    # (submit(deadline_s=..., timeout_s=...)) is always on; the
+    # controller is the opt-in load-shedding half.
+    overload: bool = False
+    overload_degrade_burn: float = 1.0   # burn rate that enters DEGRADED
+    overload_shed_burn: float = 2.0      # burn rate that enters SHEDDING
+    overload_degrade_pressure: float = 0.9   # pool mapped+held fraction
+    overload_shed_pressure: float = 1.0      # ... with work still queued
+    overload_up_rounds: int = 2          # consecutive hot rounds to climb
+    overload_down_rounds: int = 4        # consecutive cool rounds to drop
+    # SHEDDING drains the queue down to this depth (None -> cfg.batch),
+    # lowest-priority / latest-submitted first, never a preempted resume
+    overload_queue_keep: int | None = None
+    overload_retry_after_s: float = 1.0  # RETRY_AFTER hint on shed
+    # progress watchdog: rounds without any join / commit / retirement /
+    # preemption / cancellation before the scheduler dumps the flight
+    # bundle and force-sheds the blocking head instead of looping
+    watchdog_rounds: int = 100_000
 
     def __post_init__(self):
         if self.max_len <= 0 or self.batch <= 0 or self.page_size <= 0:

@@ -92,27 +92,52 @@ sampled token is the next one the uninterrupted run would give, with a
 device budget of the tokens still owed.  An often-preempted request
 becomes an admission barrier (the skip-ahead aging), so every preempted
 request completes.  ``chaos=`` (:class:`~repro_torch.serve.chaos.
-ChaosInjector`, paged) forces pool exhaustion, victim choices and slot
-failures (a failure is a preemption) at given scheduling rounds
-(``round``).
+ChaosInjector`, paged) forces pool exhaustion, victim choices, slot
+failures (a failure is a preemption), dead rounds (``stall_at``) and
+queue bursts (``burst_at``) at given scheduling rounds (``round``).
+
+Overload protection (:mod:`.overload`), as in JAX.  Deadlines and
+cancellation are always on: ``submit(deadline_s=, timeout_s=)`` stamps a
+request, and a sweep each round cancels the requests whose stamp passed
+or whose remaining budget, at the observed TTFT/TPOT means, can no longer
+meet the deadline.  CANCELLED is terminal: a queued request just leaves
+the queue; a PREFILLING or DECODING one releases its pages and its device
+row is latched done in place, as a preemption's is, minus the re-queue.
+``cfg.overload`` arms the degradation controller (HEALTHY -> DEGRADED ->
+SHEDDING on the SLO burn rate and the pool pressure): DEGRADED sheds
+speculation (the plain loop's graph for the bucket then runs, and its
+commits keep the drafter's history warm) and halves the prefill chunk;
+SHEDDING also admits at the worst case again and sheds the
+lowest-priority queued work with a retryable RETRY_AFTER rejection.
+Degradation changes when and whether work runs, never the tokens of a
+request that completes.  A progress watchdog (``cfg.watchdog_rounds``
+rounds with no join, commit, retirement, preemption or cancellation while
+work exists) dumps the flight bundle and force-sheds the blocking head,
+so a stalled drain finishes instead of looping.
 
 Accounting, at the host sync points as in JAX: time to first token (run
 start to the join that sampled it), time per output token, queue wait and
 join seconds go into a :class:`~repro_torch.serve.telemetry.
 MetricsRegistry` (``latency_stats``, ``join_stats``), and so do the
-prefill, prefix, chunk, speculation and preemption counters
-(``prefix_stats``, ``spec_stats``, ``preempt_stats``); KV use is sampled
-once a segment (``kv_utilization``); ``reset_stats`` clears them between
-waves.
-
-Not yet ported (later slices): cancellation, deadlines, the watchdog and
-overload control (with chaos ``stall_at`` and ``burst_at``), tracing and
-attribution.  Their counters read 0 in the stats, as they do in JAX with
-them off.
+prefill, prefix, chunk, speculation, preemption, cancellation, deadline
+and SLO counters (``prefix_stats``, ``spec_stats``, ``preempt_stats``,
+``overload_stats``, ``slo_stats``); KV use is sampled once a segment
+(``kv_utilization``); ``reset_stats`` clears them between waves.  With
+``cfg.telemetry`` (or a ``telemetry=`` :class:`~repro_torch.serve.
+telemetry.Tracer`) every lifecycle event, the per-round spans and the
+pool's partitions are traced, for :mod:`.attribution` and a Perfetto
+file; only then does a segment synchronise the device before its span
+closes.  The flight recorder, on by default, keeps the last
+``cfg.flight_events`` events in a ring (host appends only: no sync, no
+gauge callback) and dumps them with the slot table and the pool when a
+``PageError`` escapes ``run`` or the watchdog trips.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
+import json
+import os
 import time
 
 import numpy as np
@@ -121,8 +146,11 @@ import torch
 from .engine import (PAD_TOKEN, GraphedLoop, ServeConfig, make_decode_loop,
                      make_join, make_paged_join)
 from .kvpool import KVPool, PageError
+from .overload import (CANCEL_REASONS, HEALTHY, RETRY_AFTER, STATES,
+                       DegradationController, Watchdog, WatchdogStall,
+                       project_finish_s)
 from .prefixcache import PrefixCache
-from .telemetry import MetricsRegistry
+from .telemetry import MetricsRegistry, Tracer
 from ..models.model_zoo import Model
 
 
@@ -141,11 +169,14 @@ class ContinuousBatcher:
     the eager loop on the card too (the A/B of the tests and the chip
     tools); True on the CPU raises.  ``chaos`` (paged) is a
     :class:`~repro_torch.serve.chaos.ChaosInjector` called at the top of
-    every scheduling round."""
+    every scheduling round.  ``telemetry`` is a
+    :class:`~repro_torch.serve.telemetry.Tracer` to record into (None:
+    one of its own when ``cfg.telemetry``, else no tracing)."""
 
     def __init__(self, model: Model, params, cfg: ServeConfig,
                  eos_id: int | None = None, seed: int = 0,
-                 graphs: bool | None = None, chaos=None):
+                 graphs: bool | None = None, chaos=None,
+                 telemetry: Tracer | None = None):
         self.model, self.params, self.cfg = model, params, cfg
         self.eos = eos_id
         self.device = dev = params["embed"]["table"].device
@@ -201,6 +232,8 @@ class ContinuousBatcher:
         if cfg.prefix_cache and not cfg.paged:
             raise ValueError("prefix_cache requires paged=True "
                              "(shared pages live in the block pool)")
+        if cfg.watchdog_rounds < 1:
+            raise ValueError("watchdog_rounds must be >= 1")
         if graphs:
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(dev)
@@ -217,6 +250,24 @@ class ContinuousBatcher:
                                             device=dev)
             self._join = make_join(model, cfg, eos_id=eos_id)
         self.prefix = PrefixCache(self.pool) if cfg.prefix_cache else None
+        # every per-wave stat lives in the registry; the tracer is
+        # optional (None keeps each event call site a skipped ``if``)
+        self.metrics = MetricsRegistry()
+        self.telemetry = (telemetry if telemetry is not None
+                          else Tracer() if cfg.telemetry else None)
+        # flight recorder: an always-on bounded ring of the same lifecycle
+        # events (host dict appends only: no spans, no pool gauge
+        # callback, no device sync), dumped by ``_dump_flight``
+        self.flight = (Tracer(ring=cfg.flight_events)
+                       if cfg.flight_recorder else None)
+        self.last_flight_bundle: dict | None = None
+        # priority classes that have scored an SLO sample (the met/total
+        # counters live in the registry)
+        self._slo_classes: set[int] = set()
+        if self.telemetry is not None and self.pool is not None:
+            # every allocator mutation lands one counter sample in the
+            # trace (and the current-state gauges)
+            self.pool.gauge_cb = self._on_pool_gauge
         # decode loops by (steps, kv_cap, spec) (dense) or (steps, P_cap,
         # spec) (paged): the eager loop, or its graph
         self._loops: dict[tuple[int, int | None, bool], object] = {}
@@ -247,14 +298,14 @@ class ContinuousBatcher:
         self.admit_order: list[int] = []
         # skip-ahead aging: times each queued rid has been bypassed
         self._skips: dict[int, int] = {}
-        # joins and decode segments over the batcher's life (reset_stats
-        # keeps them: the chip tools' launch checks read them)
+        # joins and decode segments over the batcher's life, and the
+        # segments that ran the verify loop (reset_stats keeps them: the
+        # chip tools' launch checks read them)
         self.joins = 0
         self.segments = 0
-        # every per-wave stat lives in the registry; KV use is sampled
-        # once a segment as (live tokens, allocated token capacity, live
-        # slots)
-        self.metrics = MetricsRegistry()
+        self.spec_segments = 0
+        # KV use, sampled once a segment as (live tokens, allocated token
+        # capacity, live slots)
         self.kv_samples: list[tuple[int, int, int]] = []
         self._clock0: float | None = None
         self._first_tok_t: dict[int, float] = {}
@@ -273,6 +324,28 @@ class ContinuousBatcher:
         self._preempt_counts: dict[int, int] = {}
         self.preempted_rids: set[int] = set()
         self.preempt_events: list[tuple[int, int, int, str]] = []
+        # overload protection: per-request absolute deadline and timeout
+        # stamps, terminal cancellations (rid -> reason), the RETRY_AFTER
+        # rejections shed queued work was answered with, the opt-in
+        # degradation controller and the always-on progress watchdog
+        self._deadline_t: dict[int, float] = {}
+        self._timeout_t: dict[int, float] = {}
+        self.cancelled: dict[int, str] = {}
+        self.rejections: list[dict] = []
+        self.overload = (DegradationController(
+            degrade_burn=cfg.overload_degrade_burn,
+            shed_burn=cfg.overload_shed_burn,
+            degrade_pressure=cfg.overload_degrade_pressure,
+            shed_pressure=cfg.overload_shed_pressure,
+            up_rounds=cfg.overload_up_rounds,
+            down_rounds=cfg.overload_down_rounds)
+            if cfg.overload else None)
+        self.watchdog = Watchdog(cfg.watchdog_rounds)
+        # chaos ``stall_at``: rounds below this bound skip the whole round
+        # body; ``_max_new`` is the running drain's budget (the chaos
+        # burst sizes its prompts by it)
+        self._stall_until = 0
+        self._max_new = 0
         # scheduling rounds of ``run`` (the chaos injector keys on it)
         self.round = 0
 
@@ -309,27 +382,115 @@ class ContinuousBatcher:
     def preempted_token_recompute(self) -> int:
         return int(self.metrics.value("preempt.recompute_tokens"))
 
-    def submit(self, rid: int, prompt: list[int], priority: int = 0) -> None:
+    # ------------------------------------------------------------------
+    # telemetry plumbing: every call site is at a host sync point or a
+    # round boundary, and costs an attribute test with tracing off
+    # ------------------------------------------------------------------
+    def _on_pool_gauge(self, **counts) -> None:
+        tr = self.telemetry
+        if tr is not None:
+            tr.pool_gauge(counts)
+        for k, v in counts.items():
+            self.metrics.set_gauge(f"pool.{k}_pages", v)
+
+    def _trace(self, kind: str, rid: int | None,
+               slot: int | None = None, **attrs) -> None:
+        """One lifecycle event into the tracer and the flight recorder,
+        stamped with the round, the slot's pages and the pool's free
+        pages (``pages_held`` and ``pool_free`` in ``attrs`` replace
+        them)."""
+        tr, fl = self.telemetry, self.flight
+        if tr is None and fl is None:
+            return
+        pages = (len(self.pool.slot_pages(slot))
+                 if self.pool is not None and slot is not None else 0)
+        free = self.pool.free_pages if self.pool is not None else 0
+        pages_held = attrs.pop("pages_held", pages)
+        pool_free = attrs.pop("pool_free", free)
+        for t in (tr, fl):
+            if t is not None:
+                t.event(kind, rid, round=self.round, slot=slot,
+                        pages_held=pages_held, pool_free=pool_free, **attrs)
+
+    def _slo_observe(self, metric: str, rid: int, v: float) -> None:
+        """Score one observed latency against its configured SLO, per
+        priority class; nothing when that metric's SLO is unset."""
+        slo = (self.cfg.ttft_slo_s if metric == "ttft"
+               else self.cfg.tpot_slo_s)
+        if slo is None:
+            return
+        cls = self.req_priority.get(rid, 0)
+        self._slo_classes.add(cls)
+        self.metrics.inc(f"slo.{metric}_total.c{cls}")
+        if v <= slo:
+            self.metrics.inc(f"slo.{metric}_met.c{cls}")
+
+    def submit(self, rid: int, prompt: list[int], priority: int = 0,
+               deadline_s: float | None = None,
+               timeout_s: float | None = None) -> None:
         """Queue a request.  ``priority`` is its class for the preemption
-        victim policy: higher values are evicted later."""
+        victim policy: higher values are evicted later.
+
+        ``deadline_s`` is the client's completion deadline, seconds from
+        now: the per-round sweep cancels the request (reason
+        ``"deadline"``) once it passes or once the remaining-budget
+        TTFT/TPOT projection says it can no longer be met.  ``timeout_s``
+        is a hard lifetime cap (reason ``"timeout"``), on expiry alone.
+        Deadline attainment scores the deadline-carrying requests that
+        completed or expired; shed and client cancels are not scored."""
         if not prompt:
             raise ValueError("empty prompt")
+        now = time.perf_counter()
+        if deadline_s is not None:
+            if deadline_s < 0:
+                raise ValueError("deadline_s must be >= 0")
+            self._deadline_t[rid] = now + deadline_s
+        if timeout_s is not None:
+            if timeout_s < 0:
+                raise ValueError("timeout_s must be >= 0")
+            self._timeout_t[rid] = now + timeout_s
         self.queue.append((rid, list(prompt)))
         self.req_priority[rid] = priority
-        self._submit_t[rid] = time.perf_counter()
+        self._submit_t[rid] = now
+        self._trace("SUBMIT", rid, prompt_tokens=len(prompt),
+                    priority=priority, deadline_s=deadline_s,
+                    timeout_s=timeout_s)
+
+    def _spec_live(self) -> int:
+        """The speculation window in force this round: ``spec_k`` unless
+        the degradation controller has shed speculation (DEGRADED and
+        up).  The plain loop's tokens are the verify loop's, so shedding
+        changes steps, not tokens (up to rounding on the card)."""
+        if self.overload is not None and self.overload.shed_speculation:
+            return 0
+        return self.spec_k
+
+    def _effective_chunk(self) -> int | None:
+        """The prefill chunk in force this round: halved (page-aligned, at
+        least a page) while the controller is DEGRADED and up, so joins
+        stall the live slots for less.  An unchunked config stays
+        unchunked."""
+        chunk = self.cfg.prefill_chunk
+        if (chunk is not None and self.overload is not None
+                and self.overload.shrink_chunk):
+            ps = self.cfg.page_size
+            return max(ps, (chunk // 2) // ps * ps)
+        return chunk
 
     def _loop(self, steps: int, cap: int | None = None):
         """The decode loop of ``(steps, cap, spec)``: ``cap`` is
         ``kv_cap`` on the dense path and the page table slice's width on
         the paged one, and ``spec`` whether it is the speculative loop
-        (the key JAX's batcher uses).  With graphs, the bucket's
-        :class:`GraphedLoop`."""
-        key = (steps, cap, bool(self.spec_k))
+        (the key JAX's batcher uses: the controller may shed speculation
+        mid-run, and the two loops take different tensors).  With graphs,
+        the bucket's :class:`GraphedLoop`."""
+        spec = self._spec_live()
+        key = (steps, cap, bool(spec))
         if key not in self._loops:
             loop = make_decode_loop(
                 self.model, self.cfg, steps=steps, eos_id=self.eos,
                 kv_cap=None if self.cfg.paged else cap,
-                paged=self.cfg.paged, speculate_k=self.spec_k)
+                paged=self.cfg.paged, speculate_k=spec)
             if self.graphs:
                 loop = GraphedLoop(loop, stream=self._capture_stream,
                                    pool=self._graph_pool,
@@ -400,8 +561,13 @@ class ContinuousBatcher:
             rid, p = self.queue.popleft()
             self.admit_order.append(rid)
             self._note_admitted(rid)
+            self._trace("ADMIT", rid, slot=slot, prompt_tokens=len(p))
             return rid, p, 0
-        optimistic = self.cfg.admission_mode == "optimistic"
+        # SHEDDING freezes optimistic growth at the source: new admissions
+        # take their worst case again (live optimistic slots still grow)
+        optimistic = (self.cfg.admission_mode == "optimistic"
+                      and not (self.overload is not None
+                               and self.overload.freeze_growth))
         window = 1
         if self.cfg.admission == "skip-ahead":
             window = min(len(self.queue), self.cfg.admission_lookahead)
@@ -435,12 +601,19 @@ class ContinuousBatcher:
             else:
                 self.pool.reserve(slot, admit_tokens)
             if self.prefix is not None:
-                chunk = self.cfg.prefill_chunk
+                chunk = self._effective_chunk()
                 covered = (len(p) if chunk is None
                            else min(len(p), mtoks + chunk))
                 self._register_covered(slot, p, covered)
                 self.metrics.inc("prefix.admits")
                 self.metrics.inc("prefix.hits", int(bool(mtoks)))
+            self._trace("ADMIT", rid, slot=slot, prompt_tokens=len(p),
+                        matched_tokens=mtoks)
+            if rid in self._resumed:
+                # a resume re-enters through ordinary admission; RESUME
+                # pairs with its PREEMPT
+                self._trace("RESUME", rid, slot=slot,
+                            prior_tokens=len(self.outputs.get(rid, ())))
             return rid, p, mtoks
         return None
 
@@ -474,18 +647,24 @@ class ContinuousBatcher:
 
     def _retire(self, slot: int, rid: int, out: list[int],
                 now: float) -> None:
-        """Retire ``rid`` from ``slot`` at host time ``now``, observing its
-        time per output token (requests of more than one token)."""
+        """Retire ``rid`` from ``slot`` at host time ``now``: score its
+        deadline, trace RETIRE (with the pages it still holds), release
+        the slot and observe its time per output token (requests of more
+        than one token)."""
         self.results[rid] = out
         self.slot_rid[slot] = None
         self._resumed.discard(rid)
         self._preempt_counts.pop(rid, None)
-        self._release_slot(slot)
+        self._note_deadline_done(rid, now)
+        tpot = 0.0
         if (self._clock0 is not None and len(out) > 1
                 and rid in self._first_tok_t):
             tpot = (now - self._first_tok_t[rid]) / (len(out) - 1)
-            if tpot > 0.0:
-                self.metrics.observe("lat.tpot_s", tpot)
+        self._trace("RETIRE", rid, slot=slot, tokens=len(out), tpot_s=tpot)
+        self._release_slot(slot)
+        if tpot > 0.0:
+            self.metrics.observe("lat.tpot_s", tpot)
+            self._slo_observe("tpot", rid, tpot)
 
     # ------------------------------------------------------------------
     # page-level preemption (optimistic admission, chaos slot failure),
@@ -521,6 +700,7 @@ class ContinuousBatcher:
             # generated-token pages are full pages of real KV too: the
             # resume matches its own history and recomputes only the tail
             self._register_covered(slot, known, resident)
+        pages_released = len(self.pool.slot_pages(slot))
         self._release_slot(slot, preempt=True)
         self.slot_rid[slot] = None
         self.slot_len[slot] = 0
@@ -536,6 +716,8 @@ class ContinuousBatcher:
         self._resumed.add(rid)
         self.preempted_rids.add(rid)
         self.metrics.inc("preempt.count")
+        self._trace("PREEMPT", rid, slot=slot, reason=reason,
+                    pages_held=pages_released, resident_tokens=resident)
         self._submit_t[rid] = time.perf_counter()   # re-open queue wait
         n = self._preempt_counts[rid] = self._preempt_counts.get(rid, 0) + 1
         if n >= max(1, self.cfg.admission_max_skips):
@@ -576,7 +758,7 @@ class ContinuousBatcher:
         victim stops there (its demand left with it)."""
         if self.pool is None or self.cfg.admission_mode != "optimistic":
             return
-        adv = steps * (self.spec_k + 1)
+        adv = steps * (self._spec_live() + 1)
         order = sorted(
             (i for i, r in enumerate(self.slot_rid)
              if r is not None and not self.slot_pending[i]),
@@ -603,6 +785,226 @@ class ContinuousBatcher:
             if self.slot_rid[slot] is not None:
                 self.pool.extend(slot, need)
 
+    # ------------------------------------------------------------------
+    # cancellation, the terminal CANCELLED state (queued, PREFILLING or
+    # DECODING), from repro.serve.scheduler
+    # ------------------------------------------------------------------
+    def cancel(self, rid: int, reason: str = "client") -> bool:
+        """Cancel a queued or in-flight request.  A live slot's pages go
+        back through ``_release_slot`` (registered prefix pages park
+        evictable-cached: their KV is real) and its device row is latched
+        done in place, as a preemption's is, minus the re-queue.  False
+        when ``rid`` is neither queued nor live."""
+        if reason not in CANCEL_REASONS:
+            raise ValueError(f"unknown cancel reason {reason!r} "
+                             f"(expected one of {CANCEL_REASONS})")
+        for qi, (qrid, _) in enumerate(self.queue):
+            if qrid == rid:
+                del self.queue[qi]
+                self._finish_cancel(rid, None, reason)
+                return True
+        for slot, srid in enumerate(self.slot_rid):
+            if srid == rid:
+                self._cancel_slot(slot, reason)
+                return True
+        return False
+
+    def _cancel_slot(self, slot: int, reason: str) -> None:
+        rid = self.slot_rid[slot]
+        if rid is None:
+            raise RuntimeError(f"cancel of empty slot {slot}")
+        pages = (len(self.pool.slot_pages(slot))
+                 if self.pool is not None else 0)
+        if self.prefix is not None and not self.slot_pending[slot]:
+            # as a preemption does: full pages of committed KV are real,
+            # so the cache keeps what the cancelled request paid for
+            out = self.outputs.get(rid, [])
+            resume = (list(self.slot_prompt[slot])
+                      + out[self.slot_prior[slot]:])
+            self._register_covered(slot, resume[:-1] if out else resume,
+                                   self.slot_len[slot])
+        self._release_slot(slot)
+        self.slot_rid[slot] = None
+        self.slot_len[slot] = 0
+        self.slot_budget[slot] = 0
+        # freeze the abandoned device row in place, as ``_preempt_slot``
+        # does: a decode graph reads the tensors it was captured with, and
+        # the row's sentinel table row keeps its residual reads on the
+        # zero page and its writes in the sink
+        self.done[slot] = True
+        self.remaining[slot] = 0
+        self._finish_cancel(rid, slot, reason, pages_released=pages)
+
+    def _finish_cancel(self, rid: int, slot: int | None, reason: str,
+                       pages_released: int = 0) -> None:
+        """What a queued and a mid-flight cancel share: the reason ledger,
+        the counters, deadline scoring (an expiry is a scored miss; shed
+        and client cancels are not scored), the RETRY_AFTER rejection of
+        a shed, and the CANCEL event."""
+        self.cancelled[rid] = reason
+        self._resumed.discard(rid)
+        self._preempt_counts.pop(rid, None)
+        self._skips.pop(rid, None)
+        self._submit_t.pop(rid, None)
+        dl = self._deadline_t.pop(rid, None)
+        self._timeout_t.pop(rid, None)
+        self.metrics.inc("cancel.count")
+        self.metrics.inc(f"cancel.{reason}")
+        if dl is not None and reason in ("deadline", "timeout"):
+            self.metrics.inc("deadline.total")
+        attrs: dict = {}
+        if reason == "shed":
+            ra = self.cfg.overload_retry_after_s
+            self.rejections.append({"rid": rid, "status": RETRY_AFTER,
+                                    "retry_after_s": ra,
+                                    "round": self.round})
+            attrs["retry_after_s"] = ra
+        self._trace("CANCEL", rid, slot=slot, reason=reason,
+                    emitted_tokens=len(self.outputs.get(rid, ())),
+                    pages_held=pages_released, **attrs)
+
+    def _note_deadline_done(self, rid: int, now: float) -> None:
+        """Score a retiring deadline-carrying request: met iff it
+        completed at or before its deadline."""
+        dl = self._deadline_t.pop(rid, None)
+        self._timeout_t.pop(rid, None)
+        if dl is None:
+            return
+        self.metrics.inc("deadline.total")
+        if now <= dl:
+            self.metrics.inc("deadline.met")
+
+    def _expired(self, rid: int, now: float) -> str | None:
+        t = self._timeout_t.get(rid)
+        if t is not None and now > t:
+            return "timeout"
+        d = self._deadline_t.get(rid)
+        if d is not None and now > d:
+            return "deadline"
+        return None
+
+    def _cancel_sweep(self, max_new: int) -> None:
+        """Per-round deadline and timeout enforcement: cancel the queued
+        and live requests whose stamp passed, and the deadline-carrying
+        ones whose remaining budget, at the observed means
+        (``project_finish_s``, optimistic), cannot meet the deadline.
+        Runs with or without the controller: deadlines belong to the
+        request, not to a load policy."""
+        if not self._deadline_t and not self._timeout_t:
+            return
+        now = time.perf_counter()
+        for rid, _ in list(self.queue):
+            reason = self._expired(rid, now)
+            if reason is None and rid in self._deadline_t:
+                prior = (len(self.outputs.get(rid, ()))
+                         if rid in self._resumed else 0)
+                proj = project_finish_s(self.metrics,
+                                        max_new - prior, queued=True)
+                if (proj is not None
+                        and now + proj > self._deadline_t[rid]):
+                    reason = "deadline"
+            if reason is not None:
+                self.cancel(rid, reason)
+        for slot, rid in enumerate(self.slot_rid):
+            if rid is None:
+                continue
+            reason = self._expired(rid, now)
+            if (reason is None and rid in self._deadline_t
+                    and not self.slot_pending[slot]):
+                remaining = max(0, self.slot_budget[slot]
+                                - len(self.outputs.get(rid, ())))
+                proj = project_finish_s(self.metrics, remaining,
+                                        queued=False)
+                if (proj is not None
+                        and now + proj > self._deadline_t[rid]):
+                    reason = "deadline"
+            if reason is not None:
+                self._cancel_slot(slot, reason)
+
+    # ------------------------------------------------------------------
+    # the degradation controller and the progress watchdog
+    # ------------------------------------------------------------------
+    def _overload_round(self) -> None:
+        """Feed the controller this round's burn rate and pool pressure,
+        trace a transition (DEGRADE), and apply SHEDDING's queue shed; the
+        other rungs act where the scheduler reads the speculation window,
+        the chunk and the admission sizing."""
+        ctl = self.overload
+        slo = self.slo_stats()
+        burn = max(slo["burn_rate_ttft"], slo["burn_rate_tpot"])
+        pressure = self.pool.pressure() if self.pool is not None else 0.0
+        prev = ctl.state
+        state = ctl.observe(burn=burn, pressure=pressure,
+                            queue_depth=len(self.queue), round=self.round)
+        if state != prev:
+            self.metrics.inc("overload.transitions")
+            self._trace("DEGRADE", None, state=state, prev=prev,
+                        burn=round(burn, 4), pressure=round(pressure, 4))
+        if ctl.shedding:
+            self._shed_queued()
+
+    def _shed_queued(self) -> None:
+        """SHEDDING's last rung: drain the queue down to
+        ``overload_queue_keep`` (None: the slot count), lowest priority
+        class first and the latest submitted first within a class, never
+        a preempted resume (its work is paid for).  Each shed is answered
+        with a RETRY_AFTER rejection."""
+        keep = self.cfg.overload_queue_keep
+        keep = self.cfg.batch if keep is None else keep
+        while len(self.queue) > keep:
+            cands = [(qi, rid) for qi, (rid, _) in enumerate(self.queue)
+                     if rid not in self._resumed]
+            if not cands:
+                break
+            qi, rid = min(cands, key=lambda c: (
+                self.req_priority.get(c[1], 0), -c[0]))
+            del self.queue[qi]
+            self._finish_cancel(rid, None, "shed")
+
+    def _progress_fingerprint(self) -> tuple:
+        """Counters that move with any join, committed token, retirement,
+        preemption or cancellation: the watchdog compares them round over
+        round."""
+        return (self.metrics.count("join.seconds"),
+                int(self.metrics.value("preempt.count")),
+                int(self.metrics.value("cancel.count")),
+                len(self.results),
+                sum(len(o) for o in self.outputs.values()))
+
+    def _watchdog_tick(self) -> None:
+        """The per-round progress check.  On a trip: dump the flight
+        bundle, trace a WATCHDOG instant and force-shed the blocking head,
+        so the run finishes minus the shed request instead of looping."""
+        if not self.watchdog.tick(self._progress_fingerprint()):
+            return
+        live = sum(1 for r in self.slot_rid if r is not None)
+        err = WatchdogStall(
+            f"no scheduler progress for {self.cfg.watchdog_rounds} "
+            f"rounds at round {self.round}: queue={len(self.queue)} "
+            f"live_slots={live} (livelock/stall — shedding the "
+            "blocking head instead of raising)")
+        self._dump_flight(err)
+        self.metrics.inc("watchdog.trips")
+        self._trace("WATCHDOG", None,
+                    stalled_rounds=self.cfg.watchdog_rounds,
+                    queued=len(self.queue), live_slots=live)
+        self._force_shed()
+
+    def _force_shed(self) -> None:
+        """Shed what blocks the stalled drain: the queue head when work is
+        queued (the request admission cannot place), else the
+        lowest-priority live slot (a mid-flight cancel).  Barrier and
+        priority protections do not apply."""
+        if self.queue:
+            rid, _ = self.queue.popleft()
+            self._finish_cancel(rid, None, "shed")
+            return
+        live = [i for i, r in enumerate(self.slot_rid) if r is not None]
+        if live:
+            slot = min(live, key=lambda i: (
+                self.req_priority.get(self.slot_rid[i], 0), i))
+            self._cancel_slot(slot, "shed")
+
     def _write_history(self, writes: list[tuple[int, int, list[int]]]
                        ) -> None:
         """Write ``tokens`` at ``history[slot, start:]`` for each (slot,
@@ -623,8 +1025,10 @@ class ContinuousBatcher:
         first, then new admissions into free slots (the first chunk of
         each), within ``prefill_round_tokens``; one join prefills every
         piece at its slot's resident depth, and the slots whose prompt it
-        completes sample their first token."""
-        chunk = self.cfg.prefill_chunk
+        completes sample their first token.  The chunk is the one in force
+        (``_effective_chunk``); the drafter's history is written whenever
+        speculation is configured, shed or not."""
+        chunk = self._effective_chunk()
         round_cap = self.cfg.prefill_round_tokens
         round_used = 0
         # (slot, rid, piece tokens, depth before the piece, commits?)
@@ -680,8 +1084,11 @@ class ContinuousBatcher:
         width = _pow2_bucket(max(len(piece) for _, _, piece, _, _ in take),
                              lo=8, hi=self.cfg.max_len)
         budgets = []
-        for _, rid, piece, _, _ in take:
+        for slot, rid, piece, depth, commit in take:
             self.metrics.inc("prefill.computed_tokens", len(piece))
+            self._trace("PREFILL_CHUNK", rid, slot=slot, tokens=len(piece),
+                        depth=depth, commit=commit,
+                        recompute=rid in self._resumed)
             budget = max_new
             if rid in self._resumed:
                 # the direct cost of recompute-on-resume
@@ -757,6 +1164,9 @@ class ContinuousBatcher:
             if self._clock0 is not None and rid not in self._first_tok_t:
                 self._first_tok_t[rid] = now
                 self.metrics.observe("lat.ttft_s", now - self._clock0)
+                self._slo_observe("ttft", rid, now - self._clock0)
+                self._trace("FIRST_TOKEN", rid, slot=slot, token=tokv,
+                            ttft_s=now - self._clock0)
             if self.history is not None:
                 # the current token, on which the first verify's tail
                 # n-gram ends
@@ -769,7 +1179,10 @@ class ContinuousBatcher:
                 self.slot_budget[slot] = max_new
         if self.history is not None:
             self._write_history(history)
-        self.metrics.observe("join.seconds", time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self.metrics.observe("join.seconds", t1 - t0)
+        if self.telemetry is not None:
+            self.telemetry.add_span("join", self.round, t0, t1)
 
     def _collect(self, emitted: np.ndarray) -> None:
         """Drain one segment's emitted block into per-request outputs,
@@ -777,11 +1190,16 @@ class ContinuousBatcher:
         B]; the speculative one [steps, B, k+1], each step a burst of 1 to
         k+1 committed tokens ended by PAD (a PAD ends the step's burst,
         not the slot), whose lengths feed ``spec_stats``.  PREFILLING
-        slots emit only PAD and are skipped."""
+        slots emit only PAD and are skipped.  A plain segment of a
+        speculating batcher (the controller shed speculation) writes its
+        committed tokens into the drafter's history here, where the
+        verify loop writes its own, so a re-enabled drafter reads them."""
         if emitted.ndim == 2:
             emitted = emitted[:, :, None]
         steps, _, width = emitted.shape
         now = time.perf_counter()
+        mirror = self.history is not None and width == 1
+        history: list[tuple[int, int, list[int]]] = []
         for i, rid in enumerate(self.slot_rid):
             if rid is None or self.slot_pending[i]:
                 continue
@@ -797,17 +1215,24 @@ class ContinuousBatcher:
                     burst += 1
                     appended += 1
                     self.slot_len[i] += 1
+                    if mirror and self.slot_len[i] < self.cfg.max_len:
+                        # the verify loop's position: the token at the
+                        # length after it
+                        history.append((i, self.slot_len[i], [v]))
                     if ((self.eos is not None and v == self.eos)
                             or len(out) >= self.slot_budget[i]):
                         self._retire(i, rid, out, now)
                         break
-                if self.spec_k and burst:
+                if self.spec_k and width > 1 and burst:
                     # one verify step: burst - 1 accepted drafts and the
                     # model's bonus token
                     self.metrics.inc("spec.steps")
                     self.metrics.inc("spec.proposed", self.spec_k)
                     self.metrics.inc("spec.accepted", burst - 1)
                     self.metrics.inc("spec.emitted", burst)
+                    self._trace("SPEC_COMMIT", rid, slot=i, step=t,
+                                committed=burst, accepted_drafts=burst - 1,
+                                proposed=self.spec_k)
                 if self.slot_rid[i] is None or burst == 0:
                     # retired, or the device's done latch fired: every
                     # later step of the segment is PAD
@@ -816,6 +1241,7 @@ class ContinuousBatcher:
                 raise RuntimeError(
                     f"slot {i} (request {rid}) stalled: device reports done "
                     "but host bookkeeping thinks it is live")
+        self._write_history(history)
 
     def _decode_segment(self, steps: int) -> torch.Tensor:
         """Run one decode segment of ``steps`` steps over the live slots,
@@ -833,8 +1259,8 @@ class ContinuousBatcher:
                     device=self.device)
             pages.copy_(torch.from_numpy(
                 np.ascontiguousarray(self.pool.table[:, :cap])))
-            extra = (pages,) if self.history is None else (self.history,
-                                                           pages)
+            extra = ((self.history, pages) if self._spec_live()
+                     else (pages,))
         else:
             cap = self._kv_cap(steps)
             extra = ()
@@ -842,14 +1268,18 @@ class ContinuousBatcher:
             self.params, self.tok, self.caches, self.lengths, self.done,
             self.remaining, self.gen, *extra)
         self.segments += 1
+        self.spec_segments += len(extra) == 2
         return emitted
 
     def run(self, max_new: int = 16) -> dict[int, list[int]]:
-        """Drain the queue: each scheduling round (``round``; the chaos
-        injector acts at its top) refills slots, grows the optimistic
-        slots' tables, runs one decode segment and reads the emitted tokens
-        back.  No segment runs while every live slot is PREFILLING: the
-        next round takes their next chunks."""
+        """Drain the queue.  Each scheduling round (``round``), in JAX's
+        order: the chaos injector, the degradation controller, the
+        deadline sweep and the watchdog act at its top (a chaos stall
+        ends the round there); then the round refills slots, grows the
+        optimistic slots' tables, runs one decode segment and reads the
+        emitted tokens back.  No segment runs while every live slot is
+        PREFILLING: the next round takes their next chunks.  A
+        ``PageError`` dumps the flight bundle before it propagates."""
         if max_new <= 0:
             while self.queue:
                 rid, _ = self.queue.popleft()
@@ -879,24 +1309,102 @@ class ContinuousBatcher:
                     f"request {rid}: needs {need} pages, pool holds "
                     f"{self.pool.n_pages} (max {self.pool.max_pages}/slot)")
         steps = max(1, self.cfg.sync_every)
-        while self.queue or any(r is not None for r in self.slot_rid):
-            self.round += 1
-            if self.chaos is not None:
-                self.chaos.on_round(self)
-            self._refill(max_new)
-            if not any(r is not None and not self.slot_pending[i]
-                       for i, r in enumerate(self.slot_rid)):
-                continue
-            # optimistic: cover the segment's advance, preempting on
-            # pressure; that may evict every decoding slot (a chaos hold),
-            # and then the next round re-admits from the queue
-            self._ensure_decode_pages(steps)
-            if not any(r is not None and not self.slot_pending[i]
-                       for i, r in enumerate(self.slot_rid)):
-                continue
-            self._sample_kv()
-            self._collect(self._decode_segment(steps).cpu().numpy())
+        self._max_new = max_new
+        try:
+            while self.queue or any(r is not None for r in self.slot_rid):
+                self._round(max_new, steps)
+        except PageError as err:
+            # the postmortem before the error propagates: the ring's last
+            # events, the allocator and the slot table
+            self._dump_flight(err)
+            raise
         return self.results
+
+    def _round(self, max_new: int, steps: int) -> None:
+        """One scheduling round of ``run``."""
+        tr = self.telemetry
+        self.round += 1
+        if self.chaos is not None:
+            if tr is not None:
+                with tr.span("chaos", self.round):
+                    self.chaos.on_round(self)
+            else:
+                self.chaos.on_round(self)
+        if self.overload is not None:
+            self._overload_round()
+        self._cancel_sweep(max_new)
+        # any stall (an admission that can never place, a chaos stall)
+        # trips the watchdog after ``watchdog_rounds`` rounds without
+        # progress: it dumps the flight bundle and sheds the blocking head
+        self._watchdog_tick()
+        if self.round < self._stall_until:
+            return                               # a chaos stall: dead round
+        self._refill(max_new)
+        if not any(r is not None and not self.slot_pending[i]
+                   for i, r in enumerate(self.slot_rid)):
+            return
+        # optimistic: cover the segment's advance, preempting on pressure;
+        # that may evict every decoding slot (a chaos hold), and then the
+        # next round re-admits from the queue
+        self._ensure_decode_pages(steps)
+        if not any(r is not None and not self.slot_pending[i]
+                   for i, r in enumerate(self.slot_rid)):
+            return
+        self._sample_kv()
+        seg_t0 = time.perf_counter() if tr is not None else 0.0
+        emitted = self._decode_segment(steps)
+        if tr is None:
+            self._collect(emitted.cpu().numpy())
+            return
+        # traced only: wait for the device, so the span measures the
+        # segment's device time and not its launch (the untraced path's
+        # one sync stays the ``.cpu()`` read)
+        if emitted.is_cuda:
+            torch.cuda.synchronize(emitted.device)
+        tr.add_span("decode-segment", self.round, seg_t0, time.perf_counter())
+        with tr.span("collect", self.round):
+            self._collect(emitted.cpu().numpy())
+
+    # ------------------------------------------------------------------
+    # flight recorder
+    # ------------------------------------------------------------------
+    def _dump_flight(self, err: BaseException) -> dict | None:
+        """Assemble (and, when ``cfg.flight_path`` or $REPRO_FLIGHT_PATH
+        names a file, write as JSON) the flight recorder's bundle: the
+        ring's last events, the pool's snapshot, the host slot table, the
+        queue, the config and the metrics at the moment of ``err``.  Kept
+        as ``last_flight_bundle``."""
+        if self.flight is None:
+            return None
+        cfg = {k: (v if isinstance(v, (bool, int, float, str, type(None)))
+                   else str(v))
+               for k, v in dataclasses.asdict(self.cfg).items()}
+        bundle = {
+            "schema": 1,
+            "error": f"{type(err).__name__}: {err}",
+            "round": self.round,
+            "config": cfg,
+            "events": self.flight.tail(),
+            "slot_table": {
+                "slot_rid": list(self.slot_rid),
+                "slot_len": list(self.slot_len),
+                "slot_filled": list(self.slot_filled),
+                "slot_budget": list(self.slot_budget),
+                "slot_prior": list(self.slot_prior),
+                "slot_max_tokens": list(self.slot_max_tokens),
+                "pending_tokens": [len(p) for p in self.slot_pending]},
+            "pool": self.pool.snapshot() if self.pool is not None else None,
+            "queue": [[rid, len(p)] for rid, p in self.queue],
+            "preempt_events": list(self.preempt_events),
+            "metrics": self.metrics.snapshot(),
+        }
+        self.last_flight_bundle = bundle
+        path = self.cfg.flight_path or os.environ.get("REPRO_FLIGHT_PATH")
+        if path:
+            with open(path, "w") as f:
+                json.dump(bundle, f, indent=1)
+                f.write("\n")
+        return bundle
 
     # ------------------------------------------------------------------
     # accounting, from repro.serve.scheduler (the same keys)
@@ -944,18 +1452,31 @@ class ContinuousBatcher:
         """Zero the per-wave measurement state, so that a wave re-submitted
         into a warm batcher (its graphs captured) is measured alone: the
         registry's counters (prefill, prefix, chunk and speculation ones
-        among them) and histograms, the run clock, the first-token stamps
-        the KV samples and the preemption events.  Operational state stays:
+        among them) and histograms, the run clock, the first-token stamps,
+        the KV samples, the preemption events, the cancellations and
+        rejections, and the controller's time in state and transitions.
+        Operational state stays:
         the slot table, the queued requests' submit stamps and skips, the
         in-flight ``_resumed`` and ``_preempt_counts``, the admission
         order, the prefix cache's contents, the captured graphs, the round
-        counter, and ``joins`` and ``segments``."""
+        counter, ``joins`` and ``segments``, the deadline stamps and the
+        degradation controller's rung."""
         self._clock0 = None
         self._first_tok_t.clear()
         self.metrics.reset()
+        # the pool-partition gauges describe the live pool: clear them and
+        # seed them again from it
+        self.metrics.clear_gauges("pool.")
+        if self.pool is not None and self.pool.gauge_cb is not None:
+            self.pool._notify()
+        self._slo_classes.clear()
         self.kv_samples = []
         self.preempt_events.clear()
         self.preempted_rids.clear()
+        self.cancelled.clear()
+        self.rejections.clear()
+        if self.overload is not None:
+            self.overload.reset()
 
     def prefix_stats(self) -> dict:
         """Prefix-cache effectiveness: prefill tokens computed and skipped
@@ -1002,9 +1523,9 @@ class ContinuousBatcher:
         than one token) and queue wait (submit to admission).  Segment
         syncs quantize them: serving-level numbers, not kernel timings.  A
         preempted request observes one queue wait per admission.  The
-        cancellation, deadline and watchdog counters read 0 (those
-        features are not ported) and deadline attainment 1.0, as JAX gives
-        with them off."""
+        preemption, cancellation, shed, deadline and watchdog counters ride
+        along, so one dict says what the latencies paid for; deadline
+        attainment is 1.0 with no deadline scored."""
         m = self.metrics
         return {"requests": m.count("lat.ttft_s"),
                 "ttft_p50_s": m.percentile("lat.ttft_s", 50),
@@ -1024,17 +1545,91 @@ class ContinuousBatcher:
                 "watchdog_trips": int(m.value("watchdog.trips"))}
 
     def _deadline_attainment(self) -> float:
-        """Met over scored deadline-carrying requests; 1.0 with none."""
+        """Met over the scored deadline-carrying requests (retired: met
+        iff on time; cancelled for deadline or timeout: missed); 1.0 with
+        none."""
         total = int(self.metrics.value("deadline.total"))
         met = int(self.metrics.value("deadline.met"))
         return met / total if total else 1.0
+
+    def overload_stats(self) -> dict:
+        """Cancellations by reason, sheds, deadline attainment, watchdog
+        trips, the RETRY_AFTER rejections and the controller's state
+        machine (state, time in state, transitions, recovery).  With the
+        controller off it reads HEALTHY with no time in state."""
+        m = self.metrics
+        if self.overload is not None:
+            ctl = self.overload.stats()
+        else:
+            ctl = {"state": HEALTHY, "recovered_to_healthy": False,
+                   "transitions": [],
+                   "time_in_state": {s: 0.0 for s in STATES}}
+        return {"enabled": self.overload is not None,
+                "cancellations": int(m.value("cancel.count")),
+                "cancelled_by_reason": {
+                    r: int(m.value(f"cancel.{r}")) for r in CANCEL_REASONS},
+                "shed_requests": int(m.value("cancel.shed")),
+                "deadline_met": int(m.value("deadline.met")),
+                "deadline_total": int(m.value("deadline.total")),
+                "deadline_attainment": self._deadline_attainment(),
+                "watchdog_trips": int(m.value("watchdog.trips")),
+                "rejections": list(self.rejections),
+                "controller": ctl}
+
+    def slo_stats(self, window: int = 64) -> dict:
+        """SLO attainment and burn rate against ``cfg.ttft_slo_s`` and
+        ``cfg.tpot_slo_s``: ``slo_attainment``, met over total across both
+        metrics and every priority class (1.0 with no SLO or no sample);
+        ``classes``, met/total/attainment per priority class; and
+        ``burn_rate_*``, the violating share of the last ``window``
+        samples over the error budget ``1 - slo_target`` (1.0 burns
+        exactly the budget)."""
+        cfg, m = self.cfg, self.metrics
+        enabled = (cfg.ttft_slo_s is not None
+                   or cfg.tpot_slo_s is not None)
+        classes: dict[int, dict] = {}
+        met_all = total_all = 0
+        for cls in sorted(self._slo_classes):
+            row: dict = {}
+            for metric in ("ttft", "tpot"):
+                tot = int(m.value(f"slo.{metric}_total.c{cls}"))
+                met = int(m.value(f"slo.{metric}_met.c{cls}"))
+                row[f"{metric}_met"] = met
+                row[f"{metric}_total"] = tot
+                row[f"{metric}_attainment"] = met / tot if tot else 1.0
+                met_all += met
+                total_all += tot
+            classes[cls] = row
+        budget = max(1e-9, 1.0 - cfg.slo_target)
+        burn = {}
+        for metric, slo in (("ttft", cfg.ttft_slo_s),
+                            ("tpot", cfg.tpot_slo_s)):
+            if slo is None:
+                burn[metric] = 0.0
+                continue
+            recent = m.samples(f"lat.{metric}_s")[-window:]
+            viol = (sum(1 for v in recent if v > slo) / len(recent)
+                    if recent else 0.0)
+            burn[metric] = viol / budget
+        return {"enabled": enabled,
+                "ttft_slo_s": cfg.ttft_slo_s,
+                "tpot_slo_s": cfg.tpot_slo_s,
+                "slo_target": cfg.slo_target,
+                "slo_attainment": (met_all / total_all
+                                   if total_all else 1.0),
+                "classes": classes,
+                "window": window,
+                "burn_rate_ttft": burn["ttft"],
+                "burn_rate_tpot": burn["tpot"]}
 
     def preempt_stats(self) -> dict:
         """Preemptions, the requests preempted, the prefill tokens spent
         resuming them, chaos slot failures, the events (round, rid, slot,
         reason), and ``recomputed_ok``: every request ever preempted has
-        retired with a result (True with no preemption)."""
-        ok = all(rid in self.results and rid not in self._resumed
+        retired with a result or was cancelled (True with no
+        preemption)."""
+        ok = all((rid in self.results or rid in self.cancelled)
+                 and rid not in self._resumed
                  for rid in self.preempted_rids)
         return {"enabled": self.cfg.admission_mode == "optimistic",
                 "preemptions": self.preemptions,

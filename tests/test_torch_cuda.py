@@ -8,7 +8,8 @@ kernel against the plain path on the CPU; the grouped expert GEMM and
 the MoE model (reduced moonshot) served through it, the bfloat16 init
 built in place, the ops that take strided views, and optimistic
 admission's preemption on graphed segments (the victim's row latched in
-place, graphed against eager).  Every test here is
+place, graphed against eager), and a mid-flight cancel on graphed
+segments (the cancelled row latched in place).  Every test here is
 marked ``cuda`` and skips without a GPU; on a GPU machine run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1434,3 +1435,48 @@ def test_graphed_optimistic_run_matches_eager():
     assert counts["paged_decode"] == cfg.n_layers * gb.segments * 4
     gb.pool.check()
     assert gb.pool.used_pages == 0
+
+
+def test_cancel_latches_the_device_row_in_place():
+    """Reduced qwen2-0.5b, float32, paged, graphed, batch 4: one request
+    is cancelled mid-flight after its bucket's graph was captured.  Its
+    row of ``done`` and ``remaining`` is latched in place (done, no
+    budget), a graph replays after the cancel on the tensors it was
+    captured with (a rebound one raises), every other request gives the
+    tokens of the run without the cancel, and the pool drains."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = init_params(cfg, 0, device="cuda")
+    requests = _prompts(cfg.vocab, 4, seed=2)
+    kw = dict(graphs=None, paged=True, requests=requests, max_new=16,
+              batch=4, sync_every=2)
+    want, _, _ = _served(cfg, params, **kw)
+    seen, replays = [], []
+
+    def hooks(b):
+        collect, loop = b._collect, b._loop
+
+        def logged(steps, cap):
+            drv = loop(steps, cap)
+            replays.append((drv.graph is not None, bool(seen)))
+            return drv
+
+        def cancelling(emitted):
+            collect(emitted)
+            if b.segments == 2 and not seen:
+                slot = next(i for i, r in enumerate(b.slot_rid)
+                            if r is not None)
+                rid = b.slot_rid[slot]
+                before = (b.done.data_ptr(), b.remaining.data_ptr())
+                assert b.cancel(rid)
+                seen.append((rid, before,
+                             (b.done.data_ptr(), b.remaining.data_ptr()),
+                             bool(b.done[slot]), int(b.remaining[slot])))
+        b._collect, b._loop = cancelling, logged
+    got, b, _ = _served(cfg, params, hooks=hooks, **kw)
+    ((rid, before, after, done, remaining),) = seen
+    assert before == after and done and remaining == 0
+    assert b.cancelled == {rid: "client"} and rid not in got
+    assert any(graph and cancelled for graph, cancelled in replays)
+    assert got == {k: v for k, v in want.items() if k != rid}
+    b.pool.check()
+    assert b.pool.used_pages == 0

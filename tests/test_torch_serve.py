@@ -252,8 +252,14 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = res.stdout.split()
-    assert int(names[0]) >= 62
-    assert {"repro_torch.kernels.decode_attn.kernel",
+    assert int(names[0]) >= 64
+    assert {"repro_torch.serve.overload",
+            "repro_torch.serve.attribution",
+            "repro_torch.serve.telemetry",
+            "repro_torch.serve.chaos",
+            "repro_torch.serve.scheduler",
+            "repro_torch.serve.engine",
+            "repro_torch.kernels.decode_attn.kernel",
             "repro_torch.kernels.decode_attn.ops",
             "repro_torch.kernels.decode_attn.ref",
             "repro_torch.serve.reference",
