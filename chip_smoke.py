@@ -17,12 +17,15 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    row's 189 FFMAs with constant-bank weights and no LDC, LDL or STL;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in bfloat16 and float32.  Paged, at the full-width qwen2-0.5b geometry
-   (Hq 14, Hkv 2, D 64, page 16): decode at the serve batch of 8 (so at
-   its split count) over lengths 0, 1, page edges, the whole table and
-   one key before, at and past every rank boundary of the split-KV walk,
-   permuted tables, sentinel tails, the pool rows past each length NaN; a
-   prefill at mixed depths and a verify at Lq = 5; the same at the
-   full-width moonshot geometry (Hq 16, Hkv 16: G = 1, D = 128).  Dense
+   (Hq 14, Hkv 2, D 64, page 16): decode at the serve batch of 8 through
+   the op (so at the launch the committed tuned entry gives) and at every
+   split count (1, 2, 4, 8) and rows a CTA (1, 2, 4) a tuned entry can
+   give, over lengths 0, 1, page edges, the whole table and one key
+   before, at and past every rank boundary of the split-KV walk, permuted
+   tables, sentinel tails, the pool rows past each length NaN; a prefill
+   at mixed depths, a verify at Lq = 5 and a join, through the op and at
+   16, 32 and 64 rows a CTA; the same at the full-width moonshot geometry
+   (Hq 16, Hkv 16: G = 1, D = 128).  Dense
    stripes, at G = 7, D = 64, G = 4, D = 16 and G = 1, D = 128: ragged
    lengths (0, 1, a length above the rows read, rank boundaries +-1), the
    whole stripe and a stripe read under ``s_cap`` whose rows past it hold
@@ -115,11 +118,24 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    reason, deadline attainment, tok/s and capture seconds printed); and
    the watchdog drill, a chaos stall of 12 rounds under an 8-round
    watchdog (a trip, a ``WatchdogStall`` flight bundle written, the shed
-   request answered RETRY_AFTER, the rest complete, a drained pool);
+   request answered RETRY_AFTER, the rest complete, a drained pool).
+   Then the ``[autotune]`` phase: a bounded sweep (budget 8, 3 replays)
+   of the paged decode, prefill and verify at full-width qwen2-0.5b's and
+   moonshot's geometry in bf16 at the serve cells' shapes
+   (``repro_torch.launch.autotune.sweep``, nothing saved): every
+   candidate's device ms, parity error against the default launch and
+   bit-exactness; gated: the winner no slower than the default, every
+   measured candidate within the parity gate, and the committed entries
+   of ``tuned_shapes.json`` loaded by the policy for all six keys; then an
+   eager paged qwen wave (8 requests) with the attention telemetry on:
+   each op's calls equal to its kernel's launches, none captured,
+   achieved GB/s under 1.05 x 3,350, the amenability verdicts printed;
 5. agreement: short float32 runs with the same weights: each layout with
    the CUDA kernels (graphed) on the card against the plain path on the
    CPU and against the eager loop on the card, and the dense layout
-   against the paged one on the card; then paged behind a 32-token shared
+   against the paged one on the card; paged with ``attn_mode="plain"``
+   (gather, then plain attention, on the card) against ``"kernel"``:
+   equal streams, joins and segments; then paged behind a 32-token shared
    prefix with the prefix cache, chunks of 16 and speculation (k 3), card
    against CPU (with equal prefix, spec and chunk statistics where the
    streams are equal) and features on against off on the card; then
@@ -164,7 +180,9 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*``, the
-prefill row the verify's as ``verify_*``, the
+prefill row the verify's as ``verify_*``, the paged rows this run's sweep
+as ``autotune`` (per geometry and op: winner, its and the default's
+device ms, candidates measured and dropped), the
 attention, volume and vector-sum rows their device-only ``graph_ms``,
 the library call's ``library_graph_ms`` beside it,
 volume's row its bfloat16 times
@@ -280,8 +298,14 @@ def sdpa_inputs(torch, k, v, table, q_pos, kv_len):
 def kernel_checks(torch, geo=(HQ, HKV, D)) -> dict:
     """Correctness at several shapes and both dtypes, at the attention
     geometry ``geo`` = (Hq, Hkv, D); returns, per kernel, the largest
-    error at the main path's shape in bfloat16."""
+    error at the main path's shape in bfloat16.  The decode kernel is
+    checked through the op at the serve batch (the launch the committed
+    tuned entry gives) and at every split count and rows a CTA a tuned
+    entry can give; the prefill kernel at every rows a CTA."""
+    import itertools
+
     import numpy as np
+    from repro_torch.kernels.decode_attn.ops import DecodeAttnPolicy
     from repro_torch.kernels.paged_attn import kernel, ops, ref, split
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -289,48 +313,76 @@ def kernel_checks(torch, geo=(HQ, HKV, D)) -> dict:
     hq, hkv, d = geo
     at = f"Hq={hq} Hkv={hkv} D={d}"
     worst = {"paged_decode": 0.0, "paged_prefill": 0.0}
-    # decode at the serve batch of 8, so at the serve run's split count:
-    # lengths 0, 1, page edges, deep, the whole table, and one key before,
-    # at and past every rank boundary, in batches of 8
+    # decode at the serve batch of 8, so at the serve run's launch (the
+    # committed tuned entry's knobs, as serving resolves them), then at
+    # every (split count, rows a CTA): lengths 0, 1, page edges, deep, the
+    # whole table, and one key before, at and past every rank boundary,
+    # in batches of 8
     bound = 64 * PS
-    splits = split.split_count(8, hkv, hq // hkv, bound,
-                               sm_count(torch.device("cuda", 0)))
-    lengths = sorted({0, 1, 15, 16, 17, 100, 333, 512, 576, bound}
-                     | set(split.boundary_lengths(splits, bound)))
+    tuned = DecodeAttnPolicy().tuned_config(
+        "decode", hq=hq, hkv=hkv, d=d, page_size=PS) or {}
+    cps = tuned.get("ctas_per_sm", split.CTAS_PER_SM)
+    rows = tuned.get("cta_rows", split.CTA_ROWS)
+    serve_splits = split.split_count(8, hkv, hq // hkv, bound,
+                                     sm_count(torch.device("cuda", 0)),
+                                     cps, rows)
+    knobs = [(None, None)] + list(itertools.product(
+        (1, 2, 4, split.MAX_SPLITS), split.CTA_ROWS_CHOICES))
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         tol = TOL[name]
-        errs, finite, zero = [], True, True
-        for i in range(0, len(lengths), 8):
-            batch = (lengths[i:i + 8] + lengths)[:8]
-            k, v, tbl = paged_inputs(torch, rng, b=8, depths=batch,
-                                     n_pages=512, p_max=64, dtype=dtype,
-                                     hkv=hkv, d=d)
-            kp, vp = poisoned(torch, k[0], v[0], tbl, batch, 512)
-            q = torch.randn(8, hq, d, generator=gen, device=dev).to(dtype)
-            ln = torch.tensor(batch, dtype=torch.int32, device=dev)
-            got = ops.paged_attn(q, kp, vp, tbl, ln)
-            check(kernel.last_splits["paged_decode"] == splits,
-                  "decode kernel: not the split count of the serve batch")
-            want = ref.paged_attn_ref(q.float(), k[0].float(), v[0].float(),
-                                      tbl, ln)
-            torch.cuda.synchronize()
-            errs.append((got.float() - want).abs().max().item())
-            finite &= bool(torch.isfinite(got.float()).all())
-            zero &= bool((got[ln == 0] == 0).all())
-            check(got.dtype == dtype, "decode kernel: wrong dtype")
-        err = max(errs)
-        print(f"[kernels] decode {name} {at}, {splits} ranks a cluster, "
-              f"{len(lengths)} lengths (0, page edges, the whole table, "
-              f"rank boundaries +-1: {lengths}), NaN past each length: "
-              f"max_abs_err {err:.3e} (tol {tol:g}); finite {finite}; "
-              f"length-0 slots zeros {zero}")
-        check(err <= tol, "decode kernel disagrees")
-        check(finite and zero, "decode kernel: a length-0 slot is not "
-              "finite zeros, or a row past a length was read")
-        if dtype == torch.bfloat16:
-            worst["paged_decode"] = max(worst["paged_decode"], err)
-        # prefill at mixed depths, a verify (Lq = 5) and the join shape
+        for splits, cta_rows in knobs:
+            n_ranks = serve_splits if splits is None else splits
+            lengths = sorted({0, 1, 15, 16, 17, 100, 333, 512, 576, bound}
+                             | set(split.boundary_lengths(n_ranks, bound)))
+            errs, finite, zero = [], True, True
+            for i in range(0, len(lengths), 8):
+                batch = (lengths[i:i + 8] + lengths)[:8]
+                k, v, tbl = paged_inputs(torch, rng, b=8, depths=batch,
+                                         n_pages=512, p_max=64, dtype=dtype,
+                                         hkv=hkv, d=d)
+                kp, vp = poisoned(torch, k[0], v[0], tbl, batch, 512)
+                q = torch.randn(8, hq, d, generator=gen,
+                                device=dev).to(dtype)
+                ln = torch.tensor(batch, dtype=torch.int32, device=dev)
+                if splits is None:
+                    got = ops.paged_attn(q, kp, vp, tbl, ln)
+                    check(kernel.last_launch["paged_decode"]
+                          == {"splits": serve_splits, "cta_rows": rows},
+                          "decode kernel: not the serve batch's launch")
+                else:
+                    got = kernel.paged_attn_cuda(
+                        q, kp, vp, ops._clamp_table(tbl, kp.shape[0]), ln,
+                        cta_rows=cta_rows, splits=splits)
+                want = ref.paged_attn_ref(q.float(), k[0].float(),
+                                          v[0].float(), tbl, ln)
+                torch.cuda.synchronize()
+                errs.append((got.float() - want).abs().max().item())
+                finite &= bool(torch.isfinite(got.float()).all())
+                zero &= bool((got[ln == 0] == 0).all())
+                check(got.dtype == dtype, "decode kernel: wrong dtype")
+            err = max(errs)
+            what = (f"the serve launch ({serve_splits} ranks a cluster, "
+                    f"{rows} rows a CTA: ctas_per_sm {cps})"
+                    if splits is None else
+                    f"{splits} ranks a cluster, {cta_rows} rows a CTA")
+            if splits is None:
+                print(f"[kernels] decode {name} {at}, {what}, "
+                      f"{len(lengths)} lengths (0, page edges, the whole "
+                      f"table, rank boundaries +-1: {lengths}), NaN past "
+                      f"each length: max_abs_err {err:.3e} (tol {tol:g}); "
+                      f"finite {finite}; length-0 slots zeros {zero}")
+            else:
+                print(f"[kernels] decode {name} {at}, {what}, "
+                      f"{len(lengths)} lengths: max_abs_err {err:.3e}; "
+                      f"finite {finite}; zeros {zero}")
+            check(err <= tol, f"decode kernel disagrees ({what})")
+            check(finite and zero, "decode kernel: a length-0 slot is not "
+                  f"finite zeros, or a row past a length was read ({what})")
+            if dtype == torch.bfloat16 and splits is None:
+                worst["paged_decode"] = max(worst["paged_decode"], err)
+        # prefill at mixed depths, a verify (Lq = 5) and the join shape,
+        # through the op (the tuned launch) and at every rows a CTA
         for label, lq, offs in (
                 ("prefill mixed q_offset", 40, [0, 16, 23, 100, 250, 0, 7,
                                                 300]),
@@ -344,17 +396,30 @@ def kernel_checks(torch, geo=(HQ, HKV, D)) -> dict:
                             device=dev).to(dtype)
             off = torch.tensor(offs, dtype=torch.int32, device=dev)
             kv = torch.tensor(kvl, dtype=torch.int32, device=dev)
-            got = ops.paged_prefill_attn(q, k[0], v[0], tbl, off, kv)
             want = ref.paged_prefill_attn_ref(q.float(), k[0].float(),
                                               v[0].float(), tbl, off, kv)
-            torch.cuda.synchronize()
-            err = (got.float() - want).abs().max().item()
+            fn = ops.paged_verify_attn if lq == 5 else ops.paged_prefill_attn
+            errs = {}
+            for br in (None,) + kernel.BLOCK_ROWS_CHOICES:
+                got = fn(q, k[0], v[0], tbl, off, kv, block_rows=br)
+                torch.cuda.synchronize()
+                launched = kernel.last_launch["paged_prefill"]["block_rows"]
+                errs["op" if br is None else br] = err = (
+                    got.float() - want).abs().max().item()
+                check(err <= tol and got.dtype == dtype,
+                      f"prefill kernel disagrees ({label}, block_rows "
+                      f"{launched})")
+                if dtype == torch.bfloat16 and lq == 512 and br is None:
+                    worst["paged_prefill"] = max(worst["paged_prefill"],
+                                                 err)
+                if br is None:
+                    op_rows = launched
             print(f"[kernels] prefill {name} {at} {label}: max_abs_err "
-                  f"{err:.3e} (tol {tol:g})")
-            check(err <= tol and got.dtype == dtype,
-                  f"prefill kernel disagrees ({label})")
-            if dtype == torch.bfloat16 and lq == 512:
-                worst["paged_prefill"] = max(worst["paged_prefill"], err)
+                  f"through the op ({op_rows} rows a CTA) "
+                  f"{errs['op']:.3e}, at 16/32/64 rows a CTA "
+                  + "/".join(f"{errs[b]:.3e}"
+                             for b in kernel.BLOCK_ROWS_CHOICES)
+                  + f" (tol {tol:g})")
     # non-joining rows of a join: all-sentinel tables must not fault
     k, v, tbl = paged_inputs(torch, rng, b=2, depths=[64, 0], n_pages=8,
                              p_max=4, dtype=torch.bfloat16, hkv=hkv, d=d)
@@ -407,7 +472,7 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
     def sdpa(i):
         return F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask,
                                               enable_gqa=True)
-    kernel.last_splits["paged_decode"] = None
+    kernel.last_launch["paged_decode"] = None
     out["paged_decode"] = {
         "ms": time_ms(decode, layers * 4),
         "graph_ms": graph_ms(decode, layers * 4),
@@ -419,8 +484,8 @@ def kernel_timings(torch, geo=(HQ, HKV, D), layers=24) -> dict:
         "bound_ms": t_bound, "bound_by": by, "bytes": nbytes,
         "shape": f"B={b} Hq={hq} Hkv={hkv} D={d} ps={PS} lengths={lengths}"}
     # the cluster size the timed calls launched, held to the schedule's
-    out["paged_decode"]["splits"] = launched = kernel.last_splits[
-        "paged_decode"]
+    out["paged_decode"]["splits"] = launched = kernel.last_launch[
+        "paged_decode"]["splits"]
     check(launched == split.split_count(b, hkv, hq // hkv,
                                         ctbl.shape[1] * PS,
                                         sm_count(dev)),
@@ -2462,6 +2527,99 @@ def serve_overload(torch, params, reference: dict, features: dict) -> None:
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()) + ")")
 
 
+def autotune_phase(torch, params) -> dict:
+    """The ``[autotune]`` phase.  (1) A bounded sweep (budget 8, 3 replays
+    a candidate) of decode, prefill and verify at full-width qwen2-0.5b's
+    and moonshot-v1-16b-a3b's geometry in bfloat16, at the serve cells'
+    shapes, through ``repro_torch.launch.autotune.sweep`` (nothing
+    saved): each candidate's device ms, parity error and bit-exactness
+    printed, the winner no slower than the default, and the committed
+    entries loaded by the policy for all six (op, geometry) keys.  (2) One
+    eager paged qwen serve (phase 4's traffic, 8 requests) with the
+    attention telemetry on: each op's calls equal to its kernel's launches
+    over the run, none captured, achieved GB/s under 1.05 x 3,350, the
+    amenability verdicts printed.  Returns {geometry: {op: result}} for
+    the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn.ops import DecodeAttnPolicy
+    from repro_torch.kernels.paged_attn import autotune as at
+    from repro_torch.launch.autotune import geometry, sweep
+    from repro_torch.launch.serve import run
+    t0 = time.perf_counter()
+    swept = {}
+    for arch in (ARCH, MOE_ARCH):
+        swept.update(sweep(arch, budget=8, reps=3, device="cuda",
+                           dtype=torch.bfloat16, save=False))
+    committed = at.load_entries()
+    pol = DecodeAttnPolicy()
+    for geo_key, res in swept.items():
+        for op, r in res.items():
+            check(r["winner_ms"] <= r["default_ms"],
+                  f"autotune {geo_key} {op}: the winner is slower than the "
+                  "default")
+            check(all(row["max_abs_diff"] <= at.PARITY_TOL[torch.bfloat16]
+                      for row in r["candidates"]),
+                  f"autotune {geo_key} {op}: a measured candidate fails "
+                  "the parity gate")
+            ent = committed.get(r["key"])
+            check(isinstance(ent, dict), f"autotune: no committed entry "
+                  f"{r['key']}")
+            geom = geometry(ARCH if "hkv2" in geo_key else MOE_ARCH, PS)
+            loaded = pol.tuned_config(op, hq=geom.hq, hkv=geom.hkv,
+                                      d=geom.d, page_size=PS)
+            check(loaded == ent["config"], f"autotune: the policy does not "
+                  f"load the committed entry {r['key']}")
+            print(f"[autotune] {r['key']}: committed {ent['config']} "
+                  f"({ent['ms']:.5f} ms against {ent['default_ms']:.5f} "
+                  f"ms; {ent['card']}), this run's winner {r['winner']} "
+                  f"({r['winner_ms']:.5f} against {r['default_ms']:.5f} "
+                  f"ms)")
+    t_sweep = time.perf_counter() - t0
+
+    cfg = get_config(ARCH)
+    reset_counts()
+    res = run(ARCH, params=params, graphs=False, device="cuda", paged=True,
+              requests=8, max_new=16, batch=8, max_len=1024, page_size=16,
+              sync_every=8, prompt_len=(64, 513), seed=0,
+              dtype=torch.bfloat16, attn_telemetry_on=True)
+    counts = read_counts()
+    calls = {}
+    for wave in (res["attn"], res["warm_attn"]):
+        for key, row in wave["stats"].items():
+            calls[key] = calls.get(key, 0) + row["calls"]
+            check(row["traced_calls"] == 0, f"attention telemetry {key}: "
+                  "a captured call in an eager run")
+            check(row["achieved_gbps"] < 1.05 * HBM_BYTES_PER_S / 1e9,
+                  f"attention telemetry {key}: {row['achieved_gbps']:.1f} "
+                  "GB/s achieved, above the card's rate")
+    print(f"[autotune] eager paged {cfg.name} wave with attention "
+          f"telemetry: calls {calls}; launches {counts}; verdicts "
+          f"{res['attn']['verdicts']}; {SMI}")
+    check(calls.get("decode.kernel") == counts["paged_decode"]
+          and calls.get("prefill.kernel") == counts["paged_prefill"]
+          and set(calls) == {"decode.kernel", "prefill.kernel"},
+          "attention telemetry: an op's calls differ from its kernel's "
+          "launches")
+    print(f"[autotune] phase took {time.perf_counter() - t0:.1f}s (sweep "
+          f"{t_sweep:.1f}s)")
+    return swept
+
+
+def plain_route_agreement(torch, params, kw) -> None:
+    """float32 on the card, paged: ``attn_mode="plain"`` (gather, then
+    plain PyTorch attention) against ``"kernel"`` (graphs): equal greedy
+    streams, joins, segments and admit order in both waves."""
+    from repro_torch.launch.serve import run
+    got = {mode: run(ARCH, device="cuda", params=params, paged=True,
+                     attn_mode=mode, **kw) for mode in ("plain", "kernel")}
+    same = {key: got["plain"][key] == got["kernel"][key]
+            for key in ("results", "warm_results", "joins", "segments")}
+    print(f"[autotune] float32 paged, attn_mode plain vs kernel: "
+          f"{sum(same.values())}/{len(same)} of streams, warm streams, "
+          f"joins and segments equal")
+    check(all(same.values()), f"plain and kernel routes differ: {same}")
+
+
 def dense_join_rows(torch) -> None:
     """What a dense join's prefill costs at full-width qwen, bf16: the
     joining rows alone (J of them, which a dense-MLP model would allow)
@@ -2553,6 +2711,7 @@ def agreement(torch) -> None:
     print(f"[agree] float32 greedy streams on the card, dense kernel vs "
           f"paged kernels: {len(prompts) - ties}/{len(prompts)} equal, "
           f"{ties} at near-ties")
+    plain_route_agreement(torch, params, kw)
     feature_agreement(torch, params, cpu_params, kw)
     preempt_agreement(torch, params, cpu_params)
     overload_agreement(torch, params, cpu_params, kw)
@@ -3092,6 +3251,7 @@ def main() -> int:
     feature_streams = serve_features(torch, params)
     serve_preempt(torch, params, paged_ref)
     serve_overload(torch, params, paged_ref, feature_streams)
+    tuned = autotune_phase(torch, params)
     del paged_ref
     del params
     dense_join_rows(torch)
@@ -3155,6 +3315,18 @@ def main() -> int:
                              or k in ("graph_ms", "library_graph_ms",
                                       "host_us", "splits"))
                          and not k.endswith(("flops", "bytes"))})
+        if name in ("paged_decode", "paged_prefill"):
+            # this run's sweep at both geometries: default and winner
+            ops_of = (("decode",) if name == "paged_decode"
+                      else ("prefill", "verify"))
+            rows[-1]["autotune"] = {
+                geo: {op: {"winner": r[op]["winner"],
+                           "winner_graph_ms": r[op]["winner_ms"],
+                           "default_graph_ms": r[op]["default_ms"],
+                           "measured": len(r[op]["candidates"]),
+                           "parity_dropped": len(r[op]["parity_dropped"])}
+                      for op in ops_of}
+                for geo, r in tuned.items()}
         if name == "group_gemm":     # the join's calls take the wgmma file
             rows[-1]["prefill_source"] = ("src/repro_torch/kernels/"
                                           "moe_group_gemm/csrc/"

@@ -66,11 +66,12 @@ cudaError_t launch_stripe(const void* q, const void* k, const void* v,
   const float qscale = split::kLog2e / sqrtf(static_cast<float>(D));
   return split::launch_clusters(
       decode_attn_kernel<T, D, GMAX>, splits, batch,
-      hkv * split::row_groups(hq / hkv),
+      hkv * split::row_groups(hq / hkv, split::kCtaRows),
       split::smem_bytes<D, GMAX, false>(), stream, q, k, v, lengths, out, hq,
       hkv, s, s_cap, qscale);
 }
 
+// two rows a CTA, always (the autotuner tunes only the paged kernel)
 static_assert(split::kCtaRows == 2, "one case for each row count");
 
 template <typename T, int D>
@@ -78,7 +79,7 @@ cudaError_t dispatch_group(const void* q, const void* k, const void* v,
                            const int* lengths, void* out, int batch, int hq,
                            int hkv, int s, int s_cap, int splits,
                            cudaStream_t stream) {
-  switch (split::group_rows(hq / hkv)) {
+  switch (split::group_rows(hq / hkv, split::kCtaRows)) {
     case 1: return launch_stripe<T, D, 1>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, splits, stream);
     case 2: return launch_stripe<T, D, 2>(q, k, v, lengths, out, batch, hq, hkv, s, s_cap, splits, stream);
     default: return cudaErrorInvalidValue;

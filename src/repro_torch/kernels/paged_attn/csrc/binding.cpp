@@ -14,14 +14,15 @@ cudaError_t paged_decode_launch(int dtype, int head_dim, const void* q,
                                 const int* table, const int* lengths,
                                 void* out, int batch, int hq, int hkv,
                                 int n_pages, int page_size, int table_width,
-                                int splits, cudaStream_t stream);
+                                int splits, int cta_rows,
+                                cudaStream_t stream);
 cudaError_t paged_prefill_launch(int dtype, int head_dim, const void* q,
                                  const void* k, const void* v,
                                  const int* table, const int* q_offset,
                                  const int* kv_len, void* out, int batch,
                                  int lq, int hq, int hkv, int n_pages,
                                  int page_size, int table_width,
-                                 cudaStream_t stream);
+                                 int block_rows, cudaStream_t stream);
 
 namespace {
 
@@ -42,10 +43,11 @@ void check_cuda(const torch::Tensor& t, const char* name) {
 
 // q [B, Hq, D], k/v [N, ps, Hkv, D], table [B, P] int32, lengths [B] int32,
 // out [B, Hq, D] (allocated by the caller); `splits` CTAs (one cluster)
-// per (slot, KV head): 1, 2, 4 or 8
+// per (slot, KV head, row group): 1, 2, 4 or 8; `cta_rows` query rows a
+// CTA: 1, 2 or 4
 void paged_decode(torch::Tensor q, torch::Tensor k, torch::Tensor v,
                   torch::Tensor table, torch::Tensor lengths,
-                  torch::Tensor out, int64_t splits) {
+                  torch::Tensor out, int64_t splits, int64_t cta_rows) {
   for (auto* t : {&q, &k, &v, &table, &lengths, &out}) check_cuda(*t, "input");
   TORCH_CHECK(q.dim() == 3 && k.dim() == 4 && table.dim() == 2);
   TORCH_CHECK(table.scalar_type() == torch::kInt32 &&
@@ -58,17 +60,18 @@ void paged_decode(torch::Tensor q, torch::Tensor k, torch::Tensor v,
       static_cast<int>(q.size(1)), static_cast<int>(k.size(2)),
       static_cast<int>(k.size(0)), static_cast<int>(k.size(1)),
       static_cast<int>(table.size(1)), static_cast<int>(splits),
-      c10::cuda::getCurrentCUDAStream().stream());
+      static_cast<int>(cta_rows), c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == cudaSuccess, "paged_decode launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 // q/out [B, Lq, Hq, D], k/v [N, ps, Hkv, D], table [B, P] int32,
-// q_offset/kv_len [B] int32
+// q_offset/kv_len [B] int32; `block_rows` fused rows a CTA: 16, 32 or 64
 void paged_prefill(torch::Tensor q, torch::Tensor k, torch::Tensor v,
                    torch::Tensor table, torch::Tensor q_offset,
-                   torch::Tensor kv_len, torch::Tensor out) {
+                   torch::Tensor kv_len, torch::Tensor out,
+                   int64_t block_rows) {
   for (auto* t : {&q, &k, &v, &table, &q_offset, &kv_len, &out})
     check_cuda(*t, "input");
   TORCH_CHECK(q.dim() == 4 && k.dim() == 4 && table.dim() == 2);
@@ -83,7 +86,7 @@ void paged_prefill(torch::Tensor q, torch::Tensor k, torch::Tensor v,
       static_cast<int>(q.size(1)), static_cast<int>(q.size(2)),
       static_cast<int>(k.size(2)), static_cast<int>(k.size(0)),
       static_cast<int>(k.size(1)), static_cast<int>(table.size(1)),
-      c10::cuda::getCurrentCUDAStream().stream());
+      static_cast<int>(block_rows), c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == cudaSuccess, "paged_prefill launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

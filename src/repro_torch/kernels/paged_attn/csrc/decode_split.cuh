@@ -54,7 +54,8 @@ constexpr int kTile = 16;          // keys: TILE in split.py
 constexpr int kMaxSplits = 8;      // MAX_SPLITS in split.py
 constexpr int kStagePages = 256;   // page ids staged in shared memory at once
 constexpr int kMaxGroup = 16;      // query heads per KV head: DECODE_MAX_GROUP
-constexpr int kCtaRows = 2;        // query rows a CTA keeps: CTA_ROWS
+constexpr int kCtaRows = 2;        // query rows a CTA keeps by default:
+                                   // CTA_ROWS (the dense kernel's always)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Keys [lo, hi) of rank `rank` of `splits` over a slot of n_keys keys.
@@ -110,16 +111,21 @@ struct Stripe {
   }
 };
 
-// Query rows a CTA keeps in registers: G rounded up to a power of two, at
-// most kCtaRows (rows past G hold q = 0 and are never written).  A larger
-// G is split over row_groups(G) CTAs of a (slot, KV head) and rank, which
-// read the same keys (L2 can serve all reads but the first).
-inline int group_rows(int g) {
+// Query rows a CTA keeps in registers (the walk's GMAX): G rounded up to a
+// power of two, at most cta_rows, itself a power of two (rows past G hold
+// q = 0 and are never written).  A larger G is split over
+// row_groups(G, cta_rows) CTAs of a (slot, KV head) and rank, which read
+// the same keys (L2 can serve all reads but the first).  The kernels
+// compute their row group from GMAX, which gives the same count: GMAX is
+// cta_rows when G >= cta_rows, and one group holds all of G otherwise.
+inline int group_rows(int g, int cta_rows) {
   int r = 1;
-  while (r < g && r < kCtaRows) r <<= 1;
+  while (r < g && r < cta_rows) r <<= 1;
   return r;
 }
-inline int row_groups(int g) { return (g + kCtaRows - 1) / kCtaRows; }
+inline int row_groups(int g, int cta_rows) {
+  return (g + cta_rows - 1) / cta_rows;
+}
 
 // Shared-memory bytes: the staged page ids, then the four warps' states
 // and the CTA's merged state (acc [GMAX][D], m [GMAX], l [GMAX] each).

@@ -22,12 +22,16 @@
 // `splits` CTAs per (slot, KV head, pair of query heads), one cluster,
 // share the slot's keys and merge their softmax states through
 // distributed shared memory in the same launch; split.py picks `splits`
-// from the batch, the KV heads, G and the table's width (8 at the qwen
-// serve shape: 512 CTAs).  Two query rows a CTA keep each lane's serial
-// work per key short; the G / 2 CTAs of a KV head read the same K/V rows,
-// which L2 can serve after the first read.  Each CTA stages the page ids
-// of its range in shared memory once, keeps q in registers, and keeps
-// kUnroll warp-steps of 16-byte K/V loads in flight per warp.  Pages past
+// from the batch, the KV heads, G, the table's width and a CTA target an
+// SM (8 at the qwen serve shape with the default target of 2: 512 CTAs).
+// A few query rows a CTA (cta_rows: 1, 2 or 4, two by default; a template
+// argument, GMAX, of the kernel) keep each lane's serial work per key
+// short; the G / cta_rows CTAs of a KV head read the same K/V rows, which
+// L2 can serve after the first read.  The CTA target and cta_rows are the
+// launch knobs the autotuner sweeps (split.py, autotune.py).  Each CTA
+// stages the page ids of its range in shared memory once, keeps q in
+// registers, and keeps kUnroll warp-steps of 16-byte K/V loads in flight
+// per warp.  Pages past
 // every slot's length are pruned by the caller, which slices the table to
 // a power-of-two page bucket.
 #include "decode_split.cuh"
@@ -63,26 +67,26 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           const int* table, const int* lengths, void* out,
                           int batch, int hq, int hkv, int n_pages,
                           int page_size, int table_width, int splits,
-                          cudaStream_t stream) {
+                          int cta_rows, cudaStream_t stream) {
   const float qscale = split::kLog2e / sqrtf(static_cast<float>(D));
   return split::launch_clusters(
       paged_decode_kernel<T, D, GMAX>, splits, batch,
-      hkv * split::row_groups(hq / hkv),
+      hkv * split::row_groups(hq / hkv, cta_rows),
       split::smem_bytes<D, GMAX, true>(), stream, q, k, v, table, lengths,
       out, hq, hkv, n_pages, page_size, table_width, qscale);
 }
 
-static_assert(split::kCtaRows == 2, "one case for each row count");
-
+// one case for each rows a CTA keeps: cta_rows is 1, 2 or 4
 template <typename T, int D>
 cudaError_t dispatch_group(const void* q, const void* k, const void* v,
                            const int* table, const int* lengths, void* out,
                            int batch, int hq, int hkv, int n_pages,
                            int page_size, int table_width, int splits,
-                           cudaStream_t stream) {
-  switch (split::group_rows(hq / hkv)) {
-    case 1: return launch_decode<T, D, 1>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, splits, stream);
-    case 2: return launch_decode<T, D, 2>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, splits, stream);
+                           int cta_rows, cudaStream_t stream) {
+  switch (split::group_rows(hq / hkv, cta_rows)) {
+    case 1: return launch_decode<T, D, 1>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, splits, cta_rows, stream);
+    case 2: return launch_decode<T, D, 2>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, splits, cta_rows, stream);
+    case 4: return launch_decode<T, D, 4>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, splits, cta_rows, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -92,12 +96,12 @@ cudaError_t dispatch_decode(int head_dim, const void* q, const void* k,
                             const void* v, const int* table,
                             const int* lengths, void* out, int batch, int hq,
                             int hkv, int n_pages, int page_size,
-                            int table_width, int splits,
+                            int table_width, int splits, int cta_rows,
                             cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return dispatch_group<T, 16>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, splits, stream);
-    case 64: return dispatch_group<T, 64>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, splits, stream);
-    case 128: return dispatch_group<T, 128>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, splits, stream);
+    case 16: return dispatch_group<T, 16>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, splits, cta_rows, stream);
+    case 64: return dispatch_group<T, 64>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, splits, cta_rows, stream);
+    case 128: return dispatch_group<T, 128>(q, k, v, table, lengths, out, batch, hq, hkv, n_pages, page_size, table_width, splits, cta_rows, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -111,20 +115,22 @@ cudaError_t paged_decode_launch(int dtype, int head_dim, const void* q,
                                 const int* table, const int* lengths,
                                 void* out, int batch, int hq, int hkv,
                                 int n_pages, int page_size, int table_width,
-                                int splits, cudaStream_t stream) {
+                                int splits, int cta_rows,
+                                cudaStream_t stream) {
   using namespace paged_attn;
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > split::kMaxGroup ||
-      n_pages <= 0 || page_size <= 0)
+      n_pages <= 0 || page_size <= 0 ||
+      (cta_rows != 1 && cta_rows != 2 && cta_rows != 4))
     return cudaErrorInvalidValue;
   if (batch == 0) return cudaSuccess;
   if (dtype == kFloat32)
     return dispatch_decode<float>(head_dim, q, k, v, table, lengths, out,
                                   batch, hq, hkv, n_pages, page_size,
-                                  table_width, splits, stream);
+                                  table_width, splits, cta_rows, stream);
   if (dtype == kBFloat16)
     return dispatch_decode<__nv_bfloat16>(head_dim, q, k, v, table, lengths,
                                           out, batch, hq, hkv, n_pages,
                                           page_size, table_width, splits,
-                                          stream);
+                                          cta_rows, stream);
   return cudaErrorInvalidValue;
 }

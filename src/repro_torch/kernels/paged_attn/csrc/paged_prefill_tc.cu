@@ -17,15 +17,20 @@
 // pace there; scalar float32 products from shared memory, as in the
 // float32 walk, did (10-100x the bound).
 //
-// What the design does about it.  One CTA per (slot, KV head, block of 64
-// fused rows), four warps of 16 rows each; the blocks with the longest
-// causal walks start first, so the short ones fill the tail.  The CTA
-// stages its q rows in shared memory once (in the second V buffer, before
-// the walk's first prefetch needs it), and each warp keeps its Q fragments
-// in registers for the whole walk.  K and V tiles of 64 keys are gathered
-// row by row through the page table with 16-byte cp.async copies into a
-// double-buffered ring (rows padded by 16 bytes, so ldmatrix reads hit 32
-// banks); tile t + 1's copies are in flight while tile t is multiplied.
+// What the design does about it.  One CTA per (slot, KV head, block of
+// ROWS fused rows), ROWS / 16 warps of 16 rows each; ROWS is the
+// block_rows launch knob (16, 32 or 64; 64, four warps, by default) that
+// the autotuner sweeps (autotune.py): a short verify (Lq 5, G 7: 35 rows)
+// gets three CTAs a (slot, KV head) at 16 rows instead of one.  The blocks
+// with the longest causal walks start first, so the short ones fill the
+// tail.  The CTA stages its q rows in shared memory once (in the second V
+// buffer, before the walk's first prefetch needs it), and each warp keeps
+// its Q fragments in registers for the whole walk.  K and V tiles of 64
+// keys are gathered row by row through the page table with 16-byte
+// cp.async copies, spread over the CTA's threads whatever their count,
+// into a double-buffered ring (rows padded by 16 bytes, so ldmatrix reads
+// hit 32 banks); tile t + 1's copies are in flight while tile t is
+// multiplied.
 // S = Q K^T and O += P V run on the tensor cores; S, the running (m, l)
 // and O stay in registers, and P is rounded to bf16 in registers as the A
 // operand of the PV product: no score goes through shared memory, and a
@@ -40,19 +45,25 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = kThreads / 32;   // 4
-constexpr int kRows = 16 * kWarps;      // fused rows per CTA
 constexpr int kKeys = 64;               // keys per tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+// A CTA of ROWS fused rows: one warp per 16 rows.
+template <int ROWS>
+struct Block {
+  static_assert(ROWS % 16 == 0 && ROWS >= 16 && ROWS <= kKeys,
+                "16 rows a warp, and the q rows fit one tile buffer");
+  static constexpr int kWarps = ROWS / 16;
+  static constexpr int kThreads = 32 * kWarps;
+};
+
+template <int D, int ROWS>
 struct Layout {
   static constexpr int LD = D + 8;         // padded row, in elements
   static constexpr int KV = kKeys * LD;    // one K or V tile (or the q rows)
   static constexpr int kBytes = 4 * KV * 2         // 2 x K, 2 x V
-                                + kRows * 8        // row offsets
-                                + kRows * 4;       // row positions
-  static_assert(kRows == kKeys, "the q rows fill one tile buffer");
+                                + ROWS * 8         // row offsets
+                                + ROWS * 4;        // row positions
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -114,8 +125,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 // a0 = (gid, 2t4..+1), a1 = (gid + 8, 2t4..), a2 = (gid, 2t4 + 8..),
 // a3 = (gid + 8, 2t4 + 8..); B (16x8) b0 = (2t4..+1, gid), b1 = (2t4 + 8..,
 // gid); C (16x8) c0, c1 = (gid, 2t4..+1), c2, c3 = (gid + 8, 2t4..+1).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int ROWS>
+__global__ void __launch_bounds__(Block<ROWS>::kThreads)
 prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
                   const bf16* __restrict__ v_pages,
                   const int* __restrict__ table,
@@ -123,21 +134,28 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
                   const int* __restrict__ kv_len, bf16* __restrict__ out,
                   int lq, int hq, int hkv, int n_pages, int page_size,
                   int table_width, float scale_log2) {
-  using L = Layout<D>;
+  using L = Layout<D, ROWS>;
+  constexpr int NT = Block<ROWS>::kThreads;
   constexpr int LD = L::LD;
   constexpr int kChunks = D / 8;        // 16-byte chunks per row
-  constexpr int kHalf = kChunks / 2;    // a thread's chunks of a key row
+  // a tile's copies over the CTA's threads: kTpr threads a key row, each
+  // copying kPer of its chunks, for kRowsPer key rows a thread
+  constexpr int kTpr = NT >= kKeys ? NT / kKeys : 1;
+  constexpr int kRowsPer = NT >= kKeys ? 1 : kKeys / NT;
+  constexpr int kPer = kChunks / kTpr;
   constexpr int KT = D / 16;            // k-steps of Q K^T
   constexpr int NS = kKeys / 8;         // n-tiles of S
   constexpr int NO = D / 8;             // n-tiles of O
-  static_assert(D % 16 == 0 && kThreads == 2 * kKeys, "tile shape");
+  static_assert(D % 16 == 0 && kChunks % kTpr == 0 &&
+                    ROWS * kChunks % NT == 0,
+                "tile shape");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);   // [2][kKeys][LD]
   bf16* v_s = k_s + 2 * L::KV;                 // [2][kKeys][LD]
   bf16* q_s = v_s + L::KV;    // the q rows, in V's second buffer until the
                               // walk's first prefetch
   int64_t* row_off = reinterpret_cast<int64_t*>(v_s + 2 * L::KV);
-  int* row_pos = reinterpret_cast<int*>(row_off + kRows);
+  int* row_pos = reinterpret_cast<int*>(row_off + ROWS);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, t4 = lane & 3;
@@ -145,10 +163,10 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
   // longest walk) down, so the longest walks start first
   const int h = blockIdx.x, b = blockIdx.y;
   const int g = hq / hkv;
-  const int row0 = (gridDim.z - 1 - blockIdx.z) * kRows;
-  const int rows = min(kRows, lq * g - row0);
+  const int row0 = (gridDim.z - 1 - blockIdx.z) * ROWS;
+  const int rows = min(ROWS, lq * g - row0);
   const int off = q_offset[b];
-  if (tid < kRows) {      // dead rows: zero q, no key, never written
+  if (tid < ROWS) {       // dead rows: zero q, no key, never written
     const int fused = row0 + tid, t = fused / g, member = fused % g;
     const bool live = tid < rows;
     row_off[tid] = live ? ((static_cast<int64_t>(b) * lq + t) * hq + h * g +
@@ -171,34 +189,39 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
 
   // q rows: 16-byte copies, zeros for the dead rows
 #pragma unroll
-  for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
-    const int e = tid + i * kThreads;
+  for (int i = 0; i < ROWS * kChunks / NT; ++i) {
+    const int e = tid + i * NT;
     const int r = e / kChunks, c = e % kChunks;
     const int64_t ro = row_off[r];
     cp_async16(smem_u32(q_s + r * LD + c * 8), q + (ro < 0 ? 0 : ro + c * 8),
                ro < 0 ? 0 : 16);
   }
-  // a tile: thread tid copies half of key row tid / 2 of K and of V; rows
-  // at or past n_keys are zeros (P is 0 there, and 0 x 0 stays finite)
+  // a tile: thread tid copies kPer chunks of key row tid / kTpr (and of
+  // the rows NT / kTpr, 2 NT / kTpr, ... past it) of K and of V (with 128
+  // threads, half a row each); rows at or past n_keys are zeros (P is 0
+  // there, and 0 x 0 stays finite)
   auto load_tile = [&](int tile, int buf) {
-    const int j = tid >> 1;
-    const int kp = tile * kKeys + j;
-    const bool live = kp < n_keys;
-    int64_t src = 0;
-    if (live) {
-      int page = trow[kp / page_size];
-      page = min(max(page, 0), n_pages - 1);  // never read out of bounds
-      src = ((static_cast<int64_t>(page) * page_size + kp % page_size) * hkv +
-             h) * D;
-    }
-    const uint32_t kd = smem_u32(k_s + buf * L::KV + j * LD);
-    const uint32_t vd = smem_u32(v_s + buf * L::KV + j * LD);
-    const int c0 = (tid & 1) * kHalf;
 #pragma unroll
-    for (int i = 0; i < kHalf; ++i) {
-      const int c = c0 + i;
-      cp_async16(kd + c * 16, k_pages + src + c * 8, live ? 16 : 0);
-      cp_async16(vd + c * 16, v_pages + src + c * 8, live ? 16 : 0);
+    for (int rr = 0; rr < kRowsPer; ++rr) {
+      const int j = tid / kTpr + rr * (NT / kTpr);
+      const int kp = tile * kKeys + j;
+      const bool live = kp < n_keys;
+      int64_t src = 0;
+      if (live) {
+        int page = trow[kp / page_size];
+        page = min(max(page, 0), n_pages - 1);  // never read out of bounds
+        src = ((static_cast<int64_t>(page) * page_size + kp % page_size) *
+                   hkv + h) * D;
+      }
+      const uint32_t kd = smem_u32(k_s + buf * L::KV + j * LD);
+      const uint32_t vd = smem_u32(v_s + buf * L::KV + j * LD);
+      const int c0 = (tid % kTpr) * kPer;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int c = c0 + i;
+        cp_async16(kd + c * 16, k_pages + src + c * 8, live ? 16 : 0);
+        cp_async16(vd + c * 16, v_pages + src + c * 8, live ? 16 : 0);
+      }
     }
   };
   if (n_tiles > 0) load_tile(0, 0);
@@ -344,24 +367,40 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
   }
 }
 
-template <int D>
+template <int D, int ROWS>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* table, const int* q_offset, const int* kv_len,
                    void* out, int batch, int lq, int hq, int hkv, int n_pages,
                    int page_size, int table_width, cudaStream_t stream) {
-  constexpr int smem = Layout<D>::kBytes;
-  auto kernel = prefill_tc_kernel<D>;
+  constexpr int smem = Layout<D, ROWS>::kBytes;
+  auto kernel = prefill_tc_kernel<D, ROWS>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
-  const int blocks = (lq * (hq / hkv) + kRows - 1) / kRows;
+  const int blocks = (lq * (hq / hkv) + ROWS - 1) / ROWS;
   if (blocks > 65535 || batch > 65535) return cudaErrorInvalidValue;
-  kernel<<<dim3(hkv, batch, blocks), kThreads, smem, stream>>>(
+  kernel<<<dim3(hkv, batch, blocks), Block<ROWS>::kThreads, smem,
+           stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), table, q_offset, kv_len,
       static_cast<bf16*>(out), lq, hq, hkv, n_pages, page_size, table_width,
       scale_log2);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_rows(const void* q, const void* k, const void* v,
+                        const int* table, const int* q_offset,
+                        const int* kv_len, void* out, int batch, int lq,
+                        int hq, int hkv, int n_pages, int page_size,
+                        int table_width, int block_rows,
+                        cudaStream_t stream) {
+  switch (block_rows) {
+    case 16: return launch<D, 16>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, stream);
+    case 32: return launch<D, 32>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, stream);
+    case 64: return launch<D, 64>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace tc
@@ -374,12 +413,12 @@ cudaError_t paged_prefill_tc_launch(int head_dim, const void* q,
                                     const int* kv_len, void* out, int batch,
                                     int lq, int hq, int hkv, int n_pages,
                                     int page_size, int table_width,
-                                    cudaStream_t stream) {
+                                    int block_rows, cudaStream_t stream) {
   using namespace paged_attn::tc;
   switch (head_dim) {
-    case 16: return launch<16>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, stream);
-    case 64: return launch<64>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, stream);
-    case 128: return launch<128>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, stream);
+    case 16: return launch_rows<16>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, block_rows, stream);
+    case 64: return launch_rows<64>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, block_rows, stream);
+    case 128: return launch_rows<128>(q, k, v, table, q_offset, kv_len, out, batch, lq, hq, hkv, n_pages, page_size, table_width, block_rows, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -19,8 +19,16 @@ launches: the plain versions live in :mod:`.ref` and the routing between
 the two, by the tensors' device, in :mod:`.ops`.  ``launch_counts`` counts
 the launches of each kernel, so a run can show that its path went through
 them (a launch captured in a CUDA graph counts at each replay:
-:mod:`repro_torch.kernels.launches`); ``last_splits`` holds the cluster
-size of the last decode launch (or capture).
+:mod:`repro_torch.kernels.launches`); ``last_launch`` holds each kernel's
+last launch (or capture): the decode kernel's cluster size (``splits``)
+and rows a CTA, the prefill kernel's rows a CTA.
+
+The launch knobs replace the Pallas kernels' ``grid_order`` and
+``block_rows``: the decode kernel takes ``ctas_per_sm`` (the CTA target
+of :func:`.split.split_count`) and ``cta_rows`` (query rows a CTA keeps),
+the prefill/verify kernel ``block_rows`` (fused rows a CTA, in both of
+its walks).  The defaults give the launches the kernels have always run;
+the ops (:mod:`.ops`) pass a tuned set from :mod:`.autotune`.
 """
 from __future__ import annotations
 
@@ -40,9 +48,12 @@ _SOURCES = ("binding.cpp", "paged_decode.cu", "paged_prefill.cu",
 _HEAD_DIMS = (16, 64, 128)     # reduced configs, qwen2-0.5b, moonshot
 _DTYPES = (torch.float32, torch.bfloat16)
 DECODE_MAX_GROUP = 16          # kMaxGroup in decode_split.cuh
+BLOCK_ROWS = 64                # default fused rows a prefill CTA
+BLOCK_ROWS_CHOICES = (16, 32, 64)    # both prefill walks' instantiations
 
 launch_counts = {"paged_decode": 0, "paged_prefill": 0}
-last_splits = {"paged_decode": None}
+last_launch: dict[str, dict | None] = {"paged_decode": None,
+                                       "paged_prefill": None}
 
 _ext = None
 _lock = threading.Lock()
@@ -116,11 +127,16 @@ def _check_pages(q, k_pages, v_pages, table, dev) -> tuple[int, int]:
 
 def paged_attn_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, table: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
+                    lengths: torch.Tensor, *,
+                    ctas_per_sm: int = split.CTAS_PER_SM,
+                    cta_rows: int = split.CTA_ROWS,
+                    splits: int | None = None) -> torch.Tensor:
     """Launch the decode kernel.  q [B, Hq, D]; k_pages/v_pages [N, ps,
     Hkv, D] in q's dtype; table [B, P] int32 with every entry < N; lengths
-    [B] int32.  One launch of ``split.split_count(B, Hkv, G, P x ps, SMs)``
-    CTAs per (slot, KV head, row group).  Returns [B, Hq, D] in q's dtype."""
+    [B] int32.  One launch of ``split.split_count(B, Hkv, G, P x ps, SMs,
+    ctas_per_sm, cta_rows)`` CTAs per (slot, KV head, row group of
+    ``cta_rows`` query heads), or of ``splits`` when given (the checks
+    walk every count).  Returns [B, Hq, D] in q's dtype."""
     dev = q.device
     _check("q", q, 3, _DTYPES, dev)
     hq, hkv = _check_pages(q, k_pages, v_pages, table, dev)
@@ -133,25 +149,38 @@ def paged_attn_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if q.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned (the kernel reads rows "
                          "in 16-byte chunks)")
-    splits = split.split_count(q.shape[0], hkv, hq // hkv,
-                               table.shape[1] * k_pages.shape[1],
-                               sm_count(dev))
+    if cta_rows not in split.CTA_ROWS_CHOICES:
+        raise ValueError(f"cta_rows {cta_rows!r} not in "
+                         f"{split.CTA_ROWS_CHOICES}")
+    if not isinstance(ctas_per_sm, int) or ctas_per_sm < 1:
+        raise ValueError(f"ctas_per_sm must be a positive int, got "
+                         f"{ctas_per_sm!r}")
+    if splits is None:
+        splits = split.split_count(q.shape[0], hkv, hq // hkv,
+                                   table.shape[1] * k_pages.shape[1],
+                                   sm_count(dev), ctas_per_sm, cta_rows)
+    elif splits not in (1, 2, 4, split.MAX_SPLITS):
+        raise ValueError(f"splits {splits!r} not in (1, 2, 4, "
+                         f"{split.MAX_SPLITS})")
     ext = load_extension()
     out = torch.empty_like(q)
-    ext.paged_decode(q, k_pages, v_pages, table, lengths, out, splits)
+    ext.paged_decode(q, k_pages, v_pages, table, lengths, out, splits,
+                     cta_rows)
     launches.count(launch_counts, "paged_decode")
-    last_splits["paged_decode"] = splits
+    last_launch["paged_decode"] = {"splits": splits, "cta_rows": cta_rows}
     return out
 
 
 def paged_prefill_attn_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor, table: torch.Tensor,
-                            q_offset: torch.Tensor,
-                            kv_len: torch.Tensor) -> torch.Tensor:
+                            q_offset: torch.Tensor, kv_len: torch.Tensor, *,
+                            block_rows: int = BLOCK_ROWS) -> torch.Tensor:
     """Launch the prefill/verify kernel.  q [B, Lq, Hq, D] (the public
     layout; the kernel fuses token and group rows itself); k_pages/v_pages
     [N, ps, Hkv, D] in q's dtype; table [B, P] int32 with every entry < N;
-    q_offset/kv_len [B] int32.  Returns [B, Lq, Hq, D] in q's dtype."""
+    q_offset/kv_len [B] int32; ``block_rows`` fused rows a CTA (16, 32 or
+    64; the last block of a (slot, KV head) may be ragged).  Returns [B,
+    Lq, Hq, D] in q's dtype."""
     dev = q.device
     _check("q", q, 4, _DTYPES, dev)
     _check_pages(q, k_pages, v_pages, table, dev)
@@ -159,8 +188,13 @@ def paged_prefill_attn_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         _check(name, t, 1, (torch.int32,), dev)
         if t.shape[0] != q.shape[0]:
             raise ValueError(f"{name} must be [B]")
+    if block_rows not in BLOCK_ROWS_CHOICES:
+        raise ValueError(f"block_rows {block_rows!r} not in "
+                         f"{BLOCK_ROWS_CHOICES}")
     ext = load_extension()
     out = torch.empty_like(q)
-    ext.paged_prefill(q, k_pages, v_pages, table, q_offset, kv_len, out)
+    ext.paged_prefill(q, k_pages, v_pages, table, q_offset, kv_len, out,
+                      block_rows)
     launches.count(launch_counts, "paged_prefill")
+    last_launch["paged_prefill"] = {"block_rows": block_rows}
     return out

@@ -2,14 +2,18 @@
 ``../decode_attn/csrc/decode_attn.cu``, both on ``csrc/decode_split.cuh``).
 
 A call runs ``splits`` CTAs, one thread-block cluster, per (slot, KV head,
-group of at most ``CTA_ROWS`` of the G query heads that share the KV
+group of at most ``cta_rows`` of the G query heads that share the KV
 head).  Rank ``r`` of a cluster walks the keys ``split_range(r, splits,
 n_keys)`` of its slot, and the cluster merges the ranks' softmax states
 through distributed shared memory in the same launch.  ``split_count``
 picks ``splits`` from numbers the host knows without a device sync: the
 batch, the KV heads, G, the key bound of the call (the table's width in
-keys for the paged kernel, ``s_cap`` for the dense one) and the card's SM
-count (:func:`repro_torch.device.sm_count`).  The kernels compute each
+keys for the paged kernel, ``s_cap`` for the dense one), the card's SM
+count (:func:`repro_torch.device.sm_count`) and two launch knobs:
+``ctas_per_sm``, the CTA target an SM, and ``cta_rows``, the query rows a
+CTA keeps.  The dense kernel always runs the defaults (``CTAS_PER_SM``,
+``CTA_ROWS``); the paged one takes a tuned pair from the autotuner
+(:mod:`.autotune`), resolved by its op.  The kernels compute each
 rank's range on the device from ``lengths[b]`` (``rank_range`` in
 ``decode_split.cuh``); no op runs :func:`split_range` or
 :func:`boundary_lengths`, which the checks use as the host's mirror of
@@ -19,24 +23,31 @@ from __future__ import annotations
 
 TILE = 16          # keys; every range starts on a multiple (kTile)
 MAX_SPLITS = 8     # the portable cluster size (kMaxSplits)
-CTA_ROWS = 2       # query rows a CTA keeps (kCtaRows)
+CTA_ROWS = 2       # default query rows a CTA keeps (kCtaRows)
+CTAS_PER_SM = 2    # default CTA target an SM
+CTA_ROWS_CHOICES = (1, 2, 4)          # the paged kernel's instantiations
+CTAS_PER_SM_CHOICES = (1, 2, 4, 8)
 
 
-def row_groups(group: int) -> int:
+def row_groups(group: int, cta_rows: int = CTA_ROWS) -> int:
     """CTAs that share the ``group`` query heads of one KV head."""
-    return -(-max(int(group), 1) // CTA_ROWS)
+    return -(-max(int(group), 1) // cta_rows)
 
 
 def split_count(batch: int, hkv: int, group: int, key_bound: int,
-                sms: int) -> int:
+                sms: int, ctas_per_sm: int = CTAS_PER_SM,
+                cta_rows: int = CTA_ROWS) -> int:
     """Ranks per (slot, KV head, row group): the least power of two from 1
-    to ``MAX_SPLITS`` that gives two CTAs in all for each of the card's
-    ``sms`` SMs, but never more ranks than the key bound has tiles.
-    ``group`` is G, the query heads per KV head."""
+    to ``MAX_SPLITS`` that gives ``ctas_per_sm`` CTAs in all for each of
+    the card's ``sms`` SMs, but never more ranks than the key bound has
+    tiles.  ``group`` is G, the query heads per KV head, and ``cta_rows``
+    the query rows a CTA keeps.  A target, not a count: one tuned pair
+    gives the right split at every batch a server runs."""
     tiles = -(-max(int(key_bound), 0) // TILE)
-    ctas = batch * hkv * row_groups(group)
+    ctas = batch * hkv * row_groups(group, cta_rows)
     s = 1
-    while s < MAX_SPLITS and ctas * s < 2 * sms and 2 * s <= tiles:
+    while (s < MAX_SPLITS and ctas * s < ctas_per_sm * sms
+           and 2 * s <= tiles):
         s *= 2
     return s
 

@@ -43,6 +43,17 @@ and watchdog trips.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --reduced --device cpu --dtype float32 --paged --overload \\
       --ttft-slo 0.5 --deadline-s 30 --trace-out /tmp/trace.json
+
+Attention routing, as in ``repro.launch.serve``: ``--attn-mode
+{auto,kernel,plain}`` (``plain`` is JAX's ``xla``: gather, then plain
+PyTorch attention; ``kernel`` raises on the CPU).  ``--attn-telemetry``
+turns on the paged-attention ops' telemetry (:func:`repro_torch.kernels.
+paged_attn.attn_telemetry`) and prints, for each wave, one ``[attn]``
+line per ``(op, route)``: calls, calls made during graph capture, query
+tokens, eager wall time, achieved GB/s and op/byte, then the paper's
+amenability verdict of each op's measured mix.  A replayed graph does not
+pass through Python, so with graphs only the eager calls and the
+captures are counted; use ``--eager`` to count every call.
 """
 from __future__ import annotations
 
@@ -55,6 +66,7 @@ import torch
 from ..configs import get_config
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..kernels.paged_attn import amenability_reports, attn_telemetry
 from ..models.init import cast_for_serving
 from ..models.model_zoo import Model
 from ..serve.attribution import attribution_report
@@ -80,6 +92,7 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
         tpot_slo: float | None = None, overload: bool = False,
         deadline_s: float | None = None, timeout_s: float | None = None,
         watchdog_rounds: int = 100_000, flight_path: str | None = None,
+        attn_mode: str = "auto", attn_telemetry_on: bool = False,
         **overload_kw) -> dict:
     """Serve ``requests`` random prompts (lengths drawn from
     ``prompt_len`` = [lo, hi), tokens from ``seed``) from dense stripes,
@@ -94,7 +107,11 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
     ``flight_path`` and ``overload_kw`` (``overload_*`` fields) go to
     ``ServeConfig``; ``telemetry`` (or ``trace_out``) traces both waves,
     and ``trace_out`` names the Perfetto file to write; ``deadline_s``
-    and ``timeout_s`` go to every ``submit``.
+    and ``timeout_s`` go to every ``submit``.  ``attn_mode`` goes to
+    ``ServeConfig``; ``attn_telemetry_on`` records the paged-attention
+    ops' telemetry for each wave (returned as ``attn``/``warm_attn``,
+    the snapshot and the amenability verdicts) and prints its ``[attn]``
+    lines.
     ``arch`` is a registry name or a config (one cut in depth, say).
     ``params`` (from the port's init or the bridge) replaces the
     seeded random weights when given; it is cast for serving in
@@ -125,6 +142,7 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
     is the batcher's tracer (None untraced) and ``attribution`` its
     ``attribution_report`` over both waves."""
     dev = resolve_device(device)
+    tel = attn_telemetry()
     cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -136,7 +154,7 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
     params = cast_for_serving(params, dtype)
     scfg = ServeConfig(max_len=max_len, batch=batch, dtype=dtype,
                        sync_every=sync_every, temperature=temperature,
-                       paged=paged, page_size=page_size,
+                       attn_mode=attn_mode, paged=paged, page_size=page_size,
                        total_pages=total_pages, prefix_cache=prefix_cache,
                        prefill_chunk=prefill_chunk,
                        prefill_round_tokens=prefill_round_tokens,
@@ -158,6 +176,9 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
         prompts[rid] = system + rng.integers(0, cfg.vocab, size=n).tolist()
 
     def wave(first_rid: int) -> tuple[dict, float]:
+        if attn_telemetry_on:
+            tel.reset()
+            tel.enable()
         for rid, p in prompts.items():
             b.submit(first_rid + rid, p, deadline_s=deadline_s,
                      timeout_s=timeout_s)
@@ -168,6 +189,8 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
+        if attn_telemetry_on:
+            tel.disable()
         return {rid: b.results[first_rid + rid] for rid in prompts
                 if first_rid + rid in b.results}, dt
 
@@ -191,6 +214,7 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
           f"{mode})")
     watched = (overload or deadline_s is not None or timeout_s is not None)
     _overload_lines(b, "first wave", watched)
+    first["attn"] = _attn_lines("first wave") if attn_telemetry_on else None
     b.reset_stats()
     warm_results, warm_dt = wave(requests)
     lat, join = b.latency_stats(), b.join_stats()
@@ -202,6 +226,7 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
           f"{lat['tpot_p50_s'] * 1e3:.2f} ms; {join['joins']} joins, "
           f"mean {join['mean_join_s'] * 1e3:.1f} ms")
     _overload_lines(b, "warm wave", watched)
+    warm_attn = _attn_lines("warm wave") if attn_telemetry_on else None
     attribution = None
     if b.telemetry is not None:
         attribution = attribution_report(b.telemetry)
@@ -230,7 +255,28 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
             "warm_overload": b.overload_stats(), "warm_slo": b.slo_stats(),
             "warm_cancelled": dict(b.cancelled),
             "all_results": dict(b.results), "tracer": b.telemetry,
-            "attribution": attribution, "pool": b.pool}
+            "attribution": attribution, "pool": b.pool,
+            "warm_attn": warm_attn}
+
+
+def _attn_lines(wave: str) -> dict:
+    """Print the wave's ``[attn]`` lines from the attention telemetry:
+    one per ``(op, route)``, then each op's amenability verdict.  Returns
+    ``{"stats": snapshot, "verdicts": {op: verdict}}``."""
+    snap = attn_telemetry().snapshot()
+    for key, row in snap.items():
+        print(f"[attn] {wave}: {key}: {row['calls']} calls "
+              f"({row['traced_calls']} captured), {row['tokens']} tokens, "
+              f"wall {row['wall_s'] * 1e3:.2f} ms, "
+              f"{row['achieved_gbps']:.1f} GB/s achieved, op/byte "
+              f"{row['op_byte']:.2f}")
+    reports = amenability_reports()
+    for op, rep in reports.items():
+        passed = ", ".join(c.name for c in rep.characteristics if c.passed)
+        print(f"[attn] {wave}: {op}: PIM-amenability {rep.verdict.value} "
+              f"(op/byte {rep.profile.op_byte:.2f}; passes: {passed})")
+    return {"stats": snap,
+            "verdicts": {op: r.verdict.value for op, r in reports.items()}}
 
 
 def _overload_lines(b: Batcher, wave: str, watched: bool) -> None:
@@ -373,6 +419,14 @@ def main() -> None:
     ap.add_argument("--timeout-s", type=float, default=None, metavar="S",
                     help="hard per-request timeout (cancelled with reason "
                          "'timeout' when exceeded)")
+    ap.add_argument("--attn-mode", default="auto",
+                    choices=("auto", "kernel", "plain"),
+                    help="attention route: auto (kernels on the GPU, plain "
+                         "on the CPU), kernel, or plain (gather, then "
+                         "plain PyTorch attention)")
+    ap.add_argument("--attn-telemetry", action="store_true",
+                    help="print each wave's paged-attention telemetry "
+                         "([attn] lines) and amenability verdicts")
     ap.add_argument("--watchdog-rounds", type=int, default=100_000,
                     help="progress watchdog: rounds without progress "
                          "before the scheduler dumps a flight bundle and "
@@ -393,7 +447,8 @@ def main() -> None:
         optimistic=args.optimistic, trace_out=args.trace_out,
         ttft_slo=args.ttft_slo, tpot_slo=args.tpot_slo,
         overload=args.overload, deadline_s=args.deadline_s,
-        timeout_s=args.timeout_s, watchdog_rounds=args.watchdog_rounds)
+        timeout_s=args.timeout_s, watchdog_rounds=args.watchdog_rounds,
+        attn_mode=args.attn_mode, attn_telemetry_on=args.attn_telemetry)
 
 
 if __name__ == "__main__":

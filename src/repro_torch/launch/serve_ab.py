@@ -6,6 +6,9 @@ its parent) can be compared on one card.
       [--arch qwen2-0.5b] [--layouts paged dense] [--reps 2] [--graphs-ab]
   python src/repro_torch/launch/serve_ab.py --primitives [--src DIR] \\
       [--steps 5]
+  python src/repro_torch/launch/serve_ab.py --kernel-outputs OUT.npz \\
+      [--src DIR]
+  python src/repro_torch/launch/serve_ab.py --compare-outputs A.npz B.npz
 
 Imports ``repro_torch`` from ``--src``, a tree's ``src`` directory (by
 default the one this file lies in), so a parent commit unpacked with
@@ -38,6 +41,15 @@ and replayed (device time, ``graph_ms``), and 20 calls enqueued back to
 back between CUDA events (``ms``, which includes the host); the median of
 5 replays or runs.  Then ``--steps`` wave steps at ``Problem()`` through
 ``launch.wave_demo.run`` (ms a step and the volume op's ms, medians).
+
+``--kernel-outputs OUT.npz``: the paged decode and prefill kernels'
+outputs, through their wrappers with no launch argument (the tree's
+default launch), at full-width qwen2-0.5b's and moonshot's geometry in
+bfloat16 and float32 on seeded inputs (decode: 8 slots, lengths 64-600;
+verify: Lq 5 at depths 320-600; a join of 8 prompts of 64-512 tokens),
+saved bit for bit.  ``--compare-outputs A B`` says, per output, whether
+two such files (two trees' runs, in two processes: both trees' extensions
+share one module name) are bit-identical, and exits 1 if one is not.
 
 The last line is a JSON summary.
 """
@@ -166,6 +178,55 @@ def primitives(torch, timing, args) -> dict:
     return out
 
 
+def kernel_outputs(torch, path: str) -> dict:
+    """Save the default launches' outputs (see the module docstring)."""
+    import numpy as np
+    from repro_torch.kernels.paged_attn import kernel
+    dev = torch.device("cuda", 0)
+    out = {}
+    for hq, hkv, d in ((14, 2, 64), (16, 16, 128)):
+        for dtype in (torch.bfloat16, torch.float32):
+            rng = np.random.default_rng(hq + d)
+            b, ps, p_max = 8, 16, 38
+            pool = rng.standard_normal((2, b * p_max + 1, ps, hkv, d))
+            k, v = (torch.from_numpy(x).to(dev).to(dtype) for x in pool)
+            tbl = torch.from_numpy(rng.permutation(b * p_max).reshape(
+                b, p_max).astype(np.int32)).to(dev)
+            tag = f"hq{hq}.hkv{hkv}.d{d}.{str(dtype).split('.')[1]}"
+            lengths = rng.integers(64, 601, size=b)
+            q = torch.from_numpy(rng.standard_normal((b, hq, d))).to(
+                dev).to(dtype)
+            ln = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+            out[f"decode.{tag}"] = kernel.paged_attn_cuda(q, k, v, tbl, ln)
+            for op, lq, off, kvl in (
+                    ("verify", 5, rng.integers(320, 596, size=b), None),
+                    ("prefill", 512, np.zeros(b, np.int64),
+                     rng.integers(64, 513, size=b))):
+                kvl = off + lq if kvl is None else kvl
+                q = torch.from_numpy(rng.standard_normal(
+                    (b, lq, hq, d))).to(dev).to(dtype)
+                o, kv = (torch.from_numpy(x.astype(np.int32)).to(dev)
+                         for x in (off, kvl))
+                out[f"{op}.{tag}"] = kernel.paged_prefill_attn_cuda(
+                    q, k, v, tbl, o, kv)
+    torch.cuda.synchronize()
+    bits = {name: t.contiguous().view(
+        torch.int16 if t.dtype == torch.bfloat16 else torch.int32
+    ).cpu().numpy() for name, t in out.items()}
+    np.savez(path, **bits)
+    return {"saved": path, "outputs": sorted(bits)}
+
+
+def compare_outputs(a: str, b: str) -> dict:
+    """Per output of two ``--kernel-outputs`` files: bit-identical?"""
+    import numpy as np
+    x, y = np.load(a), np.load(b)
+    same = {k: bool(k in y.files and np.array_equal(x[k], y[k]))
+            for k in sorted(x.files)}
+    return {"bit_identical": same, "all": all(same.values())
+            and sorted(x.files) == sorted(y.files)}
+
+
 def main() -> None:
     here = pathlib.Path(__file__).resolve().parents[2]
     ap = argparse.ArgumentParser()
@@ -182,7 +243,17 @@ def main() -> None:
                     help="serve with CUDA graphs and eagerly, alternating, "
                          "on this one tree")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--kernel-outputs", default=None, metavar="OUT",
+                    help="save the paged kernels' default-launch outputs "
+                         "(.npz) instead of serving")
+    ap.add_argument("--compare-outputs", nargs=2, default=None,
+                    metavar=("A", "B"),
+                    help="compare two --kernel-outputs files bit for bit")
     args = ap.parse_args()
+    if args.compare_outputs:
+        res = compare_outputs(*args.compare_outputs)
+        print(json.dumps(res))
+        raise SystemExit(0 if res["all"] else 1)
     args.src = str(pathlib.Path(args.src).resolve())
     timing = own_timing()
     sys.path[0] = args.src     # this file's directory, when run as a file
@@ -194,7 +265,11 @@ def main() -> None:
                          f"not from {args.src}")
     if not torch.cuda.is_available():
         raise SystemExit("serve_ab measures the GPU: no CUDA device")
-    out = (primitives if args.primitives else serve)(torch, timing, args)
+    if args.kernel_outputs:
+        out = kernel_outputs(torch, args.kernel_outputs)
+    else:
+        out = (primitives if args.primitives else serve)(torch, timing,
+                                                         args)
     print(json.dumps({"src": args.src,
                       "device": torch.cuda.get_device_name(0), **out}))
 

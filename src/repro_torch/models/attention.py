@@ -28,6 +28,15 @@ live ones, so what they read must not vary.)
 
 A masked write with a data-dependent shape would cost a host sync per
 call; the sinks keep every write's shape fixed.
+
+Routing: every attention op called here reads the active
+:class:`~repro_torch.kernels.decode_attn.ops.DecodeAttnPolicy` (the
+serving engine enters the batcher's around every join and decode loop),
+as JAX's layer does at trace time: in mode ``"auto"`` the hand-written
+kernels on the card and their plain versions on the CPU, in ``"plain"``
+the gather-then-attend and plain PyTorch versions on either device, in
+``"kernel"`` the kernels (a CPU tensor raises).  The paged ops also take
+their tuned launch from the policy.
 """
 from __future__ import annotations
 
@@ -38,7 +47,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.decode_attn import decode_attn
-from ..kernels.paged_attn import paged_attn, paged_prefill_attn
+from ..kernels.paged_attn import (paged_attn, paged_prefill_attn,
+                                  paged_verify_attn)
 from .layers import dense, rope_tables, rotate
 
 
@@ -183,7 +193,8 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
               positions: torch.Tensor | None = None,
               rope: tuple[torch.Tensor, torch.Tensor] | None = None,
               cache: KVCache | PagedKVCache | None = None,
-              write_index=None, kv_cap: int | None = None):
+              write_index=None, kv_cap: int | None = None,
+              verify: bool = False):
     """x: [B, L, D].  With a ``cache``, writes this call's K/V at
     ``cache.length`` and attends over the filled prefix.
 
@@ -194,7 +205,10 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     stripe, or over its first ``length + L`` rows for an int offset, since
     the masked keys past them contribute exactly zero.  Paged: a one-token
     call through :func:`paged_attn`, anything longer (prefill, suffix
-    prefill, verify) through :func:`paged_prefill_attn`.
+    prefill) through :func:`paged_prefill_attn`, and a speculative verify
+    (``verify``, from ``Model.decode_step`` at L = k+1) through
+    :func:`paged_verify_attn`, the same kernel under its own tuned launch.
+    Each op routes by the active policy.
 
     ``rope`` is the (cos, sin) pair of ``positions`` and ``write_index``
     the cache write addresses, when the caller has computed them once for
@@ -220,8 +234,8 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
         if n == 1:
             out = paged_attn(q[:, 0], kp, vp, cache.table, kv_len)[:, None]
         else:
-            out = paged_prefill_attn(q, kp, vp, cache.table, cache.length,
-                                     kv_len)
+            attend = paged_verify_attn if verify else paged_prefill_attn
+            out = attend(q, kp, vp, cache.table, cache.length, kv_len)
     elif cache is not None:
         kc = _cache_insert(cache.k, k, cache.length, write_index)
         vc = _cache_insert(cache.v, v, cache.length, write_index)

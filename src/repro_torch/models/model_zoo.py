@@ -72,11 +72,15 @@ class Model:
         ``cache_len``: dense stripes, or paged pools when ``pages`` carries
         the slots' page tables.  L = 1 for decode, L = k+1 for a
         speculative verify.  ``kv_cap`` (dense only) bounds the stripe rows
-        a one-token call reads, as the JAX policy's ``kv_cap`` does.
-        Returns (logits [B, L, V] float32, caches)."""
+        a one-token call reads, as the JAX policy's ``kv_cap`` does.  A
+        paged call at L > 1 is a verify: its attention goes through
+        ``paged_verify_attn``.  Returns (logits [B, L, V] float32,
+        caches)."""
         hidden, caches = forward(params, {"tokens": tokens}, self.cfg,
                                  caches=caches, cache_len=cache_len,
-                                 dtype=dtype, pages=pages, kv_cap=kv_cap)
+                                 dtype=dtype, pages=pages, kv_cap=kv_cap,
+                                 verify=pages is not None
+                                 and tokens.shape[1] > 1)
         return logits_fn(params, hidden, self.cfg), caches
 
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16, *,

@@ -58,13 +58,14 @@ def init_paged_caches(cfg: ArchConfig, batch: int, n_pages: int,
 def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                 kind: BlockKind, *, rope,
                 cache: KVCache | PagedKVCache | None = None,
-                write_index=None, kv_cap: int | None = None):
+                write_index=None, kv_cap: int | None = None,
+                verify: bool = False):
     """Pre-norm attention block, then the gated MLP (DENSE) or the routed
     experts (MOE); returns (y, new_cache)."""
     h, new_cache = gqa_apply(params["attn"],
                              rmsnorm(params["norm1"], x, cfg.norm_eps), cfg,
                              rope=rope, cache=cache, write_index=write_index,
-                             kv_cap=kv_cap)
+                             kv_cap=kv_cap, verify=verify)
     x = x + h
     z = rmsnorm(params["norm2"], x, cfg.norm_eps)
     if kind is BlockKind.MOE:
@@ -84,7 +85,8 @@ def _layer(stacked, i: int):
 def forward(params: dict, batch: dict, cfg: ArchConfig, *,
             caches: list | None = None, cache_len=None,
             dtype: torch.dtype = torch.bfloat16,
-            pages: torch.Tensor | None = None, kv_cap: int | None = None):
+            pages: torch.Tensor | None = None, kv_cap: int | None = None,
+            verify: bool = False):
     """Returns (hidden [B, L, D], caches).
 
     ``batch["tokens"]``: [B, L] int.  With ``caches``, row b's L tokens sit
@@ -98,7 +100,8 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     - Paged pools (:func:`init_paged_caches`) with ``pages`` ([B, P] int32
       page table) and per-slot ``cache_len`` [B] int32: a prompt prefill
       (``cache_len`` 0), a suffix prefill, a one-token decode and a k+1
-      verify are all this one call.
+      verify are all this one call; ``verify`` marks the last, whose
+      attention takes the verify op's tuned launch.
 
     Without caches the call is a plain causal forward.  (The JAX forward
     also returns the MoE blocks' auxiliary loss, which serving does not
@@ -142,7 +145,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
                                 cache_len)
             x, _ = block_apply(_layer(stacked, i), x, cfg, seg.kind,
                                rope=rope, cache=cache, write_index=index,
-                               kv_cap=kv_cap)
+                               kv_cap=kv_cap, verify=verify)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
 
 

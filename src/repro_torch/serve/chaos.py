@@ -102,6 +102,19 @@ class ChaosInjector:
         self._burst_seq = 0
 
     # ------------------------------------------------------------------
+    def on_drain(self, batcher) -> None:
+        """Called by the scheduler when a run drains.  Pages held for a
+        release round the run did not reach are released now, recorded as
+        that round's ``release_held`` at the drain's round: a scheduled
+        release is never lost because the traffic finished first, so no
+        page stays held past the run.  (JAX's injector keeps them held;
+        its stress test fails on such runs.)"""
+        pool = batcher.pool
+        r = batcher.round
+        if (pool is not None and pool.held_pages
+                and any(at > r for at in self.release_at)):
+            self.events.append((r, "release_held", pool.release_held()))
+
     def on_round(self, batcher) -> None:
         """Called by the scheduler at the top of every scheduling round
         (``batcher.round`` has already been advanced).  Every fault also

@@ -21,6 +21,12 @@ slot's own token history, one ``Model.decode_step`` at Lq = k+1 (the paged
 prefill kernel) checks them, and each slot commits the longest agreeing
 prefix plus the model's bonus token.  The history is one more tensor the
 loop writes in place, so the speculative loop is graphed the same way.
+
+Every join and decode loop runs inside its batcher's attention policy
+(:func:`repro_torch.kernels.decode_attn.ops.decode_attn_policy`, mode
+``ServeConfig.attn_mode``), the graph captures included: the route and
+the tuned launch each attention op resolves at capture are baked into
+the graph, as JAX resolves them at trace time.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ import time
 import torch
 
 from ..kernels import launches
+from ..kernels.decode_attn.ops import (MODES, DecodeAttnPolicy,
+                                       decode_attn_policy)
 from ..models.model_zoo import Model
 
 PAD_TOKEN = -1    # emitted-slot sentinel: "slot was already retired"
@@ -37,14 +45,16 @@ PAD_TOKEN = -1    # emitted-slot sentinel: "slot was already retired"
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """``repro.serve.engine.ServeConfig`` without its attention-route
-    fields (``attn_mode``, ``attn_interpret``: the port has one route a
-    call shape, its CUDA kernel on the card and the plain version on the
-    CPU).  ``paged`` picks the KV layout: dense per-slot
-    stripes of ``max_len`` rows (the default, as in JAX), or fixed-size
-    pages in one pooled allocation with per-slot page tables.  The prefix
-    cache, chunked prefill, speculation and optimistic admission need
-    ``paged``; the batcher checks them as JAX's does.
+    """``repro.serve.engine.ServeConfig``.  ``attn_mode`` routes every
+    attention op (:class:`~repro_torch.kernels.decode_attn.ops.
+    DecodeAttnPolicy`): ``"auto"`` (the CUDA kernels on the card, the
+    plain versions on the CPU), ``"kernel"`` or ``"plain"`` (JAX's
+    ``"xla"``: gather, then plain PyTorch attention); JAX's
+    ``attn_interpret`` has no counterpart.  ``paged`` picks the KV layout:
+    dense per-slot stripes of ``max_len`` rows (the default, as in JAX), or
+    fixed-size pages in one pooled allocation with per-slot page tables.
+    The prefix cache, chunked prefill, speculation and optimistic
+    admission need ``paged``; the batcher checks them as JAX's does.
     ``admission_mode="optimistic"`` admits a request on its prompt's pages
     only and grows each decoding slot's table between segments; when the
     pool cannot cover the growth, a victim slot (lowest priority, then
@@ -56,6 +66,7 @@ class ServeConfig:
     dtype: torch.dtype = torch.bfloat16
     temperature: float = 0.0     # 0 = greedy
     sync_every: int = 8          # decode steps per host sync
+    attn_mode: str = "auto"      # attention: "auto" | "kernel" | "plain"
     paged: bool = False          # paged pool instead of dense stripes
     page_size: int = 16          # KV rows per page (paged)
     total_pages: int | None = None   # pool size; None -> batch * max pages
@@ -165,6 +176,9 @@ class ServeConfig:
             raise ValueError("max_len, batch and page_size must be positive")
         if self.admission not in ("fifo", "skip-ahead"):
             raise ValueError(f"unknown admission policy {self.admission!r}")
+        if self.attn_mode not in MODES:
+            raise ValueError(f"unknown attention mode {self.attn_mode!r} "
+                             f"(expected one of {MODES})")
 
     @property
     def max_pages(self) -> int:
@@ -240,10 +254,25 @@ def ngram_propose(history: torch.Tensor, lengths: torch.Tensor, *,
     return torch.stack(drafts, dim=1)                               # [B, k]
 
 
+def _within(policy: DecodeAttnPolicy | None, cfg: ServeConfig, fn):
+    """``fn`` run inside ``policy`` (None: a policy of mode
+    ``cfg.attn_mode``, its tuned launches loaded now)."""
+    if policy is None:
+        policy = DecodeAttnPolicy(mode=cfg.attn_mode)
+
+    def run(*args):
+        with decode_attn_policy(policy):
+            return fn(*args)
+    return run
+
+
 def make_decode_loop(model: Model, cfg: ServeConfig, *, steps: int,
                      eos_id: int | None, kv_cap: int | None = None,
-                     paged: bool = False, speculate_k: int = 0):
-    """Build the multi-token decode driver.
+                     paged: bool = False, speculate_k: int = 0,
+                     policy: DecodeAttnPolicy | None = None):
+    """Build the multi-token decode driver.  The loop runs inside
+    ``policy`` (None: one of mode ``cfg.attn_mode``, its tuned launches
+    loaded now).
 
     Returns ``loop(params, tok, caches, lengths, done, remaining, gen,
     pages=None) -> emitted``, ``emitted`` [steps, B] int32 with PAD_TOKEN
@@ -311,7 +340,7 @@ def make_decode_loop(model: Model, cfg: ServeConfig, *, steps: int,
         return torch.stack(emitted)
 
     if not speculate_k:
-        return loop
+        return _within(policy, cfg, loop)
     if not paged:
         raise ValueError("speculate_k requires the paged loop")
     k, spec_n = speculate_k, cfg.speculate_ngram
@@ -372,7 +401,7 @@ def make_decode_loop(model: Model, cfg: ServeConfig, *, steps: int,
         for held, final in zip(state, (tok, lengths, done, remaining)):
             held.copy_(final)
         return torch.stack(emitted)                       # [steps, B, k+1]
-    return spec_loop
+    return _within(policy, cfg, spec_loop)
 
 
 def _addresses(tree) -> tuple[int, ...]:
@@ -455,7 +484,8 @@ class GraphedLoop:
         return emitted
 
 
-def make_join(model: Model, cfg: ServeConfig, *, eos_id: int | None):
+def make_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
+              policy: DecodeAttnPolicy | None = None):
     """Dense slot refill, as the JAX join: batch-prefill every row into
     fresh W-row stripes, the joining prompts (padded to one width W) in
     their slots and zero prompts in the others, as the JAX scheduler builds
@@ -475,7 +505,7 @@ def make_join(model: Model, cfg: ServeConfig, *, eos_id: int | None):
     graph captured over those tensors reads the joined rows.  Returns
     (caches, tok, lengths, done, remaining, first), the same tensors it
     was given and ``first`` [J], the joining rows' first sampled
-    tokens."""
+    tokens.  The join runs inside ``policy``, as the decode loop does."""
     temp = cfg.temperature
 
     def join(params, caches, tok, lengths, done, remaining, rows, prompts,
@@ -501,10 +531,11 @@ def make_join(model: Model, cfg: ServeConfig, *, eos_id: int | None):
         remaining.index_copy_(0, rows, rem_new)
         done.index_copy_(0, rows, is_eos | (rem_new <= 0))
         return caches, tok, lengths, done, remaining, first
-    return join
+    return _within(policy, cfg, join)
 
 
-def make_paged_join(model: Model, cfg: ServeConfig, *, eos_id: int | None):
+def make_paged_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
+                    policy: DecodeAttnPolicy | None = None):
     """Paged slot refill.  The batch prefill writes through the page
     table, and rows outside ``join_mask`` get an all-sentinel table, so
     their writes never reach a live page: occupied slots' pages stay
@@ -512,9 +543,9 @@ def make_paged_join(model: Model, cfg: ServeConfig, *, eos_id: int | None):
     joining row's resident depth (0 for a whole-prompt prefill) and
     ``commit_mask`` [B] the joining rows whose prompt completes with this
     call (``commit_mask == join_mask`` when prompts are not chunked).  The
-    slot state is written in place, as in :func:`make_join`.  Returns
-    (caches, tok, lengths, done, remaining, first), the state tensors the
-    same ones it was given."""
+    slot state is written in place, as in :func:`make_join`, inside
+    ``policy``.  Returns (caches, tok, lengths, done, remaining, first),
+    the state tensors the same ones it was given."""
     temp = cfg.temperature
     sentinel = cfg.pool_pages      # the pool's out-of-range id
 
@@ -540,4 +571,4 @@ def make_paged_join(model: Model, cfg: ServeConfig, *, eos_id: int | None):
         for held, value in zip((tok, lengths, done, remaining), new):
             held.copy_(value)
         return caches, tok, lengths, done, remaining, first
-    return join
+    return _within(policy, cfg, join)

@@ -145,6 +145,7 @@ import torch
 
 from .engine import (PAD_TOKEN, GraphedLoop, ServeConfig, make_decode_loop,
                      make_join, make_paged_join)
+from ..kernels.decode_attn.ops import DecodeAttnPolicy
 from .kvpool import KVPool, PageError
 from .overload import (CANCEL_REASONS, HEALTHY, RETRY_AFTER, STATES,
                        DegradationController, Watchdog, WatchdogStall,
@@ -171,7 +172,15 @@ class ContinuousBatcher:
     :class:`~repro_torch.serve.chaos.ChaosInjector` called at the top of
     every scheduling round.  ``telemetry`` is a
     :class:`~repro_torch.serve.telemetry.Tracer` to record into (None:
-    one of its own when ``cfg.telemetry``, else no tracing)."""
+    one of its own when ``cfg.telemetry``, else no tracing).
+
+    Attention routes by ``cfg.attn_mode`` through one
+    :class:`~repro_torch.kernels.decode_attn.ops.DecodeAttnPolicy` built
+    here, so the tuned launches are loaded once, when the batcher is
+    built: every join and decode loop runs inside it, and a graph is
+    captured under it.  ``ServeConfig`` is frozen, so the mode holds for
+    the batcher's life, and a later rewrite of the tuned-launch cache never
+    meets a graph captured under the old entries."""
 
     def __init__(self, model: Model, params, cfg: ServeConfig,
                  eos_id: int | None = None, seed: int = 0,
@@ -237,18 +246,21 @@ class ContinuousBatcher:
         if graphs:
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(dev)
+        self.attn_policy = DecodeAttnPolicy(mode=cfg.attn_mode)
         b = cfg.batch
         if cfg.paged:
             self.pool = KVPool(cfg.pool_pages, cfg.page_size, b,
                                max_pages=cfg.max_pages)
             self.caches = model.init_paged_caches(
                 b, cfg.pool_pages, cfg.page_size, cfg.dtype, device=dev)
-            self._join = make_paged_join(model, cfg, eos_id=eos_id)
+            self._join = make_paged_join(model, cfg, eos_id=eos_id,
+                                         policy=self.attn_policy)
         else:
             self.pool = None
             self.caches = model.init_caches(b, cfg.max_len, cfg.dtype,
                                             device=dev)
-            self._join = make_join(model, cfg, eos_id=eos_id)
+            self._join = make_join(model, cfg, eos_id=eos_id,
+                                   policy=self.attn_policy)
         self.prefix = PrefixCache(self.pool) if cfg.prefix_cache else None
         # every per-wave stat lives in the registry; the tracer is
         # optional (None keeps each event call site a skipped ``if``)
@@ -490,7 +502,8 @@ class ContinuousBatcher:
             loop = make_decode_loop(
                 self.model, self.cfg, steps=steps, eos_id=self.eos,
                 kv_cap=None if self.cfg.paged else cap,
-                paged=self.cfg.paged, speculate_k=spec)
+                paged=self.cfg.paged, speculate_k=spec,
+                policy=self.attn_policy)
             if self.graphs:
                 loop = GraphedLoop(loop, stream=self._capture_stream,
                                    pool=self._graph_pool,
@@ -1318,6 +1331,8 @@ class ContinuousBatcher:
             # events, the allocator and the slot table
             self._dump_flight(err)
             raise
+        if self.chaos is not None:
+            self.chaos.on_drain(self)
         return self.results
 
     def _round(self, max_new: int, steps: int) -> None:

@@ -9,7 +9,10 @@ the MoE model (reduced moonshot) served through it, the bfloat16 init
 built in place, the ops that take strided views, and optimistic
 admission's preemption on graphed segments (the victim's row latched in
 place, graphed against eager), and a mid-flight cancel on graphed
-segments (the cancelled row latched in place).  Every test here is
+segments (the cancelled row latched in place); the paged kernels at
+every launch knob the autotuner sweeps (decode: every split count and
+rows a CTA; prefill and verify: every rows a CTA), and serving with the
+attention routed plain against the kernels.  Every test here is
 marked ``cuda`` and skips without a GPU; on a GPU machine run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -32,6 +35,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import sm_count
 from repro_torch.kernels import decode_attn as dattn
+from repro_torch.kernels.decode_attn import decode_attn_policy
 from repro_torch.kernels import moe_group_gemm as mg
 from repro_torch.kernels import push_scatter as ps
 from repro_torch.kernels import ss_gemm as sg
@@ -64,6 +68,15 @@ GEOMETRIES = [(4, 1, 16, 8),       # reduced qwen2-0.5b
 def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(autouse=True)
+def _default_launches():
+    """Ops called here outside a batcher launch the kernels' defaults (no
+    tuned entry), so the split counts the tests pick are the ones that
+    run; a batcher builds its own policy, with the committed entries."""
+    with decode_attn_policy(use_tuned=False):
+        yield
 
 
 def _pages(rng, b, hkv, d, n, ps, p_max, depths, dtype):
@@ -141,7 +154,7 @@ def test_decode_kernel_matches_plain_version(dtype, hq, hkv, d, ps, splits):
         before = kernel.launch_counts["paged_decode"]
         got = paged_attn(q, kp, vp, tbl, ln)
         assert kernel.launch_counts["paged_decode"] == before + 1
-        assert kernel.last_splits["paged_decode"] == splits
+        assert kernel.last_launch["paged_decode"]["splits"] == splits
         want = paged_attn_ref(q.float(), k.float(), v.float(), tbl, ln)
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == q.shape
@@ -167,7 +180,7 @@ def test_decode_kernel_stages_a_wide_table_in_runs(dtype, splits):
         q = torch.randn(len(batch), hq, d, device="cuda").to(dtype)
         ln = torch.tensor(batch, dtype=torch.int32, device="cuda")
         got = paged_attn(q, k, v, tbl, ln)
-        assert kernel.last_splits["paged_decode"] == splits
+        assert kernel.last_launch["paged_decode"]["splits"] == splits
         want = paged_attn_ref(q.float(), k.float(), v.float(), tbl, ln)
         torch.cuda.synchronize()
         assert bool((got[ln == 0] == 0).all())
@@ -222,6 +235,123 @@ def test_prefill_join_at_full_width(hq, hkv, d):
                                   off + 512)
     torch.cuda.synchronize()
     assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+
+
+KNOB_GEOMETRIES = [(4, 1, 16, 8),       # reduced qwen2-0.5b (G 4)
+                   (14, 2, 64, 16),     # full-width qwen2-0.5b (G 7)
+                   (16, 16, 128, 16)]   # full-width moonshot (G 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d,ps", KNOB_GEOMETRIES)
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("cta_rows", split.CTA_ROWS_CHOICES)
+def test_decode_kernel_at_every_launch_knob(dtype, hq, hkv, d, ps, splits,
+                                            cta_rows):
+    """Every split count a tuned ``ctas_per_sm`` can give, with every
+    ``cta_rows``: lengths 0, 1, page edges, the full table and one key
+    before, at and past every rank boundary, the pool rows past each
+    length NaN, against the plain version."""
+    rng = np.random.default_rng(hq + d + splits + cta_rows)
+    p_max = DECODE_BOUND // ps
+    lengths = _decode_lengths(splits, ps, DECODE_BOUND)
+    b = len(lengths)
+    n = sum(-(-x // ps) for x in lengths) + 1
+    k, v, tbl = _pages(rng, b, hkv, d, n, ps, p_max, lengths, dtype)
+    kp, vp = k.clone(), v.clone()
+    for i, x in enumerate(lengths):
+        if x % ps:
+            page = tbl[i, x // ps].long()
+            kp[page, x % ps:] = float("nan")
+            vp[page, x % ps:] = float("nan")
+    q = torch.randn(b, hq, d, device="cuda").to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = kernel.paged_attn_cuda(q, kp, vp, tbl, ln, cta_rows=cta_rows,
+                                 splits=splits)
+    assert kernel.last_launch["paged_decode"] == {"splits": splits,
+                                                  "cta_rows": cta_rows}
+    want = paged_attn_ref(q.float(), k.float(), v.float(), tbl, ln)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((got[ln == 0] == 0).all())
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d,ps", GEOMETRIES)
+@pytest.mark.parametrize("block_rows", kernel.BLOCK_ROWS_CHOICES)
+@pytest.mark.parametrize("lq,offsets,cut", [
+    (5, [0, 3, 17, 60, 100], [0] * 5),            # a verify: ragged blocks
+    (37, [0, 0, 9, 31, 64], [0] * 5),
+    (20, [0, 40, 70, 5, 0], [17, 10, 0, 19, 3])])  # kv_len cuts the window
+def test_prefill_kernel_at_every_block_rows(dtype, hq, hkv, d, ps,
+                                            block_rows, lq, offsets, cut):
+    """Both prefill walks at 16, 32 and 64 fused rows a CTA: blocks that
+    cut a token's group, a ragged last block, kv_len below some rows'
+    positions, against the plain version."""
+    rng = np.random.default_rng(hq + d + lq + block_rows)
+    kv_len = [o + lq - c for o, c in zip(offsets, cut)]
+    k, v, tbl = _pages(rng, 5, hkv, d, 100, ps, 40, [o + lq for o in offsets],
+                       dtype)
+    q = torch.randn(5, lq, hq, d, device="cuda").to(dtype)
+    off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    got = paged_prefill_attn(q, k, v, tbl, off, kvl, block_rows=block_rows)
+    assert kernel.last_launch["paged_prefill"] == {"block_rows": block_rows}
+    want = paged_prefill_attn_ref(q.float(), k.float(), v.float(), tbl, off,
+                                  kvl)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+def test_default_launch_knobs_are_the_old_launches():
+    """Without a tuned entry the ops launch two CTAs an SM's split at two
+    rows a CTA, and 64 fused rows a prefill CTA: the launches the kernels
+    ran before the knobs."""
+    rng = np.random.default_rng(7)
+    k, v, tbl = _pages(rng, 8, 2, 64, 320, 16, 38, [600] * 8,
+                       torch.bfloat16)
+    ln = torch.full((8,), 600, dtype=torch.int32, device="cuda")
+    q = torch.randn(8, 14, 64, device="cuda").to(torch.bfloat16)
+    paged_attn(q, k, v, tbl, ln)
+    sms = sm_count(torch.device("cuda", torch.cuda.current_device()))
+    assert kernel.last_launch["paged_decode"] == {
+        "splits": split.split_count(8, 2, 7, 38 * 16, sms),
+        "cta_rows": 2}
+    q5 = torch.randn(8, 5, 14, 64, device="cuda").to(torch.bfloat16)
+    paged_prefill_attn(q5, k, v, tbl, ln - 5, ln)
+    assert kernel.last_launch["paged_prefill"] == {"block_rows": 64}
+
+
+def test_knob_refusals():
+    q = torch.zeros(2, 4, 16, device="cuda")
+    pool = torch.zeros(3, 8, 1, 16, device="cuda")
+    tbl = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+    ln = torch.ones(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="cta_rows"):
+        kernel.paged_attn_cuda(q, pool, pool, tbl, ln, cta_rows=3)
+    with pytest.raises(ValueError, match="splits"):
+        kernel.paged_attn_cuda(q, pool, pool, tbl, ln, splits=3)
+    with pytest.raises(ValueError, match="block_rows"):
+        kernel.paged_prefill_attn_cuda(q[:, None], pool, pool, tbl, ln - 1,
+                                       ln, block_rows=48)
+
+
+def test_plain_attention_serving_matches_kernels():
+    """Reduced qwen2-0.5b, float32, paged and dense: ``attn_mode="plain"``
+    (gather, then plain PyTorch attention, on the card) and ``"kernel"``
+    give equal greedy streams."""
+    params = init_params(get_config("qwen2-0.5b").reduced(), 0,
+                         device="cuda")
+    for paged in (True, False):
+        kw = dict(reduced=True, requests=5, max_new=9, batch=2, max_len=64,
+                  paged=paged, page_size=8, sync_every=4,
+                  dtype=torch.float32, device="cuda", params=params)
+        plain = run("qwen2-0.5b", attn_mode="plain", **kw)
+        kern = run("qwen2-0.5b", attn_mode="kernel", **kw)
+        assert plain["results"] == kern["results"]
+        assert plain["warm_results"] == kern["warm_results"]
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

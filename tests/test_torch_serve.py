@@ -290,4 +290,9 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.models.moe",
             "repro_torch.kernels.moe_group_gemm.kernel",
             "repro_torch.kernels.moe_group_gemm.ops",
-            "repro_torch.kernels.moe_group_gemm.ref"} <= set(names[1:])
+            "repro_torch.kernels.moe_group_gemm.ref",
+            "repro_torch.core.hwspec",
+            "repro_torch.core.amenability",
+            "repro_torch.kernels.paged_attn.autotune",
+            "repro_torch.kernels.paged_attn.ops",
+            "repro_torch.launch.autotune"} <= set(names[1:])

@@ -444,6 +444,29 @@ def test_latency_stats_report_queue_wait_and_preemptions(setup):
     assert tb.round == jb.round > 0
 
 
+def test_chaos_releases_its_holds_when_the_run_drains_first(setup,
+                                                            reference):
+    """A run that drains before the chaos release round (here round 4 of
+    a release at 7) still ends with nothing held: the injector releases
+    at the drain what it was to release later (JAX's keeps it held, the
+    fault its stress test trips on)."""
+    cfg = setup[0]
+    rng = np.random.default_rng(0)
+    requests = [(i, rng.integers(0, cfg.vocab,
+                                 size=int(rng.integers(4, 14))).tolist())
+                for i in range(4)]
+    chaos = ChaosInjector(exhaust_at={2: 0}, release_at=(7,),
+                          check_invariants=True)
+    b = _port(setup, requests, max_new=4, chaos=chaos, total_pages=8,
+              speculate_k=2)
+    _assert_same_streams(setup, requests, b.results,
+                         reference(requests, 4))
+    assert b.round < 7
+    assert chaos.events == [(2, "hold", 6), (b.round, "release_held", 6)]
+    assert b.pool.held_pages == 0
+    _assert_drained(b)
+
+
 # ---------------------------------------------------------------------------
 # hypothesis: preemption x chunks x prefix x speculation, the port alone
 # ---------------------------------------------------------------------------
