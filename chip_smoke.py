@@ -25,8 +25,11 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    tables, sentinel tails, the pool rows past each length NaN; a prefill
    at mixed depths, a verify at Lq = 5 and a join, through the op and at
    16, 32 and 64 rows a CTA; the same at the full-width moonshot geometry
-   (Hq 16, Hkv 16: G = 1, D = 128).  Dense
-   stripes, at G = 7, D = 64, G = 4, D = 16 and G = 1, D = 128: ragged
+   (Hq 16, Hkv 16: G = 1, D = 128) and at the three dense families'
+   (starcoder2-3b Hq 24, Hkv 2: G 12; nemotron-4-15b Hq 48, Hkv 8: G 6;
+   codeqwen1.5-7b Hq 32, Hkv 32: G 1; all D 128).  Dense
+   stripes, at G = 7, D = 64, G = 4, D = 16, G = 1, D = 128 and the
+   families' three geometries: ragged
    lengths (0, 1, a length above the rows read, rank boundaries +-1), the
    whole stripe and a stripe read under ``s_cap`` whose rows past it hold
    NaN.  The
@@ -34,7 +37,10 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    sweep, empty and full experts, a ragged C, rows that are not 16 bytes,
    and full-width moonshot's expert shapes at decode (C 1) and at a
    4,096-token join (C 480) with counts from a seeded routing; the rows
-   past each count exactly zero though the padding holds NaN.  Skinny
+   past each count exactly zero though the padding holds NaN; and
+   full-width deepseek-v3's (E 256, top-8, D 7168, F 2048, gate/up and
+   down) at decode (C 1) and at a 4,096-token join (C 160), the same
+   way, the float64 product 32 experts at a time.  Skinny
    GEMM, masked and compact, in bfloat16 and float32 on both routes (the
    tensor-core walk for aligned bfloat16, the CUDA-core walk for the
    rest, counted by ``route_counts``): N 1-16, ragged M and K, densities
@@ -61,8 +67,10 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    verify at the features phase's shape (8 slots, Lq 5, depths 320-600),
    on the device alone too, beside SDPA and the decode kernel's time at
    the same depths times 5; the attention kernels also at moonshot's
-   geometry over 48 layers, the grouped GEMM at decode and at a join (its
-   gate/up and its down projection) with its tiles skipped, and the
+   geometry over 48 layers and at each dense family's over its layers,
+   the grouped GEMM at decode and at a join (its gate/up and its down
+   projection) with its tiles skipped, at moonshot's expert shapes and
+   at deepseek's, and the
    achieved TFLOP/s and share of the bound of the kernels redesigned for
    the tensor cores (bf16 prefill, the grouped GEMM at a join, both
    ss-gemm walks at N 16); the two decode kernels and SDPA also on the
@@ -176,10 +184,27 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    the qwen serve cell's traffic, graphed and eager as in phase 4;
    launches of the grouped GEMM (3 per MoE layer and forward call) and of
    both paged kernels checked, tok/s of both waves, capture seconds and
-   peak device memory with graphs printed.
+   peak device memory with graphs printed;
+10. ``[families]``: starcoder2-3b, nemotron-4-15b and codeqwen1.5-7b at
+   full width and full depth, then deepseek-v3 at full width cut to 3
+   dense + 1 MoE layer of 61 (every width, all 256 experts, the vocab and
+   the MTP block kept), each built in place from seeded bfloat16 weights
+   and freed before the next, served paged on phase 4's traffic, graphed,
+   a first and a warm wave: warm tok/s, TTFT and TPOT p50, peak device
+   memory, launches exact (deepseek's multi-head latent attention runs no
+   attention kernel; its grouped GEMM 3 a MoE layer and forward call);
+   deepseek also with the prefix cache, chunks of 128 and speculation
+   (k 4) behind a 256-token shared prefix.  Then each of the four at
+   ``reduced()`` in float32, card (graphs) against the CPU's plain path,
+   paged and dense (deepseek also with the prefix cache, chunks of 16 and
+   speculation k 3): equal greedy streams or a difference at a logit
+   near-tie.
 
 Output: one line per check, then a JSON line with the kernels' numbers
-(the attention rows carry moonshot's D 128 times as ``d128_*``, the
+(the attention rows carry moonshot's D 128 times as ``d128_*`` and the
+dense families' as ``g12_*`` (starcoder2), ``g6_*`` (nemotron) and
+``mha_*`` (codeqwen), their ``[families]`` launches as
+``families_launches``, the
 prefill row the verify's as ``verify_*``, the paged rows this run's sweep
 as ``autotune`` (per geometry and op: winner, its and the default's
 device ms, candidates measured and dropped), the
@@ -187,12 +212,15 @@ attention, volume and vector-sum rows their device-only ``graph_ms``,
 the library call's ``library_graph_ms`` beside it,
 volume's row its bfloat16 times
 as ``bf16_*``, the grouped GEMM's row the join's as ``prefill_*`` and
-``down_*``, the ss-gemm rows N 16's as ``n16_*``), the
+``down_*``, deepseek's expert shapes as ``ds_*``, ``ds_prefill_*`` and
+``ds_down_*`` and the deepseek cut's launches as ``deepseek_launches``,
+the ss-gemm rows N 16's as ``n16_*``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import math
 import pathlib
@@ -221,6 +249,12 @@ ARCH = "qwen2-0.5b"
 HQ, HKV, D, PS = 14, 2, 64, 16
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_GEO = (16, 16, 128)                   # its Hq, Hkv, head_dim (G 1)
+# the dense decoders served beside qwen: their attention geometries (Hq,
+# Hkv, head_dim) and the prefixes of their times in the JSON line
+FAMILIES = {"starcoder2-3b": ("g12", (24, 2, 128)),
+            "nemotron-4-15b": ("g6", (48, 8, 128)),
+            "codeqwen1.5-7b": ("mha", (32, 32, 128))}
+MLA_ARCH = "deepseek-v3-671b"             # its times: the "ds_" prefix
 SMI = ""                                  # nvidia-smi's name, power limit
 
 
@@ -612,10 +646,11 @@ def print_device_times(kname: str, dtype_name: str, row: dict) -> None:
 
 def stripe_checks(torch) -> float:
     """The dense-stripe decode kernel against its plain version, at the
-    full-width qwen (G = 7, D = 64), reduced (G = 4, D = 16) and
-    full-width moonshot (G = 1, D = 128) geometries, in
+    full-width qwen (G = 7, D = 64), reduced (G = 4, D = 16), full-width
+    moonshot (G = 1, D = 128) and the three dense families' (starcoder2 G
+    12, nemotron G 6, codeqwen 32 heads at G 1, all D 128) geometries, in
     both dtypes, over the whole stripe and under ``s_cap``; returns the
-    largest error at the full-width geometry in bfloat16."""
+    largest error at the full-width qwen geometry in bfloat16."""
     from repro_torch.kernels.decode_attn import (decode_attn,
                                                  decode_attn_ref, kernel)
     from repro_torch.kernels.paged_attn import split
@@ -626,7 +661,8 @@ def stripe_checks(torch) -> float:
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         tol = TOL[name]
-        for hq, hkv, d in ((HQ, HKV, D), (4, 1, 16), MOE_GEO):
+        for hq, hkv, d in ((HQ, HKV, D), (4, 1, 16), MOE_GEO,
+                           *(geo for _, geo in FAMILIES.values())):
             for s_cap in (None, 512):
                 cap = s if s_cap is None else s_cap
                 splits = split.split_count(
@@ -741,14 +777,14 @@ def stripe_timing(torch, geo=(HQ, HKV, D), layers=24) -> dict:
 # the grouped expert GEMM, at full-width moonshot's expert shapes
 # ---------------------------------------------------------------------------
 
-def routed_counts(torch, tokens: int, seed: int):
+def routed_counts(torch, tokens: int, seed: int, arch: str = MOE_ARCH):
     """(counts [E] int32, capacity) of one MoE call over ``tokens`` tokens
-    at full-width moonshot: the port's route and rank dispatch on a seeded
+    at full-width ``arch``: the port's route and rank dispatch on a seeded
     router (N(0, 0.02), as the init draws it) and seeded activations of
     unit RMS (what the block's norm hands the router)."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     router = {"w": 0.02 * torch.randn(cfg.d_model, cfg.moe.n_experts,
                                       generator=gen, device="cuda")}
@@ -906,6 +942,132 @@ def group_gemm_timing(torch) -> dict:
         row.update({f"{label}_{k}": rows[label][k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "flops",
             "tiles_skipped", "tiles")})
+    return row
+
+
+DEEPSEEK_GEMMS = (("decode gate/up", 8, SEED, 7168, 2048),
+                  ("decode down", 8, SEED, 2048, 7168),
+                  ("join gate/up", 4096, SEED + 1, 7168, 2048),
+                  ("join down", 4096, SEED + 1, 2048, 7168))
+
+
+def deepseek_group_inputs(torch, tokens, seed, d, f, dtype):
+    """Full-width deepseek-v3's expert slabs, drawn on the card (E 256: the
+    weights are 3.8 G values): counts from a seeded routing over 256
+    experts top-8, xe [E, C, D] with NaN in the padding rows, w [E, D, F]
+    of std 1/sqrt(D) with NaN in the empty experts."""
+    cnt, c = routed_counts(torch, tokens, seed, MLA_ARCH)
+    e = cnt.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed + d)
+    xe = torch.randn(e, c, d, generator=gen, device="cuda").to(dtype)
+    w = torch.empty(e, d, f, device="cuda", dtype=dtype)
+    for i in range(e):                 # one expert at a time: no float32
+        w[i] = torch.randn(d, f, generator=gen,          # copy of all 256
+                           device="cuda") / math.sqrt(d)
+    live = torch.arange(c, device="cuda")[None, :, None] < cnt[:, None, None]
+    xe = torch.where(live, xe, torch.full_like(xe, float("nan")))
+    w[cnt == 0] = float("nan")
+    return xe, w, cnt, live
+
+
+def deepseek_group_gemm_checks(torch) -> float:
+    """The grouped GEMM at full-width deepseek-v3's expert shapes (E 256,
+    D 7168, F 2048, top-8), both dtypes: decode (8 tokens, C 1) and a
+    4,096-token join (C 160), gate/up and down, counts from a seeded
+    routing; within the float32 summation bound of the float64 product
+    (computed 32 experts at a time), the rows past each count exactly
+    zero though the padding holds NaN, a second launch bit-equal, and the
+    tiles skipped counted on the card as the counts predict.  Returns the
+    largest bfloat16 error at the decode gate/up shape."""
+    from repro_torch.kernels import moe_group_gemm as mg
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for label, tokens, seed, d, f in DEEPSEEK_GEMMS:
+            xe, w, cnt, live = deepseek_group_inputs(torch, tokens, seed, d,
+                                                     f, dtype)
+            e, c = xe.shape[:2]
+            got = mg.group_gemm(xe, w, cnt)
+            tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
+            again = mg.kernel.group_gemm_cuda(xe, w, cnt, tiles=tiles)
+            torch.cuda.synchronize()
+            zeros = bool((got[~live.expand(e, c, f)] == 0).all())
+            ok, err, ratio = True, 0.0, 0.0
+            x_live = torch.where(live, xe, torch.zeros_like(xe))
+            for lo in range(0, e, 32):
+                x64 = x_live[lo:lo + 32].double()
+                w64 = torch.nan_to_num(w[lo:lo + 32].double())
+                part = summed_within(got[lo:lo + 32], torch.bmm(x64, w64),
+                                     torch.bmm(x64.abs(), w64.abs()), d)
+                ok, err, ratio = (ok and part[0], max(err, part[1]),
+                                  max(ratio, part[2]))
+                del x64, w64
+            if name == "bfloat16" and label == "decode gate/up":
+                worst = err
+            total, skipped = tiles.tolist()
+            print(f"[kernels] group_gemm {name} deepseek {label} (E={e} "
+                  f"C={c} D={d} F={f}, {int(cnt.clamp(0, c).sum())} live "
+                  f"rows in {int((cnt > 0).sum())} live experts): "
+                  f"max_abs_err {err:.3e} ({ratio:.3f} of the float32 "
+                  f"bound); rows past the counts exactly 0: {zeros}; tiles "
+                  f"skipped (counted on the card) {skipped}/{total}")
+            check(ok and zeros and bool(torch.isfinite(got).all()),
+                  f"group_gemm disagrees ({name}, deepseek {label})")
+            check(torch.equal(again, got), f"group_gemm: a second launch "
+                  f"differs ({name}, deepseek {label})")
+            check((total, skipped) == mg.kernel.tile_counts(cnt, c, f,
+                                                            dtype),
+                  f"group_gemm: tiles counted on the card are not those the "
+                  f"counts predict ({name}, deepseek {label})")
+            del xe, w, got, again, x_live
+            torch.cuda.empty_cache()
+    return worst
+
+
+def deepseek_group_gemm_timing(torch) -> dict:
+    """Times at full-width deepseek-v3's expert shapes (256 experts,
+    bfloat16), counts from a seeded routing: the decode step's gate/up
+    call (8 tokens, C 1, D 7168 -> F 2048) in the ``ds_*`` keys, a
+    4,096-token join's gate/up (C 160) in ``ds_prefill_*`` and its down
+    projection (D 2048 -> F 7168) in ``ds_down_*``.  Bound, library call
+    (one ``torch.bmm`` over the padded slabs, reading every expert) and
+    tiles as in :func:`group_gemm_timing`."""
+    from repro_torch.kernels import moe_group_gemm as mg
+    item, row = 2, {}
+    for key, (label, tokens, seed, d, f) in zip(
+            ("ds_", "ds_prefill_", "ds_down_"),
+            (DEEPSEEK_GEMMS[0], DEEPSEEK_GEMMS[2], DEEPSEEK_GEMMS[3])):
+        xe, w, cnt, live = deepseek_group_inputs(torch, tokens, seed, d, f,
+                                                 torch.bfloat16)
+        xe = torch.where(live, xe, torch.zeros_like(xe))
+        w = torch.nan_to_num(w)
+        e, c = xe.shape[:2]
+        n_rows, n_live = int(cnt.sum()), int((cnt > 0).sum())
+        nbytes = (n_live * d * f * item + n_rows * d * item + e * c * f * 4
+                  + e * 4)
+        flops = 2.0 * n_rows * d * f
+        t_bound, by = bound(nbytes, flops, "bfloat16")
+        tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
+        mg.kernel.group_gemm_cuda(xe, w, cnt, tiles=tiles)
+        total, skipped = tiles.tolist()
+        calls = 20 if c == 1 else 5
+        part = {"ms": time_ms(lambda i: mg.kernel.group_gemm_cuda(
+                    xe, w, cnt), calls),
+                "plain_ms": time_ms(lambda i: mg.group_gemm_ref(
+                    xe, w, cnt), 2, reps=2),
+                "library_ms": time_ms(lambda i: torch.bmm(xe, w), calls),
+                "bound_ms": t_bound, "bound_by": by, "flops": flops,
+                "tiles_skipped": skipped, "tiles": total}
+        row.update({key + k: v for k, v in part.items()})
+        print(f"[timing] group_gemm deepseek {label} (E={e} C={c} D={d} "
+              f"F={f} bf16, {n_rows} live rows in {n_live} live experts): "
+              f"kernel_ms {part['ms']:.4f}, plain_ms {part['plain_ms']:.4f}, "
+              f"library_ms (torch.bmm, padded) {part['library_ms']:.4f}, "
+              f"bound_ms {t_bound:.4f} ({by}), {flops / part['ms'] / 1e9:.1f}"
+              f" TFLOP/s, {t_bound / part['ms']:.1%} of its bound, tiles "
+              f"skipped (counted on the card) {skipped}/{total}; {SMI}")
+        del xe, w
+        torch.cuda.empty_cache()
     return row
 
 
@@ -1881,7 +2043,14 @@ def check_serve_launches(res: dict, counts: dict, cfg, label: str,
     speculation for part of a run, ``res["spec_segments"]`` of its
     segments ran the verify loop and the rest the plain one: the prefill
     kernel runs once a layer for each join and each verify step, the
-    decode kernel once a layer for each plain step."""
+    decode kernel once a layer for each plain step.  An MLA model attends
+    through ``gather_pages`` and the dense core, as JAX's does: no
+    attention kernel runs, so every one of their counts must be 0."""
+    if cfg.attn.value == "mla":
+        check(counts["paged_decode"] == counts["paged_prefill"]
+              == counts["decode_attn"] == 0,
+              f"serve {label}: an attention kernel ran for an MLA model")
+        return
     per_segment = cfg.n_layers * res["sync_every"]
     steps = per_segment * res["segments"]
     verify = per_segment * res.get("spec_segments",
@@ -3142,6 +3311,199 @@ def moe_serve(torch) -> dict:
     return counts
 
 
+def deepseek_cut():
+    """Full-width deepseek-v3 with its depth cut to 3 dense + 1 MoE layer
+    of 61 (every width, all 256 experts, the vocab and the MTP block
+    kept), built as :func:`moe_cut` builds moonshot's cut."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BlockKind, Segment
+    cfg = get_config(MLA_ARCH)
+    return dataclasses.replace(
+        cfg, n_layers=4, segments=(Segment(BlockKind.DENSE, 3),
+                                   Segment(BlockKind.MOE, 1)))
+
+
+def check_moe_launches(res: dict, counts: dict, cfg, label: str) -> None:
+    """The grouped GEMM's launches of one serve run, exact: 3 (gate, up,
+    down) a MoE layer for each forward call, a join, a chunk or a decode
+    or verify step."""
+    n_moe = sum(seg.count for seg in cfg.resolved_segments()
+                if seg.kind.value == "moe")
+    calls = res["joins"] + res["sync_every"] * res["segments"]
+    check(counts["group_gemm"] == 3 * n_moe * calls,
+          f"serve {label}: group_gemm launches {counts['group_gemm']} != 3 "
+          f"x {n_moe} MoE layers x {calls} calls")
+
+
+def _family_line(label: str, res: dict, counts: dict, extra: str) -> None:
+    lat = res["latency"]
+    print(f"[families] {label}, graphs: tok/s first wave "
+          f"{res['tok_per_s']:.1f} (capture included), warm wave "
+          f"{res['warm_tok_per_s']:.1f}; TTFT p50 "
+          f"{lat['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+          f"{lat['tpot_p50_s'] * 1e3:.2f} ms (warm); {res['graph_count']} "
+          f"graphs, {res['capture_s']:.3f}s capturing; {res['joins']} joins, "
+          f"{res['segments']} segments over both waves; {extra}; peak "
+          f"device memory {res['peak_gib']:.2f} GiB (weights "
+          f"{res['weights_gib']:.2f} GiB, {res['held_gib']:.2f} GiB held "
+          f"before the build); launches {counts}; {SMI}")
+
+
+def _family_run(torch, cfg, params, held, label, requests, max_new, **kw):
+    """One graphed serve run (a first and a warm wave) of ``cfg`` on the
+    card, with its launches and peak device memory (``held``: the bytes
+    allocated before ``params`` were built, which the peak includes);
+    gated: every request answered with ``max_new`` in-vocab tokens, the
+    warm wave's streams the first's (with the prefix cache off)."""
+    from repro_torch.launch.serve import run
+    weights = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = run(cfg, params=params, device="cuda", requests=requests,
+              max_new=max_new, batch=8, max_len=1024, paged=True,
+              page_size=16, sync_every=8, seed=0, dtype=torch.bfloat16,
+              **kw)
+    counts = read_counts()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["weights_gib"] = weights / 2**30
+    res["held_gib"] = held / 2**30
+    res["sync_every"] = 8
+    check(res["graphs"] and res["graph_count"] > 0,
+          f"serve {label}: no decode graph")
+    check(sorted(res["results"]) == list(range(requests)),
+          f"serve {label}: missing requests")
+    for rid, toks in res["results"].items():
+        check(len(toks) == max_new and all(0 <= t < cfg.vocab for t in toks),
+              f"serve {label}: request {rid} returned {len(toks)} tokens")
+    if not kw.get("prefix_cache"):
+        check(res["warm_results"] == res["results"],
+              f"serve {label}: the warm wave's tokens differ from the "
+              "first wave's")
+    check_serve_launches(res, counts, cfg, label, True,
+                         spec=bool(kw.get("speculate_k")))
+    if cfg.moe is not None:
+        check_moe_launches(res, counts, cfg, label)
+    return res, counts
+
+
+def families_serve(torch) -> dict:
+    """The ``[families]`` phase: starcoder2-3b, nemotron-4-15b and
+    codeqwen1.5-7b at full width and full depth, then deepseek-v3 at full
+    width cut to 3 dense + 1 MoE layer (:func:`deepseek_cut`), each built
+    in place from seeded bfloat16 weights and freed before the next,
+    served paged on phase 4's traffic (16 requests, prompts of 64-512
+    tokens, 64 new tokens each, batch 8, max_len 1024, 8 steps a segment,
+    512 pages of 16), graphed, a first and a warm wave; deepseek once with
+    the features off and once on the features cell's traffic with the
+    prefix cache, chunks of 128 and speculation at k 4 (MLA's suffix
+    prefill and verify on the card).  Launches exact (for deepseek no
+    attention kernel and 3 grouped GEMMs a MoE layer and call).  Returns
+    the graphed runs' launches of the three dense models, summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import Model
+    t_phase = time.perf_counter()
+    requests, max_new = 16, 64
+    traffic = dict(prompt_len=(64, 513))
+    totals: dict = {}
+    for arch, (tag, geo) in FAMILIES.items():
+        cfg = get_config(arch)
+        gc.collect()                   # the last model's graphs and pools
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = Model(cfg).init(0, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        res, counts = _family_run(torch, cfg, params, held, f"{arch} paged",
+                                  requests, max_new, **traffic)
+        hq, hkv, d = geo
+        _family_line(f"{arch} paged (Hq {hq}, Hkv {hkv}, D {d}, "
+                     f"{cfg.n_layers} layers)", res, counts,
+                     f"weights built in {built:.1f}s")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        del res, params
+    cfg = deepseek_cut()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = Model(cfg).init(0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    res, counts = _family_run(torch, cfg, params, held,
+                              "deepseek-v3 cut paged", requests, max_new,
+                              **traffic)
+    _family_line(f"{cfg.name} cut to 3 dense + 1 MoE layer, MLA, paged, "
+                 "features off", res, counts, f"weights built in "
+                 f"{built:.1f}s")
+    totals["deepseek_group_gemm"] = counts["group_gemm"]
+    res, counts = _family_run(torch, cfg, params, held,
+                              "deepseek-v3 cut features", requests, max_new,
+                              shared_prefix=256,
+                              prompt_len=(64, 257), **FEATURES["b"])
+    pre, sp, join = res["prefix"], res["spec"], res["first_join"]
+    _family_line(f"{cfg.name} cut, paged, prefix cache + chunks of 128 + "
+                 "speculation k 4 behind a 256-token shared prefix", res,
+                 counts, f"first wave: prefix hits {pre['hits']}/"
+                 f"{pre['admits']}, skipped prefill "
+                 f"{pre['prefill_skipped']}, {join['chunk_joins']} chunk "
+                 f"continuations, {sp['steps']} verify steps, acceptance "
+                 f"{sp['acceptance_rate']:.3f}")
+    check(pre["hits"] > 0 and pre["prefill_skipped"] > 0
+          and join["chunk_joins"] > 0 and sp["steps"] > 0,
+          "serve deepseek features: no prefix hit, chunk continuation or "
+          "verify step")
+    totals["deepseek_group_gemm"] += counts["group_gemm"]
+    del res, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[families] phase took {time.perf_counter() - t_phase:.1f}s")
+    return totals
+
+
+def families_agreement(torch) -> None:
+    """float32 at ``reduced()``, seeded weights: each new configuration's
+    greedy streams on the card (graphed) against the CPU's plain path,
+    paged and dense, and deepseek-v3's also paged behind a 32-token shared
+    prefix with the prefix cache, chunks of 16 and speculation (k 3);
+    equal, or a difference shown at a logit near-tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run
+    from repro_torch.models.init import init_params
+    kw = dict(requests=3, max_new=8, batch=2, max_len=128, page_size=16,
+              sync_every=4, seed=1, prompt_len=(16, 40),
+              dtype=torch.float32)
+    feats = dict(prefix_cache=True, prefill_chunk=16, speculate_k=3,
+                 shared_prefix=32)
+    for arch in (*FAMILIES, MLA_ARCH):
+        cfg = get_config(arch).reduced()
+        params = init_params(cfg, 1, device="cuda")
+        cpu_params = _to(torch, params, "cpu")
+        cases = [("paged", dict(paged=True)), ("dense", dict(paged=False))]
+        if arch == MLA_ARCH:
+            cases.append(("paged, prefix cache + chunks of 16 + "
+                          "speculation k 3", dict(paged=True, **feats)))
+        for label, extra in cases:
+            on_card = run(cfg, device="cuda", params=params, **kw, **extra)
+            on_cpu = run(cfg, device="cpu", params=cpu_params, **kw, **extra)
+            prompts = on_cpu["prompts"]
+            ties = sum(_near_tie(torch, cpu_params, cfg, prompts[rid],
+                                 on_card["results"][rid], want,
+                                 f"{arch} {label} request {rid}")
+                       for rid, want in on_cpu["results"].items())
+            n = len(on_cpu["results"])
+            print(f"[agree] {arch} reduced float32 greedy streams, {label}, "
+                  f"card (graphs) vs CPU plain path: {n - ties}/{n} equal, "
+                  f"{ties} at near-ties")
+            if "prefix_cache" in extra and not ties:
+                for key in ("prefix", "spec"):
+                    check(on_card[key] == on_cpu[key],
+                          f"agreement {arch} {label}: {key} statistics "
+                          "differ")
+
+
 def _cast(torch, tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(torch, v, dtype) for k, v in tree.items()}
@@ -3220,8 +3582,11 @@ def main() -> int:
 
     worst = kernel_checks(torch)
     kernel_checks(torch, MOE_GEO)
+    for _, geo in FAMILIES.values():
+        kernel_checks(torch, geo)
     worst["decode_attn"] = stripe_checks(torch)
     worst["group_gemm"] = group_gemm_checks(torch)
+    deepseek_group_gemm_checks(torch)
     ssgemm_checks(torch)
     push_checks(torch)
     wave_kernel_checks(torch)
@@ -3234,7 +3599,18 @@ def main() -> int:
         timings[name].update({f"d128_{k}": row[k] for k in (
             "ms", "library_ms", "bound_ms", "flops", "graph_ms",
             "library_graph_ms", "host_us", "splits", "bytes") if k in row})
+    from repro_torch.configs import get_config
+    for arch, (tag, geo) in FAMILIES.items():
+        layers = get_config(arch).n_layers
+        at_geo = kernel_timings(torch, geo, layers=layers)
+        at_geo["decode_attn"] = stripe_timing(torch, geo, layers=layers)
+        for name, row in at_geo.items():
+            timings[name].update({f"{tag}_{k}": row[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "flops", "graph_ms", "library_graph_ms", "host_us", "splits",
+                "bytes") if k in row})
     timings["group_gemm"] = group_gemm_timing(torch)
+    timings["group_gemm"].update(deepseek_group_gemm_timing(torch))
     timings.update(primitive_timings(torch))
     timings.update(wave_timings(torch))
     redesign_line(timings)
@@ -3242,7 +3618,6 @@ def main() -> int:
                  "wavesim_volume", "flux1d", "vector_sum"):
         worst[name] = timings[name]["max_abs_err"]
     from repro_torch.models.model_zoo import Model
-    from repro_torch.configs import get_config
     params = Model(get_config(ARCH)).init(0, device="cuda",
                                           dtype=torch.bfloat16)
     paged_ref, counts = serve_full_width(torch, params, paged=True)
@@ -3261,6 +3636,8 @@ def main() -> int:
     counts.update(wave_path(torch))
     moe_agreement(torch)
     counts["group_gemm"] = moe_serve(torch)["group_gemm"]
+    families = families_serve(torch)
+    families_agreement(torch)
 
     sources = {"paged_decode": ("src/repro_torch/kernels/paged_attn/csrc/"
                                 "paged_decode.cu",
@@ -3311,7 +3688,9 @@ def main() -> int:
         rows[-1].update({k: v for k, v in t.items()
                          if (k.startswith(("tiles", "prefill_", "down_",
                                            "d128_", "n16_", "bf16_",
-                                           "verify_"))
+                                           "verify_", "ds_",
+                                           *(t + "_" for t, _ in
+                                             FAMILIES.values())))
                              or k in ("graph_ms", "library_graph_ms",
                                       "host_us", "splits"))
                          and not k.endswith(("flops", "bytes"))})
@@ -3327,6 +3706,12 @@ def main() -> int:
                            "parity_dropped": len(r[op]["parity_dropped"])}
                       for op in ops_of}
                 for geo, r in tuned.items()}
+        # the [families] phase's launches: the three dense models' (both
+        # attention kernels) and the deepseek cut's grouped GEMMs
+        if name in ("paged_decode", "paged_prefill"):
+            rows[-1]["families_launches"] = families[name]
+        if name == "group_gemm":
+            rows[-1]["deepseek_launches"] = families["deepseek_group_gemm"]
         if name == "group_gemm":     # the join's calls take the wgmma file
             rows[-1]["prefill_source"] = ("src/repro_torch/kernels/"
                                           "moe_group_gemm/csrc/"
@@ -3343,6 +3728,9 @@ def main() -> int:
                           and v is None)),
               f"{name}: a timing is not a finite number")
         check(counts[name] > 0, f"{name}: not launched on its path")
+        check(rows[-1].get("families_launches", 1) > 0
+              and rows[-1].get("deepseek_launches", 1) > 0,
+              f"{name}: not launched on the [families] phase's path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

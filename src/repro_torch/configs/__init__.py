@@ -1,18 +1,22 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-``base.py`` is a copy of :mod:`repro.configs.base` (the port imports
-nothing of ``repro``).  The registry holds the configurations whose every
-block the port can execute: GQA decoders with dense and routed-expert
-(MoE) feed-forward blocks; later slices add the other families' files
-beside these.
+``base.py`` is a copy of :mod:`repro.configs.base`, and each model file a
+copy of its namesake there (the port imports nothing of ``repro``).  The
+registry holds the configurations whose every block the port can execute:
+decoders with GQA or multi-head latent attention (MLA) and dense or
+routed-expert (MoE) feed-forward blocks; later slices add the other
+families' files (SSM, enc-dec, vision) beside these.
 """
 from __future__ import annotations
 
-from . import moonshot_v1_16b_a3b, qwen2_0_5b
+from . import (codeqwen1_5_7b, deepseek_v3_671b, moonshot_v1_16b_a3b,
+               nemotron_4_15b, qwen2_0_5b, starcoder2_3b)
 from .base import ArchConfig, AttnKind, BlockKind, Segment  # noqa: F401
 
 REGISTRY: dict[str, ArchConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (qwen2_0_5b, moonshot_v1_16b_a3b)
+    m.CONFIG.name: m.CONFIG for m in (
+        qwen2_0_5b, moonshot_v1_16b_a3b, starcoder2_3b, nemotron_4_15b,
+        codeqwen1_5_7b, deepseek_v3_671b)
 }
 
 

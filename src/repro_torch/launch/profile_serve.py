@@ -4,7 +4,8 @@
       [--arch moonshot-v1-16b-a3b] [--eager] [--speculate K]
 
 Fills every slot of the batcher with the serve cell's requests
-(``--arch`` at full width, qwen2-0.5b by default, seeded bf16 weights
+(``--arch`` at full width, qwen2-0.5b by default; ``profile_decode``
+also takes an ``ArchConfig``, e.g. one cut in depth; seeded bf16 weights
 built in place, prompts of 64-512 tokens, max_len 1024; dense stripes,
 or pages of 16 with ``--paged``), joins them, runs one decode segment to
 warm up (with graphs, the default, that segment is the bucket's eager
@@ -39,6 +40,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config
+from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..models.model_zoo import Model
 from ..serve.engine import ServeConfig
@@ -56,7 +58,7 @@ _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                  "cuGraphLaunch")
 
 
-def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
+def profile_decode(arch: str | ArchConfig = "qwen2-0.5b", *, batch: int = 8,
                    max_len: int = 1024, page_size: int = 16,
                    sync_every: int = 8, segments: int = 2,
                    prompt_len: tuple[int, int] = (64, 513), seed: int = 0,
@@ -66,7 +68,7 @@ def profile_decode(arch: str = "qwen2-0.5b", *, batch: int = 8,
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("profiling measures the GPU: device must be cuda")
-    cfg = get_config(arch)
+    cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     model = Model(cfg)
     params = model.init(seed, device=dev, dtype=torch.bfloat16)
     scfg = ServeConfig(max_len=max_len, batch=batch, sync_every=sync_every,

@@ -264,6 +264,12 @@ def _attn_lines(wave: str) -> dict:
     one per ``(op, route)``, then each op's amenability verdict.  Returns
     ``{"stats": snapshot, "verdicts": {op: verdict}}``."""
     snap = attn_telemetry().snapshot()
+    if not snap:
+        # an MLA model attends through gather_pages and the dense core, as
+        # JAX's does, and the dense layout through decode_attn: neither
+        # runs a paged-attention op, so there is no table to print
+        print(f"[attn] {wave}: no paged-attention op calls (an MLA model "
+              "or the dense layout runs none)")
     for key, row in snap.items():
         print(f"[attn] {wave}: {key}: {row['calls']} calls "
               f"({row['traced_calls']} captured), {row['tokens']} tokens, "

@@ -1,7 +1,21 @@
-"""GQA attention over a KV cache, from :mod:`repro.models.attention`.
+"""GQA and multi-head latent attention (MLA) over a KV cache, from
+:mod:`repro.models.attention`.
 
 Queries are reshaped to [B, L, Hkv, G, D] and contracted against the
-unexpanded KV heads; repeated KV heads are never materialised.
+unexpanded KV heads; repeated KV heads are never materialised.  The
+softmax core is dense, or blockwise (an online softmax over query and key
+blocks, :func:`_blockwise_attn`) for a cache-free call whose score matrix
+would pass ``_DENSE_LIMIT`` elements a head, as in JAX.
+
+MLA (deepseek-v3) caches the compressed latent ``c_kv`` and one shared
+RoPE key per token, with no head axis: stripes ``[B, max_len + 1, r]``
+and ``[B, max_len + 1, rope]``, pools ``[n_pages + 2, page_size, r]`` and
+``[.., rope]``, with the same sink row and sentinel and sink pages as
+below.  Its queries are absorbed into the latent (JAX's absorbed path),
+and it attends through :func:`gather_pages` and :func:`attention_core`
+on every cache kind: no hand-written kernel, as JAX keeps it on the XLA
+gather (its 128 query heads over one latent key of width 576 fit no
+kernel's group or head dim).
 
 Dense-stripe layout (:class:`KVCache`): each slot owns a contiguous stripe
 ``[B, max_len + 1, Hkv, D]`` per layer.  Row ``max_len`` is a **sink**: JAX
@@ -45,33 +59,39 @@ from typing import NamedTuple
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, AttnKind
 from ..kernels.decode_attn import decode_attn
-from ..kernels.paged_attn import (paged_attn, paged_prefill_attn,
-                                  paged_verify_attn)
-from .layers import dense, rope_tables, rotate
+from ..kernels.paged_attn import (gather_pages, paged_attn,
+                                  paged_prefill_attn, paged_verify_attn)
+from .layers import dense, rmsnorm, rope_tables, rotate
+
+BLOCK_Q = 512
+BLOCK_K = 1024
+_DENSE_LIMIT = 4096 * 4096   # score elements a head past which a cache-free
+                             # call goes blockwise
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor           # [B, max_len + 1, Hkv, D] (+1: sink row)
-    v: torch.Tensor           # [B, max_len + 1, Hkv, D]
+    k: torch.Tensor           # [B, max_len + 1, Hkv, D] (+1: sink row);
+    v: torch.Tensor           # MLA: latent [.., r] and rope key [.., rope]
     length: torch.Tensor | int   # [B] int32 per slot, or one offset
 
 
 class PagedKVCache(NamedTuple):
     k: torch.Tensor           # [n_pages + 2, page_size, Hkv, D]: + zero
-    v: torch.Tensor           # page (the sentinel's) and the sink
+    v: torch.Tensor           # page (the sentinel's) and the sink; MLA:
+                              # latent [.., r] and rope key [.., rope]
     table: torch.Tensor       # [B, P] int32 page ids
     length: torch.Tensor      # [B] int32: tokens filled per slot
 
 
 def _dense_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool, q_offset=0, kv_len=None) -> torch.Tensor:
-    """q: [B, Lq, Hkv, G, D], k/v: [B, Lk, Hkv, D] -> [B, Lq, Hkv, G, D].
-    ``q_offset`` and ``kv_len`` are ints or per-slot [B] tensors: row b's
-    query t sits at position ``q_offset[b] + t`` and sees keys up to it
-    (``causal``) and below ``kv_len[b]``.  Softmax in float32, masked
-    scores at -1e30, as in JAX."""
+    """q: [B, Lq, Hkv, G, D], k: [B, Lk, Hkv, D], v: [B, Lk, Hkv, Dv] ->
+    [B, Lq, Hkv, G, Dv].  ``q_offset`` and ``kv_len`` are ints or
+    per-slot [B] tensors: row b's query t sits at position ``q_offset[b] +
+    t`` and sees keys up to it (``causal``) and below ``kv_len[b]``.
+    Softmax in float32, masked scores at -1e30, as in JAX."""
     b, lq, _, _, d = q.shape
     lk = k.shape[1]
     dev = q.device
@@ -91,17 +111,69 @@ def _dense_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhgqk,bkhd->bqhgd", w, v)
 
 
+def _blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """Flash-style online-softmax attention, O(block) memory: q [B, Lq,
+    Hkv, G, D], k [B, Lk, Hkv, D], v [B, Lk, Hkv, Dv] -> [B, Lq, Hkv, G,
+    Dv].  Queries and keys are padded to whole ``BLOCK_Q`` / ``BLOCK_K``
+    blocks, keys at or past Lk (and, ``causal``, past each query's
+    position ``q_offset + t``) are masked at -1e30, and the running max,
+    sum and output stay in float32, as JAX's nested scan does."""
+    b, lq, hkv, g, d = q.shape
+    lk, dv = k.shape[1], v.shape[-1]
+    bq, bk = min(BLOCK_Q, lq), min(BLOCK_K, lk)
+    nq, nk = -(-lq // bq), -(-lk // bk)
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, nq * bq - lq))
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nk * bk - lk))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * bk - lk))
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    out = q.new_empty((b, nq * bq, hkv, g, dv))
+    for qi in range(nq):
+        qblk = q[:, qi * bq:(qi + 1) * bq]
+        qpos = (qi * bq + torch.arange(bq, device=dev)[:, None]
+                + q_offset)
+        m = torch.full((b, hkv, g, bq), -math.inf, device=dev)
+        l = torch.zeros((b, hkv, g, bq), device=dev)
+        acc = torch.zeros((b, hkv, g, bq, dv), device=dev)
+        for ki in range(nk):
+            kblk = k[:, ki * bk:(ki + 1) * bk]
+            vblk = v[:, ki * bk:(ki + 1) * bk]
+            s = (torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk)
+                 * scale).float()
+            kpos = ki * bk + torch.arange(bk, device=dev)[None, :]
+            mask = kpos < lk
+            if causal:
+                mask = mask & (kpos <= qpos)
+            s = torch.where(mask, s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(q.dtype), vblk)
+            m = m_new
+        o = acc / l.clamp_min(1e-30)[..., None]          # [B,Hkv,G,bq,Dv]
+        out[:, qi * bq:(qi + 1) * bq] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out[:, :lq]
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, q_offset=0,
                    kv_len=None) -> torch.Tensor:
-    """q [B,Lq,Hq,D], k/v [B,Lk,Hkv,D] -> [B,Lq,Hq,D], through
-    :func:`_dense_attn`.  The port keeps only the dense core; the JAX
-    module's blockwise core for very long cache-free sequences is not on
-    the serving path."""
+    """q [B,Lq,Hq,D], k [B,Lk,Hkv,D], v [B,Lk,Hkv,Dv] -> [B,Lq,Hq,Dv] (Dv
+    may differ from D, as MLA's latent values do).  A cache-free call
+    (``kv_len`` None) whose Lq x Lk passes ``_DENSE_LIMIT`` goes through
+    :func:`_blockwise_attn`, every other through :func:`_dense_attn`, as
+    JAX's switch does."""
     b, lq, hq, d = q.shape
     hkv = k.shape[2]
-    out = _dense_attn(q.reshape(b, lq, hkv, hq // hkv, d), k, v,
-                      causal=causal, q_offset=q_offset, kv_len=kv_len)
+    qg = q.reshape(b, lq, hkv, hq // hkv, d)
+    if kv_len is None and lq * k.shape[1] > _DENSE_LIMIT:
+        out = _blockwise_attn(qg, k, v, causal=causal, q_offset=q_offset)
+    else:
+        out = _dense_attn(qg, k, v, causal=causal, q_offset=q_offset,
+                          kv_len=kv_len)
     return out.reshape(b, lq, hq, v.shape[-1])
 
 
@@ -255,3 +327,97 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
         out = attention_core(q, k, v)
     y = dense(params["o"], out, n_in=2)
     return y, new_cache
+
+
+def _mla_qkr(params: dict, x: torch.Tensor, cfg: ArchConfig,
+             rope: tuple[torch.Tensor, torch.Tensor]):
+    """MLA's low-rank query (q_nope [B, L, H, nope], rotated q_rope [B, L,
+    H, rope]), its compressed latent c_kv [B, L, r] and the shared rotated
+    rope key k_rope [B, L, rope]; ``rope`` holds the tables at
+    ``qk_rope_head_dim``."""
+    m = cfg.mla
+    cq = rmsnorm(params["dq_norm"], dense(params["dq"], x), cfg.norm_eps)
+    q = dense(params["uq"], cq)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = rotate(q[..., m.qk_nope_head_dim:], *rope)
+    c_kv = rmsnorm(params["dkv_norm"], dense(params["dkv"], x),
+                   cfg.norm_eps)
+    k_rope = rotate(dense(params["kr"], x)[:, :, None, :], *rope)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
+              positions: torch.Tensor | None = None,
+              rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+              cache: KVCache | PagedKVCache | None = None,
+              write_index=None, kv_cap: int | None = None,
+              verify: bool = False):
+    """Multi-head latent attention on JAX's absorbed path: the cache holds
+    the latent ``c_kv`` (``cache.k``) and the shared rope key
+    (``cache.v``) only; W_uk is absorbed into the query, the keys are
+    ``[c_kv ; k_rope]`` over one shared head and the values ``c_kv``, and
+    the latent output goes through W_uv, then ``o``.
+
+    Dense stripes: written as :func:`gqa_apply` writes them (writes JAX
+    drops land in the sink row) and read over their first ``kv_cap`` rows
+    (JAX's ``_decode_policy().kv_cap``), or ``length + L`` for an int
+    offset.  Paged pools: written through :func:`paged_write_index` (which
+    needs no head axis) and read through :func:`gather_pages` of the
+    table with every id past ``n_pages`` clamped to the sentinel's zero
+    page, so an unallocated entry never reads the sink; masked by
+    ``kv_len``.  Cache-free: :func:`attention_core`, causal.  ``verify``
+    changes nothing: JAX's verify is the same L = k+1 call.  Returns (y,
+    new_cache)."""
+    m = cfg.mla
+    if rope is None:
+        rope = rope_tables(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(params, x, cfg, rope)
+    q_lat = torch.einsum("bthq,rhq->bthr", q_nope,
+                         params["uk"]["w"].to(x.dtype))    # [B,L,H,r]
+    n = x.shape[1]
+    new_cache, kv_len, q_offset = None, None, 0
+    if isinstance(cache, PagedKVCache):
+        n_live = cache.k.shape[0] - 2
+        if write_index is None:
+            write_index = paged_write_index(
+                cache.table, cache.length, n, n_live, cache.k.shape[1])
+        ckv = _paged_insert(cache.k, c_kv, cache.table, cache.length,
+                            write_index)
+        krp = _paged_insert(cache.v, k_rope, cache.table, cache.length,
+                            write_index)
+        kv_len, q_offset = cache.length + n, cache.length
+        new_cache = PagedKVCache(ckv, krp, cache.table, kv_len)
+        table = cache.table.clamp(max=n_live)
+        c_kv_all = gather_pages(ckv, table).to(x.dtype)
+        k_rope_all = gather_pages(krp, table).to(x.dtype)
+    elif cache is not None:
+        ckv = _cache_insert(cache.k, c_kv, cache.length, write_index)
+        krc = _cache_insert(cache.v, k_rope, cache.length, write_index)
+        kv_len, q_offset = cache.length + n, cache.length
+        new_cache = KVCache(ckv, krc, kv_len)
+        cap = ckv.shape[1] - 1                 # the sink row is never read
+        if kv_cap is not None:
+            cap = min(cap, kv_cap)
+        if not isinstance(kv_len, torch.Tensor) or kv_len.dim() == 0:
+            cap = min(cap, int(kv_len))
+        c_kv_all = ckv[:, :cap].to(x.dtype)
+        k_rope_all = krc[:, :cap].to(x.dtype)
+    else:
+        c_kv_all, k_rope_all = c_kv, k_rope
+    k_full = torch.cat([c_kv_all, k_rope_all], dim=-1)[:, :, None, :]
+    q_full = torch.cat([q_lat, q_rope], dim=-1)             # [B,L,H,r+rope]
+    scale_fix = math.sqrt(q_full.shape[-1]) / math.sqrt(
+        m.qk_nope_head_dim + m.qk_rope_head_dim)
+    out_lat = attention_core(q_full * scale_fix, k_full,
+                             c_kv_all[:, :, None, :], q_offset=q_offset,
+                             kv_len=kv_len)                 # [B,L,H,r]
+    out = torch.einsum("bthr,rhv->bthv", out_lat,
+                       params["uv"]["w"].to(x.dtype))
+    return dense(params["o"], out, n_in=2), new_cache
+
+
+def attention_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, **kw):
+    """The layer's attention by the config's kind, as JAX's dispatch."""
+    if cfg.attn is AttnKind.MLA:
+        return mla_apply(params, x, cfg, **kw)
+    return gqa_apply(params, x, cfg, **kw)

@@ -1,13 +1,16 @@
 """Seeded parameter init with the shapes and scales of
-:func:`repro.models.transformer.init_lm` (GQA decoders with dense and
-routed-expert feed-forward blocks).
+:func:`repro.models.transformer.init_lm` (decoders with GQA or multi-head
+latent attention and dense or routed-expert feed-forward blocks).
 
 The tree has the JAX layout, unwrapped (see ``repro.models.param.unwrap``):
 layer-stacked ``segments`` whose leaves are ``[n_layers, ...]``, with a
 ``mlp`` in DENSE blocks and a ``moe`` (``init_moe``'s router, expert
-weights and shared experts) in MOE blocks.  Values come from a
-``torch.Generator`` seeded explicitly, so they differ from the JAX init's;
-parity tests feed both packages the JAX weights through
+weights and shared experts) in MOE blocks; an MLA model's ``attn`` holds
+``init_mla``'s low-rank leaves, and a model with multi-token prediction
+(deepseek-v3) also the unstacked DENSE ``mtp_block`` and ``mtp_norm``,
+which serving never reads (they belong to the training loss).  Values
+come from a ``torch.Generator`` seeded explicitly, so they differ from the
+JAX init's; parity tests feed both packages the JAX weights through
 :mod:`repro_torch.models.bridge` instead.
 """
 from __future__ import annotations
@@ -25,12 +28,14 @@ FILL_CHUNK = 1 << 24    # values drawn at once by init_params (64 MiB fp32)
 def _check_supported(cfg: ArchConfig) -> None:
     kinds = {s.kind for s in cfg.resolved_segments()}
     if (not kinds <= {BlockKind.DENSE, BlockKind.MOE}
-            or cfg.attn is not AttnKind.GQA or cfg.enc_dec
-            or cfg.shared_attn_every or cfg.frontend.value != "none"
+            or cfg.attn not in (AttnKind.GQA, AttnKind.MLA)
+            or (cfg.attn is AttnKind.MLA) != (cfg.mla is not None)
+            or cfg.enc_dec or cfg.shared_attn_every
+            or cfg.frontend.value != "none"
             or (BlockKind.MOE in kinds) != (cfg.moe is not None)):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs GQA decoders with dense and MoE "
-            "blocks only so far")
+            f"{cfg.name}: the port runs GQA and MLA decoders with dense "
+            "and MoE blocks only so far")
 
 
 def serves_in_float32(path: tuple[str, ...]) -> bool:
@@ -49,46 +54,71 @@ def _spec(cfg: ArchConfig) -> dict:
     d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.kv_heads
     hd, f = cfg.resolved_head_dim, cfg.d_ff
 
-    def dense(n, fan_in, *shape):
-        return {"w": ("normal", (n, fan_in) + shape, 1 / math.sqrt(fan_in))}
+    def dense(lead, fan_in, *shape):
+        return {"w": ("normal", lead + (fan_in,) + shape,
+                      1 / math.sqrt(fan_in))}
 
-    def gated_mlp(n, width, gated=True):
-        out = {"wi": dense(n, d, width), "wo": dense(n, width, d)}
+    def norm(lead, width):
+        return {"scale": ("ones", lead + (width,))}
+
+    def gated_mlp(lead, width, gated=True):
+        out = {"wi": dense(lead, d, width), "wo": dense(lead, width, d)}
         if gated:
-            out["wg"] = dense(n, d, width)
+            out["wg"] = dense(lead, d, width)
+        return out
+
+    def attention(lead):
+        if cfg.attn is AttnKind.MLA:       # init_mla
+            m = cfg.mla
+            return {"dq": dense(lead, d, m.q_lora_rank),
+                    "dq_norm": norm(lead, m.q_lora_rank),
+                    "uq": dense(lead, m.q_lora_rank, hq,
+                                m.qk_nope_head_dim + m.qk_rope_head_dim),
+                    "dkv": dense(lead, d, m.kv_lora_rank),
+                    "dkv_norm": norm(lead, m.kv_lora_rank),
+                    "kr": dense(lead, d, m.qk_rope_head_dim),
+                    "uk": dense(lead, m.kv_lora_rank, hq,
+                                m.qk_nope_head_dim),
+                    "uv": dense(lead, m.kv_lora_rank, hq, m.v_head_dim),
+                    "o": {"w": ("normal", lead + (hq, m.v_head_dim, d),
+                                1 / math.sqrt(hq * m.v_head_dim))}}
+        attn = {}
+        for name, heads in (("q", hq), ("k", hkv), ("v", hkv)):
+            attn[name] = dense(lead, d, heads, hd)
+            if cfg.qkv_bias:
+                attn[name]["b"] = ("zeros", lead + (heads, hd))
+        attn["o"] = {"w": ("normal", lead + (hq, hd, d),
+                           1 / math.sqrt(hq * hd))}
+        return attn
+
+    def block(lead, kind):
+        out = {"norm1": norm(lead, d), "attn": attention(lead),
+               "norm2": norm(lead, d)}
+        if kind is BlockKind.MOE:
+            m = cfg.moe
+            e, fe = m.n_experts, m.d_ff_expert
+            moe = {"router": {"w": ("normal", lead + (d, e), 0.02)},
+                   "wi": ("normal", lead + (e, d, fe), 1 / math.sqrt(d)),
+                   "wg": ("normal", lead + (e, d, fe), 1 / math.sqrt(d)),
+                   "wo": ("normal", lead + (e, fe, d), 1 / math.sqrt(fe))}
+            if m.n_shared_experts:
+                moe["shared"] = gated_mlp(
+                    lead, m.d_ff_shared or fe * m.n_shared_experts)
+            out["moe"] = moe
+        else:
+            out["mlp"] = gated_mlp(lead, f, cfg.gated_mlp)
         return out
 
     spec: dict = {"embed": {"table": ("normal", (cfg.vocab, d), 0.02)}}
-    segments = []
-    for seg in cfg.resolved_segments():
-        n = seg.count
-        attn = {}
-        for name, heads in (("q", hq), ("k", hkv), ("v", hkv)):
-            attn[name] = dense(n, d, heads, hd)
-            if cfg.qkv_bias:
-                attn[name]["b"] = ("zeros", (n, heads, hd))
-        attn["o"] = {"w": ("normal", (n, hq, hd, d), 1 / math.sqrt(hq * hd))}
-        block = {"norm1": {"scale": ("ones", (n, d))}, "attn": attn,
-                 "norm2": {"scale": ("ones", (n, d))}}
-        if seg.kind is BlockKind.MOE:
-            m = cfg.moe
-            e, fe = m.n_experts, m.d_ff_expert
-            moe = {"router": {"w": ("normal", (n, d, e), 0.02)},
-                   "wi": ("normal", (n, e, d, fe), 1 / math.sqrt(d)),
-                   "wg": ("normal", (n, e, d, fe), 1 / math.sqrt(d)),
-                   "wo": ("normal", (n, e, fe, d), 1 / math.sqrt(fe))}
-            if m.n_shared_experts:
-                moe["shared"] = gated_mlp(
-                    n, m.d_ff_shared or fe * m.n_shared_experts)
-            block["moe"] = moe
-        else:
-            block["mlp"] = gated_mlp(n, f, cfg.gated_mlp)
-        segments.append(block)
-    spec["segments"] = segments
-    spec["final_norm"] = {"scale": ("ones", (d,))}
+    spec["segments"] = [block((seg.count,), seg.kind)
+                        for seg in cfg.resolved_segments()]
+    spec["final_norm"] = norm((), d)
     if not cfg.tied_embeddings:
         spec["lm_head"] = {"w": ("normal", (d, cfg.vocab),
                                  1 / math.sqrt(d))}
+    if cfg.mtp:
+        spec["mtp_block"] = block((), BlockKind.DENSE)
+        spec["mtp_norm"] = norm((), d)
     return spec
 
 

@@ -1,58 +1,71 @@
-"""GQA decoder over a KV cache, from :mod:`repro.models.transformer`:
-DENSE blocks (attention and a gated MLP) and MOE blocks (attention and the
-routed experts of :mod:`.moe`).
+"""Decoder over a KV cache, from :mod:`repro.models.transformer`: DENSE
+blocks (attention and an MLP) and MOE blocks (attention and the routed
+experts of :mod:`.moe`), with GQA or multi-head latent attention.
 
 Parameters keep the JAX layout: each segment's leaves are stacked over its
 layers (``[n_layers, ...]``), and the JAX ``lax.scan`` over a segment
 becomes a Python loop that indexes layer ``i`` of every stacked leaf (a
 view, no copy).  The caches are stacked the same way, dense stripes as
 ``[n_layers, B, max_len + 1, Hkv, D]`` and paged pools as
-``[n_layers, n_pages + 2, page_size, Hkv, D]``, and written in place.
+``[n_layers, n_pages + 2, page_size, Hkv, D]`` (MLA: the latent and the
+rope key, ``[.., r]`` and ``[.., rope]``, no head axis), and written in
+place.
 """
 from __future__ import annotations
 
 import torch
 
-from ..configs.base import ArchConfig, BlockKind
+from ..configs.base import ArchConfig, AttnKind, BlockKind
 from ..device import resolve_device
-from .attention import (KVCache, PagedKVCache, dense_write_index, gqa_apply,
-                        paged_write_index)
+from .attention import (KVCache, PagedKVCache, attention_apply,
+                        dense_write_index, paged_write_index)
 from .init import _check_supported
 from .layers import dense, embed, mlp, rmsnorm, rope_tables, unembed
 from .moe import moe_apply
+
+
+def _attn_cache_shape(cfg: ArchConfig, lead: tuple[int, int]):
+    """(k, v) shapes of one layer's cache behind ``lead``: GQA keys and
+    values ``lead + (kv_heads, head_dim)``; MLA the latent ``lead +
+    (kv_lora_rank,)`` and the shared rope key ``lead +
+    (qk_rope_head_dim,)``, as JAX's ``_attn_cache_shape``."""
+    if cfg.attn is AttnKind.MLA:
+        return (lead + (cfg.mla.kv_lora_rank,),
+                lead + (cfg.mla.qk_rope_head_dim,))
+    shape = lead + (cfg.kv_heads, cfg.resolved_head_dim)
+    return shape, shape
+
+
+def _stacked_caches(cfg: ArchConfig, lead: tuple[int, int], dtype,
+                    device) -> list:
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    kshape, vshape = _attn_cache_shape(cfg, lead)
+    return [{"k": torch.zeros((seg.count,) + kshape, dtype=dtype, device=dev),
+             "v": torch.zeros((seg.count,) + vshape, dtype=dtype, device=dev)}
+            for seg in cfg.resolved_segments()]
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype: torch.dtype = torch.bfloat16,
                 device: str | torch.device = "cuda") -> list:
     """One ``{"k", "v"}`` stripe per segment, stacked over its layers, each
-    ``[layers, batch, max_len + 1, kv_heads, head_dim]``: ``max_len`` rows
-    per slot plus the sink row that takes writes JAX would drop (see
-    :mod:`.attention`)."""
-    _check_supported(cfg)
-    dev = resolve_device(device)
-    shape = (batch, max_len + 1, cfg.kv_heads, cfg.resolved_head_dim)
-    return [{"k": torch.zeros((seg.count,) + shape, dtype=dtype, device=dev),
-             "v": torch.zeros((seg.count,) + shape, dtype=dtype, device=dev)}
-            for seg in cfg.resolved_segments()]
+    ``[layers, batch, max_len + 1, ...]`` (``...`` the per-token shape of
+    :func:`_attn_cache_shape`): ``max_len`` rows per slot plus the sink
+    row that takes writes JAX would drop (see :mod:`.attention`)."""
+    return _stacked_caches(cfg, (batch, max_len + 1), dtype, device)
 
 
 def init_paged_caches(cfg: ArchConfig, batch: int, n_pages: int,
                       page_size: int, dtype: torch.dtype = torch.bfloat16,
                       device: str | torch.device = "cuda") -> list:
     """One ``{"k", "v"}`` pool per segment, stacked over its layers, each
-    ``[layers, n_pages + 2, page_size, kv_heads, head_dim]``: ``n_pages``
-    live pages shared by every slot through the page table, then the
-    sentinel's page, which stays zero for reads through unallocated
-    entries, and the sink page that takes masked-out writes (see
-    :mod:`.attention`).  ``batch`` is unused by attention pools; it is kept
-    for the JAX signature."""
-    _check_supported(cfg)
-    dev = resolve_device(device)
-    shape = (n_pages + 2, page_size, cfg.kv_heads, cfg.resolved_head_dim)
-    return [{"k": torch.zeros((seg.count,) + shape, dtype=dtype, device=dev),
-             "v": torch.zeros((seg.count,) + shape, dtype=dtype, device=dev)}
-            for seg in cfg.resolved_segments()]
+    ``[layers, n_pages + 2, page_size, ...]``: ``n_pages`` live pages
+    shared by every slot through the page table, then the sentinel's page,
+    which stays zero for reads through unallocated entries, and the sink
+    page that takes masked-out writes (see :mod:`.attention`).  ``batch``
+    is unused by attention pools; it is kept for the JAX signature."""
+    return _stacked_caches(cfg, (n_pages + 2, page_size), dtype, device)
 
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -60,12 +73,12 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                 cache: KVCache | PagedKVCache | None = None,
                 write_index=None, kv_cap: int | None = None,
                 verify: bool = False):
-    """Pre-norm attention block, then the gated MLP (DENSE) or the routed
-    experts (MOE); returns (y, new_cache)."""
-    h, new_cache = gqa_apply(params["attn"],
-                             rmsnorm(params["norm1"], x, cfg.norm_eps), cfg,
-                             rope=rope, cache=cache, write_index=write_index,
-                             kv_cap=kv_cap, verify=verify)
+    """Pre-norm attention block (GQA or MLA, by the config), then the MLP
+    (DENSE) or the routed experts (MOE); returns (y, new_cache)."""
+    h, new_cache = attention_apply(
+        params["attn"], rmsnorm(params["norm1"], x, cfg.norm_eps), cfg,
+        rope=rope, cache=cache, write_index=write_index, kv_cap=kv_cap,
+        verify=verify)
     x = x + h
     z = rmsnorm(params["norm2"], x, cfg.norm_eps)
     if kind is BlockKind.MOE:
@@ -124,10 +137,14 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
         positions = int(cache_len) + steps
     else:
         positions = steps
-    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    # MLA rotates only its rope slice of each head and its shared key
+    rope_dim = (cfg.mla.qk_rope_head_dim if cfg.attn is AttnKind.MLA
+                else cfg.resolved_head_dim)
+    rope = rope_tables(positions, rope_dim, cfg.rope_theta)
     index = None
     if caches is not None and pages is not None:
-        # every layer writes its K/V at the same pool addresses
+        # every layer writes its K/V at the same pool addresses; the pools
+        # lead [layers, n_pages + 2, page_size] for GQA and MLA alike
         n_live, ps = caches[0]["k"].shape[1] - 2, caches[0]["k"].shape[2]
         index = paged_write_index(pages, cache_len, length, n_live, ps)
     elif caches is not None and per_slot:

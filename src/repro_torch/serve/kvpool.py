@@ -13,7 +13,8 @@ retired and short requests strand capacity.  The paper's co-design lesson
 commands or capacity on dead data, and PrIM-style studies put placement
 management, not compute, at the center of near-memory wins.  The paged
 analogue: KV lives in fixed-size **pages** inside one pooled allocation
-(``[layers, n_pages, page_size, kv_heads, head_dim]`` per segment, see
+(``[layers, n_pages, page_size, kv_heads, head_dim]`` per segment, or an
+MLA model's latent and rope key, ``[layers, n_pages, page_size, r]``, see
 :func:`repro_torch.models.transformer.init_paged_caches`); each slot holds an
 ordered list of page ids (its **page table**), pages come from a free list,
 and retirement returns every page exactly once.

@@ -61,7 +61,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GEOMETRIES = [(4, 1, 16, 8),       # reduced qwen2-0.5b
               (14, 2, 64, 16),     # full-width qwen2-0.5b
               (16, 2, 64, 8),      # G = 8, pages of 8
-              (16, 16, 128, 16)]   # full-width moonshot (G = 1, D = 128)
+              (16, 16, 128, 16),   # full-width moonshot (G = 1, D = 128)
+              (24, 2, 128, 16),    # full-width starcoder2-3b (G = 12)
+              (48, 8, 128, 16),    # full-width nemotron-4-15b (G = 6)
+              (32, 32, 128, 16)]   # full-width codeqwen1.5-7b (MHA)
 
 
 @pytest.fixture(autouse=True)
@@ -100,7 +103,10 @@ DECODE_GEOMETRIES = [(4, 1, 16, 8),       # reduced qwen2-0.5b (G 4)
                      (16, 1, 64, 16),     # G 16
                      (16, 16, 128, 16),   # full-width moonshot (G 1)
                      (16, 1, 128, 16),    # G 16 at D 128
-                     (2, 2, 16, 4)]       # G 1 at D 16, pages of 4
+                     (2, 2, 16, 4),       # G 1 at D 16, pages of 4
+                     (24, 2, 128, 16),    # full-width starcoder2-3b (G 12)
+                     (48, 8, 128, 16),    # full-width nemotron-4-15b (G 6)
+                     (32, 32, 128, 16)]   # full-width codeqwen1.5-7b (G 1)
 DECODE_BOUND = 384                        # keys a table row or cap spans
 
 
@@ -1038,12 +1044,12 @@ GROUP_SHAPES = [(2, 128, 64, 64, None),     # test_kernels_moe.py's sweep
                 (64, 480, 1408, 2048, "routed")]  # and down
 
 
-def _routed_counts(tokens):
+def _routed_counts(tokens, arch="moonshot-v1-16b-a3b"):
     """Expert counts of one MoE call over ``tokens`` tokens at full-width
-    moonshot: the port's route and rank dispatch on a seeded router
+    ``arch``: the port's route and rank dispatch on a seeded router
     (N(0, 0.02)) and seeded activations of unit RMS."""
     from repro_torch.models import moe
-    cfg = get_config("moonshot-v1-16b-a3b")
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(tokens)
     router = {"w": 0.02 * torch.randn(cfg.d_model, cfg.moe.n_experts,
                                       generator=gen, device="cuda")}
@@ -1099,6 +1105,40 @@ def test_group_gemm_kernel_matches_plain_version(dtype, e, c, d, f, fill):
     assert total == e * -(-c // bm) * n_f
     assert skipped == n_f * sum(-(-c // bm) - -(-int(n) // bm)
                                 for n in counts)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens,d,f", [(8, 7168, 2048),     # decode, C 1
+                                        (4096, 7168, 2048),  # join gate/up
+                                        (4096, 2048, 7168)])  # join down
+def test_group_gemm_at_deepseek_expert_shapes(dtype, tokens, d, f):
+    """Full-width deepseek-v3's experts (E 256, top-8): counts from a
+    seeded routing of a decode step of 8 tokens (C 1) or a 4,096-token
+    join (C 160); the live rows within the float32 summation bound of the
+    float64 product (computed 32 experts at a time), the rows past each
+    count exactly zero though the padding holds NaN."""
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-v3-671b")
+    e = cfg.moe.n_experts
+    c = moe.capacity(cfg, tokens)
+    cnt = torch.from_numpy(_routed_counts(tokens, cfg.name).astype(
+        np.int32)).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(tokens + d)
+    xe = torch.randn(e, c, d, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(e, d, f, generator=gen, device="cuda")
+         / d ** 0.5).to(dtype)
+    live = (torch.arange(c, device="cuda")[None, :, None]
+            < cnt[:, None, None])
+    xe = torch.where(live, xe, torch.full_like(xe, float("nan")))
+    got = mg.group_gemm(xe, w, cnt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (e, c, f)
+    assert bool((got[~live.expand(e, c, f)] == 0).all())
+    x_live = torch.where(live, xe, torch.zeros_like(xe))
+    for lo in range(0, e, 32):
+        x64, w64 = x_live[lo:lo + 32].double(), w[lo:lo + 32].double()
+        assert _within_bound(got[lo:lo + 32], x64 @ w64,
+                             x64.abs() @ w64.abs(), d)
 
 
 def test_group_gemm_wrapper_refuses_what_the_kernel_does_not_take():

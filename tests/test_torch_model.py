@@ -25,7 +25,7 @@ from repro.kernels.decode_attn import decode_attn_policy
 from repro.models.model_zoo import Model as JaxModel
 from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro.serve.engine import make_join as jax_make_join
-from repro_torch.configs import get_config
+from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.models import attention
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.models.init import cast_for_serving, init_params
@@ -248,10 +248,14 @@ def test_cache_free_forward_matches_paged_prefill(models):
                                          cfg).numpy(), **LOGIT_TOL)
 
 
-def test_init_matches_jax_shapes_and_scales():
-    cfg = get_config("qwen2-0.5b").reduced()
-    jtree = pm.unwrap(JaxModel(jax_get_config("qwen2-0.5b").reduced()
-                               ).init(jax.random.key(0)))
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_init_matches_jax_shapes_and_scales(arch):
+    """Every registered configuration's tree equals JAX's ``init_lm`` leaf
+    for leaf (MLA's low-rank leaves and the MTP block and norm included),
+    in shape and in scale."""
+    cfg = get_config(arch).reduced()
+    jmodel = JaxModel(jax_get_config(arch).reduced())
+    jtree = pm.unwrap(jax.jit(jmodel.init)(jax.random.key(0)))
     ttree = init_params(cfg, 3, device="cpu")
     jl, jdef = jax.tree_util.tree_flatten(jtree)
     tl, tdef = jax.tree_util.tree_flatten(ttree)
