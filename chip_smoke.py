@@ -198,13 +198,31 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    ``reduced()`` in float32, card (graphs) against the CPU's plain path,
    paged and dense (deepseek also with the prefix cache, chunks of 16 and
    speculation k 3): equal greedy streams or a difference at a logit
-   near-tie.
+   near-tie;
+11. ``[ssm]``: the attention kernels at zamba2-1.2b's shared-block
+   geometry (Hq 32, Hkv 32: G 1, D 64), which no earlier phase launches:
+   both paged kernels at every split and rows a CTA and the dense-stripe
+   kernel over the whole stripe and under ``s_cap``, in both dtypes,
+   against their plain versions, and their times over the block's 5
+   occurrences beside SDPA; then mamba2-370m (48 Mamba-2 blocks, no
+   attention) and zamba2-1.2b (33 Mamba-2 blocks, the shared block at 5
+   occurrences) at full width and full depth, each built in place from
+   seeded bfloat16 weights and freed before the next, served paged on
+   phase 4's traffic, graphed, a first and a warm wave (zamba2 also on
+   dense stripes): warm tok/s, TTFT and TPOT p50, peak device memory,
+   launches exact (none for mamba2; for zamba2 5 a decode step and 5 a
+   join); both at ``reduced()`` in float32, card (graphs) against the
+   CPU's plain path, paged and dense; and the padding invariant on the
+   card: a 10-token prompt's stream alone and beside a 30-token prompt,
+   equal or a difference at a logit near-tie.
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*`` and the
 dense families' as ``g12_*`` (starcoder2), ``g6_*`` (nemotron) and
 ``mha_*`` (codeqwen), their ``[families]`` launches as
-``families_launches``, the
+``families_launches``, zamba2's shared-block geometry's as ``z64_*``
+(with its checks' ``z64_max_abs_err``) and its ``[ssm]`` launches as
+``ssm_launches``, the
 prefill row the verify's as ``verify_*``, the paged rows this run's sweep
 as ``autotune`` (per geometry and op: winner, its and the default's
 device ms, candidates measured and dropped), the
@@ -255,6 +273,10 @@ FAMILIES = {"starcoder2-3b": ("g12", (24, 2, 128)),
             "nemotron-4-15b": ("g6", (48, 8, 128)),
             "codeqwen1.5-7b": ("mha", (32, 32, 128))}
 MLA_ARCH = "deepseek-v3-671b"             # its times: the "ds_" prefix
+# the SSM models of the [ssm] phase; zamba2's shared block attends at
+# (Hq, Hkv, head_dim) = (32, 32, 64), G 1: its times the "z64_" prefix
+SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+ZAMBA_GEO = (32, 32, 64)
 SMI = ""                                  # nvidia-smi's name, power limit
 
 
@@ -644,13 +666,16 @@ def print_device_times(kname: str, dtype_name: str, row: dict) -> None:
           f"wrapper's host time {row['host_us']:.1f} us a call")
 
 
-def stripe_checks(torch) -> float:
+def stripe_checks(torch, geos=((HQ, HKV, D), (4, 1, 16), MOE_GEO,
+                               *(geo for _, geo in FAMILIES.values()))
+                  ) -> float:
     """The dense-stripe decode kernel against its plain version, at the
-    full-width qwen (G = 7, D = 64), reduced (G = 4, D = 16), full-width
-    moonshot (G = 1, D = 128) and the three dense families' (starcoder2 G
-    12, nemotron G 6, codeqwen 32 heads at G 1, all D 128) geometries, in
-    both dtypes, over the whole stripe and under ``s_cap``; returns the
-    largest error at the full-width qwen geometry in bfloat16."""
+    (Hq, Hkv, D) geometries ``geos``: by default the full-width qwen (G =
+    7, D = 64), reduced (G = 4, D = 16), full-width moonshot (G = 1, D =
+    128) and the three dense families' (starcoder2 G 12, nemotron G 6,
+    codeqwen 32 heads at G 1, all D 128), in both dtypes, over the whole
+    stripe and under ``s_cap``; returns the largest error at D 64 in
+    bfloat16 (the full-width qwen's, or the geometry given)."""
     from repro_torch.kernels.decode_attn import (decode_attn,
                                                  decode_attn_ref, kernel)
     from repro_torch.kernels.paged_attn import split
@@ -661,8 +686,7 @@ def stripe_checks(torch) -> float:
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         tol = TOL[name]
-        for hq, hkv, d in ((HQ, HKV, D), (4, 1, 16), MOE_GEO,
-                           *(geo for _, geo in FAMILIES.values())):
+        for hq, hkv, d in geos:
             for s_cap in (None, 512):
                 cap = s if s_cap is None else s_cap
                 splits = split.split_count(
@@ -2032,6 +2056,14 @@ def read_counts() -> dict:
             **moe_group_gemm.launch_counts}
 
 
+def attn_layers(cfg) -> int:
+    """The attention layers a forward call runs (a shared block's every
+    occurrence counts; SSM blocks do not)."""
+    from repro_torch.models.init import ATTN_KINDS
+    return sum(seg.count for seg in cfg.resolved_segments()
+               if seg.kind in ATTN_KINDS)
+
+
 def check_serve_launches(res: dict, counts: dict, cfg, label: str,
                          paged: bool, spec: bool = False) -> None:
     """The decode kernels' launches of one serve run, exact: a decode
@@ -2043,15 +2075,20 @@ def check_serve_launches(res: dict, counts: dict, cfg, label: str,
     speculation for part of a run, ``res["spec_segments"]`` of its
     segments ran the verify loop and the rest the plain one: the prefill
     kernel runs once a layer for each join and each verify step, the
-    decode kernel once a layer for each plain step.  An MLA model attends
-    through ``gather_pages`` and the dense core, as JAX's does: no
-    attention kernel runs, so every one of their counts must be 0."""
-    if cfg.attn.value == "mla":
+    decode kernel once a layer for each plain step.  "A layer" is an
+    attention layer: zamba2's shared block counts once an occurrence, an
+    SSM block not at all.  An MLA model attends through ``gather_pages``
+    and the dense core, as JAX's does, and mamba2 does not attend: no
+    attention kernel runs for either, so every one of their counts must be
+    0."""
+    layers = attn_layers(cfg)
+    if cfg.attn.value == "mla" or not layers:
         check(counts["paged_decode"] == counts["paged_prefill"]
               == counts["decode_attn"] == 0,
-              f"serve {label}: an attention kernel ran for an MLA model")
+              f"serve {label}: an attention kernel ran for a model with no "
+              "kernel attention (MLA or attention-free)")
         return
-    per_segment = cfg.n_layers * res["sync_every"]
+    per_segment = layers * res["sync_every"]
     steps = per_segment * res["segments"]
     verify = per_segment * res.get("spec_segments",
                                    res["segments"] if spec else 0)
@@ -2060,7 +2097,7 @@ def check_serve_launches(res: dict, counts: dict, cfg, label: str,
               "loop while speculating")
     if verify:
         check(counts["paged_prefill"]
-              == cfg.n_layers * res["joins"] + verify,
+              == layers * res["joins"] + verify,
               f"serve {label}: prefill launches != layers x (joins + "
               "verify steps)")
         check(counts["paged_decode"] == steps - verify
@@ -2068,7 +2105,7 @@ def check_serve_launches(res: dict, counts: dict, cfg, label: str,
               f"serve {label}: decode launches != layers x plain steps, "
               "or the dense decode kernel was launched")
     elif paged:
-        check(counts["paged_prefill"] == cfg.n_layers * res["joins"],
+        check(counts["paged_prefill"] == layers * res["joins"],
               f"serve {label}: prefill launches != layers x joins")
         check(counts["paged_decode"] == steps,
               f"serve {label}: decode launches != layers x steps")
@@ -3336,9 +3373,10 @@ def check_moe_launches(res: dict, counts: dict, cfg, label: str) -> None:
           f"x {n_moe} MoE layers x {calls} calls")
 
 
-def _family_line(label: str, res: dict, counts: dict, extra: str) -> None:
+def _family_line(label: str, res: dict, counts: dict, extra: str,
+                 tag: str = "families") -> None:
     lat = res["latency"]
-    print(f"[families] {label}, graphs: tok/s first wave "
+    print(f"[{tag}] {label}, graphs: tok/s first wave "
           f"{res['tok_per_s']:.1f} (capture included), warm wave "
           f"{res['warm_tok_per_s']:.1f}; TTFT p50 "
           f"{lat['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
@@ -3350,18 +3388,20 @@ def _family_line(label: str, res: dict, counts: dict, extra: str) -> None:
           f"before the build); launches {counts}; {SMI}")
 
 
-def _family_run(torch, cfg, params, held, label, requests, max_new, **kw):
+def _family_run(torch, cfg, params, held, label, requests, max_new,
+                paged=True, **kw):
     """One graphed serve run (a first and a warm wave) of ``cfg`` on the
-    card, with its launches and peak device memory (``held``: the bytes
-    allocated before ``params`` were built, which the peak includes);
-    gated: every request answered with ``max_new`` in-vocab tokens, the
-    warm wave's streams the first's (with the prefix cache off)."""
+    card, paged (or on dense stripes), with its launches and peak device
+    memory (``held``: the bytes allocated before ``params`` were built,
+    which the peak includes); gated: every request answered with
+    ``max_new`` in-vocab tokens, the warm wave's streams the first's (with
+    the prefix cache off)."""
     from repro_torch.launch.serve import run
     weights = torch.cuda.memory_allocated() - held
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     res = run(cfg, params=params, device="cuda", requests=requests,
-              max_new=max_new, batch=8, max_len=1024, paged=True,
+              max_new=max_new, batch=8, max_len=1024, paged=paged,
               page_size=16, sync_every=8, seed=0, dtype=torch.bfloat16,
               **kw)
     counts = read_counts()
@@ -3380,7 +3420,7 @@ def _family_run(torch, cfg, params, held, label, requests, max_new, **kw):
         check(res["warm_results"] == res["results"],
               f"serve {label}: the warm wave's tokens differ from the "
               "first wave's")
-    check_serve_launches(res, counts, cfg, label, True,
+    check_serve_launches(res, counts, cfg, label, paged,
                          spec=bool(kw.get("speculate_k")))
     if cfg.moe is not None:
         check_moe_launches(res, counts, cfg, label)
@@ -3463,12 +3503,13 @@ def families_serve(torch) -> dict:
     return totals
 
 
-def families_agreement(torch) -> None:
-    """float32 at ``reduced()``, seeded weights: each new configuration's
-    greedy streams on the card (graphed) against the CPU's plain path,
-    paged and dense, and deepseek-v3's also paged behind a 32-token shared
-    prefix with the prefix cache, chunks of 16 and speculation (k 3);
-    equal, or a difference shown at a logit near-tie."""
+def families_agreement(torch, archs=(*FAMILIES, MLA_ARCH)) -> None:
+    """float32 at ``reduced()``, seeded weights: each configuration of
+    ``archs``' greedy streams on the card (graphed) against the CPU's
+    plain path, paged and dense, and deepseek-v3's also paged behind a
+    32-token shared prefix with the prefix cache, chunks of 16 and
+    speculation (k 3); equal, or a difference shown at a logit
+    near-tie."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run
     from repro_torch.models.init import init_params
@@ -3477,7 +3518,7 @@ def families_agreement(torch) -> None:
               dtype=torch.float32)
     feats = dict(prefix_cache=True, prefill_chunk=16, speculate_k=3,
                  shared_prefix=32)
-    for arch in (*FAMILIES, MLA_ARCH):
+    for arch in archs:
         cfg = get_config(arch).reduced()
         params = init_params(cfg, 1, device="cuda")
         cpu_params = _to(torch, params, "cpu")
@@ -3502,6 +3543,115 @@ def families_agreement(torch) -> None:
                     check(on_card[key] == on_cpu[key],
                           f"agreement {arch} {label}: {key} statistics "
                           "differ")
+
+
+def ssm_kernels(torch) -> tuple[dict, dict]:
+    """The attention kernels at zamba2's shared-block geometry
+    (``ZAMBA_GEO``: 32 query over 32 KV heads, G 1, D 64), which no
+    earlier phase launches: both paged kernels at every split and rows a
+    CTA and the dense-stripe kernel over the whole stripe and under
+    ``s_cap``, in both dtypes, against their plain versions; then their
+    times over the 5 pools of the shared block's occurrences.  Returns
+    (the largest bfloat16 errors, the timings)."""
+    from repro_torch.configs import get_config
+    worst = kernel_checks(torch, ZAMBA_GEO)
+    worst["decode_attn"] = stripe_checks(torch, geos=(ZAMBA_GEO,))
+    layers = attn_layers(get_config(SSM_ARCHS[1]))
+    timings = kernel_timings(torch, ZAMBA_GEO, layers=layers)
+    timings["decode_attn"] = stripe_timing(torch, ZAMBA_GEO, layers=layers)
+    return worst, timings
+
+
+def ssm_serve(torch) -> dict:
+    """The ``[ssm]`` phase's serving: mamba2-370m (48 Mamba-2 blocks, no
+    attention) and zamba2-1.2b (33 Mamba-2 blocks and a shared attention
+    block at 5 occurrences) at full width and full depth, each built in
+    place from seeded bfloat16 weights and freed before the next, served
+    paged on phase 4's traffic (16 requests, prompts of 64-512 tokens, 64
+    new tokens each, batch 8, max_len 1024, 8 steps a segment, 512 pages
+    of 16), graphed, a first and a warm wave; zamba2 also on dense
+    stripes.  Launches exact: none for mamba2, 5 a step and a join for
+    zamba2's attention kernel.  Returns zamba2's launches, paged and
+    dense summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.models.transformer import cache_bytes
+    requests, max_new = 16, 64
+    traffic = dict(prompt_len=(64, 513))
+    totals: dict = {}
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        gc.collect()                   # the last model's graphs and pools
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = Model(cfg).init(0, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        hold = cache_bytes(cfg, torch.bfloat16)
+        layers = attn_layers(cfg)
+        for layout, paged in (("paged", True), ("dense", False)):
+            if not (paged or layers):
+                continue               # mamba2: the paged run is enough
+            res, counts = _family_run(torch, cfg, params, held,
+                                      f"{arch} {layout}", requests, max_new,
+                                      paged=paged, **traffic)
+            steps = res["sync_every"] * res["segments"]
+            kname = "paged_decode" if paged else "decode_attn"
+            per = (f"{counts[kname] / steps:g} {kname} a decode step"
+                   + (f", {counts['paged_prefill'] / res['joins']:g} "
+                      "paged_prefill a join" if paged else "")
+                   if layers else "no attention kernel")
+            _family_line(
+                f"{arch} {layout} ({cfg.n_layers} layers, {layers} of them "
+                f"attention; KV {hold['kv_token'] / 1024:g} KiB a token, SSM "
+                f"state {hold['ssm_slot'] / 2**20:.1f} MiB a slot)", res,
+                counts, f"{per}; weights built in {built:.1f}s", tag="ssm")
+            if layers:
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+            del res
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def ssm_padding_invariant(torch) -> None:
+    """float32 at ``reduced()`` on the card, graphed, paged and dense: a
+    10-token prompt's greedy stream joining alone (a join 16 wide) and
+    beside a 30-token prompt (a join 32 wide, so the short row carries 22
+    pad tokens) is the same, or differs at a logit near-tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.init import init_params
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import Batcher
+    import numpy as np
+    rng = np.random.default_rng(3)
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch).reduced()
+        params = init_params(cfg, 2, device="cuda")
+        cpu_params = _to(torch, params, "cpu")
+        short = rng.integers(0, cfg.vocab, size=10).tolist()
+        long = rng.integers(0, cfg.vocab, size=30).tolist()
+        for layout in ("paged", "dense"):
+            streams = []
+            for prompts in ({0: short}, {0: short, 1: long}):
+                b = Batcher(Model(cfg), params, ServeConfig(
+                    max_len=128, batch=2, dtype=torch.float32, sync_every=4,
+                    paged=layout == "paged", page_size=16))
+                for rid, p in prompts.items():
+                    b.submit(rid, p)
+                b.run(max_new=16)
+                check(b.graph_count > 0, f"[ssm] {arch}: no decode graph")
+                streams.append(b.results[0])
+            tie = _near_tie(torch, cpu_params, cfg, short, streams[1],
+                            streams[0], f"{arch} {layout} padding")
+            print(f"[ssm] {arch} reduced float32 {layout}, graphs: a "
+                  "10-token prompt alone (join 16 wide) and beside a "
+                  "30-token one (join 32 wide): "
+                  + ("differs at a near-tie" if tie else "equal streams"))
 
 
 def _cast(torch, tree, dtype):
@@ -3638,6 +3788,20 @@ def main() -> int:
     counts["group_gemm"] = moe_serve(torch)["group_gemm"]
     families = families_serve(torch)
     families_agreement(torch)
+    # phase 11, [ssm]: zamba2's attention geometry, both SSM models served
+    # at full width, card = CPU at reduced(), the padding invariant
+    t_ssm = time.perf_counter()
+    ssm_worst, at_z64 = ssm_kernels(torch)
+    for name, row in at_z64.items():
+        timings[name].update({f"z64_{k}": row[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "flops",
+            "graph_ms", "library_graph_ms", "host_us", "splits", "bytes")
+            if k in row})
+        timings[name]["z64_max_abs_err"] = ssm_worst[name]
+    ssm_counts = ssm_serve(torch)
+    families_agreement(torch, SSM_ARCHS)
+    ssm_padding_invariant(torch)
+    print(f"[ssm] phase took {time.perf_counter() - t_ssm:.1f}s")
 
     sources = {"paged_decode": ("src/repro_torch/kernels/paged_attn/csrc/"
                                 "paged_decode.cu",
@@ -3688,7 +3852,7 @@ def main() -> int:
         rows[-1].update({k: v for k, v in t.items()
                          if (k.startswith(("tiles", "prefill_", "down_",
                                            "d128_", "n16_", "bf16_",
-                                           "verify_", "ds_",
+                                           "verify_", "ds_", "z64_",
                                            *(t + "_" for t, _ in
                                              FAMILIES.values())))
                              or k in ("graph_ms", "library_graph_ms",
@@ -3710,6 +3874,9 @@ def main() -> int:
         # attention kernels) and the deepseek cut's grouped GEMMs
         if name in ("paged_decode", "paged_prefill"):
             rows[-1]["families_launches"] = families[name]
+        # the [ssm] phase's: zamba2's shared block, paged and dense
+        if name in ("paged_decode", "paged_prefill", "decode_attn"):
+            rows[-1]["ssm_launches"] = ssm_counts[name]
         if name == "group_gemm":
             rows[-1]["deepseek_launches"] = families["deepseek_group_gemm"]
         if name == "group_gemm":     # the join's calls take the wgmma file
@@ -3731,6 +3898,8 @@ def main() -> int:
         check(rows[-1].get("families_launches", 1) > 0
               and rows[-1].get("deepseek_launches", 1) > 0,
               f"{name}: not launched on the [families] phase's path")
+        check(rows[-1].get("ssm_launches", 1) > 0,
+              f"{name}: not launched on the [ssm] phase's path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -4,19 +4,22 @@
 copy of its namesake there (the port imports nothing of ``repro``).  The
 registry holds the configurations whose every block the port can execute:
 decoders with GQA or multi-head latent attention (MLA) and dense or
-routed-expert (MoE) feed-forward blocks; later slices add the other
-families' files (SSM, enc-dec, vision) beside these.
+routed-expert (MoE) feed-forward blocks, the attention-free Mamba-2 stack
+(mamba2-370m) and the hybrid of Mamba-2 blocks and one shared attention
+block (zamba2-1.2b); later slices add the other families' files (enc-dec,
+vision) beside these.
 """
 from __future__ import annotations
 
-from . import (codeqwen1_5_7b, deepseek_v3_671b, moonshot_v1_16b_a3b,
-               nemotron_4_15b, qwen2_0_5b, starcoder2_3b)
+from . import (codeqwen1_5_7b, deepseek_v3_671b, mamba2_370m,
+               moonshot_v1_16b_a3b, nemotron_4_15b, qwen2_0_5b,
+               starcoder2_3b, zamba2_1_2b)
 from .base import ArchConfig, AttnKind, BlockKind, Segment  # noqa: F401
 
 REGISTRY: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG for m in (
         qwen2_0_5b, moonshot_v1_16b_a3b, starcoder2_3b, nemotron_4_15b,
-        codeqwen1_5_7b, deepseek_v3_671b)
+        codeqwen1_5_7b, deepseek_v3_671b, mamba2_370m, zamba2_1_2b)
 }
 
 

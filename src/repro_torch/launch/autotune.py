@@ -55,6 +55,9 @@ def serve_shapes(b: int = 8, lq: int | None = None,
 
 def geometry(arch: str, page_size: int) -> at.Geometry:
     cfg = get_config(arch)
+    if cfg.attn.value == "none":
+        raise ValueError(f"{arch} is attention-free: no paged-attention "
+                         "launch to tune")
     return at.Geometry(hq=cfg.n_heads, hkv=cfg.kv_heads,
                        d=cfg.resolved_head_dim, page_size=page_size)
 

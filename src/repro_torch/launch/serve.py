@@ -69,6 +69,7 @@ from ..device import resolve_device
 from ..kernels.paged_attn import amenability_reports, attn_telemetry
 from ..models.init import cast_for_serving
 from ..models.model_zoo import Model
+from ..models.transformer import cache_bytes
 from ..serve.attribution import attribution_report
 from ..serve.engine import ServeConfig
 from ..serve.scheduler import Batcher
@@ -199,7 +200,7 @@ def run(arch: str | ArchConfig, *, reduced: bool = False, requests: int = 4,
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
     layout = (f"paged pool {b.pool.n_pages}x{b.pool.page_size}" if paged
-              else f"dense stripes {batch}x{max_len}")
+              else f"dense stripes {batch}x{max_len}") + _held(cfg, dtype)
     mode = (f"{b.graph_count} CUDA graphs, {b.capture_seconds:.3f}s "
             "capturing" if b.graphs else "eager")
     first = {"prefix": b.prefix_stats(), "spec": b.spec_stats(),
@@ -268,8 +269,8 @@ def _attn_lines(wave: str) -> dict:
         # an MLA model attends through gather_pages and the dense core, as
         # JAX's does, and the dense layout through decode_attn: neither
         # runs a paged-attention op, so there is no table to print
-        print(f"[attn] {wave}: no paged-attention op calls (an MLA model "
-              "or the dense layout runs none)")
+        print(f"[attn] {wave}: no paged-attention op calls (an MLA or "
+              "attention-free model, or the dense layout, runs none)")
     for key, row in snap.items():
         print(f"[attn] {wave}: {key}: {row['calls']} calls "
               f"({row['traced_calls']} captured), {row['tokens']} tokens, "
@@ -309,6 +310,17 @@ def _overload_lines(b: Batcher, wave: str, watched: bool) -> None:
               f"({ost['deadline_met']}/{ost['deadline_total']}), "
               f"controller {ctl['state']} ({len(ctl['transitions'])} "
               f"transitions), watchdog trips {ost['watchdog_trips']}")
+
+
+def _held(cfg: ArchConfig, dtype: torch.dtype) -> str:
+    """The cache's bytes: K/V a token (none for an attention-free model),
+    and an SSM model's conv window and state a slot."""
+    held = cache_bytes(cfg, dtype)
+    out = (f", KV {held['kv_token'] / 1024:.1f} KiB a token"
+           if held["kv_token"] else ", no KV (attention-free)")
+    if held["ssm_slot"]:
+        out += f", SSM state {held['ssm_slot'] / 2**20:.1f} MiB a slot"
+    return out
 
 
 def _preempt(b: Batcher) -> dict:

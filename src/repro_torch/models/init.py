@@ -1,14 +1,18 @@
 """Seeded parameter init with the shapes and scales of
 :func:`repro.models.transformer.init_lm` (decoders with GQA or multi-head
-latent attention and dense or routed-expert feed-forward blocks).
+latent attention and dense or routed-expert feed-forward blocks, Mamba-2
+SSD blocks, and a shared attention block).
 
 The tree has the JAX layout, unwrapped (see ``repro.models.param.unwrap``):
 layer-stacked ``segments`` whose leaves are ``[n_layers, ...]``, with a
-``mlp`` in DENSE blocks and a ``moe`` (``init_moe``'s router, expert
-weights and shared experts) in MOE blocks; an MLA model's ``attn`` holds
-``init_mla``'s low-rank leaves, and a model with multi-token prediction
-(deepseek-v3) also the unstacked DENSE ``mtp_block`` and ``mtp_norm``,
-which serving never reads (they belong to the training loss).  Values
+``mlp`` in DENSE blocks, a ``moe`` (``init_moe``'s router, expert weights
+and shared experts) in MOE blocks and ``init_ssm``'s leaves under ``ssm``
+in SSM blocks; a SHARED_ATTN segment is ``{}``, its weights the one
+unstacked DENSE ``shared_block`` that every occurrence applies (zamba2).
+An MLA model's ``attn`` holds ``init_mla``'s low-rank leaves, and a model
+with multi-token prediction (deepseek-v3) also the unstacked DENSE
+``mtp_block`` and ``mtp_norm``, which serving never reads (they belong to
+the training loss).  Values
 come from a ``torch.Generator`` seeded explicitly, so they differ from the
 JAX init's; parity tests feed both packages the JAX weights through
 :mod:`repro_torch.models.bridge` instead.
@@ -21,21 +25,29 @@ import torch
 
 from ..configs.base import ArchConfig, AttnKind, BlockKind
 from ..device import resolve_device
+from .ssm import _dims as ssm_dims
 
 FILL_CHUNK = 1 << 24    # values drawn at once by init_params (64 MiB fp32)
 
 
+ATTN_KINDS = (BlockKind.DENSE, BlockKind.MOE, BlockKind.SHARED_ATTN)
+
+
 def _check_supported(cfg: ArchConfig) -> None:
     kinds = {s.kind for s in cfg.resolved_segments()}
-    if (not kinds <= {BlockKind.DENSE, BlockKind.MOE}
-            or cfg.attn not in (AttnKind.GQA, AttnKind.MLA)
+    attends = bool(kinds & set(ATTN_KINDS))
+    if (cfg.attn not in ((AttnKind.GQA, AttnKind.MLA) if attends
+                         else (AttnKind.NONE,))
             or (cfg.attn is AttnKind.MLA) != (cfg.mla is not None)
-            or cfg.enc_dec or cfg.shared_attn_every
-            or cfg.frontend.value != "none"
-            or (BlockKind.MOE in kinds) != (cfg.moe is not None)):
+            or cfg.enc_dec or cfg.frontend.value != "none"
+            or (BlockKind.MOE in kinds) != (cfg.moe is not None)
+            or (BlockKind.SSM in kinds) != (cfg.ssm is not None)
+            or (BlockKind.SHARED_ATTN in kinds) != bool(
+                cfg.shared_attn_every)):
         raise NotImplementedError(
             f"{cfg.name}: the port runs GQA and MLA decoders with dense "
-            "and MoE blocks only so far")
+            "and MoE blocks, and Mamba-2 stacks with or without a shared "
+            "attention block, only so far")
 
 
 def serves_in_float32(path: tuple[str, ...]) -> bool:
@@ -43,14 +55,17 @@ def serves_in_float32(path: tuple[str, ...]) -> bool:
     serving dtype: norm scales (the norms multiply in float32), the
     embedding (rows are gathered, then cast), the router (JAX routes with
     float32 logits from a float32 weight) and the untied read-out (JAX
-    reads out in float32 from a float32 weight)."""
-    return (path[-1] == "scale" or path[:1] in (("embed",), ("lm_head",))
+    reads out in float32 from a float32 weight) and an SSM block's
+    ``a_log`` and ``dt_bias`` (JAX adds them to float32 ``dt``)."""
+    return (path[-1] in ("scale", "a_log", "dt_bias")
+            or path[:1] in (("embed",), ("lm_head",))
             or path[-2:] == ("router", "w"))
 
 
 def _spec(cfg: ArchConfig) -> dict:
-    """The tree as leaf specs: ("normal", shape, std), ("zeros", shape) or
-    ("ones", shape); layer-stacked leaves lead with the layer count."""
+    """The tree as leaf specs: ("normal", shape, std), ("zeros", shape),
+    ("ones", shape) or ("a_log", shape) (``log(linspace(1, 16, H))`` in
+    every layer); layer-stacked leaves lead with the layer count."""
     d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.kv_heads
     hd, f = cfg.resolved_head_dim, cfg.d_ff
 
@@ -91,7 +106,22 @@ def _spec(cfg: ArchConfig) -> dict:
                            1 / math.sqrt(hq * hd))}
         return attn
 
+    def ssm(lead):                         # init_ssm
+        d_inner, h, d_xbc = ssm_dims(cfg)
+        return {"in_z": dense(lead, d, d_inner),
+                "in_xbc": dense(lead, d, d_xbc),
+                "in_dt": dense(lead, d, h),
+                "conv_w": ("normal", lead + (cfg.ssm.d_conv, d_xbc), 0.2),
+                "conv_b": ("zeros", lead + (d_xbc,)),
+                "a_log": ("a_log", lead + (h,)),
+                "dt_bias": ("zeros", lead + (h,)),
+                "d_skip": ("ones", lead + (h,)),
+                "norm": norm(lead, d_inner),
+                "out": dense(lead, d_inner, d)}
+
     def block(lead, kind):
+        if kind is BlockKind.SSM:
+            return {"norm": norm(lead, d), "ssm": ssm(lead)}
         out = {"norm1": norm(lead, d), "attn": attention(lead),
                "norm2": norm(lead, d)}
         if kind is BlockKind.MOE:
@@ -110,8 +140,11 @@ def _spec(cfg: ArchConfig) -> dict:
         return out
 
     spec: dict = {"embed": {"table": ("normal", (cfg.vocab, d), 0.02)}}
-    spec["segments"] = [block((seg.count,), seg.kind)
+    spec["segments"] = [{} if seg.kind is BlockKind.SHARED_ATTN
+                        else block((seg.count,), seg.kind)
                         for seg in cfg.resolved_segments()]
+    if cfg.shared_attn_every:
+        spec["shared_block"] = block((), BlockKind.DENSE)
     spec["final_norm"] = norm((), d)
     if not cfg.tied_embeddings:
         spec["lm_head"] = {"w": ("normal", (d, cfg.vocab),
@@ -152,6 +185,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
             return torch.zeros(shape, device=dev, dtype=out_dtype)
         if kind == "ones":
             return torch.ones(shape, device=dev, dtype=out_dtype)
+        if kind == "a_log":
+            return torch.log(torch.linspace(
+                1.0, 16.0, shape[-1], device=dev)).to(out_dtype).expand(
+                    shape).contiguous()
         out = torch.empty(shape, device=dev, dtype=out_dtype)
         flat = out.view(-1)
         for start in range(0, flat.numel(), FILL_CHUNK):

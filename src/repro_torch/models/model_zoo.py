@@ -23,6 +23,14 @@ def _last_rows(hidden: torch.Tensor, last_pos) -> torch.Tensor:
                   lp][:, None]
 
 
+def _lengths(last_pos, tokens: torch.Tensor) -> torch.Tensor | None:
+    """Each row's prompt length, ``last_pos + 1`` (None: the full call)."""
+    if last_pos is None:
+        return None
+    return torch.as_tensor(last_pos, dtype=torch.int64,
+                           device=tokens.device) + 1
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
@@ -37,13 +45,15 @@ class Model:
         tokens on the tokens' device.  ``last_pos`` ([B]) picks each row's
         logits position: prompts of mixed length share one padded prefill,
         and the padding keys are masked out (and later overwritten) by
-        per-slot cache lengths during decode.  Returns (logits [B, 1, V]
-        float32, caches)."""
+        per-slot cache lengths during decode; an SSM segment's recurrence
+        stops at each row's ``last_pos + 1`` (:func:`_lengths`).  Returns
+        (logits [B, 1, V] float32, caches)."""
         tokens = batch["tokens"]
         caches = init_caches(self.cfg, tokens.shape[0], max_len, dtype,
                              tokens.device)
         hidden, caches = forward(params, batch, self.cfg, caches=caches,
-                                 cache_len=0, dtype=dtype)
+                                 cache_len=0, dtype=dtype,
+                                 lengths=_lengths(last_pos, tokens))
         return logits_fn(params, _last_rows(hidden, last_pos),
                          self.cfg), caches
 
@@ -54,15 +64,19 @@ class Model:
         are all sentinels write nothing to live pages: that is how the
         serving join prefills only the slots being refilled.  ``cache_len``
         ([B] int32, default zeros) makes this a suffix prefill at that
-        depth.  ``last_pos`` ([B]) picks each row's logits position.
-        Returns (logits [B, 1, V] float32, caches)."""
+        depth.  ``last_pos`` ([B]) picks each row's logits position, and
+        ends each row's SSM recurrence there, as in :meth:`prefill`; the
+        SSM caches given take every row's fresh state (the paged join
+        hands in scratch state and keeps the joining rows').  Returns
+        (logits [B, 1, V] float32, caches)."""
         b = batch["tokens"].shape[0]
         dev = batch["tokens"].device
         if cache_len is None:
             cache_len = torch.zeros((b,), dtype=torch.int32, device=dev)
         hidden, caches = forward(params, batch, self.cfg, caches=caches,
                                  cache_len=cache_len.to(torch.int32),
-                                 dtype=dtype, pages=pages)
+                                 dtype=dtype, pages=pages,
+                                 lengths=_lengths(last_pos, batch["tokens"]))
         return logits_fn(params, _last_rows(hidden, last_pos),
                          self.cfg), caches
 

@@ -1,6 +1,8 @@
 """Decoder over a KV cache, from :mod:`repro.models.transformer`: DENSE
-blocks (attention and an MLP) and MOE blocks (attention and the routed
-experts of :mod:`.moe`), with GQA or multi-head latent attention.
+blocks (attention and an MLP), MOE blocks (attention and the routed
+experts of :mod:`.moe`), with GQA or multi-head latent attention, SSM
+blocks (Mamba-2, :mod:`.ssm`) and SHARED_ATTN segments, where one DENSE
+``shared_block`` is applied at every occurrence (zamba2).
 
 Parameters keep the JAX layout: each segment's leaves are stacked over its
 layers (``[n_layers, ...]``), and the JAX ``lax.scan`` over a segment
@@ -8,10 +10,16 @@ becomes a Python loop that indexes layer ``i`` of every stacked leaf (a
 view, no copy).  The caches are stacked the same way, dense stripes as
 ``[n_layers, B, max_len + 1, Hkv, D]`` and paged pools as
 ``[n_layers, n_pages + 2, page_size, Hkv, D]`` (MLA: the latent and the
-rope key, ``[.., r]`` and ``[.., rope]``, no head axis), and written in
-place.
+rope key, ``[.., r]`` and ``[.., rope]``, no head axis; a shared segment
+its own ``n_layers = 1`` stripe or pool: the weights are shared, the
+caches are not), and written in place.  An SSM segment's cache is per
+slot in both layouts, ``{"conv": [n_layers, B, d_conv - 1, d_xbc],
+"state": [n_layers, B, H, P, N]}`` (float32 state): a recurrent state is
+O(1) in the sequence, so there is nothing to page.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -19,9 +27,10 @@ from ..configs.base import ArchConfig, AttnKind, BlockKind
 from ..device import resolve_device
 from .attention import (KVCache, PagedKVCache, attention_apply,
                         dense_write_index, paged_write_index)
-from .init import _check_supported
+from .init import ATTN_KINDS, _check_supported
 from .layers import dense, embed, mlp, rmsnorm, rope_tables, unembed
 from .moe import moe_apply
+from .ssm import init_cache as init_ssm_cache, ssm_apply
 
 
 def _attn_cache_shape(cfg: ArchConfig, lead: tuple[int, int]):
@@ -36,14 +45,25 @@ def _attn_cache_shape(cfg: ArchConfig, lead: tuple[int, int]):
     return shape, shape
 
 
-def _stacked_caches(cfg: ArchConfig, lead: tuple[int, int], dtype,
-                    device) -> list:
+def _stacked_caches(cfg: ArchConfig, lead: tuple[int, int], batch: int,
+                    dtype, device) -> list:
+    """Attention segments a ``lead`` stripe or pool a layer, SSM segments
+    :func:`~.ssm.init_cache` at ``batch`` slots a layer."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    kshape, vshape = _attn_cache_shape(cfg, lead)
-    return [{"k": torch.zeros((seg.count,) + kshape, dtype=dtype, device=dev),
-             "v": torch.zeros((seg.count,) + vshape, dtype=dtype, device=dev)}
-            for seg in cfg.resolved_segments()]
+    caches = []
+    for seg in cfg.resolved_segments():
+        if seg.kind is BlockKind.SSM:
+            one = init_ssm_cache(cfg, batch, dtype, "meta")   # shapes
+            caches.append({name: torch.zeros((seg.count,) + t.shape,
+                                             dtype=t.dtype, device=dev)
+                           for name, t in one.items()})
+            continue
+        kshape, vshape = _attn_cache_shape(cfg, lead)
+        caches.append({
+            "k": torch.zeros((seg.count,) + kshape, dtype=dtype, device=dev),
+            "v": torch.zeros((seg.count,) + vshape, dtype=dtype, device=dev)})
+    return caches
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
@@ -52,8 +72,9 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     """One ``{"k", "v"}`` stripe per segment, stacked over its layers, each
     ``[layers, batch, max_len + 1, ...]`` (``...`` the per-token shape of
     :func:`_attn_cache_shape`): ``max_len`` rows per slot plus the sink
-    row that takes writes JAX would drop (see :mod:`.attention`)."""
-    return _stacked_caches(cfg, (batch, max_len + 1), dtype, device)
+    row that takes writes JAX would drop (see :mod:`.attention`).  SSM
+    segments hold their per-slot conv window and state."""
+    return _stacked_caches(cfg, (batch, max_len + 1), batch, dtype, device)
 
 
 def init_paged_caches(cfg: ArchConfig, batch: int, n_pages: int,
@@ -63,18 +84,45 @@ def init_paged_caches(cfg: ArchConfig, batch: int, n_pages: int,
     ``[layers, n_pages + 2, page_size, ...]``: ``n_pages`` live pages
     shared by every slot through the page table, then the sentinel's page,
     which stays zero for reads through unallocated entries, and the sink
-    page that takes masked-out writes (see :mod:`.attention`).  ``batch``
-    is unused by attention pools; it is kept for the JAX signature."""
-    return _stacked_caches(cfg, (n_pages + 2, page_size), dtype, device)
+    page that takes masked-out writes (see :mod:`.attention`).  SSM
+    segments keep their per-slot state, ``batch`` slots of it, as in
+    JAX."""
+    return _stacked_caches(cfg, (n_pages + 2, page_size), batch, dtype,
+                           device)
+
+
+def cache_bytes(cfg: ArchConfig, dtype: torch.dtype) -> dict:
+    """What serving holds for ``cfg``: ``kv_token`` bytes of K/V a token
+    over every attention layer (0 for an attention-free model) and
+    ``ssm_slot`` bytes of conv window and state a slot over every SSM
+    layer (0 without SSM segments)."""
+    width = torch.empty((), dtype=dtype).element_size()
+    kv = ssm = 0
+    for seg in cfg.resolved_segments():
+        if seg.kind is BlockKind.SSM:
+            one = init_ssm_cache(cfg, 1, dtype, "meta")
+            ssm += seg.count * sum(t.numel() * t.element_size()
+                                   for t in one.values())
+        else:
+            kshape, vshape = _attn_cache_shape(cfg, ())
+            kv += seg.count * width * (math.prod(kshape) + math.prod(vshape))
+    return {"kv_token": kv, "ssm_slot": ssm}
 
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                 kind: BlockKind, *, rope,
-                cache: KVCache | PagedKVCache | None = None,
+                cache: KVCache | PagedKVCache | dict | None = None,
                 write_index=None, kv_cap: int | None = None,
-                verify: bool = False):
+                verify: bool = False, lengths=None):
     """Pre-norm attention block (GQA or MLA, by the config), then the MLP
-    (DENSE) or the routed experts (MOE); returns (y, new_cache)."""
+    (DENSE) or the routed experts (MOE); or a pre-norm SSM block, whose
+    ``cache`` is a layer's ``{"conv", "state"}`` and whose prefill ends
+    each row at ``lengths`` (see :func:`~.ssm.ssm_apply`).  Returns (y,
+    new_cache)."""
+    if kind is BlockKind.SSM:
+        h = ssm_apply(params["ssm"], rmsnorm(params["norm"], x, cfg.norm_eps),
+                      cfg, cache=cache, lengths=lengths)
+        return x + h, cache
     h, new_cache = attention_apply(
         params["attn"], rmsnorm(params["norm1"], x, cfg.norm_eps), cfg,
         rope=rope, cache=cache, write_index=write_index, kv_cap=kv_cap,
@@ -99,7 +147,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
             caches: list | None = None, cache_len=None,
             dtype: torch.dtype = torch.bfloat16,
             pages: torch.Tensor | None = None, kv_cap: int | None = None,
-            verify: bool = False):
+            verify: bool = False, lengths: torch.Tensor | None = None):
     """Returns (hidden [B, L, D], caches).
 
     ``batch["tokens"]``: [B, L] int.  With ``caches``, row b's L tokens sit
@@ -115,6 +163,13 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
       (``cache_len`` 0), a suffix prefill, a one-token decode and a k+1
       verify are all this one call; ``verify`` marks the last, whose
       attention takes the verify op's tuned launch.
+
+    SSM segments (mamba2, zamba2) carry a per-slot state instead: a
+    one-token call with caches continues it, any other call is a prefill
+    from a zero state, and ``lengths`` ([B], a prefill's per-row prompt
+    lengths) stops each row's recurrence at its own length, so that a
+    row's state does not take in the padding of a mixed-length batch
+    (JAX's runs through it; see :mod:`.ssm`).
 
     Without caches the call is a plain causal forward.  (The JAX forward
     also returns the MoE blocks' auxiliary loss, which serving does not
@@ -137,32 +192,43 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
         positions = int(cache_len) + steps
     else:
         positions = steps
-    # MLA rotates only its rope slice of each head and its shared key
-    rope_dim = (cfg.mla.qk_rope_head_dim if cfg.attn is AttnKind.MLA
-                else cfg.resolved_head_dim)
-    rope = rope_tables(positions, rope_dim, cfg.rope_theta)
-    index = None
-    if caches is not None and pages is not None:
+    segs = cfg.resolved_segments()
+    # the first attention segment's stripe or pool (None: attention-free)
+    attn_cache = next((c for seg, c in zip(segs, caches or ())
+                       if seg.kind in ATTN_KINDS), None)
+    rope = index = None
+    if cfg.attn is not AttnKind.NONE:
+        # MLA rotates only its rope slice of each head and its shared key
+        rope_dim = (cfg.mla.qk_rope_head_dim if cfg.attn is AttnKind.MLA
+                    else cfg.resolved_head_dim)
+        rope = rope_tables(positions, rope_dim, cfg.rope_theta)
+    if attn_cache is not None and pages is not None:
         # every layer writes its K/V at the same pool addresses; the pools
         # lead [layers, n_pages + 2, page_size] for GQA and MLA alike
-        n_live, ps = caches[0]["k"].shape[1] - 2, caches[0]["k"].shape[2]
+        n_live, ps = attn_cache["k"].shape[1] - 2, attn_cache["k"].shape[2]
         index = paged_write_index(pages, cache_len, length, n_live, ps)
-    elif caches is not None and per_slot:
+    elif attn_cache is not None and per_slot:
         index = dense_write_index(cache_len, length,
-                                  caches[0]["k"].shape[2] - 1)
-    for si, seg in enumerate(cfg.resolved_segments()):
-        stacked = params["segments"][si]
+                                  attn_cache["k"].shape[2] - 1)
+    for si, seg in enumerate(segs):
+        kind, stacked = seg.kind, params["segments"][si]
+        if kind is BlockKind.SHARED_ATTN:   # one weight set, its own cache
+            kind, stacked = BlockKind.DENSE, None
         for i in range(seg.count):
             cache = None
-            if caches is not None and pages is not None:
+            if caches is not None and kind is BlockKind.SSM:
+                cache = {name: t[i] for name, t in caches[si].items()}
+            elif caches is not None and pages is not None:
                 cache = PagedKVCache(caches[si]["k"][i], caches[si]["v"][i],
                                      pages, cache_len)
             elif caches is not None:
                 cache = KVCache(caches[si]["k"][i], caches[si]["v"][i],
                                 cache_len)
-            x, _ = block_apply(_layer(stacked, i), x, cfg, seg.kind,
-                               rope=rope, cache=cache, write_index=index,
-                               kv_cap=kv_cap, verify=verify)
+            layer = (params["shared_block"] if stacked is None
+                     else _layer(stacked, i))
+            x, _ = block_apply(layer, x, cfg, kind, rope=rope, cache=cache,
+                               write_index=index, kv_cap=kv_cap,
+                               verify=verify, lengths=lengths)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
 
 

@@ -35,6 +35,7 @@ import time
 
 import torch
 
+from ..configs.base import BlockKind
 from ..kernels import launches
 from ..kernels.decode_attn.ops import (MODES, DecodeAttnPolicy,
                                        decode_attn_policy)
@@ -95,7 +96,7 @@ class ServeConfig:
     # committed history through the chunked-prefill join path, with
     # prefix-cache hits shortcutting the recompute.  Attention-only in
     # JAX (a recurrent state cannot be recomputed from a page-aligned
-    # resume); the port serves no SSM model yet.
+    # resume): the batcher refuses it for a model with an SSM segment.
     admission_mode: str = "reserve"
     admission_lookahead: int = 8
     admission_max_skips: int = 8
@@ -502,7 +503,10 @@ def make_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
     ``prompts`` [J, W], ``plens`` [J] and ``budgets`` [J] are theirs, in
     that order.  The slot state (``tok``, ``lengths``, ``done``,
     ``remaining``) is written in place (``index_copy_``), so a decode
-    graph captured over those tensors reads the joined rows.  Returns
+    graph captured over those tensors reads the joined rows; so are an SSM
+    segment's conv window and state, whose joining rows are copied whole
+    (each row's prefill started from zero and stopped at its own prompt
+    length, see :mod:`repro_torch.models.ssm`).  Returns
     (caches, tok, lengths, done, remaining, first), the same tensors it
     was given and ``first`` [J], the joining rows' first sampled
     tokens.  The join runs inside ``policy``, as the decode loop does."""
@@ -517,9 +521,11 @@ def make_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
             last_pos=plens.new_zeros(b).index_copy(0, rows, plens - 1))
         logits = logits[rows]
         for new, old in zip(fresh, caches):
-            for name in ("k", "v"):
-                old[name][:, :, :width].index_copy_(
-                    1, rows, new[name][:, :, :width].index_select(1, rows))
+            for name, held in old.items():
+                # stripes: the prompt's rows; an SSM leaf whole
+                cut = width if name in ("k", "v") else None
+                held[:, :, :cut].index_copy_(
+                    1, rows, new[name][:, :, :cut].index_select(1, rows))
         first = sample_tokens(logits[:, -1], temp, gen)
         if eos_id is None:
             is_eos = torch.zeros_like(first, dtype=torch.bool)
@@ -542,20 +548,36 @@ def make_paged_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
     bit-for-bit intact in the shared pool.  ``prefix_lens`` [B] is each
     joining row's resident depth (0 for a whole-prompt prefill) and
     ``commit_mask`` [B] the joining rows whose prompt completes with this
-    call (``commit_mask == join_mask`` when prompts are not chunked).  The
-    slot state is written in place, as in :func:`make_join`, inside
-    ``policy``.  Returns (caches, tok, lengths, done, remaining, first),
-    the state tensors the same ones it was given."""
+    call (``commit_mask == join_mask`` when prompts are not chunked).  SSM
+    segments keep per-slot state, not pages, as in JAX: the prefill
+    computes every row's fresh state into scratch tensors, and only the
+    joining rows' are selected into the serving state, so every other
+    slot's window and state stay bit-for-bit (JAX's prefill starts from
+    the serving state, the previous occupant's for a reused slot; the
+    port's from zero).  The slot state is written in place, as in
+    :func:`make_join`, inside ``policy``.  Returns (caches, tok, lengths,
+    done, remaining, first), the state tensors the same ones it was
+    given."""
     temp = cfg.temperature
     sentinel = cfg.pool_pages      # the pool's out-of-range id
+    recurrent = [seg.kind is BlockKind.SSM
+                 for seg in model.cfg.resolved_segments()]
 
     def join(params, caches, tok, lengths, done, remaining, join_mask,
              prompts, plens, budgets, gen, pages, prefix_lens, commit_mask):
         write_tbl = torch.where(join_mask[:, None], pages,
                                 torch.full_like(pages, sentinel))
-        logits, caches = model.prefill_paged(
-            params, {"tokens": prompts}, caches, write_tbl, dtype=cfg.dtype,
+        work = [{name: torch.zeros_like(t) for name, t in c.items()}
+                if ssm else c for ssm, c in zip(recurrent, caches)]
+        logits, work = model.prefill_paged(
+            params, {"tokens": prompts}, work, write_tbl, dtype=cfg.dtype,
             last_pos=plens - 1, cache_len=prefix_lens)
+        for ssm, new, old in zip(recurrent, work, caches):
+            if ssm:           # leaves are [layers, B, ...]: the batch axis
+                for name, held in old.items():
+                    mask = join_mask.reshape((1, -1) + (1,) * (held.dim()
+                                                               - 2))
+                    held.copy_(torch.where(mask, new[name], held))
         first = sample_tokens(logits[:, -1], temp, gen)
         if eos_id is None:
             is_eos = torch.zeros_like(join_mask)

@@ -23,6 +23,15 @@ Two KV layouts, as in JAX (``cfg.paged``):
   power-of-two bound on the deepest live slot's page count (page-cap
   bucketing).
 
+A model with SSM segments (mamba2-370m; the zamba2-1.2b hybrid) keeps
+each slot's conv window and recurrent state beside the KV, per slot in
+both layouts: a join starts a joining row's from zero and stops it at
+the row's own prompt length, so the padding of the join's width never
+enters it, and the decode steps continue it.  A recurrent state cannot be
+rebuilt from pages or rolled back, so optimistic admission, chunked
+prefill, speculation and the prefix cache are refused for such a model,
+in JAX's words.
+
 The slot state (``tok``, ``lengths``, ``done``, ``remaining``), the
 caches and, paged, one ``[B, P_cap]`` slice of the page table per bucket
 are device tensors made once and written in place: the joins write the
@@ -143,6 +152,7 @@ import time
 import numpy as np
 import torch
 
+from ..configs.base import BlockKind
 from .engine import (PAD_TOKEN, GraphedLoop, ServeConfig, make_decode_loop,
                      make_join, make_paged_join)
 from ..kernels.decode_attn.ops import DecodeAttnPolicy
@@ -188,24 +198,26 @@ class ContinuousBatcher:
                  telemetry: Tracer | None = None):
         self.model, self.params, self.cfg = model, params, cfg
         self.eos = eos_id
-        self.device = dev = params["embed"]["table"].device
-        if graphs is None:
-            graphs = dev.type == "cuda"
-        elif graphs and dev.type != "cuda":
-            raise ValueError("graphs=True needs a CUDA device: on the CPU "
-                             "the decode loop runs eagerly")
-        self.graphs = graphs
         # the feature checks of repro.serve.scheduler, in its order and
-        # words (its hybrid-SSM checks wait for the SSM model's port)
+        # words, before ``params`` is read or a cache allocated (JAX's
+        # tests build a hybrid-SSM batcher with no params to see them)
+        recurrent = any(s.kind is BlockKind.SSM
+                        for s in model.cfg.resolved_segments())
         if cfg.admission_mode not in ("reserve", "optimistic"):
             raise ValueError(
                 f"unknown admission mode {cfg.admission_mode!r} "
                 "(expected 'reserve' or 'optimistic')")
-        if cfg.admission_mode == "optimistic" and not cfg.paged:
-            raise ValueError(
-                "admission_mode='optimistic' requires paged=True "
-                "(on-demand growth and preemption move pages through "
-                "the pool)")
+        if cfg.admission_mode == "optimistic":
+            if not cfg.paged:
+                raise ValueError(
+                    "admission_mode='optimistic' requires paged=True "
+                    "(on-demand growth and preemption move pages through "
+                    "the pool)")
+            if recurrent:
+                raise ValueError(
+                    "optimistic admission is attention-only: preempting a "
+                    "hybrid SSM slot would discard a recurrent state that "
+                    "recompute-on-resume cannot rebuild from paged KV")
         self.chaos = chaos
         if chaos is not None and not cfg.paged:
             raise ValueError("chaos injection requires paged=True (its "
@@ -221,6 +233,11 @@ class ContinuousBatcher:
                     f"prefill_chunk {cfg.prefill_chunk} must be a multiple "
                     f"of page_size {cfg.page_size} (chunk boundaries must "
                     "never land inside a shared prefix page)")
+            if recurrent:
+                raise ValueError(
+                    "prefill_chunk is attention-only: a hybrid SSM "
+                    "model's recurrent state cannot resume mid-prompt "
+                    "across join calls")
         if cfg.prefill_round_tokens is not None \
                 and cfg.prefill_round_tokens <= 0:
             raise ValueError("prefill_round_tokens must be positive")
@@ -238,11 +255,28 @@ class ContinuousBatcher:
                 raise ValueError(
                     "speculate_k is greedy-only for now: acceptance is "
                     "defined by exact argmax agreement (temperature 0)")
-        if cfg.prefix_cache and not cfg.paged:
-            raise ValueError("prefix_cache requires paged=True "
-                             "(shared pages live in the block pool)")
+            if recurrent:
+                raise ValueError(
+                    "speculate_k is attention-only: a hybrid SSM model's "
+                    "recurrent state advances k+1 tokens per verify and "
+                    "cannot roll back past the acceptance point")
+        if cfg.prefix_cache:
+            if not cfg.paged:
+                raise ValueError("prefix_cache requires paged=True "
+                                 "(shared pages live in the block pool)")
+            if recurrent:
+                raise ValueError(
+                    "prefix_cache is attention-only: hybrid SSM models "
+                    "cannot resume a recurrent state from cached pages")
         if cfg.watchdog_rounds < 1:
             raise ValueError("watchdog_rounds must be >= 1")
+        self.device = dev = params["embed"]["table"].device
+        if graphs is None:
+            graphs = dev.type == "cuda"
+        elif graphs and dev.type != "cuda":
+            raise ValueError("graphs=True needs a CUDA device: on the CPU "
+                             "the decode loop runs eagerly")
+        self.graphs = graphs
         if graphs:
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(dev)

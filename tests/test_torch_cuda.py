@@ -9,7 +9,10 @@ the MoE model (reduced moonshot) served through it, the bfloat16 init
 built in place, the ops that take strided views, and optimistic
 admission's preemption on graphed segments (the victim's row latched in
 place, graphed against eager), and a mid-flight cancel on graphed
-segments (the cancelled row latched in place); the paged kernels at
+segments (the cancelled row latched in place); the SSM models (reduced
+mamba2-370m and zamba2-1.2b) served graphed against eager and the CPU
+plain path, with a short prompt's stream independent of the join's
+padding; the paged kernels at
 every launch knob the autotuner sweeps (decode: every split count and
 rows a CTA; prefill and verify: every rows a CTA), and serving with the
 attention routed plain against the kernels.  Every test here is
@@ -64,7 +67,8 @@ GEOMETRIES = [(4, 1, 16, 8),       # reduced qwen2-0.5b
               (16, 16, 128, 16),   # full-width moonshot (G = 1, D = 128)
               (24, 2, 128, 16),    # full-width starcoder2-3b (G = 12)
               (48, 8, 128, 16),    # full-width nemotron-4-15b (G = 6)
-              (32, 32, 128, 16)]   # full-width codeqwen1.5-7b (MHA)
+              (32, 32, 128, 16),   # full-width codeqwen1.5-7b (MHA)
+              (32, 32, 64, 16)]    # zamba2-1.2b's shared block (MHA)
 
 
 @pytest.fixture(autouse=True)
@@ -106,7 +110,8 @@ DECODE_GEOMETRIES = [(4, 1, 16, 8),       # reduced qwen2-0.5b (G 4)
                      (2, 2, 16, 4),       # G 1 at D 16, pages of 4
                      (24, 2, 128, 16),    # full-width starcoder2-3b (G 12)
                      (48, 8, 128, 16),    # full-width nemotron-4-15b (G 6)
-                     (32, 32, 128, 16)]   # full-width codeqwen1.5-7b (G 1)
+                     (32, 32, 128, 16),   # full-width codeqwen1.5-7b (G 1)
+                     (32, 32, 64, 16)]    # zamba2-1.2b's shared block
 DECODE_BOUND = 384                        # keys a table row or cap spans
 
 
@@ -1650,3 +1655,55 @@ def test_cancel_latches_the_device_row_in_place():
     assert got == {k: v for k, v in want.items() if k != rid}
     b.pool.check()
     assert b.pool.used_pages == 0
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_ssm_serving_graphed_matches_eager_and_cpu(arch, paged):
+    """Reduced mamba2 and zamba2 in float32, prompts of 3-19 tokens (so
+    joins are padded) and an EOS that refills a slot: graphed = eager =
+    the CPU's plain path, with the SSM state written in place under the
+    graph, and the attention kernels run once an attention layer (zamba2's
+    2 shared-block occurrences; none for mamba2) a join and a step."""
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, 0, device="cuda")
+    requests = _prompts(cfg.vocab, 5, seed=4)
+    free, _, _ = _served(cfg, params, graphs=False, paged=paged,
+                         requests=requests)
+    eos = free[0][2]
+    eager, eb, eager_counts = _served(cfg, params, graphs=False, paged=paged,
+                                      requests=requests, eos=eos)
+    graphed, gb, counts = _served(cfg, params, graphs=None, paged=paged,
+                                  requests=requests, eos=eos)
+    on_cpu, _, _ = _served(cfg, _to_cpu(params), graphs=None, paged=paged,
+                           requests=requests, eos=eos)
+    assert gb.graph_count >= 1 and gb.joins > 1
+    assert graphed == eager == on_cpu
+    assert counts == eager_counts
+    layers = sum(seg.count for seg in cfg.resolved_segments()
+                 if seg.kind.value == "shared")
+    steps = gb.segments * 4
+    if paged:
+        assert counts["paged_decode"] == layers * steps
+        assert counts["paged_prefill"] == layers * gb.joins
+        assert counts["decode_attn"] == 0
+    else:
+        assert counts["decode_attn"] == layers * steps
+        assert counts["paged_decode"] == counts["paged_prefill"] == 0
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_ssm_stream_does_not_see_the_join_padding(arch, paged):
+    """A 6-token prompt's greedy stream is the same joining alone (a join
+    16 wide) and beside a 19-token prompt (32 wide)."""
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, 1, device="cuda")
+    rng = np.random.default_rng(5)
+    short = rng.integers(0, cfg.vocab, size=6).tolist()
+    long = rng.integers(0, cfg.vocab, size=19).tolist()
+    alone, _, _ = _served(cfg, params, graphs=None, paged=paged,
+                          requests=[(0, short)])
+    beside, _, _ = _served(cfg, params, graphs=None, paged=paged,
+                           requests=[(0, short), (1, long)])
+    assert alone[0] == beside[0]

@@ -253,7 +253,10 @@ def test_port_imports_no_jax_and_no_repro():
     assert res.returncode == 0, res.stderr
     names = res.stdout.split()
     assert int(names[0]) >= 68
-    assert {"repro_torch.serve.overload",
+    assert {"repro_torch.models.ssm",
+            "repro_torch.configs.mamba2_370m",
+            "repro_torch.configs.zamba2_1_2b",
+            "repro_torch.serve.overload",
             "repro_torch.serve.attribution",
             "repro_torch.serve.telemetry",
             "repro_torch.serve.chaos",
