@@ -214,7 +214,23 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    join); both at ``reduced()`` in float32, card (graphs) against the
    CPU's plain path, paged and dense; and the padding invariant on the
    card: a 10-token prompt's stream alone and beside a 30-token prompt,
-   equal or a difference at a logit near-tie.
+   equal or a difference at a logit near-tie;
+12. ``[train]``: (a) the grouped GEMM's backward (dxe through the kernel,
+   dw through ``torch.bmm``) against autograd through its plain version
+   at moonshot's and deepseek's expert shapes of a 4,096-token join,
+   gate/up and down, both dtypes, dy NaN past each count (dxe's rows
+   there exactly 0), and its bfloat16 times beside two ``torch.bmm``
+   calls and its bound; (b) full-width, full-depth qwen2-0.5b trained
+   through ``repro_torch.launch.train.run`` at L 4,096, batch 8 in 2
+   microbatches, 12 steps, checkpoints every 4, a failure injected at
+   step 9 and restored: finite losses and grad norms, the last
+   checkpoint restored bit for bit, the loss falling; step ms, tokens/s,
+   model TFLOP/s, peak memory, checkpoint bytes and stall; (c) the
+   full-width moonshot cut to 1 dense + 1 MoE layer trained 4 steps:
+   every gradient finite, the experts' non-zero, ``group_gemm`` launches
+   exact (forward, recompute, backward); (d) 3 float32 train steps at
+   ``reduced()`` of qwen2-0.5b, moonshot, deepseek-v3, mamba2 and zamba2,
+   card against the CPU's plain path.
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*`` and the
@@ -232,6 +248,9 @@ volume's row its bfloat16 times
 as ``bf16_*``, the grouped GEMM's row the join's as ``prefill_*`` and
 ``down_*``, deepseek's expert shapes as ``ds_*``, ``ds_prefill_*`` and
 ``ds_down_*`` and the deepseek cut's launches as ``deepseek_launches``,
+the backward's as ``bwd_*``, ``bwd_down_*`` and ``ds_bwd_*``, the
+``[train]`` phase's qwen step as ``train_*`` and its moonshot launches as
+``train_launches``,
 the ss-gemm rows N 16's as ``n16_*``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -3654,6 +3673,409 @@ def ssm_padding_invariant(torch) -> None:
                   + ("differs at a near-tie" if tie else "equal streams"))
 
 
+# ---------------------------------------------------------------------------
+# phase 12, [train]
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = (ARCH, MOE_ARCH, MLA_ARCH, *SSM_ARCHS)
+# the grouped GEMM's backward at a 4,096-token join's expert shapes:
+# (label, arch, projection, the JSON keys of its bfloat16 times or None)
+BWD_SHAPES = (("moonshot gate/up", MOE_ARCH, "gate/up", "bwd_"),
+              ("moonshot down", MOE_ARCH, "down", "bwd_down_"),
+              ("deepseek gate/up", MLA_ARCH, "gate/up", "ds_bwd_"),
+              ("deepseek down", MLA_ARCH, "down", None))
+BWD_GROUP = 64              # experts a check takes at once (deepseek: 4)
+
+
+def expert_dims(arch: str, proj: str) -> tuple[int, int, int]:
+    """(E, D, F) of full-width ``arch``'s gate/up or down projection."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    return (cfg.moe.n_experts,) + ((d, f) if proj == "gate/up" else (f, d))
+PARAM_LR_SHARE = 2e-2       # see tests/test_torch_train_loop.py
+
+
+def backward_inputs(torch, arch, d, f, dtype, lo, hi, seed):
+    """Experts ``lo:hi`` of a 4,096-token join at full-width ``arch``:
+    counts from the seeded routing the kernels phase draws, xe [E, C, D]
+    zero past each count (as the dispatch leaves it), w [E, D, F] of std
+    1/sqrt(D) and dy [E, C, F] float32 with NaN past each count."""
+    cnt, c = routed_counts(torch, 4096, SEED + 1, arch)
+    cnt = cnt[lo:hi].contiguous()
+    e = cnt.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    live = torch.arange(c, device="cuda")[None, :, None] < cnt[:, None, None]
+    xe = torch.randn(e, c, d, generator=gen, device="cuda").to(dtype) * live
+    w = torch.empty(e, d, f, device="cuda", dtype=dtype)
+    for i in range(e):
+        w[i] = torch.randn(d, f, generator=gen, device="cuda") / math.sqrt(d)
+    dy = torch.randn(e, c, f, generator=gen, device="cuda")
+    dy = torch.where(live, dy, torch.full_like(dy, float("nan")))
+    return cnt, live, xe, w, dy
+
+
+def group_gemm_backward_checks(torch) -> dict:
+    """The autograd backward of ``group_gemm`` on the card (``dxe`` through
+    the kernel, ``dw`` through ``torch.bmm``) against autograd through its
+    plain version, at full-width moonshot's (E 64, C 480) and deepseek's
+    (E 256, C 160, 64 experts at a time) expert shapes, gate/up and down,
+    in both dtypes: ``dy`` holds NaN past each count, and so does the
+    kernel's ``xe`` (the plain version's is zero there, as the dispatch
+    leaves it: the forward reads neither).  Within ``TOL`` of the plain
+    version's largest entry; ``dxe``'s rows past the counts exactly 0;
+    everything finite; one kernel launch forward and one backward.
+    Returns the largest relative errors (bfloat16) by label."""
+    from repro_torch.kernels import moe_group_gemm as mg
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for label, arch, proj, _ in BWD_SHAPES:
+            n_exp, d, f = expert_dims(arch, proj)
+            errs, zeros, finite, rows = [0.0, 0.0], True, True, 0
+            for lo in range(0, n_exp, BWD_GROUP):
+                cnt, live, xe, w, dy = backward_inputs(
+                    torch, arch, d, f, dtype, lo, lo + BWD_GROUP, SEED + lo)
+                rows += int(cnt.sum())
+                x_nan = torch.where(live, xe, torch.full_like(
+                    xe, float("nan"))).requires_grad_()
+                wk = w.clone().requires_grad_()
+                mg.reset_launch_counts()
+                got = torch.autograd.grad(mg.group_gemm(x_nan, wk, cnt),
+                                          (x_nan, wk), dy)
+                torch.cuda.synchronize()
+                check(mg.launch_counts["group_gemm"] == 2,
+                      f"group_gemm backward {label}: "
+                      f"{mg.launch_counts['group_gemm']} launches, not 2")
+                xr, wr = xe.requires_grad_(), w.requires_grad_()
+                want = torch.autograd.grad(mg.group_gemm_ref(xr, wr, cnt),
+                                           (xr, wr), dy)
+                for i in range(2):
+                    scale = float(want[i].abs().max().float())
+                    errs[i] = max(errs[i], float((got[i].float() - want[i]
+                                                  .float()).abs().max())
+                                  / max(scale, 1e-30))
+                    finite = finite and bool(torch.isfinite(got[i]).all())
+                zeros = zeros and bool((got[0][~live.expand_as(
+                    got[0])] == 0).all())
+                del x_nan, wk, got, want, xr, wr, xe, w, dy
+                torch.cuda.empty_cache()
+            print(f"[train] group_gemm backward {name} {label} (D={d} "
+                  f"F={f}, {rows} live rows of a 4,096-token join, dy and "
+                  f"the kernel's xe NaN past the counts) vs autograd "
+                  f"through the plain version: dxe {errs[0]:.3e}, dw "
+                  f"{errs[1]:.3e} of the largest entry (tolerance "
+                  f"{TOL[name]}); dxe rows past the counts exactly 0: "
+                  f"{zeros}; finite: {finite}")
+            check(max(errs) <= TOL[name] and zeros and finite,
+                  f"group_gemm backward disagrees ({name}, {label})")
+            if name == "bfloat16":
+                worst[label] = max(errs)
+    return worst
+
+
+def group_gemm_backward_timing(torch) -> dict:
+    """The bfloat16 backward (:func:`group_gemm_backward`: dy's mask, the
+    transposed weights, the kernel for dxe, ``torch.bmm`` for dw) at
+    moonshot's gate/up (``bwd_*`` keys) and down (``bwd_down_*``) and
+    deepseek's gate/up (``ds_bwd_*``, all 256 experts) at a 4,096-token
+    join; beside it autograd through the plain version (``plain_ms``) and
+    two ``torch.bmm`` calls for the same products over the padded slabs
+    (``library_ms``), and two of its parts alone (``transpose_ms``, the
+    copy of w transposed, and ``kernel_ms``, the kernel for dxe).  The
+    bound counts the live experts' weights, the
+    live rows of xe and dy in, dxe and every expert's dw out, and 4 x
+    live rows x D x F operations."""
+    from repro_torch.kernels import moe_group_gemm as mg
+    row, item = {}, 2
+    for label, arch, proj, key in BWD_SHAPES:
+        if key is None:
+            continue
+        n_exp, d, f = expert_dims(arch, proj)
+        cnt, live, xe, w, dy = backward_inputs(
+            torch, arch, d, f, torch.bfloat16, 0, n_exp, SEED)
+        e, c = xe.shape[:2]
+        n_rows, n_live = int(cnt.sum()), int((cnt > 0).sum())
+        nbytes = (n_live * d * f * item + n_rows * d * item + n_rows * f * 4
+                  + e * c * d * item + e * d * f * item + e * 4)
+        flops = 4.0 * n_rows * d * f
+        t_bound, by = bound(nbytes, flops, "bfloat16")
+        dy16 = torch.where(live, dy, torch.zeros_like(dy)).to(torch.bfloat16)
+        wt = w.transpose(1, 2)
+        part = {"ms": time_ms(lambda i: mg.group_gemm_backward(
+                    xe, w, cnt, dy), 5),
+                "library_ms": time_ms(lambda i: (
+                    torch.bmm(dy16, wt), torch.bmm(xe.transpose(1, 2),
+                                                   dy16)), 5),
+                # its parts: the transposed copy of w, the kernel for dxe
+                "transpose_ms": time_ms(lambda i: wt.contiguous(), 5)}
+        wt_c = wt.contiguous()
+        part["kernel_ms"] = time_ms(lambda i: mg.kernel.group_gemm_cuda(
+            dy16, wt_c, cnt), 5)
+        del dy16, wt, wt_c
+        torch.cuda.empty_cache()
+        xr, wr = xe.requires_grad_(), w.requires_grad_()
+        out = mg.group_gemm_ref(xr, wr, cnt)
+        part["plain_ms"] = time_ms(lambda i: torch.autograd.grad(
+            out, (xr, wr), dy, retain_graph=True), 2, reps=2)
+        del out, xr, wr
+        part.update(bound_ms=t_bound, bound_by=by, flops=flops, bytes=nbytes)
+        row.update({key + k: v for k, v in part.items()})
+        print(f"[timing] group_gemm backward {label} (E={e} C={c} D={d} "
+              f"F={f} bf16, {n_rows} live rows in {n_live} live experts): "
+              f"ms {part['ms']:.4f} (of it the transposed copy of w "
+              f"{part['transpose_ms']:.4f}, the kernel for dxe "
+              f"{part['kernel_ms']:.4f}), plain_ms (autograd through the "
+              f"plain version) {part['plain_ms']:.4f}, library_ms (2 "
+              f"torch.bmm, padded) {part['library_ms']:.4f}, bound_ms "
+              f"{t_bound:.4f} "
+              f"({by}), {flops / part['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{t_bound / part['ms']:.1%} of its bound; {SMI}")
+        del xe, w, dy
+        torch.cuda.empty_cache()
+    return row
+
+
+def train_qwen(torch) -> dict:
+    """(b) Full-width, full-depth qwen2-0.5b through
+    ``repro_torch.launch.train.run``: seeded float32 params and moments,
+    bfloat16 activations, remat, the port's ``DataPipeline`` at L 4,096,
+    batch 8 in 2 microbatches of 4, lr 3e-4 (warmup 2, cosine over 12
+    steps), an async checkpoint every 4 steps into a temporary directory
+    and an injected failure at step 9 (restored from step 8).  Gates:
+    every loss and grad norm finite; 12 steps done (13 run: step 8 twice);
+    step 8's loss after the restore equal to its first; the last
+    checkpoint restores bit for bit into the final state, its data step
+    12; the mean loss of the last 3 steps below step 0's.  Prints the
+    median step ms (from step 2), tokens/s, model TFLOP/s (6 N tokens plus
+    the attention's 12 L Hq hd a token and layer) and its share of the
+    bfloat16 peak, peak device memory and the checkpoint's bytes and
+    stall."""
+    from repro_torch import tree
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+    cfg = get_config(ARCH)
+    steps, batch, seq = 12, 8, 4096
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = run(ARCH, steps=steps, batch=batch, seq=seq, reduced=False,
+                  ckpt_dir=tmp, ckpt_every=4, accum=2, lr=3e-4,
+                  fail_at=(9,), seed=SEED, log_every=1, device="cuda")
+        took = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        state = res["state"]
+        ck = Checkpointer(tmp)
+        saved, manifest = ck.restore(state)
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree.paths(saved), tree.paths(state)))
+        ckpt_bytes = sum(p.stat().st_size for p in
+                         (pathlib.Path(tmp) / "step_0000000012").iterdir())
+        kept = ck.all_steps()
+        del saved
+    losses, norms = res["losses"], res["grad_norms"]
+    n_params = sum(t.numel() for t in tree.leaves(state["params"]))
+    check(all(math.isfinite(v) for v in losses + norms),
+          "train qwen: a loss or grad norm is not finite")
+    check(len(losses) == steps + 1 and int(state["opt"]["step"]) == steps,
+          f"train qwen: {len(losses)} steps run, optimizer at "
+          f"{int(state['opt']['step'])}")
+    check(kept == [4, 8, 12] and same and manifest["step"] == steps
+          and manifest["extra"]["data"]["step"] == steps,
+          f"train qwen: checkpoints {kept}, last restored bit for bit "
+          f"{same}, manifest {manifest['step']}, data step "
+          f"{manifest['extra']['data']}")
+    # the loss of step 8, before the failure and after the restore
+    again = losses[9] == losses[8]
+    check(abs(losses[9] - losses[8]) <= 1e-5 * abs(losses[8]),
+          f"train qwen: step 8's loss {losses[8]} before the failure, "
+          f"{losses[9]} after the restore")
+    tail = statistics.mean(losses[-3:])
+    check(tail < losses[0], f"train qwen: mean loss of the last 3 steps "
+          f"{tail:.4f} not below step 0's {losses[0]:.4f}")
+    step_ms = statistics.median(res["step_s"][2:]) * 1e3
+    tokens = batch * seq
+    attn = 12 * seq * cfg.n_heads * cfg.resolved_head_dim * cfg.n_layers
+    model_flops = (6 * n_params + attn) * tokens
+    tflops = model_flops / step_ms / 1e9
+    stall_ms = [s * 1e3 for s in res["ckpt_stall_s"]]
+    print(f"[train] qwen2-0.5b full width and depth ({n_params} params, "
+          f"float32 params and moments, bf16 activations, remat), L {seq}, "
+          f"batch {batch} in 2 microbatches, 12 steps + 1 rerun after the "
+          f"failure at step 9, in {took:.1f}s: losses "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + "; grad norms " + " ".join(f"{v:.3f}" for v in norms))
+    dense_tf, attn_tf = 6 * n_params * tokens / 1e12, attn * tokens / 1e12
+    print(f"[train] qwen2-0.5b step: median {step_ms:.1f} ms (steps 2 on), "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s, model "
+          f"{model_flops / 1e12:.1f} TFLOP a step (6 N T {dense_tf:.1f} + "
+          f"attention {attn_tf:.1f}) = "
+          f"{tflops:.1f} TFLOP/s, {tflops / 989:.1%} of the 989 TFLOP/s "
+          f"bf16 peak; peak device memory {peak:.2f} GiB; checkpoint "
+          f"{ckpt_bytes / 2**30:.2f} GiB, stall "
+          f"{' '.join(f'{v:.0f}' for v in stall_ms)} ms "
+          f"(the host copy); step 8's loss after the restore equal bit for "
+          f"bit: {again}; {SMI}")
+    out = {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "model_tflop_per_s": tflops, "peak_gib": peak,
+           "ckpt_gib": ckpt_bytes / 2**30,
+           "ckpt_stall_ms": max(stall_ms)}
+    del res, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_moe_cut(torch) -> int:
+    """(c) moonshot-v1-16b-a3b at full width cut to 1 dense + 1 MoE layer
+    (all 64 experts and the vocab kept): seeded float32 params, bf16
+    activations, remat, batch 4 x L 1,024 from the port's
+    ``DataPipeline``.  One microbatch's gradients: every leaf finite and
+    ``wi``, ``wg`` and ``wo`` each a non-zero norm.  Then 4 train steps:
+    finite losses, and ``group_gemm`` launched exactly 3 GEMMs x
+    (forward, remat's recompute, backward) x the MoE layer x 4 steps.
+    Returns those launches."""
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import (TrainConfig, loss_and_grads,
+                                              make_train_state,
+                                              make_train_step)
+    cfg = moe_cut(1)
+    model = Model(cfg)
+    steps = 4
+    tcfg = TrainConfig(opt=opt.OptConfig(lr=3e-4, warmup_steps=2,
+                                         total_steps=steps))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = make_train_state(model, SEED, tcfg, device="cuda")
+    n_params = sum(t.numel() for t in tree.leaves(state["params"]))
+    data = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=1024,
+                                   global_batch=4, seed=SEED))
+    batch = lambda s: {"tokens": torch.from_numpy(  # noqa: E731
+        data.batch_at(s)["tokens"]).cuda()}
+    _, grads = loss_and_grads(model, state["params"], batch(0), tcfg)
+    norms = {k: float(g.norm()) for k, g in zip(
+        (k for k, _ in tree.paths(state["params"])), grads)}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    del grads
+    experts = {n: norms[f"segments/1/moe/{n}"] for n in ("wi", "wg", "wo")}
+    check(finite and all(v > 0 for v in experts.values()),
+          f"train moe: gradients finite {finite}, expert norms {experts}")
+    reset_counts()
+    step = make_train_step(model, tcfg)
+    losses = []
+    for s in range(steps):
+        state, m = step(state, batch(s))
+        losses.append(float(m["loss"]))
+    counts = read_counts()
+    n_moe = 1
+    want = 3 * 3 * n_moe * steps
+    check(all(math.isfinite(v) for v in losses),
+          f"train moe: losses {losses}")
+    check(counts["group_gemm"] == want,
+          f"train moe: group_gemm launched {counts['group_gemm']} times, "
+          f"not {want}")
+    print(f"[train] moonshot cut to 1 dense + 1 MoE layer at full width "
+          f"({n_params} params, 64 experts), batch 4 x L 1,024, bf16, "
+          f"remat: every gradient finite, expert gradient norms "
+          + ", ".join(f"{k} {v:.4g}" for k, v in experts.items())
+          + f"; 4 steps, losses " + " ".join(f"{v:.4f}" for v in losses)
+          + f"; group_gemm launches {counts['group_gemm']} = 3 GEMMs x "
+          f"(forward, recompute, backward) x 1 MoE layer x 4 steps; "
+          f"{time.perf_counter() - t0:.1f}s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {SMI}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["group_gemm"]
+
+
+def train_agreement(torch) -> None:
+    """(d) float32 at ``reduced()``: 3 train steps (lr 1e-3, warmup 2,
+    remat) of each of ``TRAIN_ARCHS`` from one seeded state, on the card
+    (the grouped GEMM's kernel forward and backward) and on the CPU (the
+    plain path), on the port's ``DataPipeline`` batches (4 x 64).  Each
+    step's loss within 1e-4 relative; the final params within max(1e-4 x
+    the leaf's largest entry, ``PARAM_LR_SHARE`` x the summed lr), the
+    tolerance the CPU tests hold the port to JAX with; ``group_gemm``
+    launched 9 times a MoE layer and step."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models.init import init_params
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import (TrainConfig, make_train_state,
+                                              make_train_step)
+    steps = 3
+    tcfg = TrainConfig(opt=opt.OptConfig(lr=1e-3, warmup_steps=2,
+                                         total_steps=steps),
+                       dtype=torch.float32)
+    lr_sum = sum(float(opt.schedule(s, tcfg.opt)) for s in range(steps))
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        model = Model(cfg)
+        params = init_params(cfg, 1, device="cuda")
+        cpu = make_train_state(model, 0, tcfg, device="cpu",
+                               params=_to(torch, params, "cpu"))
+        card = make_train_state(model, 0, tcfg, params=params)
+        step = make_train_step(model, tcfg)
+        data = DataPipeline(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                       global_batch=4, seed=SEED))
+        rel = []
+        reset_counts()
+        for s in range(steps):
+            tokens = torch.from_numpy(data.batch_at(s)["tokens"])
+            card, mc = step(card, {"tokens": tokens.cuda()})
+            cpu, mp = step(cpu, {"tokens": tokens})
+            rel.append(abs(float(mc["loss"]) - float(mp["loss"]))
+                       / abs(float(mp["loss"])))
+        launches = read_counts()["group_gemm"]
+        n_moe = sum(g.count for g in cfg.resolved_segments()
+                    if g.kind.value == "moe")
+        worst, worst_key = 0.0, ""
+        for (key, a), (_, b) in zip(tree.paths(card["params"]),
+                                    tree.paths(cpu["params"])):
+            tol = max(1e-4 * float(b.abs().max()), PARAM_LR_SHARE * lr_sum)
+            err = float((a.cpu() - b).abs().max()) / tol
+            if err > worst:
+                worst, worst_key = err, key
+        print(f"[train] {arch} reduced float32, 3 steps, card vs CPU plain "
+              f"path: loss relative differences "
+              + " ".join(f"{v:.2e}" for v in rel)
+              + f"; params at most {worst:.3f} of their tolerance "
+              f"({worst_key}); group_gemm launches {launches}")
+        check(max(rel) <= 1e-4, f"train agreement {arch}: losses differ")
+        check(worst <= 1.0, f"train agreement {arch}: {worst_key} differs")
+        check(launches == 9 * n_moe * steps,
+              f"train agreement {arch}: group_gemm launched {launches} "
+              f"times, not {9 * n_moe * steps}")
+
+
+def train_phase(torch) -> dict:
+    """Phase 12, ``[train]``: (a) the grouped GEMM's backward checked and
+    timed, (b) full-width qwen2-0.5b trained through a failure, (c) the
+    full-width moonshot cut trained through the kernel, (d) card = CPU at
+    ``reduced()``.  Returns the backward's times and errors (the
+    group_gemm row's ``bwd_*`` keys) and the launches of (c)."""
+    t0 = time.perf_counter()
+    worst = group_gemm_backward_checks(torch)
+    row = group_gemm_backward_timing(torch)
+    row["bwd_max_rel_err"] = worst["moonshot gate/up"]
+    row["ds_bwd_max_rel_err"] = worst["deepseek gate/up"]
+    qwen = train_qwen(torch)
+    row.update({f"train_{k}": v for k, v in qwen.items()})
+    row["train_launches"] = train_moe_cut(torch)
+    train_agreement(torch)
+    print(f"[train] phase took {time.perf_counter() - t0:.1f}s")
+    return row
+
+
 def _cast(torch, tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(torch, v, dtype) for k, v in tree.items()}
@@ -3802,6 +4224,9 @@ def main() -> int:
     families_agreement(torch, SSM_ARCHS)
     ssm_padding_invariant(torch)
     print(f"[ssm] phase took {time.perf_counter() - t_ssm:.1f}s")
+    # phase 12, [train]: the grouped GEMM's backward, full-width qwen and
+    # the moonshot cut trained on the card, card = CPU at reduced()
+    timings["group_gemm"].update(train_phase(torch))
 
     sources = {"paged_decode": ("src/repro_torch/kernels/paged_attn/csrc/"
                                 "paged_decode.cu",
@@ -3853,6 +4278,7 @@ def main() -> int:
                          if (k.startswith(("tiles", "prefill_", "down_",
                                            "d128_", "n16_", "bf16_",
                                            "verify_", "ds_", "z64_",
+                                           "bwd_", "train_",
                                            *(t + "_" for t, _ in
                                              FAMILIES.values())))
                              or k in ("graph_ms", "library_graph_ms",
@@ -3900,6 +4326,8 @@ def main() -> int:
               f"{name}: not launched on the [families] phase's path")
         check(rows[-1].get("ssm_launches", 1) > 0,
               f"{name}: not launched on the [ssm] phase's path")
+        check(rows[-1].get("train_launches", 1) > 0,
+              f"{name}: not launched on the [train] phase's path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,3 +1,3 @@
 from .kernel import launch_counts, reset_launch_counts  # noqa: F401
-from .ops import group_gemm  # noqa: F401
+from .ops import group_gemm, group_gemm_backward  # noqa: F401
 from .ref import group_gemm_ref  # noqa: F401

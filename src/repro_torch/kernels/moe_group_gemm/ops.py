@@ -9,12 +9,71 @@ cannot take raises.  The JAX op's ``bc`` (capacity rows per tile) is not
 taken: the result does not depend on it, and the kernel picks its own
 tile (:func:`.kernel.tile_rows` x :func:`.kernel.tile_cols`) and needs no
 padding of C.  There is no ``interpret`` flag.
+
+Gradients: the CUDA route is the autograd function :class:`GroupGemm`,
+whose backward zeroes ``dy``'s rows at or past each count (the forward
+defines those rows as 0 whatever the inputs, so nothing flows through
+them), sends ``dxe = dy w^T`` through the same hand-written kernel (so the
+skip of dead tiles carries into the backward) and takes ``dw = xe^T dy``
+from ``torch.bmm`` over the live rows, as JAX's autodiff computes the
+weight gradient outside any kernel.  ``counts`` gets no gradient.  The
+CPU route is the plain version, which autograd differentiates as it is,
+and which the function's backward is held to on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from . import kernel, ref
+
+
+def _live(xe: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """[E, C, 1] bool: row c of expert e lies below ``counts[e]``."""
+    c = xe.shape[1]
+    return (torch.arange(c, device=xe.device)[None, :, None]
+            < counts[:, None, None])
+
+
+def group_gemm_backward(xe: torch.Tensor, w: torch.Tensor,
+                        counts: torch.Tensor, dy: torch.Tensor, *,
+                        need_dxe: bool = True, need_dw: bool = True):
+    """(dxe, dw) of the CUDA op's output given ``dy`` [E, C, F] float32,
+    None where not needed.  ``dy``'s rows at or past each count are
+    zeroed first, whatever they hold (NaN included), and so are ``xe``'s
+    before they enter ``dw``: the forward reads neither.  ``dxe`` comes
+    from the hand-written kernel (its rows past the counts exactly 0),
+    ``dw`` from ``torch.bmm``; each in its input's dtype."""
+    live = _live(xe, counts)
+    dy = torch.where(live, dy, torch.zeros((), dtype=dy.dtype,
+                                           device=dy.device)).to(xe.dtype)
+    dxe = dw = None
+    if need_dxe:
+        dxe = kernel.group_gemm_cuda(
+            dy, w.transpose(1, 2).contiguous(), counts).to(xe.dtype)
+    if need_dw:
+        x_live = torch.where(live, xe, torch.zeros((), dtype=xe.dtype,
+                                                   device=xe.device))
+        dw = torch.bmm(x_live.transpose(1, 2), dy).to(w.dtype)
+    return dxe, dw
+
+
+class GroupGemm(torch.autograd.Function):
+    """The kernel's forward with :func:`group_gemm_backward`.  A pure
+    function of its inputs, so ``torch.utils.checkpoint`` may run it
+    again in a recompute."""
+
+    @staticmethod
+    def forward(ctx, xe, w, counts):
+        ctx.save_for_backward(xe, w, counts)
+        return kernel.group_gemm_cuda(xe, w, counts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xe, w, counts = ctx.saved_tensors
+        dxe, dw = group_gemm_backward(xe, w, counts, dy,
+                                      need_dxe=ctx.needs_input_grad[0],
+                                      need_dw=ctx.needs_input_grad[1])
+        return dxe, dw, None
 
 
 def group_gemm(xe: torch.Tensor, w: torch.Tensor,
@@ -27,6 +86,6 @@ def group_gemm(xe: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"xe {tuple(xe.shape)} and w {tuple(w.shape)} "
                          "must be [E, C, D] and [E, D, F]")
     if xe.device.type == "cuda":
-        return kernel.group_gemm_cuda(xe.contiguous(), w.contiguous(),
-                                      counts.to(torch.int32).contiguous())
+        return GroupGemm.apply(xe.contiguous(), w.contiguous(),
+                               counts.to(torch.int32).contiguous())
     return ref.group_gemm_ref(xe, w, counts)

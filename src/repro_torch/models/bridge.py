@@ -1,4 +1,6 @@
-"""Weight bridge: the JAX ``init_lm`` tree, as numpy arrays, to the port.
+"""Weight bridge: the JAX ``init_lm`` tree, or a whole JAX train state
+(``params``, ``opt`` with ``mu``, ``nu`` and ``step``, and ``ef``), as
+numpy arrays, to the port.
 
 The caller unwraps the JAX tree (``repro.models.param.unwrap``) and turns
 every leaf into a numpy array (``np.asarray``); this module imports no
@@ -12,18 +14,15 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tree import tree_map
 
 
 def params_from_numpy(tree, *, device: str | torch.device = "cuda"):
     """Nested dicts / lists / tuples of numpy arrays -> the same structure
-    of torch tensors on ``device`` (dtypes kept)."""
+    of torch tensors on ``device`` (dtypes kept; 0-d arrays, such as the
+    optimizer's step, stay 0-d).  ``None`` (a train state's ``ef`` without
+    compression) stays ``None``."""
     dev = resolve_device(device)
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(conv(v) for v in node)
-        # a copy: arrays exported from JAX are read-only
-        return torch.from_numpy(np.array(node, copy=True)).to(dev)
-    return conv(tree)
+    # a copy: arrays exported from JAX are read-only
+    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(
+        dev), tree)

@@ -1,6 +1,6 @@
 """Model entry point of the port, from :mod:`repro.models.model_zoo`:
 :class:`Model` wraps the functional transformer with the arch's config
-(inference over dense stripes or paged pools)."""
+(the training loss, and inference over dense stripes or paged pools)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +10,7 @@ import torch
 from ..configs.base import ArchConfig
 from .init import init_params
 from .transformer import (forward, init_caches, init_paged_caches,
-                          logits_fn)
+                          lm_loss, logits_fn)
 
 
 def _last_rows(hidden: torch.Tensor, last_pos) -> torch.Tensor:
@@ -38,6 +38,12 @@ class Model:
     def init(self, seed: int = 0, *, device: str | torch.device = "cuda",
              dtype: torch.dtype = torch.float32) -> dict:
         return init_params(self.cfg, seed, device=device, dtype=dtype)
+
+    def loss(self, params, batch, *, dtype=torch.bfloat16,
+             remat: bool = False):
+        """The float32 training loss of ``batch["tokens"]`` [B, L]
+        (:func:`~.transformer.lm_loss`)."""
+        return lm_loss(params, batch, self.cfg, dtype=dtype, remat=remat)
 
     def prefill(self, params, batch, max_len: int, *, dtype=torch.bfloat16,
                 last_pos=None):

@@ -18,8 +18,10 @@ also gives the ranks, and the scatters send dropped slots to a padding
 slot.  The combine gathers each (token, choice) pair's expert row and sums
 the k of them per token, which is the JAX scatter-add of the same terms
 without atomics; the terms are summed in another order, so float32 results
-agree to rounding.  Not ported (sharding and training slices): the
-``shard_map`` path and the auxiliary load-balance loss.
+agree to rounding.  Training asks ``moe_apply`` for the Switch-style
+load-balance term as well (:func:`aux_load_balance_loss`, JAX's formula);
+serving does not, and computes nothing for it.  Not ported (the sharding
+slice): the ``shard_map`` path.
 """
 from __future__ import annotations
 
@@ -39,6 +41,18 @@ def route(params: dict, x2d: torch.Tensor, cfg: ArchConfig):
     w, ids = torch.topk(probs, m.top_k, dim=-1)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)   # renormalize
     return w, ids, probs
+
+
+def aux_load_balance_loss(probs: torch.Tensor, ids: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-style load-balance loss, float32: ``E * sum(density *
+    prob_mass)`` with ``density`` each expert's share of the top-k choices
+    ``ids`` [T, k] and ``prob_mass`` its mean router probability over the
+    T rows of ``probs`` [T, E]."""
+    density = torch.nn.functional.one_hot(ids, n_experts).float().mean(
+        dim=(0, 1))
+    prob_mass = probs.float().mean(dim=0)
+    return n_experts * torch.sum(density * prob_mass)
 
 
 def capacity(cfg: ArchConfig, tokens: int) -> int:
@@ -72,14 +86,15 @@ def dispatch(ids: torch.Tensor, n_experts: int, cap: int):
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
-              act_name: str = "silu") -> torch.Tensor:
-    """x: [B, L, D] -> y [B, L, D] in x's dtype (the JAX function also
-    returns the auxiliary loss, which serving does not read)."""
+              act_name: str = "silu", *, with_aux: bool = False):
+    """x: [B, L, D] -> y [B, L, D] in x's dtype; with ``with_aux`` (the
+    training loss), ``(y, aux)`` with aux :func:`aux_load_balance_loss`
+    over the call's rows, as the JAX function returns."""
     m = cfg.moe
     b, length, d = x.shape
     t, e = b * length, m.n_experts
     x2d = x.reshape(t, d)
-    w, ids, _ = route(params, x2d, cfg)
+    w, ids, probs = route(params, x2d, cfg)
     cap = capacity(cfg, t)
     slot, buf_tok, counts = dispatch(ids, e, cap)
 
@@ -103,4 +118,6 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
 
     if "shared" in params:
         y = y + mlp(params["shared"], x, act_name)
+    if with_aux:
+        return y.to(x.dtype), aux_load_balance_loss(probs, ids, e)
     return y.to(x.dtype)

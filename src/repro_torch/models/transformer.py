@@ -16,12 +16,21 @@ caches are not), and written in place.  An SSM segment's cache is per
 slot in both layouts, ``{"conv": [n_layers, B, d_conv - 1, d_xbc],
 "state": [n_layers, B, H, P, N]}`` (float32 state): a recurrent state is
 O(1) in the sequence, so there is nothing to page.
+
+The training loss is :func:`lm_loss`: next-token cross-entropy with JAX's
+z-loss, computed :data:`LOSS_CHUNK` positions at a time
+(:func:`chunked_xent`) so that the [B, L, V] float32 logits never exist
+whole, plus deepseek's multi-token-prediction term and the MoE blocks'
+load-balance term.  ``forward(remat=True)`` recomputes each layer in the
+backward (``torch.utils.checkpoint``) instead of keeping its activations,
+as JAX's ``jax.checkpoint`` over the scanned layer does.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, AttnKind, BlockKind
 from ..device import resolve_device
@@ -31,6 +40,8 @@ from .init import ATTN_KINDS, _check_supported
 from .layers import dense, embed, mlp, rmsnorm, rope_tables, unembed
 from .moe import moe_apply
 from .ssm import init_cache as init_ssm_cache, ssm_apply
+
+LOSS_CHUNK = 1024           # positions a chunk of the LM loss, as in JAX
 
 
 def _attn_cache_shape(cfg: ArchConfig, lead: tuple[int, int]):
@@ -113,27 +124,42 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                 kind: BlockKind, *, rope,
                 cache: KVCache | PagedKVCache | dict | None = None,
                 write_index=None, kv_cap: int | None = None,
-                verify: bool = False, lengths=None):
+                verify: bool = False, lengths=None, with_aux: bool = False):
     """Pre-norm attention block (GQA or MLA, by the config), then the MLP
     (DENSE) or the routed experts (MOE); or a pre-norm SSM block, whose
     ``cache`` is a layer's ``{"conv", "state"}`` and whose prefill ends
     each row at ``lengths`` (see :func:`~.ssm.ssm_apply`).  Returns (y,
-    new_cache)."""
+    new_cache), and with ``with_aux`` (y, new_cache, aux): the MOE block's
+    load-balance term, 0 for the other kinds."""
+    aux = None
+    if with_aux:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind is BlockKind.SSM:
         h = ssm_apply(params["ssm"], rmsnorm(params["norm"], x, cfg.norm_eps),
                       cfg, cache=cache, lengths=lengths)
-        return x + h, cache
+        return (x + h, cache) + ((aux,) if with_aux else ())
     h, new_cache = attention_apply(
         params["attn"], rmsnorm(params["norm1"], x, cfg.norm_eps), cfg,
         rope=rope, cache=cache, write_index=write_index, kv_cap=kv_cap,
         verify=verify)
     x = x + h
     z = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    if kind is BlockKind.MOE:
+    if kind is BlockKind.MOE and with_aux:
+        h, aux = moe_apply(params["moe"], z, cfg, cfg.activation,
+                           with_aux=True)
+    elif kind is BlockKind.MOE:
         h = moe_apply(params["moe"], z, cfg, cfg.activation)
     else:
         h = mlp(params["mlp"], z, cfg.activation)
-    return x + h, new_cache
+    return (x + h, new_cache) + ((aux,) if with_aux else ())
+
+
+def _rope(cfg: ArchConfig, positions: torch.Tensor):
+    """RoPE tables at ``positions``: MLA rotates only its rope slice of
+    each head and its shared key."""
+    rope_dim = (cfg.mla.qk_rope_head_dim if cfg.attn is AttnKind.MLA
+                else cfg.resolved_head_dim)
+    return rope_tables(positions, rope_dim, cfg.rope_theta)
 
 
 def _layer(stacked, i: int):
@@ -147,8 +173,11 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
             caches: list | None = None, cache_len=None,
             dtype: torch.dtype = torch.bfloat16,
             pages: torch.Tensor | None = None, kv_cap: int | None = None,
-            verify: bool = False, lengths: torch.Tensor | None = None):
-    """Returns (hidden [B, L, D], caches).
+            verify: bool = False, lengths: torch.Tensor | None = None,
+            remat: bool = False, with_aux: bool = False):
+    """Returns (hidden [B, L, D], caches), and with ``with_aux`` (hidden,
+    caches, aux): the MOE blocks' load-balance terms summed over the
+    layers (float32, 0 without MOE blocks), as JAX's forward returns.
 
     ``batch["tokens"]``: [B, L] int.  With ``caches``, row b's L tokens sit
     at absolute positions ``cache_len[b] + t``: positions drive RoPE and the
@@ -171,10 +200,11 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     row's state does not take in the padding of a mixed-length batch
     (JAX's runs through it; see :mod:`.ssm`).
 
-    Without caches the call is a plain causal forward.  (The JAX forward
-    also returns the MoE blocks' auxiliary loss, which serving does not
-    read.)  A MOE block's capacity counts every row and position of the
-    call, idle and padding rows included, as in JAX.
+    Without caches the call is a plain causal forward; ``remat`` (taken
+    only then) runs each layer under ``torch.utils.checkpoint``, so the
+    backward recomputes the layer from its input.  A MOE block's capacity
+    counts every row and position of the call, idle and padding rows
+    included, as in JAX.
     """
     _check_supported(cfg)
     per_slot = isinstance(cache_len, torch.Tensor) and cache_len.dim() == 1
@@ -198,10 +228,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
                        if seg.kind in ATTN_KINDS), None)
     rope = index = None
     if cfg.attn is not AttnKind.NONE:
-        # MLA rotates only its rope slice of each head and its shared key
-        rope_dim = (cfg.mla.qk_rope_head_dim if cfg.attn is AttnKind.MLA
-                    else cfg.resolved_head_dim)
-        rope = rope_tables(positions, rope_dim, cfg.rope_theta)
+        rope = _rope(cfg, positions)
     if attn_cache is not None and pages is not None:
         # every layer writes its K/V at the same pool addresses; the pools
         # lead [layers, n_pages + 2, page_size] for GQA and MLA alike
@@ -210,6 +237,9 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     elif attn_cache is not None and per_slot:
         index = dense_write_index(cache_len, length,
                                   attn_cache["k"].shape[2] - 1)
+    remat = remat and caches is None
+    aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+           if with_aux else None)
     for si, seg in enumerate(segs):
         kind, stacked = seg.kind, params["segments"][si]
         if kind is BlockKind.SHARED_ATTN:   # one weight set, its own cache
@@ -226,13 +256,94 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
                                 cache_len)
             layer = (params["shared_block"] if stacked is None
                      else _layer(stacked, i))
-            x, _ = block_apply(layer, x, cfg, kind, rope=rope, cache=cache,
-                               write_index=index, kv_cap=kv_cap,
-                               verify=verify, lengths=lengths)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
+            kw = dict(rope=rope, cache=cache, write_index=index,
+                      kv_cap=kv_cap, verify=verify, lengths=lengths,
+                      with_aux=with_aux)
+            if remat:
+                # nothing in a layer draws random numbers: no RNG to keep
+                out = checkpoint(block_apply, layer, x, cfg, kind, **kw,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+            else:
+                out = block_apply(layer, x, cfg, kind, **kw)
+            x = out[0]
+            if with_aux:
+                aux = aux + out[2]
+    hidden = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return (hidden, caches, aux) if with_aux else (hidden, caches)
 
 
 def logits_fn(params: dict, hidden: torch.Tensor, cfg: ArchConfig):
     if cfg.tied_embeddings:
         return unembed(params["embed"], hidden)
     return dense(params["lm_head"], hidden.float())
+
+
+# ---------------------------------------------------------------------------
+# the training loss
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(params: dict, h: torch.Tensor, t: torch.Tensor,
+                m: torch.Tensor, cfg: ArchConfig, z_loss: float):
+    """(sum of masked nll, mask count) of one chunk, float32."""
+    logits = logits_fn(params, h, cfg)                  # [B, chunk, V] f32
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, t[..., None].long())[..., 0]
+    nll = (lse - tgt) + z_loss * torch.square(lse)
+    m = m.float()
+    return torch.sum(nll * m), torch.sum(m)
+
+
+def chunked_xent(params: dict, hidden: torch.Tensor, targets: torch.Tensor,
+                 cfg: ArchConfig, mask: torch.Tensor | None = None,
+                 chunk: int = LOSS_CHUNK, z_loss: float = 1e-4):
+    """Cross-entropy with JAX's z-loss, ``sum((lse - logit[target] + z
+    lse^2) * mask) / max(count, 1)``, over ``chunk`` positions at a time.
+    Under autograd each chunk runs under ``torch.utils.checkpoint``, so
+    only one chunk's float32 logits is live in the forward or in the
+    backward.  The last chunk is the remainder: JAX pads it with masked
+    positions, which add exactly 0."""
+    b, length, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((b, length), dtype=torch.bool,
+                          device=hidden.device)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, length, chunk):
+        part = (params, hidden[:, lo:lo + chunk], targets[:, lo:lo + chunk],
+                mask[:, lo:lo + chunk], cfg, z_loss)
+        if torch.is_grad_enabled():
+            s, n = checkpoint(_xent_chunk, *part, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            s, n = _xent_chunk(*part)
+        loss_sum, count = loss_sum + s, count + n
+    return loss_sum / torch.clamp(count, min=1.0)
+
+
+def lm_loss(params: dict, batch: dict, cfg: ArchConfig, *,
+            dtype: torch.dtype = torch.bfloat16, remat: bool = False):
+    """Next-token loss (targets the tokens shifted by one, the last
+    position masked), plus deepseek's multi-token-prediction term (the
+    ``mtp_block`` on the final-normed hidden, then ``mtp_norm``, 0.3 of the
+    cross-entropy against the tokens shifted by two) and 0.01 of the MoE
+    load-balance term, as JAX's ``lm_loss``.  A float32 scalar."""
+    tokens = batch["tokens"]
+    hidden, _, aux = forward(params, batch, cfg, dtype=dtype, remat=remat,
+                             with_aux=True)
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
+    mask[:, -1] = False
+    loss = chunked_xent(params, hidden, targets, cfg, mask)
+    if cfg.mtp:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        h2, _ = block_apply(params["mtp_block"], hidden, cfg,
+                            BlockKind.DENSE, rope=_rope(cfg, positions))
+        h2 = rmsnorm(params["mtp_norm"], h2, cfg.norm_eps)
+        mask2 = mask.clone()
+        mask2[:, -2] = False
+        loss = loss + 0.3 * chunked_xent(
+            params, h2, torch.roll(tokens, -2, dims=1), cfg, mask2)
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux
+    return loss

@@ -12,7 +12,9 @@ place, graphed against eager), and a mid-flight cancel on graphed
 segments (the cancelled row latched in place); the SSM models (reduced
 mamba2-370m and zamba2-1.2b) served graphed against eager and the CPU
 plain path, with a short prompt's stream independent of the join's
-padding; the paged kernels at
+padding; training: the grouped GEMM's backward against autograd through
+its plain version, the MoE model's expert gradients and a train step
+against the CPU; the paged kernels at
 every launch knob the autotuner sweeps (decode: every split count and
 rows a CTA; prefill and verify: every rows a CTA), and serving with the
 attention routed plain against the kernels.  Every test here is
@@ -1707,3 +1709,100 @@ def test_ssm_stream_does_not_see_the_join_padding(arch, paged):
     beside, _, _ = _served(cfg, params, graphs=None, paged=paged,
                            requests=[(0, short), (1, long)])
     assert alone[0] == beside[0]
+
+
+# ---------------------------------------------------------------------------
+# training: the grouped GEMM's backward, the MoE model's expert gradients,
+# a train step card against CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_gemm_backward_matches_the_plain_autograd(dtype):
+    """dxe through the kernel and dw through torch.bmm against autograd
+    through the plain version; dy (and the kernel's xe) NaN past each
+    count, ragged counts including empty and full experts."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    e, c, d, f = 6, 100, 64, 96
+    cnt = torch.tensor([0, 1, 37, 100, 64, 99], dtype=torch.int32,
+                       device="cuda")
+    live = torch.arange(c, device="cuda")[None, :, None] < cnt[:, None, None]
+    xe = (torch.randn(e, c, d, generator=gen, device="cuda")
+          * live).to(dtype)
+    w = (torch.randn(e, d, f, generator=gen, device="cuda")
+         / d ** 0.5).to(dtype)
+    dy = torch.randn(e, c, f, generator=gen, device="cuda")
+    dy = torch.where(live, dy, torch.full_like(dy, float("nan")))
+    x_nan = torch.where(live, xe, torch.full_like(xe, float("nan")))
+    x_nan.requires_grad_()
+    wk = w.clone().requires_grad_()
+    mg.reset_launch_counts()
+    out = mg.group_gemm(x_nan, wk, cnt)
+    got = torch.autograd.grad(out, (x_nan, wk), dy)
+    assert mg.launch_counts["group_gemm"] == 2     # forward and dxe
+    xr, wr = xe.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(mg.group_gemm_ref(xr, wr, cnt), (xr, wr), dy)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, wnt in zip(got, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        err = float((g.float() - wnt.float()).abs().max())
+        assert err <= tol * float(wnt.float().abs().max())
+    assert bool((got[0][~live.expand(e, c, d)] == 0).all())
+    assert bool((got[1][0] == 0).all())             # the empty expert
+
+
+def test_moe_forward_gives_every_expert_leaf_a_gradient():
+    """Reduced moonshot on the card under autograd: the expert weights
+    wi, wg and wo of every MoE layer get a non-zero gradient (before the
+    backward was added they got none) that matches the CPU's."""
+    from repro_torch import tree
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.train.train_loop import TrainConfig, loss_and_grads
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    model = Model(cfg)
+    params = init_params(cfg, 1, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 32)).astype(np.int32))
+    tcfg = TrainConfig(dtype=torch.float32)
+    _, grads = loss_and_grads(model, params, {"tokens": tokens.cuda()}, tcfg)
+    _, cpu_grads = loss_and_grads(
+        model, tree.tree_map(lambda t: t.cpu(), params),
+        {"tokens": tokens}, tcfg)
+    keys = [k for k, _ in tree.paths(params)]
+    experts = [i for i, k in enumerate(keys)
+               if k.split("/")[-1] in ("wi", "wg", "wo") and "/moe/" in k]
+    assert len(experts) == 3
+    for i in experts:
+        assert float(grads[i].norm()) > 0, keys[i]
+        torch.testing.assert_close(grads[i].cpu(), cpu_grads[i], rtol=1e-4,
+                                   atol=1e-4 * float(
+                                       cpu_grads[i].abs().max()))
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """One float32 train step of reduced deepseek-v3 (MLA, MoE through
+    the kernel forward and backward, the MTP term), remat on: the card's
+    loss and grad norm against the CPU's plain path."""
+    from repro_torch import tree
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import (TrainConfig, make_train_state,
+                                              make_train_step)
+    cfg = get_config("deepseek-v3-671b").reduced()
+    model = Model(cfg)
+    tcfg = TrainConfig(opt=opt.OptConfig(lr=1e-3, warmup_steps=1,
+                                         total_steps=2),
+                       dtype=torch.float32)
+    params = init_params(cfg, 1, device="cuda")
+    cpu = make_train_state(model, 0, tcfg, device="cpu",
+                           params=tree.tree_map(lambda t: t.cpu(), params))
+    card = make_train_state(model, 0, tcfg, params=params)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(4, 48)).astype(np.int32))
+    step = make_train_step(model, tcfg)
+    mg.reset_launch_counts()
+    _, got = step(card, {"tokens": tokens.cuda()})
+    assert mg.launch_counts["group_gemm"] == 9 * 2   # 2 MoE layers
+    _, want = step(cpu, {"tokens": tokens})
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                   rtol=1e-4)

@@ -262,6 +262,14 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.serve.chaos",
             "repro_torch.serve.scheduler",
             "repro_torch.serve.engine",
+            "repro_torch.launch.train",
+            "repro_torch.train.train_loop",
+            "repro_torch.train.optimizer",
+            "repro_torch.distributed.compression",
+            "repro_torch.data.pipeline",
+            "repro_torch.ft.elastic",
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.tree",
             "repro_torch.kernels.decode_attn.kernel",
             "repro_torch.kernels.decode_attn.ops",
             "repro_torch.kernels.decode_attn.ref",
