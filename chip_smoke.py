@@ -230,7 +230,35 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    every gradient finite, the experts' non-zero, ``group_gemm`` launches
    exact (forward, recompute, backward); (d) 3 float32 train steps at
    ``reduced()`` of qwen2-0.5b, moonshot, deepseek-v3, mamba2 and zamba2,
-   card against the CPU's plain path.
+   card against the CPU's plain path;
+13. ``[encdec]``: (a) the attention kernels at whisper-tiny's geometry
+   (Hq 6, Hkv 6: G 1, D 64; 48 (slot, KV head) rows at the serve batch),
+   which no earlier phase launches: both paged kernels at every split
+   and rows a CTA, ragged lengths and rank boundaries, NaN past each
+   length, and the dense-stripe kernel over the whole stripe and under
+   ``s_cap``, both dtypes, against their plain versions, and their times
+   over whisper's 4 decoder layers beside SDPA; (b) whisper-tiny at full
+   width and depth (seeded bf16 weights): 8 rows of 1,500 seeded stub
+   frames, ``encode``, prompts of 4-64 tokens, ``Model.prefill`` on
+   dense stripes (the frames encoded in the call) and
+   ``Model.prefill_paged`` (the encoder's ``cross_kv``), each then 64
+   greedy ``decode_step``s with ``extra={"cross_kv"}``, launches exact;
+   in float32 the kernel route's streams against ``DecodeAttnPolicy``
+   mode ``plain``, dense and paged; then text-only serving through both
+   batchers on phase 4's traffic, graphed; (c) internvl2-26b at full
+   width and full depth (48 layers, about 42 GB built in place): 8 rows
+   of 256 seeded vision embeddings and 8-64 text tokens,
+   ``Model.prefill_paged`` and 64 greedy ``decode_step``s on pages, then
+   text-only paged serving on phase 4's traffic, graphed, and its decode
+   step profiled (``profile_serve.profile_decode``, which builds the same
+   seeded weights once the phase's are freed);
+   (d) both models at ``reduced()`` in float32, card against the CPU's
+   plain path: prefill and decode logits with the frames or the vision
+   prefix, dense and paged, and ``Model.loss`` with its gradients; (e)
+   whisper-tiny at full width trained 4 steps (batch 8 x L 448, text
+   only, as JAX's ``launch/train.py``): finite losses, the leaves no
+   text-only call reads (the per-layer cross k and v among them) with
+   zero gradients, moved by weight decay only.
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*`` and the
@@ -238,7 +266,9 @@ dense families' as ``g12_*`` (starcoder2), ``g6_*`` (nemotron) and
 ``mha_*`` (codeqwen), their ``[families]`` launches as
 ``families_launches``, zamba2's shared-block geometry's as ``z64_*``
 (with its checks' ``z64_max_abs_err``) and its ``[ssm]`` launches as
-``ssm_launches``, the
+``ssm_launches``, whisper-tiny's geometry's as ``w64_*`` (with its
+checks' ``w64_max_abs_err``) and the ``[encdec]`` launches as
+``encdec_launches``, the
 prefill row the verify's as ``verify_*``, the paged rows this run's sweep
 as ``autotune`` (per geometry and op: winner, its and the default's
 device ms, candidates measured and dropped), the
@@ -4076,6 +4106,462 @@ def train_phase(torch) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 13, [encdec]
+# ---------------------------------------------------------------------------
+
+WHISPER, VISION = "whisper-tiny", "internvl2-26b"
+WHISPER_GEO = (6, 6, 64)          # its Hq, Hkv, head_dim (G 1): "w64_"
+# whisper's leaves a text-only loss never reaches: the per-layer cross k
+# and v (the cross layers read cross_k and cross_v) always, the rest of
+# the cross branch and the encoder whenever no frames come
+UNREAD_TEXT_ONLY = ("segments/0/cross/", "segments/0/norm_x/", "encoder/",
+                    "enc_norm/", "cross_k/", "cross_v/")
+
+
+def encdec_kernels(torch) -> tuple[dict, dict]:
+    """(a) The attention kernels at whisper-tiny's geometry
+    (``WHISPER_GEO``: 6 query over 6 KV heads, G 1, D 64, so 48 (slot, KV
+    head) rows at the serve batch of 8), which no earlier phase launches:
+    both paged kernels at every split and rows a CTA and the dense-stripe
+    kernel over the whole stripe and under ``s_cap``, in both dtypes,
+    against their plain versions; then their times over whisper's 4
+    decoder layers.  Returns (the largest bfloat16 errors, the
+    timings)."""
+    from repro_torch.configs import get_config
+    worst = kernel_checks(torch, WHISPER_GEO)
+    worst["decode_attn"] = stripe_checks(torch, geos=(WHISPER_GEO,))
+    layers = attn_layers(get_config(WHISPER))
+    timings = kernel_timings(torch, WHISPER_GEO, layers=layers)
+    timings["decode_attn"] = stripe_timing(torch, WHISPER_GEO, layers=layers)
+    return worst, timings
+
+
+def side_inputs(torch, cfg, b: int, dtype, seed: int,
+                device="cuda") -> dict:
+    """Seeded stub encoder frames [b, encoder_seq, d] (whisper) or vision
+    embeddings [b, vision_tokens, d] (internvl2), drawn on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.enc_dec:
+        return {"encoder_frames": torch.randn(
+            b, cfg.encoder_seq, cfg.d_model, generator=gen,
+            device=device).to(dtype)}
+    return {"vision_embeds": torch.randn(
+        b, cfg.vision_tokens, cfg.d_model, generator=gen,
+        device=device).to(dtype)}
+
+
+def prefill_decode(torch, model, params, batch: dict, lens, steps: int, *,
+                   paged: bool, dtype, extra=None, forced=None,
+                   keep_logits: bool = False) -> dict:
+    """``Model.prefill`` into dense stripes sized for the prompt and
+    ``steps`` more tokens, or ``Model.prefill_paged`` through a permuted
+    table of pages of ``PS`` (each row its own), with each row's logits
+    at ``lens - 1``; then ``steps`` greedy one-token ``decode_step``s at
+    per-slot depths with ``extra`` (whisper's ``cross_kv``), the tokens
+    fed ``forced`` ([B, steps + 1] on the host) where given.  Returns the
+    greedy tokens [B, steps + 1] and the top-2 logit gap of each
+    (host), the seconds, and with ``keep_logits`` each call's logits
+    [steps + 1, B, V] (host)."""
+    b, width = batch["tokens"].shape
+    dev = batch["tokens"].device
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = lens - 1
+    kw = {}
+    if paged:
+        per = -(-(width + steps) // PS)
+        gen = torch.Generator().manual_seed(b * per)
+        tbl = torch.randperm(b * per, generator=gen).to(
+            torch.int32).reshape(b, per).to(dev)
+        caches = model.init_paged_caches(b, b * per, PS, dtype, device=dev)
+        logits, caches = model.prefill_paged(params, batch, caches, tbl,
+                                             dtype=dtype, last_pos=last)
+        kw["pages"] = tbl
+    else:
+        logits, caches = model.prefill(params, batch, width + steps,
+                                       dtype=dtype, last_pos=last)
+    depth = lens.to(torch.int32)
+    toks, gaps, kept = [], [], []
+    for i in range(steps + 1):
+        top = logits[:, -1].topk(2, dim=-1)
+        toks.append(top.indices[:, 0])
+        gaps.append(top.values[:, 0] - top.values[:, 1])
+        if keep_logits:
+            kept.append(logits[:, -1].cpu())
+        if i == steps:
+            break
+        feed = toks[-1] if forced is None else forced[:, i].to(dev)
+        logits, caches = model.decode_step(params, feed[:, None], caches,
+                                           depth, dtype=dtype, extra=extra,
+                                           **kw)
+        depth = depth + 1
+    out = {"tokens": torch.stack(toks, 1).cpu(),
+           "gaps": torch.stack(gaps, 1).cpu()}
+    out["seconds"] = time.perf_counter() - t0
+    if keep_logits:
+        out["logits"] = torch.stack(kept)
+    return out
+
+
+def ragged_prompts(torch, vocab: int, b: int, lo: int, hi: int, seed: int,
+                   device="cuda"):
+    """b seeded prompts of lo..hi - 1 tokens, padded into one [b, width]
+    batch; returns (tokens, lengths [b] int64)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi, size=b)
+    toks = rng.integers(0, vocab, size=(b, int(lens.max())))
+    return (torch.from_numpy(toks).to(device),
+            torch.from_numpy(lens).to(device))
+
+
+def _streams_agree(label: str, got: dict, want: dict) -> int:
+    """Equal greedy streams, or each row's first difference at a near-tie
+    of ``want``'s logits there; returns the rows that differ."""
+    rows = 0
+    for r in range(want["tokens"].shape[0]):
+        a, w = got["tokens"][r], want["tokens"][r]
+        diff = (a != w).nonzero()
+        if len(diff):
+            i = int(diff[0])
+            gap = float(want["gaps"][r, i])
+            print(f"[encdec] {label} row {r} differs at token {i}: top-2 "
+                  f"logit gap {gap:.2e}")
+            check(gap < NEAR_TIE, f"[encdec] {label}: row {r} differs "
+                  "without a near-tie")
+            rows += 1
+    return rows
+
+
+def whisper_full_width(torch) -> dict:
+    """(b) whisper-tiny at full width and depth (4 + 4 layers, d 384, 6
+    heads, vocab 51,865), seeded bfloat16 weights built in place: 8 rows
+    of 1,500 seeded stub frames, ``encode``; prompts of 4-64 tokens; on
+    dense stripes ``Model.prefill`` with the frames (encoded inside the
+    call) and on pages ``Model.prefill_paged`` with the encoder's
+    ``cross_kv``, each then 64 greedy ``decode_step``s with
+    ``extra={"cross_kv"}``: launches exact (the dense decode kernel 4 a
+    step; the paged prefill kernel 4 a call and the decode kernel 4 a
+    step), streams in vocabulary.  In float32 (the same weights), each
+    layout's kernel route against ``DecodeAttnPolicy`` mode ``plain``:
+    equal streams, or a difference at a near-tie.  Then text-only serving
+    through both batchers on phase 4's traffic, graphed.  Returns the
+    launches, the dense and paged bf16 runs' summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import decode_attn_policy
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.models.transformer import encode
+    cfg = get_config(WHISPER)
+    model = Model(cfg)
+    steps, layers = 64, attn_layers(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    params = model.init(0, device="cuda", dtype=torch.bfloat16)
+    frames = side_inputs(torch, cfg, 8, torch.bfloat16, SEED)
+    toks, lens = ragged_prompts(torch, cfg.vocab, 8, 4, 65, SEED)
+    with torch.no_grad():
+        enc_ms = time_ms(lambda i: encode(params, frames["encoder_frames"],
+                                          cfg), 3, reps=3)
+        kv = encode(params, frames["encoder_frames"], cfg)
+        totals, runs = {}, {}
+        for layout, paged in (("dense", False), ("paged", True)):
+            batch = ({"tokens": toks, **frames} if not paged
+                     else {"tokens": toks, "cross_kv": kv})
+            reset_counts()
+            runs[layout] = res = prefill_decode(
+                torch, model, params, batch, lens, steps, paged=paged,
+                dtype=torch.bfloat16, extra={"cross_kv": kv})
+            counts = read_counts()
+            want = ({"paged_prefill": layers, "paged_decode": layers * steps,
+                     "decode_attn": 0} if paged else
+                    {"paged_prefill": 0, "paged_decode": 0,
+                     "decode_attn": layers * steps})
+            print(f"[encdec] {WHISPER} bf16 {layout}: prefill of 8 prompts "
+                  f"of {int(lens.min())}-{int(lens.max())} tokens over "
+                  f"{cfg.encoder_seq} frames (encode {enc_ms:.3f} ms), then "
+                  f"{steps} greedy steps with cross_kv, in "
+                  f"{res['seconds']:.2f}s; launches "
+                  f"{ {k: counts[k] for k in want} }; {SMI}")
+            check(all(counts[k] == v for k, v in want.items()),
+                  f"[encdec] {WHISPER} {layout}: launches {counts}, not "
+                  f"{want}")
+            check(bool(((res["tokens"] >= 0)
+                        & (res["tokens"] < cfg.vocab)).all()),
+                  f"[encdec] {WHISPER} {layout}: a token out of vocab")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+        same = int((runs["dense"]["tokens"] == runs["paged"]["tokens"]
+                    ).all(1).sum())
+        print(f"[encdec] {WHISPER} bf16 greedy streams, dense (frames in "
+              f"the prefill) vs paged (cross_kv in the prefill): {same}/8 "
+              "rows equal")
+        params32 = _cast(torch, params, torch.float32)
+        f32 = {k: v.float() for k, v in frames.items()}
+        kv32 = encode(params32, f32["encoder_frames"], cfg)
+        for layout, paged in (("dense", False), ("paged", True)):
+            got = {}
+            for mode in ("kernel", "plain"):
+                with decode_attn_policy(mode=mode):
+                    got[mode] = prefill_decode(
+                        torch, model, params32,
+                        {"tokens": toks, "cross_kv": kv32}, lens, steps,
+                        paged=paged, dtype=torch.float32,
+                        extra={"cross_kv": kv32})
+            ties = _streams_agree(f"{WHISPER} float32 {layout} kernel vs "
+                                  "plain", got["kernel"], got["plain"])
+            print(f"[encdec] {WHISPER} float32 {layout}, {steps} steps with "
+                  f"cross_kv: kernel route vs plain route (DecodeAttnPolicy "
+                  f"mode plain): {8 - ties}/8 streams equal, {ties} at "
+                  "near-ties")
+        del params32, kv32
+    for layout, paged in (("paged", True), ("dense", False)):
+        res, counts = _family_run(torch, cfg, params, held,
+                                  f"{WHISPER} {layout}", 16, 64,
+                                  paged=paged, prompt_len=(64, 513))
+        _family_line(f"{WHISPER} {layout}, text only (Hq 6, Hkv 6, D 64, "
+                     f"{cfg.n_layers} decoder layers)", res, counts,
+                     "no frames: the batchers carry none, as JAX's",
+                     tag="encdec")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        del res
+    del params, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def vision_full_width(torch) -> dict:
+    """(c) internvl2-26b at full width and full depth (48 layers, d 6,144,
+    48 query over 8 KV heads, vocab 92,553: about 42 GB of seeded
+    bfloat16 weights with the float32 embedding and read-out, built in
+    place): 8 rows of 256 seeded vision embeddings and a text prompt of
+    8-64 tokens past them, ``Model.prefill_paged`` then 64 greedy
+    ``decode_step``s on pages (launches exact); text-only serving through
+    the paged batcher on phase 4's traffic, graphed; and the decode step
+    profiled (``profile_serve.profile_decode``, which builds the same
+    seeded weights once these are freed).  Peaks are counted above what
+    earlier phases still hold.
+    Returns the launches of the prefill-and-decode run and of the serve
+    run, summed, and the profile's summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_serve import profile_decode
+    from repro_torch.models.model_zoo import Model
+    cfg = get_config(VISION)
+    model = Model(cfg)
+    steps, layers = 64, attn_layers(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    weights = (torch.cuda.memory_allocated() - held) / 2**30
+    text, lens = ragged_prompts(torch, cfg.vocab, 8, 8, 65, SEED)
+    pad = torch.zeros(8, cfg.vision_tokens, dtype=text.dtype, device="cuda")
+    toks, lens = torch.cat([pad, text], 1), lens + cfg.vision_tokens
+    vision = side_inputs(torch, cfg, 8, torch.bfloat16, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        res = prefill_decode(torch, model, params,
+                             {"tokens": toks, **vision}, lens, steps,
+                             paged=True, dtype=torch.bfloat16)
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    want = {"paged_prefill": layers, "paged_decode": layers * steps,
+            "decode_attn": 0}
+    print(f"[encdec] {VISION} bf16 paged, full width and depth ({weights:.2f}"
+          f" GiB of weights built in {built:.1f}s): 8 rows of "
+          f"{cfg.vision_tokens} vision embeddings + {int(lens.min()) - 256}-"
+          f"{int(lens.max()) - 256} text tokens, prefill_paged and {steps} "
+          f"greedy steps in {res['seconds']:.2f}s; peak device memory "
+          f"{peak:.2f} GiB above the {held / 2**30:.2f} GiB held before; "
+          f"launches { {k: counts[k] for k in want} }; {SMI}")
+    check(all(counts[k] == v for k, v in want.items()),
+          f"[encdec] {VISION}: launches {counts}, not {want}")
+    check(bool(((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab)).all()),
+          f"[encdec] {VISION}: a token out of vocab")
+    totals = dict(counts)
+    serve, counts = _family_run(torch, cfg, params, held,
+                                f"{VISION} paged", 16, 64,
+                                prompt_len=(64, 513))
+    _family_line(f"{VISION} paged, text only (Hq 48, Hkv 8, D 128, "
+                 f"{cfg.n_layers} layers)", serve, counts,
+                 f"weights built in {built:.1f}s", tag="encdec")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    del serve, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_decode(cfg, paged=True)
+    print(f"[encdec] {VISION} paged decode step, graphs: wall "
+          f"{prof['wall_ms_per_step']:.2f} ms, device busy "
+          f"{prof['device_busy_ms_per_step']:.2f} ms, idle "
+          f"{prof['idle_share']:.1%}, {prof['kernels_per_step']:.0f} kernels "
+          f"a step; {SMI}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": totals, "profile": prof}
+
+
+def encdec_agreement(torch) -> None:
+    """(d) float32 at ``reduced()``, seeded weights, card against the CPU's
+    plain path: for both models, a ragged prefill with the frames or the
+    vision prefix (dense and paged) then 3 decode steps (whisper's with
+    ``cross_kv``), the CPU's greedy tokens fed to both: logits within
+    1e-4; ``Model.loss`` with the frames or the vision prefix within 1e-5
+    relative and every gradient leaf within 1e-4 of its largest entry
+    (whisper's per-layer cross k and v exactly zero on both)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models.init import init_params
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.models.transformer import encode
+    from repro_torch.train.train_loop import TrainConfig, loss_and_grads
+    tcfg = TrainConfig(dtype=torch.float32, remat=False)
+    for arch in (WHISPER, VISION):
+        cfg = get_config(arch).reduced()
+        model = Model(cfg)
+        params = init_params(cfg, 1, device="cuda")
+        cpu_params = _to(torch, params, "cpu")
+        side = side_inputs(torch, cfg, 3, torch.float32, 2, device="cpu")
+        toks, lens = ragged_prompts(torch, cfg.vocab, 3, 12, 17, 2,
+                                    device="cpu")
+        worst = 0.0
+        for layout, paged in (("dense", False), ("paged", True)):
+            runs = {}
+            for dev, p in (("cpu", cpu_params), ("cuda", params)):
+                batch = {"tokens": toks.to(dev),
+                         **{k: v.to(dev) for k, v in side.items()}}
+                extra = ({"cross_kv": encode(p, batch["encoder_frames"],
+                                             cfg)} if cfg.enc_dec else None)
+                runs[dev] = prefill_decode(
+                    torch, model, p, batch, lens.to(dev), 3, paged=paged,
+                    dtype=torch.float32, extra=extra, keep_logits=True,
+                    forced=runs["cpu"]["tokens"] if dev == "cuda" else None)
+            err = float((runs["cuda"]["logits"] - runs["cpu"]["logits"]
+                         ).abs().max())
+            worst = max(worst, err)
+            check(err <= TOL["float32"], f"[encdec] {arch} reduced {layout}: "
+                  f"card logits differ from the CPU's by {err:.2e}")
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 24),
+                                         generator=torch.Generator()
+                                         .manual_seed(3)),
+                 **side_inputs(torch, cfg, 2, torch.float32, 4,
+                               device="cpu")}
+        loss, grads = {}, {}
+        for dev, p in (("cpu", cpu_params), ("cuda", params)):
+            loss[dev], grads[dev] = loss_and_grads(
+                model, p, {k: v.to(dev) for k, v in batch.items()}, tcfg)
+        rel = abs(float(loss["cuda"]) - float(loss["cpu"])) / abs(
+            float(loss["cpu"]))
+        gworst, zero = 0.0, []
+        for i, (key, _) in enumerate(tree.paths(params)):
+            g, w = grads["cuda"][i].cpu(), grads["cpu"][i]
+            scale = float(w.abs().max())
+            if scale == 0:
+                check(not g.any(), f"[encdec] {arch}: {key}'s gradient is "
+                      "zero on the CPU, not on the card")
+                zero.append(key)
+                continue
+            gworst = max(gworst, float((g - w).abs().max()) / scale)
+        print(f"[encdec] {arch} reduced float32, card vs CPU plain path: "
+              f"prefill and 3 decode steps' logits (dense, paged) max_abs_err "
+              f"{worst:.2e}; loss with the "
+              f"{'frames' if cfg.enc_dec else 'vision prefix'} relative "
+              f"difference {rel:.2e}, gradients at most {gworst:.2e} of each "
+              f"leaf's largest entry; zero-gradient leaves {zero}")
+        check(rel <= 1e-5 and gworst <= 1e-4,
+              f"[encdec] {arch}: loss or gradients differ card vs CPU")
+        if cfg.enc_dec:
+            check({f"segments/0/cross/{n}/w" for n in "kv"} <= set(zero),
+                  f"[encdec] {arch}: the per-layer cross k or v has a "
+                  "gradient")
+
+
+def train_whisper(torch) -> dict:
+    """(e) whisper-tiny at full width and depth trained 4 steps through
+    ``repro_torch.launch.train.run`` on the card (text only, as JAX's
+    ``launch/train.py``: no frames, so the decoder skips cross-attention),
+    batch 8 x L 448 (whisper's decoder context), remat: finite losses; the
+    per-layer ``cross`` k and v (which no call reads), and the rest of the
+    cross branch and the encoder (which a text-only batch never runs), get
+    zero gradients (their second moments stay exactly 0) and move by
+    AdamW's weight decay only (matrices by the factor prod(1 - lr_t wd),
+    vectors not at all).  The peak is counted above what earlier phases
+    still hold.  Returns the step's median ms."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.train import optimizer as opt
+    steps = 4
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = run(WHISPER, steps=steps, batch=8, seq=448, reduced=False, lr=3e-4,
+              seed=SEED, log_every=1, device="cuda")
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    state = res["state"]
+    init = Model(get_config(WHISPER)).init(SEED, device="cuda")
+    ocfg = opt.OptConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
+    decay = math.prod(1.0 - float(opt.schedule(torch.tensor(s), ocfg))
+                      * ocfg.weight_decay for s in range(steps))
+    unread, worst = [], 0.0
+    for (key, p), (_, p0), (_, nu) in zip(tree.paths(state["params"]),
+                                          tree.paths(init),
+                                          tree.paths(state["opt"]["nu"])):
+        if not key.startswith(UNREAD_TEXT_ONLY):
+            continue
+        unread.append(key)
+        check(not nu.any(), f"[train] {WHISPER}: {key} has a gradient")
+        want = p0 * (decay if p0.dim() >= 2 else 1.0)
+        scale = max(float(p0.abs().max()), 1e-30)
+        worst = max(worst, float((p - want).abs().max()) / scale)
+    step_ms = statistics.median(res["step_s"][1:]) * 1e3
+    print(f"[train] {WHISPER} full width and depth, text only, batch 8 x L "
+          f"448, {steps} steps: losses "
+          + " ".join(f"{v:.4f}" for v in res["losses"])
+          + f"; median step {step_ms:.1f} ms; peak {peak:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held before; "
+          f"{len(unread)} leaves no text-only call reads (the cross "
+          f"branches, the encoder, enc_norm, cross_k/v): second moments 0, "
+          f"moved by weight decay only (max relative deviation "
+          f"{worst:.2e}); {SMI}")
+    check(all(math.isfinite(v) for v in res["losses"]),
+          f"[train] {WHISPER}: a loss is not finite")
+    check(worst <= 1e-6, f"[train] {WHISPER}: an unread leaf moved by more "
+          "than weight decay")
+    del res, state, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms}
+
+
+def encdec_phase(torch) -> tuple[dict, dict, dict]:
+    """Phase 13, ``[encdec]``: (a) the kernels at whisper's W64 geometry,
+    (b) whisper-tiny at full width, (c) internvl2-26b at full width and
+    depth, (d) card = CPU at ``reduced()``, (e) whisper trained.  Returns
+    (the W64 worst errors, the W64 timings, the phase's launches of rows
+    1-3 summed over (b) and (c))."""
+    t0 = time.perf_counter()
+    worst, timings = encdec_kernels(torch)
+    counts = whisper_full_width(torch)
+    vision = vision_full_width(torch)
+    for k, v in vision["counts"].items():
+        counts[k] = counts.get(k, 0) + v
+    encdec_agreement(torch)
+    train_whisper(torch)
+    print(f"[encdec] phase took {time.perf_counter() - t0:.1f}s")
+    return worst, timings, counts
+
+
 def _cast(torch, tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(torch, v, dtype) for k, v in tree.items()}
@@ -4227,6 +4713,15 @@ def main() -> int:
     # phase 12, [train]: the grouped GEMM's backward, full-width qwen and
     # the moonshot cut trained on the card, card = CPU at reduced()
     timings["group_gemm"].update(train_phase(torch))
+    # phase 13, [encdec]: whisper's W64 geometry, whisper-tiny and
+    # internvl2-26b at full width, card = CPU at reduced(), whisper trained
+    enc_worst, at_w64, encdec_counts = encdec_phase(torch)
+    for name, row in at_w64.items():
+        timings[name].update({f"w64_{k}": row[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "flops",
+            "graph_ms", "library_graph_ms", "host_us", "splits", "bytes")
+            if k in row})
+        timings[name]["w64_max_abs_err"] = enc_worst[name]
 
     sources = {"paged_decode": ("src/repro_torch/kernels/paged_attn/csrc/"
                                 "paged_decode.cu",
@@ -4277,7 +4772,7 @@ def main() -> int:
         rows[-1].update({k: v for k, v in t.items()
                          if (k.startswith(("tiles", "prefill_", "down_",
                                            "d128_", "n16_", "bf16_",
-                                           "verify_", "ds_", "z64_",
+                                           "verify_", "ds_", "z64_", "w64_",
                                            "bwd_", "train_",
                                            *(t + "_" for t, _ in
                                              FAMILIES.values())))
@@ -4303,6 +4798,8 @@ def main() -> int:
         # the [ssm] phase's: zamba2's shared block, paged and dense
         if name in ("paged_decode", "paged_prefill", "decode_attn"):
             rows[-1]["ssm_launches"] = ssm_counts[name]
+            # the [encdec] phase's: whisper and internvl2, (b) and (c)
+            rows[-1]["encdec_launches"] = encdec_counts[name]
         if name == "group_gemm":
             rows[-1]["deepseek_launches"] = families["deepseek_group_gemm"]
         if name == "group_gemm":     # the join's calls take the wgmma file
@@ -4326,6 +4823,8 @@ def main() -> int:
               f"{name}: not launched on the [families] phase's path")
         check(rows[-1].get("ssm_launches", 1) > 0,
               f"{name}: not launched on the [ssm] phase's path")
+        check(rows[-1].get("encdec_launches", 1) > 0,
+              f"{name}: not launched on the [encdec] phase's path")
         check(rows[-1].get("train_launches", 1) > 0,
               f"{name}: not launched on the [train] phase's path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

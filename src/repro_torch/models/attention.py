@@ -266,9 +266,17 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
               rope: tuple[torch.Tensor, torch.Tensor] | None = None,
               cache: KVCache | PagedKVCache | None = None,
               write_index=None, kv_cap: int | None = None,
-              verify: bool = False):
+              verify: bool = False, causal: bool = True,
+              kv_override: tuple[torch.Tensor, torch.Tensor] | None = None):
     """x: [B, L, D].  With a ``cache``, writes this call's K/V at
     ``cache.length`` and attends over the filled prefix.
+
+    ``kv_override`` (k, v), each [B, Lk, Hkv, D], makes this layer
+    cross-attention, as in JAX: the query is projected and not rotated,
+    k and v are taken as given, no cache is read or written, and the call
+    goes through :func:`attention_core` with ``causal`` (False from the
+    cross branch).  Without a cache, ``causal`` is the self-attention's
+    mask: the encoder's is off.
 
     Dense stripes: a one-token call (decode) goes through
     :func:`decode_attn`, which reads at most the first ``kv_cap`` rows
@@ -285,11 +293,17 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     ``rope`` is the (cos, sin) pair of ``positions`` and ``write_index``
     the cache write addresses, when the caller has computed them once for
     all layers."""
-    if rope is None:
-        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    q = rotate(dense(params["q"], x), *rope)
-    k = rotate(dense(params["k"], x), *rope)
-    v = dense(params["v"], x)
+    q = dense(params["q"], x)
+    if kv_override is None:
+        if rope is None:
+            rope = rope_tables(positions, cfg.resolved_head_dim,
+                               cfg.rope_theta)
+        q = rotate(q, *rope)
+        k = rotate(dense(params["k"], x), *rope)
+        v = dense(params["v"], x)
+    else:
+        k, v = kv_override
+        cache = None
     n = x.shape[1]
     new_cache = None
     # the insert precedes the read, in stream order: rows of one call see
@@ -324,7 +338,7 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
             out = attention_core(q, kc[:, :cap], vc[:, :cap],
                                  q_offset=cache.length, kv_len=kv_len)
     else:
-        out = attention_core(q, k, v)
+        out = attention_core(q, k, v, causal=causal)
     y = dense(params["o"], out, n_in=2)
     return y, new_cache
 
@@ -351,7 +365,7 @@ def mla_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
               rope: tuple[torch.Tensor, torch.Tensor] | None = None,
               cache: KVCache | PagedKVCache | None = None,
               write_index=None, kv_cap: int | None = None,
-              verify: bool = False):
+              verify: bool = False, causal: bool = True):
     """Multi-head latent attention on JAX's absorbed path: the cache holds
     the latent ``c_kv`` (``cache.k``) and the shared rope key
     (``cache.v``) only; W_uk is absorbed into the query, the keys are
@@ -365,7 +379,9 @@ def mla_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     needs no head axis) and read through :func:`gather_pages` of the
     table with every id past ``n_pages`` clamped to the sentinel's zero
     page, so an unallocated entry never reads the sink; masked by
-    ``kv_len``.  Cache-free: :func:`attention_core`, causal.  ``verify``
+    ``kv_len``.  Cache-free: :func:`attention_core`, masked by ``causal``;
+    a cache's call is always causal.  MLA takes no ``kv_override``, as in
+    JAX.  ``verify``
     changes nothing: JAX's verify is the same L = k+1 call.  Returns (y,
     new_cache)."""
     m = cfg.mla
@@ -409,8 +425,9 @@ def mla_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     scale_fix = math.sqrt(q_full.shape[-1]) / math.sqrt(
         m.qk_nope_head_dim + m.qk_rope_head_dim)
     out_lat = attention_core(q_full * scale_fix, k_full,
-                             c_kv_all[:, :, None, :], q_offset=q_offset,
-                             kv_len=kv_len)                 # [B,L,H,r]
+                             c_kv_all[:, :, None, :],
+                             causal=causal or cache is not None,
+                             q_offset=q_offset, kv_len=kv_len)  # [B,L,H,r]
     out = torch.einsum("bthr,rhv->bthv", out_lat,
                        params["uv"]["w"].to(x.dtype))
     return dense(params["o"], out, n_in=2), new_cache

@@ -1,7 +1,8 @@
 """Seeded parameter init with the shapes and scales of
 :func:`repro.models.transformer.init_lm` (decoders with GQA or multi-head
 latent attention and dense or routed-expert feed-forward blocks, Mamba-2
-SSD blocks, and a shared attention block).
+SSD blocks, a shared attention block, and whisper's encoder and
+cross-attention).
 
 The tree has the JAX layout, unwrapped (see ``repro.models.param.unwrap``):
 layer-stacked ``segments`` whose leaves are ``[n_layers, ...]``, with a
@@ -12,7 +13,13 @@ unstacked DENSE ``shared_block`` that every occurrence applies (zamba2).
 An MLA model's ``attn`` holds ``init_mla``'s low-rank leaves, and a model
 with multi-token prediction (deepseek-v3) also the unstacked DENSE
 ``mtp_block`` and ``mtp_norm``, which serving never reads (they belong to
-the training loss).  Values
+the training loss).  An encoder-decoder (whisper) has LayerNorm leaves
+(``scale`` and ``bias``) for every norm, a ``norm_x`` and a ``cross``
+attention in each decoder layer, the stacked DENSE ``encoder`` (its
+attention at ``kv_heads = n_heads``), ``enc_norm`` and the ``cross_k`` /
+``cross_v`` projections that make the keys and values every cross layer
+reads (so each layer's own ``cross`` k and v are never read, as in
+JAX).  Values
 come from a ``torch.Generator`` seeded explicitly, so they differ from the
 JAX init's; parity tests feed both packages the JAX weights through
 :mod:`repro_torch.models.bridge` instead.
@@ -39,25 +46,29 @@ def _check_supported(cfg: ArchConfig) -> None:
     if (cfg.attn not in ((AttnKind.GQA, AttnKind.MLA) if attends
                          else (AttnKind.NONE,))
             or (cfg.attn is AttnKind.MLA) != (cfg.mla is not None)
-            or cfg.enc_dec or cfg.frontend.value != "none"
             or (BlockKind.MOE in kinds) != (cfg.moe is not None)
             or (BlockKind.SSM in kinds) != (cfg.ssm is not None)
             or (BlockKind.SHARED_ATTN in kinds) != bool(
                 cfg.shared_attn_every)):
         raise NotImplementedError(
             f"{cfg.name}: the port runs GQA and MLA decoders with dense "
-            "and MoE blocks, and Mamba-2 stacks with or without a shared "
-            "attention block, only so far")
+            "and MoE blocks (a stub vision prefix or, with GQA, a stub "
+            "audio encoder), and Mamba-2 stacks with or without a shared "
+            "attention block")
+    if cfg.enc_dec and cfg.attn is not AttnKind.GQA:
+        raise NotImplementedError(f"{cfg.name}: cross-attention is GQA's")
 
 
 def serves_in_float32(path: tuple[str, ...]) -> bool:
     """Leaves kept in float32 when the projections are stored in a lower
-    serving dtype: norm scales (the norms multiply in float32), the
-    embedding (rows are gathered, then cast), the router (JAX routes with
-    float32 logits from a float32 weight) and the untied read-out (JAX
-    reads out in float32 from a float32 weight) and an SSM block's
+    serving dtype: norm scales and a LayerNorm's ``bias`` (the norms
+    multiply and add in float32; a projection's bias is its ``b``, cast),
+    the embedding (rows are gathered, then cast), the router (JAX routes
+    with float32 logits from a float32 weight) and the untied read-out
+    (JAX reads out in float32 from a float32 weight) and an SSM block's
     ``a_log`` and ``dt_bias`` (JAX adds them to float32 ``dt``)."""
     return (path[-1] in ("scale", "a_log", "dt_bias")
+            or (path[-1] == "bias" and "norm" in path[-2])
             or path[:1] in (("embed",), ("lm_head",))
             or path[-2:] == ("router", "w"))
 
@@ -76,13 +87,19 @@ def _spec(cfg: ArchConfig) -> dict:
     def norm(lead, width):
         return {"scale": ("ones", lead + (width,))}
 
+    def model_norm(lead):                  # _init_norm: LayerNorm if enc-dec
+        out = norm(lead, d)
+        if cfg.enc_dec:
+            out["bias"] = ("zeros", lead + (d,))
+        return out
+
     def gated_mlp(lead, width, gated=True):
         out = {"wi": dense(lead, d, width), "wo": dense(lead, width, d)}
         if gated:
             out["wg"] = dense(lead, d, width)
         return out
 
-    def attention(lead):
+    def attention(lead, hkv=hkv):
         if cfg.attn is AttnKind.MLA:       # init_mla
             m = cfg.mla
             return {"dq": dense(lead, d, m.q_lora_rank),
@@ -119,11 +136,14 @@ def _spec(cfg: ArchConfig) -> dict:
                 "norm": norm(lead, d_inner),
                 "out": dense(lead, d_inner, d)}
 
-    def block(lead, kind):
+    def block(lead, kind, cross=False, hkv=hkv):
         if kind is BlockKind.SSM:
-            return {"norm": norm(lead, d), "ssm": ssm(lead)}
-        out = {"norm1": norm(lead, d), "attn": attention(lead),
-               "norm2": norm(lead, d)}
+            return {"norm": model_norm(lead), "ssm": ssm(lead)}
+        out = {"norm1": model_norm(lead), "attn": attention(lead, hkv),
+               "norm2": model_norm(lead)}
+        if cross:
+            out["norm_x"] = model_norm(lead)
+            out["cross"] = attention(lead)
         if kind is BlockKind.MOE:
             m = cfg.moe
             e, fe = m.n_experts, m.d_ff_expert
@@ -141,17 +161,23 @@ def _spec(cfg: ArchConfig) -> dict:
 
     spec: dict = {"embed": {"table": ("normal", (cfg.vocab, d), 0.02)}}
     spec["segments"] = [{} if seg.kind is BlockKind.SHARED_ATTN
-                        else block((seg.count,), seg.kind)
+                        else block((seg.count,), seg.kind, cfg.enc_dec)
                         for seg in cfg.resolved_segments()]
     if cfg.shared_attn_every:
         spec["shared_block"] = block((), BlockKind.DENSE)
-    spec["final_norm"] = norm((), d)
+    spec["final_norm"] = model_norm(())
     if not cfg.tied_embeddings:
         spec["lm_head"] = {"w": ("normal", (d, cfg.vocab),
                                  1 / math.sqrt(d))}
     if cfg.mtp:
         spec["mtp_block"] = block((), BlockKind.DENSE)
-        spec["mtp_norm"] = norm((), d)
+        spec["mtp_norm"] = model_norm(())
+    if cfg.enc_dec:          # JAX builds the encoder with kv_heads = n_heads
+        spec["encoder"] = block((cfg.n_encoder_layers,), BlockKind.DENSE,
+                                hkv=hq)
+        spec["enc_norm"] = model_norm(())
+        spec["cross_k"] = dense((), d, hkv, hd)
+        spec["cross_v"] = dense((), d, hkv, hd)
     return spec
 
 

@@ -1,7 +1,8 @@
 """Core layers of the dense GQA decoder, from :mod:`repro.models.layers`.
 
 Same conventions as the JAX module: parameters are plain dicts of tensors
-(``{"w": ..., "b": ...}``, ``{"scale": ...}``, ``{"table": ...}``) and the
+(``{"w": ..., "b": ...}``, ``{"scale": ...}``, LayerNorm's ``{"scale",
+"bias"}``, ``{"table": ...}``) and the
 functions are pure.  Norms and the tied read-out compute in float32 as the
 JAX versions do; projections run in the activation dtype.
 """
@@ -19,6 +20,18 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * params["scale"]).to(dtype)
+
+
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """JAX's LayerNorm: mean and (population) variance in float32, then
+    ``y * scale + bias`` from the float32 leaves, cast back."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(dtype)
 
 
 def dense(params: dict, x: torch.Tensor, n_in: int = 1) -> torch.Tensor:
@@ -78,6 +91,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: [..., L, H, D] (D even), positions: [..., L] (int)."""
     cos, sin = rope_tables(positions, x.shape[-1], theta)
     return rotate(x, cos, sin)
+
+
+def sinusoidal_positions(length: int, d: int,
+                         device: torch.device | None = None) -> torch.Tensor:
+    """[length, d] float32 table: sin at even columns and cos at odd ones
+    of ``pos * exp(-2i log(10000) / d)``, every step in float32 as in
+    JAX."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    rate = -torch.log(torch.tensor(10000.0, device=device)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=device) * rate)
+    pe = torch.zeros((length, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 def activation(name: str):

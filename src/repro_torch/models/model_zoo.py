@@ -52,7 +52,9 @@ class Model:
         logits position: prompts of mixed length share one padded prefill,
         and the padding keys are masked out (and later overwritten) by
         per-slot cache lengths during decode; an SSM segment's recurrence
-        stops at each row's ``last_pos + 1`` (:func:`_lengths`).  Returns
+        stops at each row's ``last_pos + 1`` (:func:`_lengths`).  The
+        batch may carry ``vision_embeds``, ``encoder_frames`` or
+        ``cross_kv`` (see :func:`~.transformer.forward`).  Returns
         (logits [B, 1, V] float32, caches)."""
         tokens = batch["tokens"]
         caches = init_caches(self.cfg, tokens.shape[0], max_len, dtype,
@@ -87,16 +89,22 @@ class Model:
                          self.cfg), caches
 
     def decode_step(self, params, tokens, caches, cache_len, *,
-                    dtype=torch.bfloat16, pages=None, kv_cap=None):
+                    dtype=torch.bfloat16, extra: dict | None = None,
+                    pages=None, kv_cap=None):
         """tokens [B, L] against the filled caches at per-slot depth
         ``cache_len``: dense stripes, or paged pools when ``pages`` carries
         the slots' page tables.  L = 1 for decode, L = k+1 for a
         speculative verify.  ``kv_cap`` (dense only) bounds the stripe rows
         a one-token call reads, as the JAX policy's ``kv_cap`` does.  A
         paged call at L > 1 is a verify: its attention goes through
-        ``paged_verify_attn``.  Returns (logits [B, L, V] float32,
+        ``paged_verify_attn``.  ``extra`` joins the batch, as in JAX:
+        an encoder-decoder's ``{"cross_kv": (k, v)}`` from
+        :func:`~.transformer.encode`.  Returns (logits [B, L, V] float32,
         caches)."""
-        hidden, caches = forward(params, {"tokens": tokens}, self.cfg,
+        batch = {"tokens": tokens}
+        if extra:
+            batch.update(extra)
+        hidden, caches = forward(params, batch, self.cfg,
                                  caches=caches, cache_len=cache_len,
                                  dtype=dtype, pages=pages, kv_cap=kv_cap,
                                  verify=pages is not None

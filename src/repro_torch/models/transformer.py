@@ -2,7 +2,11 @@
 blocks (attention and an MLP), MOE blocks (attention and the routed
 experts of :mod:`.moe`), with GQA or multi-head latent attention, SSM
 blocks (Mamba-2, :mod:`.ssm`) and SHARED_ATTN segments, where one DENSE
-``shared_block`` is applied at every occurrence (zamba2).
+``shared_block`` is applied at every occurrence (zamba2).  An
+encoder-decoder (whisper) normalises with LayerNorm and adds a
+cross-attention branch to each decoder layer over the keys and values of
+:func:`encode`; a vision model's stub patch embeddings replace the first
+positions of the embedded prompt (internvl2).
 
 Parameters keep the JAX layout: each segment's leaves are stacked over its
 layers (``[n_layers, ...]``), and the JAX ``lax.scan`` over a segment
@@ -37,7 +41,8 @@ from ..device import resolve_device
 from .attention import (KVCache, PagedKVCache, attention_apply,
                         dense_write_index, paged_write_index)
 from .init import ATTN_KINDS, _check_supported
-from .layers import dense, embed, mlp, rmsnorm, rope_tables, unembed
+from .layers import (dense, embed, layernorm, mlp, rmsnorm, rope_tables,
+                     sinusoidal_positions, unembed)
 from .moe import moe_apply
 from .ssm import init_cache as init_ssm_cache, ssm_apply
 
@@ -120,30 +125,48 @@ def cache_bytes(cfg: ArchConfig, dtype: torch.dtype) -> dict:
     return {"kv_token": kv, "ssm_slot": ssm}
 
 
+def _norm(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm in an encoder-decoder (every norm of it), RMSNorm in every
+    other model, as JAX's ``_norm``."""
+    if cfg.enc_dec:
+        return layernorm(params, x, cfg.norm_eps)
+    return rmsnorm(params, x, cfg.norm_eps)
+
+
 def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                 kind: BlockKind, *, rope,
                 cache: KVCache | PagedKVCache | dict | None = None,
                 write_index=None, kv_cap: int | None = None,
-                verify: bool = False, lengths=None, with_aux: bool = False):
+                verify: bool = False, lengths=None, with_aux: bool = False,
+                cross_kv=None, causal: bool = True):
     """Pre-norm attention block (GQA or MLA, by the config), then the MLP
     (DENSE) or the routed experts (MOE); or a pre-norm SSM block, whose
     ``cache`` is a layer's ``{"conv", "state"}`` and whose prefill ends
-    each row at ``lengths`` (see :func:`~.ssm.ssm_apply`).  Returns (y,
-    new_cache), and with ``with_aux`` (y, new_cache, aux): the MOE block's
-    load-balance term, 0 for the other kinds."""
+    each row at ``lengths`` (see :func:`~.ssm.ssm_apply`).  A decoder
+    layer of an encoder-decoder (one with ``cross`` leaves) attends over
+    ``cross_kv`` (the encoder's (k, v)) after its self-attention, when
+    given; ``causal`` masks a cache-free self-attention (off in the
+    encoder).  Returns (y, new_cache), and with ``with_aux`` (y,
+    new_cache, aux): the MOE block's load-balance term, 0 for the other
+    kinds."""
     aux = None
     if with_aux:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind is BlockKind.SSM:
-        h = ssm_apply(params["ssm"], rmsnorm(params["norm"], x, cfg.norm_eps),
+        h = ssm_apply(params["ssm"], _norm(cfg, params["norm"], x),
                       cfg, cache=cache, lengths=lengths)
         return (x + h, cache) + ((aux,) if with_aux else ())
     h, new_cache = attention_apply(
-        params["attn"], rmsnorm(params["norm1"], x, cfg.norm_eps), cfg,
+        params["attn"], _norm(cfg, params["norm1"], x), cfg,
         rope=rope, cache=cache, write_index=write_index, kv_cap=kv_cap,
-        verify=verify)
+        verify=verify, causal=causal)
     x = x + h
-    z = rmsnorm(params["norm2"], x, cfg.norm_eps)
+    if "cross" in params and cross_kv is not None:
+        h, _ = attention_apply(params["cross"],
+                               _norm(cfg, params["norm_x"], x), cfg,
+                               causal=False, kv_override=cross_kv)
+        x = x + h
+    z = _norm(cfg, params["norm2"], x)
     if kind is BlockKind.MOE and with_aux:
         h, aux = moe_apply(params["moe"], z, cfg, cfg.activation,
                            with_aux=True)
@@ -169,6 +192,32 @@ def _layer(stacked, i: int):
     return stacked[i]
 
 
+def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig, *,
+           remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whisper's encoder over stub frame embeddings ``frames`` [B, Te, D],
+    as JAX's ``encode``: the float32 sinusoid cast to the frames' dtype
+    and added, the stacked ``encoder`` blocks non-causal and rotated by
+    RoPE at positions ``arange(Te)`` (JAX's self-attention rotates
+    whenever it has no override), ``enc_norm``, then the ``cross_k`` and
+    ``cross_v`` projections.  Returns (k, v), each [B, Te, Hkv, D], the
+    ``cross_kv`` of every decoder layer.  ``remat`` runs each block under
+    ``torch.utils.checkpoint``, as :func:`forward` does its layers."""
+    te = frames.shape[1]
+    x = frames + sinusoidal_positions(te, cfg.d_model,
+                                      frames.device).to(frames.dtype)
+    rope = _rope(cfg, torch.arange(te, device=frames.device))
+    stacked = params["encoder"]
+    for i in range(cfg.n_encoder_layers):
+        args = (_layer(stacked, i), x, cfg, BlockKind.DENSE)
+        if remat:
+            x = checkpoint(block_apply, *args, rope=rope, causal=False,
+                           use_reentrant=False, preserve_rng_state=False)[0]
+        else:
+            x = block_apply(*args, rope=rope, causal=False)[0]
+    x = _norm(cfg, params["enc_norm"], x)
+    return dense(params["cross_k"], x), dense(params["cross_v"], x)
+
+
 def forward(params: dict, batch: dict, cfg: ArchConfig, *,
             caches: list | None = None, cache_len=None,
             dtype: torch.dtype = torch.bfloat16,
@@ -179,7 +228,14 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     caches, aux): the MOE blocks' load-balance terms summed over the
     layers (float32, 0 without MOE blocks), as JAX's forward returns.
 
-    ``batch["tokens"]``: [B, L] int.  With ``caches``, row b's L tokens sit
+    ``batch["tokens"]``: [B, L] int.  A vision model's
+    ``batch["vision_embeds"]`` [B, Tv, D] replaces the first Tv embedded
+    tokens (a prompt shorter than Tv leaves Tv positions, as JAX's concat
+    does).  An encoder-decoder's decoder layers attend over
+    ``batch["cross_kv"]`` ((k, v) from :func:`encode`), or over the
+    encoding of ``batch["encoder_frames"]`` [B, Te, D], computed once a
+    call; with neither they skip cross-attention, as JAX's do.  With
+    ``caches``, row b's L tokens sit
     at absolute positions ``cache_len[b] + t``: positions drive RoPE and the
     causal mask, K/V land past the resident prefix, and attention reads the
     prefix.  The caches are updated in place and returned.
@@ -214,6 +270,13 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
         raise ValueError("paged caches need per-slot cache_len [B]")
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, dtype)
+    if cfg.frontend.value == "vision" and "vision_embeds" in batch:
+        ve = batch["vision_embeds"].to(dtype)
+        x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+    cross_kv = batch.get("cross_kv")
+    if cfg.enc_dec and cross_kv is None and "encoder_frames" in batch:
+        cross_kv = encode(params, batch["encoder_frames"].to(dtype), cfg,
+                          remat=remat and caches is None)
     length = x.shape[1]
     steps = torch.arange(length, device=x.device)
     if per_slot:
@@ -258,7 +321,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
                      else _layer(stacked, i))
             kw = dict(rope=rope, cache=cache, write_index=index,
                       kv_cap=kv_cap, verify=verify, lengths=lengths,
-                      with_aux=with_aux)
+                      with_aux=with_aux, cross_kv=cross_kv)
             if remat:
                 # nothing in a layer draws random numbers: no RNG to keep
                 out = checkpoint(block_apply, layer, x, cfg, kind, **kw,
@@ -269,7 +332,7 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
             x = out[0]
             if with_aux:
                 aux = aux + out[2]
-    hidden = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    hidden = _norm(cfg, params["final_norm"], x)
     return (hidden, caches, aux) if with_aux else (hidden, caches)
 
 
@@ -327,7 +390,10 @@ def lm_loss(params: dict, batch: dict, cfg: ArchConfig, *,
     position masked), plus deepseek's multi-token-prediction term (the
     ``mtp_block`` on the final-normed hidden, then ``mtp_norm``, 0.3 of the
     cross-entropy against the tokens shifted by two) and 0.01 of the MoE
-    load-balance term, as JAX's ``lm_loss``.  A float32 scalar."""
+    load-balance term, as JAX's ``lm_loss``.  ``batch`` goes to
+    :func:`forward` as it is, so the vision prefix's positions take
+    next-token targets too, and the encoder's frames are encoded there.
+    A float32 scalar."""
     tokens = batch["tokens"]
     hidden, _, aux = forward(params, batch, cfg, dtype=dtype, remat=remat,
                              with_aux=True)
@@ -339,7 +405,7 @@ def lm_loss(params: dict, batch: dict, cfg: ArchConfig, *,
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         h2, _ = block_apply(params["mtp_block"], hidden, cfg,
                             BlockKind.DENSE, rope=_rope(cfg, positions))
-        h2 = rmsnorm(params["mtp_norm"], h2, cfg.norm_eps)
+        h2 = _norm(cfg, params["mtp_norm"], h2)
         mask2 = mask.clone()
         mask2[:, -2] = False
         loss = loss + 0.3 * chunked_xent(

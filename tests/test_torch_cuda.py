@@ -14,7 +14,8 @@ mamba2-370m and zamba2-1.2b) served graphed against eager and the CPU
 plain path, with a short prompt's stream independent of the join's
 padding; training: the grouped GEMM's backward against autograd through
 its plain version, the MoE model's expert gradients and a train step
-against the CPU; the paged kernels at
+against the CPU; reduced whisper-tiny's prefill with stub frames and its
+decode with the encoder's ``cross_kv`` against the CPU; the paged kernels at
 every launch knob the autotuner sweeps (decode: every split count and
 rows a CTA; prefill and verify: every rows a CTA), and serving with the
 attention routed plain against the kernels.  Every test here is
@@ -70,7 +71,8 @@ GEOMETRIES = [(4, 1, 16, 8),       # reduced qwen2-0.5b
               (24, 2, 128, 16),    # full-width starcoder2-3b (G = 12)
               (48, 8, 128, 16),    # full-width nemotron-4-15b (G = 6)
               (32, 32, 128, 16),   # full-width codeqwen1.5-7b (MHA)
-              (32, 32, 64, 16)]    # zamba2-1.2b's shared block (MHA)
+              (32, 32, 64, 16),    # zamba2-1.2b's shared block (MHA)
+              (6, 6, 64, 16)]      # full-width whisper-tiny (MHA)
 
 
 @pytest.fixture(autouse=True)
@@ -113,7 +115,8 @@ DECODE_GEOMETRIES = [(4, 1, 16, 8),       # reduced qwen2-0.5b (G 4)
                      (24, 2, 128, 16),    # full-width starcoder2-3b (G 12)
                      (48, 8, 128, 16),    # full-width nemotron-4-15b (G 6)
                      (32, 32, 128, 16),   # full-width codeqwen1.5-7b (G 1)
-                     (32, 32, 64, 16)]    # zamba2-1.2b's shared block
+                     (32, 32, 64, 16),    # zamba2-1.2b's shared block
+                     (6, 6, 64, 16)]      # full-width whisper-tiny (G 1)
 DECODE_BOUND = 384                        # keys a table row or cap spans
 
 
@@ -1806,3 +1809,59 @@ def test_train_step_on_the_card_matches_the_cpu():
     for key in ("loss", "grad_norm", "lr"):
         np.testing.assert_allclose(float(got[key]), float(want[key]),
                                    rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder: whisper's prefill and decode with cross_kv
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_whisper_with_frames_on_the_card_matches_the_cpu(paged):
+    """Reduced whisper-tiny in float32: a ragged prefill with stub frames
+    (encoded in the call), then 3 one-token steps with the encoder's
+    ``cross_kv`` as ``extra``, the CPU's greedy tokens fed to both: the
+    card's logits (the attention kernels, counted) within 1e-4 of the
+    CPU's plain path."""
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.models.transformer import encode
+    cfg = get_config("whisper-tiny").reduced()
+    model = Model(cfg)
+    params = init_params(cfg, 1, device="cuda")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(3, 14)))
+    lens = torch.tensor([14, 9, 12])
+    frames = torch.from_numpy(rng.standard_normal(
+        (3, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    runs = {}
+    for dev, p in (("cpu", _to_cpu(params)), ("cuda", params)):
+        batch = {"tokens": toks.to(dev), "encoder_frames": frames.to(dev)}
+        extra = {"cross_kv": encode(p, batch["encoder_frames"], cfg)}
+        kw = {}
+        if paged:
+            kw["pages"] = torch.arange(12, dtype=torch.int32,
+                                       device=dev).reshape(3, 4)
+            caches = model.init_paged_caches(3, 12, 8, torch.float32,
+                                             device=dev)
+            logits, caches = model.prefill_paged(
+                p, batch, caches, kw["pages"], dtype=torch.float32,
+                last_pos=(lens - 1).to(dev))
+        else:
+            logits, caches = model.prefill(p, batch, 32, dtype=torch.float32,
+                                           last_pos=(lens - 1).to(dev))
+        dattn.reset_launch_counts()
+        kernel.reset_launch_counts()
+        out, depth = [logits.cpu()], lens.to(torch.int32).to(dev)
+        for i in range(3):
+            tok = (runs["cpu"][i] if dev == "cuda" else out[-1]
+                   )[:, -1].argmax(-1)[:, None].to(dev)
+            logits, caches = model.decode_step(
+                p, tok, caches, depth, dtype=torch.float32, extra=extra,
+                **kw)
+            out.append(logits.cpu())
+            depth = depth + 1
+        runs[dev] = out
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    name = "paged_decode" if paged else "decode_attn"
+    counts = {**dattn.launch_counts, **kernel.launch_counts}
+    assert counts[name] == cfg.n_layers * 3

@@ -12,6 +12,8 @@ live rows of the stripes agree to 1e-5 after each call.
 The JAX side runs as its serving tests run it on the CPU: XLA attention
 (through the page table for paged caches), and for one dense decode step
 the Pallas decode kernel in interpret mode."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from repro.kernels.decode_attn import decode_attn_policy
 from repro.models.model_zoo import Model as JaxModel
 from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro.serve.engine import make_join as jax_make_join
+from repro_torch import tree
 from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.models import attention
 from repro_torch.models.bridge import params_from_numpy
@@ -280,6 +283,30 @@ def test_cast_for_serving_keeps_float32_where_jax_computes_in_float32():
     assert seg["attn"]["q"]["w"].dtype == torch.bfloat16
     assert seg["attn"]["q"]["b"].dtype == torch.bfloat16
     assert seg["mlp"]["wo"]["w"].dtype == torch.bfloat16
+
+
+def test_cast_for_serving_keeps_layernorm_biases_float32():
+    """Every norm of an encoder-decoder is a LayerNorm whose bias JAX adds
+    in float32 from a float32 leaf: scales and biases stay float32 in the
+    decoder, the cross branch's norm, the encoder and the final norms;
+    a projection's bias ``b`` is cast."""
+    cfg = dataclasses.replace(get_config("whisper-tiny").reduced(),
+                              qkv_bias=True)
+    p = cast_for_serving(init_params(cfg, 0, device="cpu"), torch.bfloat16)
+    norms = [(path, leaf) for path, leaf in tree.paths(p)
+             if path.rsplit("/", 1)[-1] in ("scale", "bias")]
+    assert {path for path, _ in norms} >= {
+        "final_norm/bias", "enc_norm/bias", "segments/0/norm_x/bias",
+        "segments/0/norm1/bias", "encoder/norm2/bias"}
+    assert all(leaf.dtype == torch.float32 for _, leaf in norms)
+    for seg in (p["segments"][0], p["encoder"]):
+        assert seg["attn"]["q"]["b"].dtype == torch.bfloat16
+        assert seg["mlp"]["wi"]["w"].dtype == torch.bfloat16
+    assert p["segments"][0]["cross"]["k"]["b"].dtype == torch.bfloat16
+    assert p["cross_k"]["w"].dtype == torch.bfloat16
+    built = init_params(cfg, 0, device="cpu", dtype=torch.bfloat16)
+    for (path, a), (_, b) in zip(tree.paths(built), tree.paths(p)):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
 
 
 def test_entry_points_default_to_cuda():
