@@ -258,7 +258,22 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    whisper-tiny at full width trained 4 steps (batch 8 x L 448, text
    only, as JAX's ``launch/train.py``): finite losses, the leaves no
    text-only call reads (the per-layer cross k and v among them) with
-   zero gradients, moved by weight decay only.
+   zero gradients, moved by weight decay only;
+14. ``[pim]``: (a) the paper's model through
+   ``repro_torch.launch.figures.run`` in full (Figures 6, 8, 9 and 10,
+   the headline, the limit studies; host arithmetic), the headline
+   averages finite; then, counts set to 0, (b) ``launch.quickstart`` on
+   the card: the masked skinny GEMM, the volume term and dense decode
+   attention at the JAX example's float32 shapes, each against its plain
+   version (float32 summation bounds, 1e-4); (c)
+   ``launch.figures.kernel_bench`` on the card: ``block_occupancy`` of
+   the random and clustered B equal to numpy's, the masked products at
+   ``Problem()``'s M within the float32 bound of the float64 oracle, and
+   ``group_gemm`` at deepseek-v3's full expert width (E 256, D 7168, F
+   2048, bf16) for T 128 and 4,096, its tiles counted on the card equal
+   to ``kernel.tile_counts``; launches exact; (d) printed, not gated:
+   the paper's GPU model at the card's HBM rate beside the card's time
+   for the same ``Problem`` (vector-sum, volume, flux, ss-gemm N 2-16).
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*`` and the
@@ -280,7 +295,7 @@ as ``bf16_*``, the grouped GEMM's row the join's as ``prefill_*`` and
 ``ds_down_*`` and the deepseek cut's launches as ``deepseek_launches``,
 the backward's as ``bwd_*``, ``bwd_down_*`` and ``ds_bwd_*``, the
 ``[train]`` phase's qwen step as ``train_*`` and its moonshot launches as
-``train_launches``,
+``train_launches``, the ``[pim]`` phase's launches as ``pim_launches``,
 the ss-gemm rows N 16's as ``n16_*``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -1591,7 +1606,7 @@ def primitive_timings(torch) -> dict:
                 (print if main else extra.append)(line)
     for line in extra:
         print(line)
-    ssgemm_route_timings(torch, a, bk)
+    out["ssgemm_masked_by_n"] = ssgemm_route_timings(torch, a, bk)
 
     g = {x.name: x for x in graphs.paper_inputs(SEED)}["powerlaw-1M-10M"]
     src, dst = g.edges(g.n_edges, SEED)
@@ -1627,15 +1642,16 @@ def primitive_timings(torch) -> dict:
     return out
 
 
-def ssgemm_route_timings(torch, a, bk: int) -> None:
+def ssgemm_route_timings(torch, a, bk: int) -> dict[int, float]:
     """The masked walk on both routes at Problem() (bf16 A, make_skinny B)
     for N 2-16: the tensor-core walk, which ``route`` picks there, and the
     CUDA-core walk called through its own binding entry; then the float32
-    route at N 16 beside float32 ``torch.matmul``.  Printed only."""
+    route at N 16 beside float32 ``torch.matmul``.  Printed, and the
+    tensor-core walk's ms returned by N (the ``[pim]`` phase reads them)."""
     from repro_torch.core.primitives import ss_gemm
     from repro_torch.kernels import ss_gemm as sg
     ext = sg.kernel.load_extension()
-    parts = []
+    parts, by_n = [], {}
     for n in (2, 4, 8, 16):
         b = torch.from_numpy(ss_gemm.make_skinny(ss_gemm.Problem(n=n),
                                                  SEED)).cuda().bfloat16()
@@ -1648,6 +1664,7 @@ def ssgemm_route_timings(torch, a, bk: int) -> None:
         cc = time_ms(lambda i: ext.ssgemm_masked(a, b, mask, bk, out),
                      50)
         lib = time_ms(lambda i: torch.matmul(a, b), 50)
+        by_n[n] = tc
         parts.append(f"N {n}: tensor-core {tc:.4f}, CUDA-core {cc:.4f}, "
                      f"torch.matmul {lib:.4f}")
     print("[timing] ssgemm_masked routes, M=16384 K=4096 bf16 make_skinny "
@@ -1664,6 +1681,7 @@ def ssgemm_route_timings(torch, a, bk: int) -> None:
           f"K=4096 N=16 make_skinny: kernel_ms {f32:.4f}, torch.matmul "
           f"(float32, TF32 off) {lib:.4f}, bound_ms {t_bound:.4f} ({by})")
     del a32, b32
+    return by_n
 
 
 # ---------------------------------------------------------------------------
@@ -1992,12 +2010,13 @@ def lines_agree(got: list[str], want: list[str]) -> bool:
     return True
 
 
-def wave_path(torch) -> dict:
+def wave_path(torch) -> tuple[dict, float]:
     """Phase 7: the wave demo through ``wave_demo.run`` at the demo's size
     (card against the CPU's plain path) and at ``Problem()`` (one step
     against float64, then 5 timed steps), then flux1d and vector-sum
     through their public ops at the paper's sizes.  Returns this phase's
-    launches."""
+    launches and the median ms of a step's plain flux and update at
+    ``Problem()``."""
     from repro_torch.core.primitives import vector_sum as vs_core
     from repro_torch.core.primitives import wavesim
     from repro_torch.kernels import vector_sum as vs
@@ -2052,6 +2071,7 @@ def wave_path(torch) -> dict:
           and bool(torch.isfinite(u).all()),
           "wave Problem(): u not finite or of the wrong shape")
     step_ms, vol_ms = res["step_ms"], res["volume_ms"]
+    flux_ms = statistics.median(step_ms) - statistics.median(vol_ms)
     print(f"[wave] Problem() {grid} x {fields} fields ({u.numel()} values, "
           f"{u.numel() * 4 / 1e6:.1f} MB), {steps} steps, float32: "
           f"ms/step {statistics.median(step_ms):.4f} median, "
@@ -2059,7 +2079,7 @@ def wave_path(torch) -> dict:
           f"{', '.join(f'{t:.3f}' for t in step_ms)}); volume kernel "
           f"{statistics.median(vol_ms):.4f} ms median, "
           f"{sum(vol_ms) / sum(step_ms):.1%} of the step; flux and update "
-          f"{statistics.median(step_ms) - statistics.median(vol_ms):.4f} ms")
+          f"{flux_ms:.4f} ms")
     del u, res
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -2085,7 +2105,7 @@ def wave_path(torch) -> dict:
           "wave: volume launches != one per step of the three runs")
     check(counts["flux1d"] == 1 and counts["vector_sum"] == 1,
           "wave: flux1d or vector_sum launches != one op call each")
-    return counts
+    return counts, flux_ms
 
 
 # ---------------------------------------------------------------------------
@@ -4562,6 +4582,152 @@ def encdec_phase(torch) -> tuple[dict, dict, dict]:
     return worst, timings, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14, [pim]
+# ---------------------------------------------------------------------------
+
+# what (b) quickstart and (c) kernel_bench launch: one masked product,
+# volume and decode call, then a masked product per B and a grouped GEMM
+# per T
+PIM_LAUNCHES = {"ssgemm_masked": 3, "wavesim_volume": 1, "decode_attn": 1,
+                "group_gemm": 2}
+
+
+def pim_model_vs_card(torch, timings: dict, flux_ms: float) -> None:
+    """(d) The paper's GPU model at the card's HBM rate (90% of 3.35 TB/s)
+    beside the card's time for the same ``Problem``, from the earlier
+    phases' timings: vector-sum (64 Mi float16, device-only graph ms),
+    the volume term (``Problem()``, bfloat16 device-only graph ms), the
+    flux (``Problem()``, the wave step's plain flux and update in float32)
+    and ss-gemm (``Problem()`` N 2-16, bfloat16 ``make_skinny`` B, the
+    tensor-core walk's ms).  Printed, not gated."""
+    import dataclasses
+    from repro_torch.core.hwspec import DEFAULT_GPU, DEFAULT_HOPPER
+    from repro_torch.core.primitives import ss_gemm, vector_sum, wavesim
+    gpu = dataclasses.replace(DEFAULT_GPU,
+                              peak_hbm_gbps=DEFAULT_HOPPER.hbm_gbps)
+    vp, wp = vector_sum.Problem(n=64 << 20), wavesim.Problem()
+    rows = [("vector-sum 64 Mi fp16", 3 * vp.bytes_per_array,
+             vector_sum.gpu_time_ns(vp, gpu),
+             timings["vector_sum"]["graph_ms"], "vector_sum float16, device"),
+            ("wavesim-volume Problem()", wp.volume_bytes,
+             wavesim.gpu_time_volume_ns(wp, gpu),
+             timings["wavesim_volume"]["bf16_graph_ms"],
+             "volume bfloat16, device"),
+            ("wavesim-flux Problem()", wp.flux_bytes,
+             wavesim.gpu_time_flux_ns(wp, gpu), flux_ms,
+             "plain flux + update float32, events")]
+    for n in (2, 4, 8, 16):
+        sp = ss_gemm.Problem(n=n)
+        row_zero = ss_gemm.measured_sparsity(ss_gemm.make_skinny(sp, SEED))[1]
+        model_ns = ss_gemm.gpu_time_ns(sp, gpu, row_zero)
+        rows.append((f"ss-gemm Problem() N {n}", model_ns * gpu.effective_gbps,
+                     model_ns, timings["ssgemm_masked_by_n"][n],
+                     "ssgemm_masked bfloat16, events"))
+    for name, nbytes, model_ns, card_ms, how in rows:
+        print(f"[pim] (d) {name}: {nbytes:.0f} B, model {model_ns / 1e6:.4f} "
+              f"ms at 90% of {gpu.peak_hbm_gbps:.0f} GB/s, card {card_ms:.4f} "
+              f"ms ({how}), card / model {card_ms / (model_ns / 1e6):.3f}; "
+              f"{SMI}")
+
+
+def pim_phase(torch, timings: dict, flux_ms: float) -> dict:
+    """Phase 14, ``[pim]``: (a) ``launch.figures.run`` in full (the
+    paper's model, host arithmetic) with the headline averages finite;
+    then, with the launch counts set to 0, (b) ``launch.quickstart`` on
+    the card, its three kernels against their plain versions, and (c)
+    ``launch.figures.kernel_bench`` on the card: ``block_occupancy`` equal
+    to numpy's count, the masked products within the float32 bound of the
+    float64 oracle, and the grouped GEMM's tiles counted on the card equal
+    to ``tile_counts`` at T 128 and 4,096 (full deepseek-v3 expert width);
+    the counts read right after must be :data:`PIM_LAUNCHES`.  (d) the
+    model beside the card (:func:`pim_model_vs_card`).  Returns the
+    launches of (b) and (c)."""
+    import numpy as np
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import moe_group_gemm as mg
+    from repro_torch.kernels import ss_gemm as sg
+    from repro_torch.kernels import wavesim_volume as wv
+    from repro_torch.launch import quickstart
+    from repro_torch.launch.figures import kernel_bench
+    from repro_torch.launch.figures import run as figures_run
+    t0 = time.perf_counter()
+    figs = figures_run.run()
+    avg = figs["headline"]
+    check(len(figs) == len(figures_run.TABLES)
+          and all(math.isfinite(v) for v in avg.values()),
+          "[pim] (a) a table is missing or a headline average not finite")
+    print(f"[pim] (a) launch.figures.run, every table, in "
+          f"{time.perf_counter() - t0:.1f}s: headline avg_baseline "
+          f"{avg['avg_baseline']!r}, avg_optimized {avg['avg_optimized']!r} "
+          f"(the paper's model, host arithmetic)")
+
+    mods = (sg, wv, da, mg)
+    for mod in mods:
+        mod.reset_launch_counts()
+    t1 = time.perf_counter()
+    qs = quickstart.run("cuda")
+    kb = kernel_bench.run("cuda")
+    torch.cuda.synchronize()
+    counts = {k: v for mod in mods for k, v in mod.launch_counts.items()
+              if k in PIM_LAUNCHES}
+    t_run = time.perf_counter() - t1
+
+    a, b = qs["ss-gemm"]["inputs"]
+    a64, b64 = a.double(), b.double()
+    ok, err, ratio = summed_within(qs["ss-gemm"]["out"], a64 @ b64,
+                                   a64.abs() @ b64.abs(), a.shape[1])
+    check(ok, f"[pim] (b) quickstart ss-gemm outside the float32 bound "
+          f"(err {err:.3e}, {ratio:.2f} of it)")
+    (u,) = qs["wavesim-volume"]["inputs"]
+    w64 = wv.fused_operator(1.0, torch.float32).double()
+    vok, verr, vratio = volume_within(
+        torch, qs["wavesim-volume"]["out"].reshape(-1, 27),
+        u.reshape(-1, 27).double(), w64)
+    check(vok, f"[pim] (b) quickstart volume outside the float32 bound "
+          f"(err {verr:.3e}, {vratio:.2f} of it)")
+    derr = qs["decode-attn"]["max_abs_err"]
+    check(derr <= TOL["float32"], f"[pim] (b) quickstart decode_attn "
+          f"differs from its plain version by {derr:.3e}")
+    print(f"[pim] (b) quickstart on the card, float32 at the JAX example's "
+          f"shapes: ss-gemm {err:.3e} ({ratio:.3f} of the float32 bound), "
+          f"volume {verr:.3e} ({vratio:.3f} of its bound), decode_attn "
+          f"{derr:.3e} (limit {TOL['float32']:.0e}) vs the plain versions")
+
+    parts = []
+    for kind, r in kb["ss_gemm"].items():
+        b_np = r["b"].float().cpu().numpy()
+        live = (b_np != 0).reshape(-1, kernel_bench.BK, b_np.shape[1]).any(
+            axis=(1, 2)).astype(np.int32)
+        check(np.array_equal(r["occupancy"], live),
+              f"[pim] (c) block_occupancy on the card != numpy's ({kind})")
+        a64, b64 = r["a"].double(), r["b"].double()
+        ok, err, ratio = summed_within(r["out"], a64 @ b64,
+                                       a64.abs() @ b64.abs(), kernel_bench.K)
+        check(ok, f"[pim] (c) ssgemm_masked ({kind}) outside the float32 "
+              f"bound of the float64 oracle (err {err:.3e})")
+        parts.append(f"{kind} B {int(live.sum())}/{live.size} blocks live "
+                     f"(= numpy), masked {err:.3e} ({ratio:.3f} of the bound)")
+    for tokens, r in kb["moe"].items():
+        check(r["kernel_tiles"] == r["tile_counts"],
+              f"[pim] (c) group_gemm tiles at T {tokens}: card "
+              f"{r['kernel_tiles']}, tile_counts {r['tile_counts']}")
+        total, skipped = r["kernel_tiles"]
+        parts.append(f"group_gemm T {tokens} (C {r['cap']}): "
+                     f"{total - skipped}/{total} tiles run (= tile_counts; "
+                     f"JAX's bc-128 count {r['jax_live']}/{r['jax_tiles']})")
+    print("[pim] (c) kernel_bench on the card: " + "; ".join(parts))
+    check(counts == PIM_LAUNCHES, f"[pim] launches {counts}, expected "
+          f"{PIM_LAUNCHES}")
+    print(f"[pim] (b) + (c) took {t_run:.1f}s; launches {counts}")
+    del qs, kb
+    gc.collect()
+    torch.cuda.empty_cache()
+    pim_model_vs_card(torch, timings, flux_ms)
+    print(f"[pim] phase took {time.perf_counter() - t0:.1f}s")
+    return counts
+
+
 def _cast(torch, tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(torch, v, dtype) for k, v in tree.items()}
@@ -4691,7 +4857,8 @@ def main() -> int:
     agreement(torch)
     counts.update(primitives_ss_gemm(torch))
     counts.update(primitives_push(torch))
-    counts.update(wave_path(torch))
+    wave_counts, flux_ms = wave_path(torch)
+    counts.update(wave_counts)
     moe_agreement(torch)
     counts["group_gemm"] = moe_serve(torch)["group_gemm"]
     families = families_serve(torch)
@@ -4722,6 +4889,9 @@ def main() -> int:
             "graph_ms", "library_graph_ms", "host_us", "splits", "bytes")
             if k in row})
         timings[name]["w64_max_abs_err"] = enc_worst[name]
+    # phase 14, [pim]: the paper's model and its drivers, quickstart's and
+    # kernel_bench's kernels on the card, the model beside the card
+    pim_counts = pim_phase(torch, timings, flux_ms)
 
     sources = {"paged_decode": ("src/repro_torch/kernels/paged_attn/csrc/"
                                 "paged_decode.cu",
@@ -4802,6 +4972,9 @@ def main() -> int:
             rows[-1]["encdec_launches"] = encdec_counts[name]
         if name == "group_gemm":
             rows[-1]["deepseek_launches"] = families["deepseek_group_gemm"]
+        # the [pim] phase's: quickstart and kernel_bench
+        if name in pim_counts:
+            rows[-1]["pim_launches"] = pim_counts[name]
         if name == "group_gemm":     # the join's calls take the wgmma file
             rows[-1]["prefill_source"] = ("src/repro_torch/kernels/"
                                           "moe_group_gemm/csrc/"
@@ -4827,6 +5000,8 @@ def main() -> int:
               f"{name}: not launched on the [encdec] phase's path")
         check(rows[-1].get("train_launches", 1) > 0,
               f"{name}: not launched on the [train] phase's path")
+        check(rows[-1].get("pim_launches", 1) > 0,
+              f"{name}: not launched on the [pim] phase's path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

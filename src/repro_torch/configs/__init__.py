@@ -15,7 +15,8 @@ from __future__ import annotations
 from . import (codeqwen1_5_7b, deepseek_v3_671b, internvl2_26b,
                mamba2_370m, moonshot_v1_16b_a3b, nemotron_4_15b, qwen2_0_5b,
                starcoder2_3b, whisper_tiny, zamba2_1_2b)
-from .base import ArchConfig, AttnKind, BlockKind, Segment  # noqa: F401
+from .base import (ArchConfig, AttnKind, BlockKind, Segment,  # noqa: F401
+                   SHAPES, ShapeConfig, shapes_for)
 
 REGISTRY: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG for m in (

@@ -1,15 +1,17 @@
-"""Architecture configuration schema: the port's copy of
-:mod:`repro.configs.base` (its dry-run shape cells are not ported).
+"""Architecture + shape configuration schema: the port's copy of
+:mod:`repro.configs.base`.
 
 One ``ArchConfig`` per assigned architecture (exact public-literature
 numbers live in the per-arch files).  ``reduced()`` produces the same
 family at smoke-test scale (tiny widths/depths, same structural features)
-for the per-arch CPU tests.
+for the per-arch CPU tests.  The shape cells (``SHAPES``, ``shapes_for``)
+are what the offload planner (:mod:`repro_torch.core.planner`) reads.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Sequence
 
 
 class AttnKind(enum.Enum):
@@ -140,3 +142,28 @@ class ArchConfig:
             n_encoder_layers=min(2, self.n_encoder_layers),
             encoder_seq=16 if self.enc_dec else self.encoder_seq,
             vision_tokens=8 if self.vision_tokens else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shapes_for(arch: ArchConfig) -> Sequence[ShapeConfig]:
+    """The assignment's shape set for an arch (long_500k only for
+    sub-quadratic families; all archs here have decoders)."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch.sub_quadratic:
+        names.append("long_500k")
+    return [SHAPES[n] for n in names]

@@ -7,9 +7,10 @@ Two families of constants live here:
    amenability test (:mod:`.amenability`) reads them.
 
 2. ``HopperSpec`` — the card the port runs on, an NVIDIA H100 SXM, in
-   place of the JAX module's ``TpuSpec``: what the paged-attention
+   place of the JAX module's TPU constants: what the paged-attention
    autotuner (:mod:`repro_torch.kernels.paged_attn.autotune`) checks a
-   launch against and scores it with.
+   launch against and scores it with, and whose ridge the offload
+   planner (:mod:`.planner`) derates by.
 
 All times are nanoseconds, all bandwidths are bytes/ns (== GB/s), all sizes
 bytes, matching Table 2 of the paper.
@@ -142,6 +143,12 @@ class HopperSpec:
         tflops = {"bfloat16": self.peak_bf16_tflops,
                   "float32": self.peak_fp32_tflops}[dtype_name]
         return tflops * 1e3
+
+    @property
+    def ridge_op_byte(self) -> float:
+        """Arithmetic intensity at the bf16 compute/memory ridge point,
+        FLOP per HBM byte (about 295.2)."""
+        return self.peak_flops_per_ns("bfloat16") / self.hbm_gbps
 
     @classmethod
     def for_device(cls, device) -> "HopperSpec":

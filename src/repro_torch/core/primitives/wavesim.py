@@ -7,17 +7,41 @@ fields.  ``volume`` applies the per-element reference derivative
 operators; ``flux`` exchanges face values with the 6 neighbours and
 applies an upwind penalty.  The op that runs the volume term on the card
 is :func:`repro_torch.kernels.wavesim_volume.volume`; this module holds
-the problem sizes and the plain versions of both terms and of the step.
+the problem sizes, the plain versions of both terms and of the step, and
+the paper's model of both terms.
 
-The PIM-model half of the JAX module (``profile_*``, ``gpu_time_*``,
-``pim_stream_*``, ``pim_time_*``, ``placement``, ``speedup_*``) needs the
-timing simulator of ``repro.core`` and is not ported yet.
+PIM model
+---------
+Command streams follow the §4.2.3 orchestration: elements distributed
+lane-and-bank parallel (aligned data parallelism over the regular grid),
+reference-operator entries broadcast as immediates, pim-registers staging
+rows.  Schedules are register-pressure-shaped (§4.2.3 "considerable care is
+necessary to effectively utilize available registers"):
+
+* *volume* visits 3 rows per chunk (field row in, operator-mix row,
+  rhs row out) with a compute-rich middle phase;
+* *flux* visits 6 rows per chunk (own faces, three neighbor-face rows,
+  normals/penalty row, flux output row) with few commands per visit —
+  which is why its activation overhead is ~2x volume's and why
+  architecture-aware activation only pays off once registers grow
+  (paper Fig. 8).
+
+Face interactions that cross banks (GridPlacement.cross_bank_frac) cannot
+execute in PIM (§3.2) and are charged to the GPU serially.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from .. import gpu_model
+from ..amenability import Interaction, PrimitiveProfile
+from ..commands import Node
+from ..hwspec import GpuSpec, PimSpec
+from ..optimizations import Phase, chunk_cols, schedule
+from ..placement import GridPlacement, grid_placement
+from ..timing import TimingStats, simulate
 
 ELEM_BYTES = 2
 NODES_1D = 3                      # p = 2
@@ -118,3 +142,138 @@ def step(u_grid: torch.Tensor, dt: float = 1e-3, c: float = 1.0,
     rhs_v = volume(u_flat, c).reshape(shape)
     rhs_f = flux(u_grid, alpha)
     return u_grid + dt * (rhs_v + rhs_f)
+
+
+# ------------------------- amenability ------------------------------------
+
+def profile_volume(problem: Problem) -> PrimitiveProfile:
+    # op count follows the hand-scheduled PIM stream (useful MACs per byte
+    # staged), landing in the paper's stated 0.43-1.72 op/byte range —
+    # DGM implementations fold operator symmetries, so the naive
+    # 3 x 27 x 27 contraction overcounts.
+    ops = problem.volume_bytes * 1.1
+    return PrimitiveProfile(
+        name="wavesim-volume", ops=float(ops),
+        mem_bytes=float(problem.volume_bytes), onchip_bytes=1.0,
+        interaction=Interaction.LOCALIZED, alignable=True,
+        notes="regular grid; operators broadcast as immediates",
+    )
+
+
+def profile_flux(problem: Problem) -> PrimitiveProfile:
+    ops = problem.flux_bytes * 0.5   # jump+penalty per face word (see above)
+    return PrimitiveProfile(
+        name="wavesim-flux", ops=float(ops),
+        mem_bytes=float(problem.flux_bytes), onchip_bytes=1.0,
+        interaction=Interaction.LOCALIZED, alignable=True,
+        input_dependent_locality=False,
+        notes="neighbor faces need same-bank placement; residual cross-bank "
+              "faces stay on the GPU",
+    )
+
+
+# ------------------------- GPU baseline -----------------------------------
+
+def gpu_time_volume_ns(problem: Problem, gpu: GpuSpec) -> float:
+    return gpu_model.time_ns(problem.volume_bytes, gpu)
+
+
+def gpu_time_flux_ns(problem: Problem, gpu: GpuSpec) -> float:
+    return gpu_model.time_ns(problem.flux_bytes, gpu)
+
+
+# ------------------------- PIM streams ------------------------------------
+# Schedule shapes (see module docstring).  Command counts per chunk are
+# expressed per 32 B word of data staged, with the compute phase's richness
+# set by the primitive's op/byte (hand-scheduled, §4.2.3).
+
+VOLUME_PHASE_SHAPE = (1.5, 1.75, 1.0)   # (ld u, operator MACs, st rhs) x cols
+VOLUME_WORD_DIV = 2.0                   # staged words per accounting word
+FLUX_PHASE_SHAPE = (0.75, 0.5, 0.5, 0.5, 0.56, 0.75)
+# flux: own-face ld, 3 neighbor-face visits, normals/penalty, st flux
+FLUX_WORD_DIV = 2.16
+# Register spills (§4.3.3): below 32 registers the flux working set (own +
+# neighbor traces + penalties + intermediates) does not fit, forcing two
+# extra scratch-row visits per chunk — the "high intermediate results which
+# also consume registers" effect that keeps arch-aware activation from
+# paying off until registers grow (Fig. 8).
+FLUX_SPILL_SHAPE = (0.25, 0.25)
+FLUX_SPILL_REG_THRESHOLD = 32
+
+
+def _stream(problem_words: int, shape: tuple[float, ...], pim: PimSpec,
+            arch_aware: bool, regs: int,
+            n_serial: int = 0) -> list[Node]:
+    cols = chunk_cols(regs)
+    phases = [Phase(max(1, round(s * cols)), serial=(i >= len(shape) - n_serial))
+              for i, s in enumerate(shape)]
+    words_per_bank = problem_words / (pim.banks_per_stack)
+    trips = max(1, round(words_per_bank / cols))
+    return schedule(phases, trips, arch_aware)
+
+
+def _volume_words(problem: Problem, pim: PimSpec) -> int:
+    return int(problem.volume_bytes / pim.dram_word_bytes / VOLUME_WORD_DIV)
+
+
+def pim_stream_volume(problem: Problem, pim: PimSpec, *,
+                      arch_aware: bool = False,
+                      regs: int | None = None) -> list[Node]:
+    regs = regs or pim.pim_regs_per_alu
+    return _stream(_volume_words(problem, pim), VOLUME_PHASE_SHAPE, pim,
+                   arch_aware, regs)
+
+
+def pim_stream_flux(problem: Problem, pim: PimSpec, *,
+                    arch_aware: bool = False,
+                    regs: int | None = None) -> list[Node]:
+    regs = regs or pim.pim_regs_per_alu
+    words = int(problem.flux_bytes / pim.dram_word_bytes / FLUX_WORD_DIV)
+    shape = FLUX_PHASE_SHAPE
+    n_serial = 0
+    if regs < FLUX_SPILL_REG_THRESHOLD:
+        shape = shape + FLUX_SPILL_SHAPE
+        n_serial = len(FLUX_SPILL_SHAPE)
+    return _stream(words, shape, pim, arch_aware, regs, n_serial=n_serial)
+
+
+def pim_time_volume(problem: Problem, pim: PimSpec, *,
+                    arch_aware: bool = False,
+                    regs: int | None = None) -> TimingStats:
+    return simulate(pim_stream_volume(problem, pim, arch_aware=arch_aware,
+                                      regs=regs), pim)
+
+
+def pim_time_flux(problem: Problem, pim: PimSpec, *,
+                  arch_aware: bool = False,
+                  regs: int | None = None) -> TimingStats:
+    return simulate(pim_stream_flux(problem, pim, arch_aware=arch_aware,
+                                    regs=regs), pim)
+
+
+def placement(problem: Problem, pim: PimSpec) -> GridPlacement:
+    return grid_placement(problem.grid, pim)
+
+
+def speedup_volume(problem: Problem, pim: PimSpec, gpu: GpuSpec, *,
+                   arch_aware: bool = False, regs: int | None = None) -> float:
+    return gpu_time_volume_ns(problem, gpu) / pim_time_volume(
+        problem, pim, arch_aware=arch_aware, regs=regs).time_ns
+
+
+def speedup_flux(problem: Problem, pim: PimSpec, gpu: GpuSpec, *,
+                 arch_aware: bool = False, regs: int | None = None) -> float:
+    """Flux speedup including cross-bank ghost faces.
+
+    Faces crossing a bank boundary (GridPlacement.cross_bank_frac of face
+    interactions) cannot interact inside PIM (§3.2); the host refreshes
+    ghost copies of those neighbor traces concurrently with PIM execution
+    (traffic: chi of the neighbor-trace third of flux bytes), so the slower
+    of the two dominates.
+    """
+    pim_t = pim_time_flux(problem, pim, arch_aware=arch_aware,
+                          regs=regs).time_ns
+    chi = placement(problem, pim).cross_bank_frac
+    ghost_t = gpu_model.time_ns(chi * problem.flux_bytes / 3.0, gpu)
+    gpu_t = gpu_time_flux_ns(problem, gpu)
+    return gpu_t / (max(pim_t, ghost_t) + 0.1 * min(pim_t, ghost_t))

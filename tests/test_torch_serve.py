@@ -252,8 +252,29 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = res.stdout.split()
-    assert int(names[0]) >= 68
-    assert {"repro_torch.models.ssm",
+    assert int(names[0]) >= 120
+    assert {"repro_torch.core.commands",
+            "repro_torch.core.timing",
+            "repro_torch.core.optimizations",
+            "repro_torch.core.placement",
+            "repro_torch.core.gpu_model",
+            "repro_torch.core.cache_model",
+            "repro_torch.core.functional_sim",
+            "repro_torch.core.planner",
+            "repro_torch.launch.calibrate",
+            "repro_torch.launch.quickstart",
+            "repro_torch.launch.offload_planner",
+            "repro_torch.launch.figures",
+            "repro_torch.launch.figures.common",
+            "repro_torch.launch.figures.fig6_baseline_pim",
+            "repro_torch.launch.figures.fig8_wavesim_opt",
+            "repro_torch.launch.figures.fig9_ssgemm_sparsity",
+            "repro_torch.launch.figures.fig10_push_cacheaware",
+            "repro_torch.launch.figures.headline",
+            "repro_torch.launch.figures.limit_studies",
+            "repro_torch.launch.figures.kernel_bench",
+            "repro_torch.launch.figures.run",
+            "repro_torch.models.ssm",
             "repro_torch.configs.mamba2_370m",
             "repro_torch.configs.zamba2_1_2b",
             "repro_torch.serve.overload",
