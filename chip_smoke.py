@@ -274,6 +274,22 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    to ``kernel.tile_counts``; launches exact; (d) printed, not gated:
    the paper's GPU model at the card's HBM rate beside the card's time
    for the same ``Problem`` (vector-sum, volume, flux, ss-gemm N 2-16).
+15. ``[shard]`` (``repro_torch.launch.shard_smoke``): on a one-rank NCCL
+   group's (1, 1) mesh, (a) full-width qwen2-0.5b through the sharded
+   decode step, 16 greedy steps at batch 8 and max_len 1,024 against the
+   unsharded step (float32 tokens equal, logits within 1e-5; bf16 tokens
+   counted), ``decode_attn`` launched layers x steps times; (b) one
+   full-width moonshot MoE layer through the expert-parallel
+   ``_moe_shard_map`` against ``moe_apply`` (float32 1e-5, bf16 2e-2),
+   ``group_gemm`` launched; (c) two sharded train steps of full-width
+   qwen at 2 x 1,024 tokens (float32 loss within 1e-5); (d)
+   ``ElasticPlan.for_devices(1)`` and a restore with shardings (values
+   equal); then (e) the dry-run of qwen's ``train_4k`` on ``single`` and
+   full-depth deepseek-v3's ``decode_32k`` on ``multi`` in a fake world
+   (per-device bytes, the roofline row: spec-sheet bounds); (f)
+   ``launch.serve_lm``'s dump equal to ``launch.serve.run``'s results,
+   the flight drill with no failure, ``launch.train_lm --profile 100m``
+   20 steps with the loss falling.
 
 Output: one line per check, then a JSON line with the kernels' numbers
 (the attention rows carry moonshot's D 128 times as ``d128_*`` and the
@@ -296,6 +312,8 @@ as ``bf16_*``, the grouped GEMM's row the join's as ``prefill_*`` and
 the backward's as ``bwd_*``, ``bwd_down_*`` and ``ds_bwd_*``, the
 ``[train]`` phase's qwen step as ``train_*`` and its moonshot launches as
 ``train_launches``, the ``[pim]`` phase's launches as ``pim_launches``,
+the ``[shard]`` phase's (decode_attn and group_gemm) as
+``shard_launches``,
 the ss-gemm rows N 16's as ``n16_*``), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -4892,6 +4910,11 @@ def main() -> int:
     # phase 14, [pim]: the paper's model and its drivers, quickstart's and
     # kernel_bench's kernels on the card, the model beside the card
     pim_counts = pim_phase(torch, timings, flux_ms)
+    # phase 15, [shard]: the sharded decode and train steps, the
+    # expert-parallel MoE and the elastic restore on a (1, 1) mesh, the
+    # dry-run in a fake world, and the main path's three leftovers
+    from repro_torch.launch import shard_smoke
+    shard_counts = shard_smoke.run(torch, check, smi)
 
     sources = {"paged_decode": ("src/repro_torch/kernels/paged_attn/csrc/"
                                 "paged_decode.cu",
@@ -4975,6 +4998,9 @@ def main() -> int:
         # the [pim] phase's: quickstart and kernel_bench
         if name in pim_counts:
             rows[-1]["pim_launches"] = pim_counts[name]
+        # the [shard] phase's: the sharded decode step and _moe_shard_map
+        if name in shard_counts:
+            rows[-1]["shard_launches"] = shard_counts[name]
         if name == "group_gemm":     # the join's calls take the wgmma file
             rows[-1]["prefill_source"] = ("src/repro_torch/kernels/"
                                           "moe_group_gemm/csrc/"
@@ -5002,6 +5028,8 @@ def main() -> int:
               f"{name}: not launched on the [train] phase's path")
         check(rows[-1].get("pim_launches", 1) > 0,
               f"{name}: not launched on the [pim] phase's path")
+        check(rows[-1].get("shard_launches", 1) > 0,
+              f"{name}: not launched on the [shard] phase's path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -18,7 +18,11 @@ from :mod:`repro.checkpoint.checkpointer`.
 * **Retention**: the ``keep`` newest checkpoints survive.
 * **Restore** is into a template's structure, each leaf onto the
   template's device and dtype, with a ``KeyError`` for a missing key and
-  a ``ValueError`` for a wrong shape.
+  a ``ValueError`` for a wrong shape; with ``shardings`` (a tree of
+  :class:`repro_torch.distributed.sharding.NamedSharding`) each leaf is
+  then placed as a DTensor on its mesh, each rank keeping its own shard
+  (the elastic restore onto a new mesh).  A DTensor template leaf reads
+  its global shape.
 """
 from __future__ import annotations
 
@@ -38,8 +42,11 @@ from .. import tree
 def _flatten(state: Any) -> dict[str, np.ndarray]:
     """path -> a host copy of the leaf (the copy outlives in-place
     updates of the state)."""
+    from torch.distributed.tensor import DTensor
     flat = {}
     for key, leaf in tree.paths(state):
+        if isinstance(leaf, DTensor):          # a sharded state's whole leaf
+            leaf = leaf.full_tensor()
         if leaf.dtype == torch.bfloat16:
             raise TypeError(f"{key}: bfloat16 has no numpy dtype; "
                             "checkpoints hold float32 state")
@@ -121,10 +128,11 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any,
-                step: int | None = None) -> tuple[Any, dict]:
-        """Restore into ``template``'s structure, devices and dtypes.
-        Returns (state, manifest)."""
+    def restore(self, template: Any, step: int | None = None,
+                shardings: Any = None) -> tuple[Any, dict]:
+        """Restore into ``template``'s structure, devices and dtypes;
+        optionally placing leaves with ``shardings`` (elastic restore onto
+        a new mesh).  Returns (state, manifest)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError("no checkpoints")
@@ -132,5 +140,8 @@ class Checkpointer:
         with np.load(d / "arrays.npz") as z:
             flat = {k: z[k] for k in z.files}
         state = _unflatten_into(template, flat)
+        if shardings is not None:
+            from ..distributed.sharding import place_tree
+            state = place_tree(state, shardings)
         manifest = json.loads((d / "manifest.json").read_text())
         return state, manifest

@@ -126,9 +126,17 @@ class GpuSpec:
 @dataclasses.dataclass(frozen=True)
 class HopperSpec:
     """NVIDIA H100 SXM constants for the autotuner's feasibility check and
-    analytic score.  Every number is the H100 SXM data sheet's (dense
-    rates, at the card's full 700 W power limit), except ``sms``, which
-    :meth:`for_device` reads from the card."""
+    analytic score, and the roofline's per-device terms
+    (:mod:`repro_torch.roofline.analysis`).  Every number is the H100 SXM
+    data sheet's (dense rates, at the card's full 700 W power limit),
+    except ``sms``, which :meth:`for_device` reads from the card.
+
+    The NVLink fields are the data sheet's 18 NVLink-4 links of 25 GB/s
+    each way, 450 GB/s a direction in all.  The roofline's collective term
+    divides a device's collective bytes by that rate: a lower bound that
+    assumes NVLink between every pair of ranks, which holds within one
+    NVSwitch domain and not across the 256 or 512 ranks of the production
+    meshes (their cross-host links are slower)."""
 
     sms: int = 132                        # data sheet; for_device reads it
     smem_per_cta: int = 227 * 1024        # dynamic shared memory a CTA
@@ -136,6 +144,13 @@ class HopperSpec:
     hbm_gbps: float = 3350.0              # 3.35 TB/s HBM3
     peak_bf16_tflops: float = 989.0       # tensor cores, dense
     peak_fp32_tflops: float = 67.0        # outside the tensor cores
+    nvlink_links: int = 18                # NVLink 4
+    nvlink_link_gbps: float = 25.0        # each way, a link
+
+    @property
+    def nvlink_gbps(self) -> float:
+        """All links, one direction: 450 GB/s."""
+        return self.nvlink_links * self.nvlink_link_gbps
 
     def peak_flops_per_ns(self, dtype_name: str) -> float:
         """The peak for ``dtype_name`` ("bfloat16" or "float32"), FLOP/ns:

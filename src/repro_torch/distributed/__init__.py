@@ -1,3 +1,4 @@
-"""Gradient compression (:mod:`.compression`), from
-:mod:`repro.distributed`.  Sharding waits for the port's multi-card
-slice."""
+"""Distribution of the port, from :mod:`repro.distributed`: gradient
+compression (:mod:`.compression`), the logical-axis sharding rules on a
+torch ``DeviceMesh`` (:mod:`.sharding`) and the activation policy with
+the sharded ops (:mod:`.act_sharding`)."""

@@ -5,20 +5,24 @@
 Prints ``name,us_per_call,derived`` CSV per table.  Paper-anchor rows embed
 the paper's number and the model's delta.  Every table is the paper's
 model, host arithmetic equal to the JAX package's; none touches a device.
-A table that fails fails the run: nothing is skipped on an exception.
+The roofline table follows when the dry-run has written records
+(``launch.dryrun``), and the run says so when it has not.  A table that
+fails fails the run: nothing is skipped on an exception.
 """
 from __future__ import annotations
 
 import argparse
 
 from . import (fig6_baseline_pim, fig8_wavesim_opt, fig9_ssgemm_sparsity,
-               fig10_push_cacheaware, headline, limit_studies)
+               fig10_push_cacheaware, headline, limit_studies, roofline_table)
 from .common import Table
 
 LEFT_OUT = ("# not run here: the serving bench (the port's benchmark comes in "
-            "a PR of its own), roofline_table (waits for sharding and the "
-            "dry-run) and kernel_bench, which runs the kernels on the card: "
-            "python -m repro_torch.launch.figures.kernel_bench")
+            "a PR of its own) and kernel_bench, which runs the kernels on "
+            "the card: python -m repro_torch.launch.figures.kernel_bench")
+NO_RECORDS = ("# not run here: roofline_table, no dry-run records in "
+              "artifacts/dryrun_torch/ (python -m repro_torch.launch.dryrun "
+              "--all writes them)")
 
 # (title, module, slow): the slow tables run the LRU predictor over the
 # three paper graphs; --fast leaves them out, as JAX's driver does
@@ -45,6 +49,10 @@ def run(fast: bool = False) -> dict[str, dict[str, float]]:
         t = Table(title)
         out[mod.__name__.rsplit(".", 1)[-1]] = mod.run(t)
         t.emit()
+    if any(roofline_table.ARTIFACTS.glob("*__single.json")):
+        roofline_table.main()
+    else:
+        print(NO_RECORDS)
     print(LEFT_OUT)
     return out
 

@@ -5,8 +5,10 @@ checkpoint/restart, failure handling and straggler monitoring, from
 The loop survives injected failures by restoring the latest checkpoint
 and continues the exact data stream.  The port initialises from its own
 seeded generator, so a run's numbers differ from the JAX driver's; the
-two agree step for step from one bridged state (the tests).  Multi-card
-meshes wait for the port's sharding slice.
+two agree step for step from one bridged state (the tests).  ``run``
+takes a registered arch name or an ``ArchConfig`` (``launch.train_lm``'s
+100M-param profile).  The driver runs on one device; the sharded train
+step on a mesh is ``train.train_loop.sharded_train_step``.
 
 ``run`` returns JAX's ``final_loss``, ``losses`` and ``straggle_rate``,
 and for measuring runs also ``grad_norms`` (beside ``losses``),
@@ -25,7 +27,7 @@ import time
 import torch
 
 from ..checkpoint import Checkpointer
-from ..configs import get_config
+from ..configs import ArchConfig, get_config
 from ..data import DataConfig, DataPipeline
 from ..device import resolve_device
 from ..ft import FailureInjector, SimulatedFailure, StragglerMonitor
@@ -35,14 +37,14 @@ from ..train.train_loop import (TrainConfig, make_train_state,
                                 make_train_step, split_microbatches)
 
 
-def run(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
+def run(arch: str | ArchConfig, *, steps: int = 20, batch: int = 8, seq: int = 128,
         reduced: bool = True, ckpt_dir: str | None = None,
         ckpt_every: int = 10, accum: int = 1, lr: float = 3e-4,
         fail_at: tuple[int, ...] = (), seed: int = 0,
         log_every: int = 5, compress_grads: bool = False,
         device: str | torch.device = "cuda") -> dict:
     dev = resolve_device(device)
-    cfg = get_config(arch)
+    cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     model = Model(cfg)
@@ -95,7 +97,7 @@ def run(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
                 t0 = time.perf_counter()
                 ckpt.save_async(step, state,
                                 extra={"data": data.state_dict(),
-                                       "arch": arch})
+                                       "arch": getattr(arch, "name", arch)})
                 stalls.append(time.perf_counter() - t0)
         except SimulatedFailure as exc:
             print(f"[train] {exc}; restoring from checkpoint", flush=True)

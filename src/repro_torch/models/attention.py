@@ -63,6 +63,11 @@ from ..configs.base import ArchConfig, AttnKind
 from ..kernels.decode_attn import decode_attn
 from ..kernels.paged_attn import (gather_pages, paged_attn,
                                   paged_prefill_attn, paged_verify_attn)
+from ..distributed.act_sharding import (batch_sharded, coordinate,
+                                        constrain,
+                                        constrain_btd, context_shard_wanted,
+                                        from_local, is_sharded, local_region,
+                                        to_local)
 from .layers import dense, rmsnorm, rope_tables, rotate
 
 BLOCK_Q = 512
@@ -293,6 +298,11 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     ``rope`` is the (cos, sin) pair of ``positions`` and ``write_index``
     the cache write addresses, when the caller has computed them once for
     all layers."""
+    ctx_shard = is_sharded(x) and context_shard_wanted(cfg.n_heads,
+                                                       x.shape[1])
+    if ctx_shard:
+        # context parallelism: q path seq-sharded; kv replicated (gathered)
+        x = constrain(x, ("batch", "ctx", None))
     q = dense(params["q"], x)
     if kv_override is None:
         if rope is None:
@@ -304,7 +314,67 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         k, v = kv_override
         cache = None
-    n = x.shape[1]
+    if is_sharded(x):
+        if ctx_shard:
+            q = constrain(q, ("batch", "ctx", None, None))
+            k = constrain(k, ("batch", None, None, None))
+            v = constrain(v, ("batch", None, None, None))
+        if isinstance(cache, PagedKVCache):
+            raise NotImplementedError("the sharded path serves dense "
+                                      "stripes, as JAX's decode step")
+        out = _gqa_core_sharded(q, k, v, cache, kv_cap=kv_cap,
+                                causal=causal)
+        new_cache = None if cache is None else KVCache(
+            cache.k, cache.v, cache.length + x.shape[1])
+    else:
+        out, new_cache = _gqa_core(q, k, v, cache, write_index=write_index,
+                                   kv_cap=kv_cap, verify=verify,
+                                   causal=causal)
+    y = dense(params["o"], out, n_in=2)
+    if ctx_shard:
+        y = constrain_btd(y)
+    return y, new_cache
+
+
+def _gqa_core_sharded(q, k, v, cache, *, kv_cap, causal):
+    """The attention core of :func:`gqa_apply` on DTensors: q/k/v (and a
+    cache) on local tensors.  Without a cache, heads sharded alike on
+    ``model`` attend locally (head parallelism), and a sequence-sharded
+    q (context parallelism) attends over the gathered keys at its
+    global offset; anything else runs on the batch shard, replicated over
+    ``model``, through :func:`_gqa_core` and its kernels."""
+    from torch.distributed.tensor import Shard
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    mi = names.index("model") if "model" in names else None
+    qm = q.placements[mi] if mi is not None else None
+    if cache is None and qm == Shard(2) and k.placements[mi] == Shard(2) \
+            and v.placements[mi] == Shard(2):
+        keep = batch_sharded(q) + ("model",)
+        ql, pl = to_local(q, keep=keep)
+        kl, _ = to_local(k, keep=keep)
+        vl, _ = to_local(v, keep=keep)
+        return from_local(attention_core(ql, kl, vl, causal=causal),
+                          mesh, pl)
+    if cache is None and qm == Shard(1):
+        keep = batch_sharded(q)
+        ql, pl = to_local(q, keep=keep + ("model",))
+        kl, _ = to_local(k, keep=keep, partial=("model",))
+        vl, _ = to_local(v, keep=keep, partial=("model",))
+        off = coordinate(mesh, "model") * ql.shape[1]
+        return from_local(attention_core(ql, kl, vl, causal=causal,
+                                         q_offset=off), mesh, pl)
+
+    def core(_, ql, c, kl, vl):
+        return _gqa_core(ql, kl, vl, c, write_index=None, kv_cap=kv_cap,
+                         verify=False, causal=causal)
+    return local_region(core, q, state=cache, args=(k, v))
+
+
+def _gqa_core(q, k, v, cache, *, write_index, kv_cap, verify, causal):
+    """Cache insert and attention of :func:`gqa_apply` from its rotated
+    q [B, L, Hq, D] and k, v [B, L, Hkv, D]: (out, new_cache)."""
+    n = q.shape[1]
     new_cache = None
     # the insert precedes the read, in stream order: rows of one call see
     # each other's writes
@@ -339,8 +409,7 @@ def gqa_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
                                  q_offset=cache.length, kv_len=kv_len)
     else:
         out = attention_core(q, k, v, causal=causal)
-    y = dense(params["o"], out, n_in=2)
-    return y, new_cache
+    return out, new_cache
 
 
 def _mla_qkr(params: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -387,6 +456,17 @@ def mla_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     m = cfg.mla
     if rope is None:
         rope = rope_tables(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    if is_sharded(x):
+        # the latent path runs on the batch shard, its weights gathered
+        if isinstance(cache, PagedKVCache):
+            raise NotImplementedError("the sharded path serves dense "
+                                      "stripes, as JAX's decode step")
+        y = local_region(
+            lambda p, xl, c, rl: mla_apply(p, xl, cfg, rope=rl, cache=c,
+                                           kv_cap=kv_cap, causal=causal),
+            x, params=params, state=cache, args=(rope,))
+        return y, None if cache is None else KVCache(
+            cache.k, cache.v, cache.length + x.shape[1])
     q_nope, q_rope, c_kv, k_rope = _mla_qkr(params, x, cfg, rope)
     q_lat = torch.einsum("bthq,rhq->bthr", q_nope,
                          params["uk"]["w"].to(x.dtype))    # [B,L,H,r]

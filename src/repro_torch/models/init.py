@@ -32,6 +32,7 @@ import torch
 
 from ..configs.base import ArchConfig, AttnKind, BlockKind
 from ..device import resolve_device
+from . import param as pm
 from .ssm import _dims as ssm_dims
 
 FILL_CHUNK = 1 << 24    # values drawn at once by init_params (64 MiB fp32)
@@ -74,67 +75,82 @@ def serves_in_float32(path: tuple[str, ...]) -> bool:
 
 
 def _spec(cfg: ArchConfig) -> dict:
-    """The tree as leaf specs: ("normal", shape, std), ("zeros", shape),
-    ("ones", shape) or ("a_log", shape) (``log(linspace(1, 16, H))`` in
-    every layer); layer-stacked leaves lead with the layer count."""
+    """The tree as leaf specs: ("normal", shape, std, axes), ("zeros",
+    shape, axes), ("ones", shape, axes) or ("a_log", shape, axes)
+    (``log(linspace(1, 16, H))`` in every layer); layer-stacked leaves
+    lead with the layer count, which their logical ``axes`` (JAX's, from
+    its init sites) leave out."""
     d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.kv_heads
     hd, f = cfg.resolved_head_dim, cfg.d_ff
 
-    def dense(lead, fan_in, *shape):
+    def dense(lead, fan_in, *shape, axes):
         return {"w": ("normal", lead + (fan_in,) + shape,
-                      1 / math.sqrt(fan_in))}
+                      1 / math.sqrt(fan_in), axes)}
 
     def norm(lead, width):
-        return {"scale": ("ones", lead + (width,))}
+        return {"scale": ("ones", lead + (width,), ("embed",))}
 
     def model_norm(lead):                  # _init_norm: LayerNorm if enc-dec
         out = norm(lead, d)
         if cfg.enc_dec:
-            out["bias"] = ("zeros", lead + (d,))
+            out["bias"] = ("zeros", lead + (d,), ("embed",))
         return out
 
     def gated_mlp(lead, width, gated=True):
-        out = {"wi": dense(lead, d, width), "wo": dense(lead, width, d)}
+        out = {"wi": dense(lead, d, width, axes=("embed", "mlp")),
+               "wo": dense(lead, width, d, axes=("mlp", "embed"))}
         if gated:
-            out["wg"] = dense(lead, d, width)
+            out["wg"] = dense(lead, d, width, axes=("embed", "mlp"))
         return out
 
     def attention(lead, hkv=hkv):
         if cfg.attn is AttnKind.MLA:       # init_mla
             m = cfg.mla
-            return {"dq": dense(lead, d, m.q_lora_rank),
+            ax = ("heads", "head_dim")
+            return {"dq": dense(lead, d, m.q_lora_rank,
+                                axes=("embed", "q_lora")),
                     "dq_norm": norm(lead, m.q_lora_rank),
                     "uq": dense(lead, m.q_lora_rank, hq,
-                                m.qk_nope_head_dim + m.qk_rope_head_dim),
-                    "dkv": dense(lead, d, m.kv_lora_rank),
+                                m.qk_nope_head_dim + m.qk_rope_head_dim,
+                                axes=("q_lora",) + ax),
+                    "dkv": dense(lead, d, m.kv_lora_rank,
+                                 axes=("embed", "kv_lora")),
                     "dkv_norm": norm(lead, m.kv_lora_rank),
-                    "kr": dense(lead, d, m.qk_rope_head_dim),
+                    "kr": dense(lead, d, m.qk_rope_head_dim,
+                                axes=("embed", "head_dim")),
                     "uk": dense(lead, m.kv_lora_rank, hq,
-                                m.qk_nope_head_dim),
-                    "uv": dense(lead, m.kv_lora_rank, hq, m.v_head_dim),
+                                m.qk_nope_head_dim, axes=("kv_lora",) + ax),
+                    "uv": dense(lead, m.kv_lora_rank, hq, m.v_head_dim,
+                                axes=("kv_lora",) + ax),
                     "o": {"w": ("normal", lead + (hq, m.v_head_dim, d),
-                                1 / math.sqrt(hq * m.v_head_dim))}}
+                                1 / math.sqrt(hq * m.v_head_dim),
+                                ax + ("embed",))}}
         attn = {}
-        for name, heads in (("q", hq), ("k", hkv), ("v", hkv)):
-            attn[name] = dense(lead, d, heads, hd)
+        for name, heads, ax in (("q", hq, "heads"), ("k", hkv, "kv_heads"),
+                                ("v", hkv, "kv_heads")):
+            attn[name] = dense(lead, d, heads, hd,
+                               axes=("embed", ax, "head_dim"))
             if cfg.qkv_bias:
-                attn[name]["b"] = ("zeros", lead + (heads, hd))
+                attn[name]["b"] = ("zeros", lead + (heads, hd),
+                                   (ax, "head_dim"))
         attn["o"] = {"w": ("normal", lead + (hq, hd, d),
-                           1 / math.sqrt(hq * hd))}
+                           1 / math.sqrt(hq * hd),
+                           ("heads", "head_dim", "embed"))}
         return attn
 
     def ssm(lead):                         # init_ssm
         d_inner, h, d_xbc = ssm_dims(cfg)
-        return {"in_z": dense(lead, d, d_inner),
-                "in_xbc": dense(lead, d, d_xbc),
-                "in_dt": dense(lead, d, h),
-                "conv_w": ("normal", lead + (cfg.ssm.d_conv, d_xbc), 0.2),
-                "conv_b": ("zeros", lead + (d_xbc,)),
-                "a_log": ("a_log", lead + (h,)),
-                "dt_bias": ("zeros", lead + (h,)),
-                "d_skip": ("ones", lead + (h,)),
+        return {"in_z": dense(lead, d, d_inner, axes=("embed", "mlp")),
+                "in_xbc": dense(lead, d, d_xbc, axes=("embed", "mlp")),
+                "in_dt": dense(lead, d, h, axes=("embed", "heads")),
+                "conv_w": ("normal", lead + (cfg.ssm.d_conv, d_xbc), 0.2,
+                           ("conv", "mlp")),
+                "conv_b": ("zeros", lead + (d_xbc,), ("mlp",)),
+                "a_log": ("a_log", lead + (h,), ("heads",)),
+                "dt_bias": ("zeros", lead + (h,), ("heads",)),
+                "d_skip": ("ones", lead + (h,), ("heads",)),
                 "norm": norm(lead, d_inner),
-                "out": dense(lead, d_inner, d)}
+                "out": dense(lead, d_inner, d, axes=("mlp", "embed"))}
 
     def block(lead, kind, cross=False, hkv=hkv):
         if kind is BlockKind.SSM:
@@ -147,10 +163,14 @@ def _spec(cfg: ArchConfig) -> dict:
         if kind is BlockKind.MOE:
             m = cfg.moe
             e, fe = m.n_experts, m.d_ff_expert
-            moe = {"router": {"w": ("normal", lead + (d, e), 0.02)},
-                   "wi": ("normal", lead + (e, d, fe), 1 / math.sqrt(d)),
-                   "wg": ("normal", lead + (e, d, fe), 1 / math.sqrt(d)),
-                   "wo": ("normal", lead + (e, fe, d), 1 / math.sqrt(fe))}
+            moe = {"router": {"w": ("normal", lead + (d, e), 0.02,
+                                    ("embed", "experts"))},
+                   "wi": ("normal", lead + (e, d, fe), 1 / math.sqrt(d),
+                          ("experts", "embed", "mlp")),
+                   "wg": ("normal", lead + (e, d, fe), 1 / math.sqrt(d),
+                          ("experts", "embed", "mlp")),
+                   "wo": ("normal", lead + (e, fe, d), 1 / math.sqrt(fe),
+                          ("experts", "mlp", "embed"))}
             if m.n_shared_experts:
                 moe["shared"] = gated_mlp(
                     lead, m.d_ff_shared or fe * m.n_shared_experts)
@@ -159,7 +179,8 @@ def _spec(cfg: ArchConfig) -> dict:
             out["mlp"] = gated_mlp(lead, f, cfg.gated_mlp)
         return out
 
-    spec: dict = {"embed": {"table": ("normal", (cfg.vocab, d), 0.02)}}
+    spec: dict = {"embed": {"table": ("normal", (cfg.vocab, d), 0.02,
+                                      ("vocab", "embed_r"))}}
     spec["segments"] = [{} if seg.kind is BlockKind.SHARED_ATTN
                         else block((seg.count,), seg.kind, cfg.enc_dec)
                         for seg in cfg.resolved_segments()]
@@ -168,7 +189,7 @@ def _spec(cfg: ArchConfig) -> dict:
     spec["final_norm"] = model_norm(())
     if not cfg.tied_embeddings:
         spec["lm_head"] = {"w": ("normal", (d, cfg.vocab),
-                                 1 / math.sqrt(d))}
+                                 1 / math.sqrt(d), ("embed_r", "vocab"))}
     if cfg.mtp:
         spec["mtp_block"] = block((), BlockKind.DENSE)
         spec["mtp_norm"] = model_norm(())
@@ -176,8 +197,9 @@ def _spec(cfg: ArchConfig) -> dict:
         spec["encoder"] = block((cfg.n_encoder_layers,), BlockKind.DENSE,
                                 hkv=hq)
         spec["enc_norm"] = model_norm(())
-        spec["cross_k"] = dense((), d, hkv, hd)
-        spec["cross_v"] = dense((), d, hkv, hd)
+        kv_axes = ("embed", "kv_heads", "head_dim")
+        spec["cross_k"] = dense((), d, hkv, hd, axes=kv_axes)
+        spec["cross_v"] = dense((), d, hkv, hd, axes=kv_axes)
     return spec
 
 
@@ -223,6 +245,23 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
                                    dtype=torch.float32) * node[2])
         return out
     return build(_spec(cfg), ())
+
+
+def abstract_ptree(cfg: ArchConfig, dtype: torch.dtype = torch.float32
+                   ) -> dict:
+    """The tree :func:`init_params` builds, as :class:`~.param.P` leaves
+    of ``meta`` tensors (shapes and dtypes, no storage) with JAX's logical
+    axes: the counterpart of ``jax.eval_shape(init_lm)``.  ``dtype`` is
+    every leaf's, as JAX's abstract init is float32 throughout."""
+    _check_supported(cfg)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        return pm.abstract(node[1], node[-1], dtype)
+    return build(_spec(cfg))
 
 
 def cast_for_serving(params: dict, dtype: torch.dtype) -> dict:

@@ -4,7 +4,11 @@ Same conventions as the JAX module: parameters are plain dicts of tensors
 (``{"w": ..., "b": ...}``, ``{"scale": ...}``, LayerNorm's ``{"scale",
 "bias"}``, ``{"table": ...}``) and the
 functions are pure.  Norms and the tied read-out compute in float32 as the
-JAX versions do; projections run in the activation dtype.
+JAX versions do; projections run in the activation dtype.  Under an
+activation policy with DTensor inputs (the sharded steps) the
+projections, the embedding and the read-out run as the sharded ops of
+:mod:`repro_torch.distributed.act_sharding`, and the norms gather their
+(FSDP-sharded) scales.
 """
 from __future__ import annotations
 
@@ -13,13 +17,16 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.act_sharding import (as_dtensor, is_sharded, replicate,
+                                        sharded_dense, sharded_embed)
+
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dtype = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
-    return (y * params["scale"]).to(dtype)
+    return (y * replicate(params["scale"])).to(dtype)
 
 
 def layernorm(params: dict, x: torch.Tensor,
@@ -31,7 +38,8 @@ def layernorm(params: dict, x: torch.Tensor,
     mu = x.mean(dim=-1, keepdim=True)
     var = (x - mu).square().mean(dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
-    return (y * params["scale"] + params["bias"]).to(dtype)
+    return (y * replicate(params["scale"])
+            + replicate(params["bias"])).to(dtype)
 
 
 def dense(params: dict, x: torch.Tensor, n_in: int = 1) -> torch.Tensor:
@@ -39,6 +47,11 @@ def dense(params: dict, x: torch.Tensor, n_in: int = 1) -> torch.Tensor:
     ``n_in`` axes of w, as one matmul of reshaped views: the JAX module's
     einsum specs 'btd,dhq->bthq', 'btd,df->btf' (``n_in=1``) and
     'bthq,hqd->btd' (``n_in=2``)."""
+    if is_sharded(x):
+        y = sharded_dense(params["w"], x, n_in)
+        if "b" in params:
+            y = y + replicate(params["b"]).to(x.dtype)
+        return y
     w = params["w"].to(x.dtype)
     lead = x.shape[:x.dim() - n_in]
     y = (x.reshape(lead + (-1,)) @ w.reshape(-1, math.prod(w.shape[n_in:]))
@@ -52,11 +65,15 @@ def embed(params: dict, tokens: torch.Tensor,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     # gather, then cast: the same values as casting the table first, without
     # converting all [vocab, d] rows on every call
+    if is_sharded(params["table"]):
+        return sharded_embed(params["table"], tokens, dtype)
     return params["table"][tokens].to(dtype)
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied read-out: logits in float32 (the 'btd,vd->btv' einsum)."""
+    if is_sharded(x):
+        return sharded_dense(params["table"].float().t(), x.float(), 1)
     return x.float() @ params["table"].float().t()
 
 
@@ -80,7 +97,11 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
 
 def rotate(x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor) -> torch.Tensor:
-    """Split-half rotation of x [..., L, H, D] by precomputed tables."""
+    """Split-half rotation of x [..., L, H, D] by precomputed tables (a
+    sharded x takes plain tables as replicated DTensors, so that no
+    product mixes the two kinds, in the backward either)."""
+    if is_sharded(x):
+        cos, sin = (as_dtensor(t, x.device_mesh) for t in (cos, sin))
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -1,14 +1,19 @@
 """Model entry point of the port, from :mod:`repro.models.model_zoo`:
 :class:`Model` wraps the functional transformer with the arch's config
-(the training loss, and inference over dense stripes or paged pools)."""
+(the training loss, and inference over dense stripes or paged pools), and
+gives the dry-run its shape-only params and inputs (``abstract_ptree``,
+``abstract_params``, ``input_specs``: ``meta`` tensors in place of JAX's
+``ShapeDtypeStruct``)."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
-from ..configs.base import ArchConfig
-from .init import init_params
+from .. import tree
+from ..configs.base import ArchConfig, Frontend, ShapeConfig
+from . import param as pm
+from .init import abstract_ptree, init_params
 from .transformer import (forward, init_caches, init_paged_caches,
                           lm_loss, logits_fn)
 
@@ -39,6 +44,50 @@ class Model:
              dtype: torch.dtype = torch.float32) -> dict:
         return init_params(self.cfg, seed, device=device, dtype=dtype)
 
+    def abstract_ptree(self) -> dict:
+        """Shape-only P-tree (``meta`` values, JAX's logical axes kept):
+        what :func:`repro_torch.distributed.sharding.param_shardings`
+        reads."""
+        return abstract_ptree(self.cfg)
+
+    def abstract_params(self, dtype=torch.float32) -> dict:
+        """Shape-only unwrapped params (no allocation), float32 leaves in
+        ``dtype``: the dry-run's inputs."""
+        return tree.tree_map(lambda t: t.to(dtype) if t.dtype == torch.float32
+                             else t, pm.unwrap(self.abstract_ptree()))
+
+    def input_specs(self, shape: ShapeConfig, dtype=torch.bfloat16) -> dict:
+        """``meta`` stand-ins for every input of the step this shape cell
+        runs, as JAX's: train and prefill a ``batch`` (tokens [B, L]
+        int32, a vision model's ``vision_embeds`` and an enc-dec's
+        ``encoder_frames`` in ``dtype``); decode one token a row
+        (``tokens`` [B, 1]) against dense ``caches`` sized for
+        ``seq_len`` tokens (:func:`~.transformer.init_caches`, sink row
+        included), a 0-d int32 ``cache_len`` and ``extra`` (an enc-dec's
+        ``cross_kv``)."""
+        cfg = self.cfg
+        b = shape.global_batch
+
+        def spec(shp, dt):
+            return torch.empty(shp, dtype=dt, device="meta")
+        if shape.kind in ("train", "prefill"):
+            batch = {"tokens": spec((b, shape.seq_len), torch.int32)}
+            if cfg.frontend is Frontend.VISION_STUB:
+                batch["vision_embeds"] = spec(
+                    (b, cfg.vision_tokens, cfg.d_model), dtype)
+            if cfg.enc_dec:
+                batch["encoder_frames"] = spec(
+                    (b, cfg.encoder_seq, cfg.d_model), dtype)
+            return {"batch": batch}
+        extra = {}
+        if cfg.enc_dec:
+            kv = (b, cfg.encoder_seq, cfg.kv_heads, cfg.resolved_head_dim)
+            extra["cross_kv"] = (spec(kv, dtype), spec(kv, dtype))
+        return {"tokens": spec((b, 1), torch.int32),
+                "caches": init_caches(cfg, b, shape.seq_len, dtype, "meta"),
+                "cache_len": spec((), torch.int32),
+                "extra": extra}
+
     def loss(self, params, batch, *, dtype=torch.bfloat16,
              remat: bool = False):
         """The float32 training loss of ``batch["tokens"]`` [B, L]
@@ -46,7 +95,7 @@ class Model:
         return lm_loss(params, batch, self.cfg, dtype=dtype, remat=remat)
 
     def prefill(self, params, batch, max_len: int, *, dtype=torch.bfloat16,
-                last_pos=None):
+                last_pos=None, caches=None):
         """Run the prompt, filling fresh dense stripes sized for ``max_len``
         tokens on the tokens' device.  ``last_pos`` ([B]) picks each row's
         logits position: prompts of mixed length share one padded prefill,
@@ -55,10 +104,13 @@ class Model:
         stops at each row's ``last_pos + 1`` (:func:`_lengths`).  The
         batch may carry ``vision_embeds``, ``encoder_frames`` or
         ``cross_kv`` (see :func:`~.transformer.forward`).  Returns
-        (logits [B, 1, V] float32, caches)."""
+        (logits [B, 1, V] float32, caches).  ``caches`` (zeroed stripes
+        for ``max_len`` tokens, e.g. placed on a mesh) are filled in place
+        of fresh ones."""
         tokens = batch["tokens"]
-        caches = init_caches(self.cfg, tokens.shape[0], max_len, dtype,
-                             tokens.device)
+        if caches is None:
+            caches = init_caches(self.cfg, tokens.shape[0], max_len, dtype,
+                                 tokens.device)
         hidden, caches = forward(params, batch, self.cfg, caches=caches,
                                  cache_len=0, dtype=dtype,
                                  lengths=_lengths(last_pos, tokens))

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distributed.act_sharding import is_sharded, local_region
 from .layers import dense, rmsnorm
 
 
@@ -167,6 +168,12 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
       given, takes the final ones).  ``lengths`` ([B], at most L) ends
       each row's recurrence and window at its own length; None: at L.
       Outputs past a row's length are not meaningful."""
+    if is_sharded(x):
+        # the block runs on the batch shard, its weights and the heads of
+        # its state gathered (JAX shards the SSD's heads over model)
+        return local_region(
+            lambda p, xl, c, ln: ssm_apply(p, xl, cfg, cache=c, lengths=ln),
+            x, params=params, state=cache, args=(lengths,))
     s = cfg.ssm
     d_inner, h, _ = _dims(cfg)
     bsz, l, _ = x.shape

@@ -38,6 +38,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, AttnKind, BlockKind
 from ..device import resolve_device
+from ..distributed.act_sharding import (as_dtensor, batch_sharded, constrain,
+                                        constrain_btd, coordinate,
+                                        from_local, is_sharded, to_local)
 from .attention import (KVCache, PagedKVCache, attention_apply,
                         dense_write_index, paged_write_index)
 from .init import ATTN_KINDS, _check_supported
@@ -64,9 +67,11 @@ def _attn_cache_shape(cfg: ArchConfig, lead: tuple[int, int]):
 def _stacked_caches(cfg: ArchConfig, lead: tuple[int, int], batch: int,
                     dtype, device) -> list:
     """Attention segments a ``lead`` stripe or pool a layer, SSM segments
-    :func:`~.ssm.init_cache` at ``batch`` slots a layer."""
+    :func:`~.ssm.init_cache` at ``batch`` slots a layer; on the ``meta``
+    device, shapes only (the dry-run's input specs)."""
     _check_supported(cfg)
-    dev = resolve_device(device)
+    dev = (torch.device(device) if torch.device(device).type == "meta"
+           else resolve_device(device))
     caches = []
     for seg in cfg.resolved_segments():
         if seg.kind is BlockKind.SSM:
@@ -149,6 +154,7 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     encoder).  Returns (y, new_cache), and with ``with_aux`` (y,
     new_cache, aux): the MOE block's load-balance term, 0 for the other
     kinds."""
+    x = constrain_btd(x)   # pin activations to batch sharding (a policy)
     aux = None
     if with_aux:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -292,7 +298,9 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     rope = index = None
     if cfg.attn is not AttnKind.NONE:
         rope = _rope(cfg, positions)
-    if attn_cache is not None and pages is not None:
+    if is_sharded(x):
+        pass        # the sharded cores write through their local tensors
+    elif attn_cache is not None and pages is not None:
         # every layer writes its K/V at the same pool addresses; the pools
         # lead [layers, n_pages + 2, page_size] for GQA and MLA alike
         n_live, ps = attn_cache["k"].shape[1] - 2, attn_cache["k"].shape[2]
@@ -303,6 +311,8 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *,
     remat = remat and caches is None
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
            if with_aux else None)
+    if with_aux and is_sharded(x):        # a DTensor leads every sum
+        aux = as_dtensor(aux, x.device_mesh)
     for si, seg in enumerate(segs):
         kind, stacked = seg.kind, params["segments"][si]
         if kind is BlockKind.SHARED_ATTN:   # one weight set, its own cache
@@ -348,8 +358,67 @@ def logits_fn(params: dict, hidden: torch.Tensor, cfg: ArchConfig):
 
 def _xent_chunk(params: dict, h: torch.Tensor, t: torch.Tensor,
                 m: torch.Tensor, cfg: ArchConfig, z_loss: float):
-    """(sum of masked nll, mask count) of one chunk, float32."""
+    """(sum of masked nll, mask count) of one chunk, float32.  Sharded
+    (DTensor ``h``): :func:`_xent_sums_sharded`."""
     logits = logits_fn(params, h, cfg)                  # [B, chunk, V] f32
+    if is_sharded(logits):
+        return _xent_sums_sharded(logits, t, m, z_loss)
+    return _xent_sums(logits, t, m, z_loss)
+
+
+def _xent_sums_sharded(logits, t, m, z_loss: float):
+    """:func:`_xent_sums` of DTensor logits [B, chunk, V] vocab-parallel
+    (Megatron's): with the vocab split over ``model`` each rank reduces
+    its own columns (the max, the exp-sum and the target's logit, all
+    [B, chunk]) and one all-reduce each combines them, so the logits are
+    never gathered; each batch shard's sums are then added across the
+    shards.  Logits replicated over ``model`` reduce locally."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    keep = batch_sharded(logits)
+    split = "model" in names and logits.placements[
+        names.index("model")] == Shard(2)
+    lg, _ = to_local(logits, keep=keep + (("model",) if split else ()))
+    tl = to_local(t, keep=batch_sharded(t))[0]
+    ml = to_local(m, keep=batch_sharded(m))[0]
+    if split:
+        sums = _vocab_parallel_sums(lg, tl, ml, z_loss, mesh, keep)
+    else:
+        sums = _xent_sums(lg, tl, ml, z_loss)
+    part = [Partial() if n in keep else Replicate() for n in names]
+    rep = [Replicate()] * mesh.ndim
+    return tuple(from_local(v, mesh, part).redistribute(mesh, rep)
+                 for v in sums)
+
+
+def _vocab_parallel_sums(lg: torch.Tensor, t: torch.Tensor,
+                         m: torch.Tensor, z_loss: float, mesh, keep):
+    """:func:`_xent_sums` of this rank's vocab columns ``lg`` [b, chunk,
+    V / model] of logits split over ``model``: the row max, exp-sum and
+    target logit each reduced over ``model`` with one all-reduce."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    names = mesh.mesh_dim_names
+    row_pl = [Shard(0) if n in keep else Replicate() for n in names]
+    src = {op: [Partial(op) if n == "model" else p
+                for n, p in zip(names, row_pl)] for op in ("max", "sum")}
+
+    def over_vocab(v, op="sum"):           # [b, chunk] reduced over model
+        return from_local(v, mesh, src[op]).redistribute(mesh, row_pl) \
+            .to_local()
+    top = over_vocab(lg.detach().amax(dim=-1), "max")
+    lse = torch.log(over_vocab(torch.exp(lg - top[..., None]).sum(-1))) + top
+    ids = t.long() - coordinate(mesh, "model") * lg.shape[-1]
+    hit = (ids >= 0) & (ids < lg.shape[-1])
+    tgt = over_vocab(torch.where(hit, lg.gather(
+        -1, ids.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0], 0.0))
+    nll = (lse - tgt) + z_loss * torch.square(lse)
+    m = m.float()
+    return torch.sum(nll * m), torch.sum(m)
+
+
+def _xent_sums(logits: torch.Tensor, t: torch.Tensor, m: torch.Tensor,
+               z_loss: float):
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, t[..., None].long())[..., 0]
     nll = (lse - tgt) + z_loss * torch.square(lse)
@@ -372,16 +441,28 @@ def chunked_xent(params: dict, hidden: torch.Tensor, targets: torch.Tensor,
                           device=hidden.device)
     loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    if is_sharded(hidden):                # a DTensor leads every sum
+        loss_sum, count = (as_dtensor(t, hidden.device_mesh)
+                           for t in (loss_sum, count))
     for lo in range(0, length, chunk):
         part = (params, hidden[:, lo:lo + chunk], targets[:, lo:lo + chunk],
                 mask[:, lo:lo + chunk], cfg, z_loss)
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() and not is_sharded(hidden):
             s, n = checkpoint(_xent_chunk, *part, use_reentrant=False,
                               preserve_rng_state=False)
         else:
             s, n = _xent_chunk(*part)
         loss_sum, count = loss_sum + s, count + n
     return loss_sum / torch.clamp(count, min=1.0)
+
+
+def _roll(tokens, shift: int):
+    """``torch.roll`` along the sequence; a DTensor's batch shards roll on
+    their own (the sequence dim is never sharded)."""
+    if is_sharded(tokens):
+        return from_local(torch.roll(tokens.to_local(), shift, dims=1),
+                          tokens.device_mesh, tokens.placements)
+    return torch.roll(tokens, shift, dims=1)
 
 
 def lm_loss(params: dict, batch: dict, cfg: ArchConfig, *,
@@ -397,19 +478,25 @@ def lm_loss(params: dict, batch: dict, cfg: ArchConfig, *,
     tokens = batch["tokens"]
     hidden, _, aux = forward(params, batch, cfg, dtype=dtype, remat=remat,
                              with_aux=True)
-    targets = torch.roll(tokens, -1, dims=1)
+    targets = _roll(tokens, -1)
     mask = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
     mask[:, -1] = False
+    mask2 = None
+    if cfg.mtp:
+        mask2 = mask.clone()
+        mask2[:, -2] = False
+    if is_sharded(hidden):     # the masks onto the tokens' batch shards
+        mesh = hidden.device_mesh
+        mask, mask2 = (None if mk is None else constrain(
+            as_dtensor(mk, mesh), ("batch", None)) for mk in (mask, mask2))
     loss = chunked_xent(params, hidden, targets, cfg, mask)
     if cfg.mtp:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         h2, _ = block_apply(params["mtp_block"], hidden, cfg,
                             BlockKind.DENSE, rope=_rope(cfg, positions))
         h2 = _norm(cfg, params["mtp_norm"], h2)
-        mask2 = mask.clone()
-        mask2[:, -2] = False
         loss = loss + 0.3 * chunked_xent(
-            params, h2, torch.roll(tokens, -2, dims=1), cfg, mask2)
+            params, h2, _roll(tokens, -2), cfg, mask2)
     if cfg.moe is not None:
         loss = loss + 0.01 * aux
     return loss

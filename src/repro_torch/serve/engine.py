@@ -209,6 +209,68 @@ def sample_tokens(logits: torch.Tensor, temperature: float,
                         dim=-1).to(torch.int32)
 
 
+# ---------------------------------------------------------------------------
+# the single-step factories of the dry-run and sharding paths
+# ---------------------------------------------------------------------------
+
+def make_decode_step(model: Model, cfg: ServeConfig):
+    """``step(params, tokens, caches, cache_len, extra) -> (next tokens
+    [B, 1] int32, caches)``: one greedy decode step over dense stripes,
+    as JAX's ``make_decode_step``."""
+    from ..distributed.act_sharding import constrain
+
+    def step(params, tokens, caches, cache_len, extra):
+        logits, caches = model.decode_step(params, tokens, caches, cache_len,
+                                           dtype=cfg.dtype,
+                                           extra=extra or None)
+        # sharded: the vocab gathered onto each batch shard for the argmax
+        last = constrain(logits[:, -1], ("batch", None))
+        nxt = torch.argmax(last, dim=-1).to(torch.int32)
+        return nxt[:, None], caches
+    return step
+
+
+def sharded_decode_step(model: Model, cfg: ServeConfig, mesh,
+                        input_specs: dict):
+    """JAX's ``jit_decode_step`` on a torch ``DeviceMesh``: the step of
+    :func:`make_decode_step` with params placed by ``param_shardings``,
+    tokens and ``extra`` by ``data_shardings``, caches by
+    ``cache_shardings`` and ``cache_len`` (0-d, or per slot [B])
+    replicated, run under the mesh's activation policy.  Inputs that are
+    not DTensors yet are placed first (each rank keeps its own shard); a
+    DTensor is taken as it is.  The caches are updated in place (JAX
+    donates them) and returned; the next tokens come back on the tokens'
+    shards.  The attention kernels see local, plain tensors (on a mesh of
+    size-1 axes, the whole tensors)."""
+    from ..distributed import sharding as shd
+    from ..distributed.act_sharding import activation_policy, constrain
+    step = make_decode_step(model, cfg)
+    pshard = shd.param_shardings(model.abstract_ptree(), mesh)
+    tok_shard = shd.data_shardings(input_specs["tokens"], mesh)
+    cache_shard = shd.cache_shardings(input_specs["caches"], mesh)
+    extra_shard = shd.data_shardings(input_specs.get("extra", {}), mesh)
+    rep = shd.replicated(mesh)
+
+    @torch.no_grad()
+    def run(params, tokens, caches, cache_len, extra=None):
+        params = shd.place_tree(params, pshard)
+        tokens = shd.place_tree(tokens, tok_shard)
+        caches = shd.place_tree(caches, cache_shard)
+        extra = shd.place_tree(extra or {}, extra_shard)
+        if not isinstance(cache_len, torch.Tensor):
+            cache_len = torch.tensor(cache_len, dtype=torch.int32,
+                                     device=tokens.device)
+        cache_len = shd.place_tree(cache_len, rep)
+        with activation_policy(mesh):
+            if cache_len.dim() == 0:          # one depth for every slot
+                cache_len = cache_len.expand(tokens.shape[0])
+            cache_len = constrain(cache_len, ("batch",))
+            nxt, caches = step(params, tokens, caches, cache_len, extra)
+            nxt = nxt.redistribute(mesh, tok_shard.placements)
+        return nxt, caches
+    return run
+
+
 def ngram_propose(history: torch.Tensor, lengths: torch.Tensor, *,
                   k: int, n: int) -> torch.Tensor:
     """Draft ``k`` continuation tokens a slot from its own token history,

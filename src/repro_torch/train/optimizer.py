@@ -60,21 +60,34 @@ def global_norm(grads) -> torch.Tensor:
                           for g in tree.leaves(grads)))
 
 
+def _local(t):
+    """A replicated DTensor's local tensor (other tensors as given)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state: dict, cfg: OptConfig):
     """One AdamW step.  Returns (params, state, {"grad_norm", "lr"}); the
     params and moments are the given tensors, updated in place, and the
-    state's step a new tensor one past the given one."""
-    step = state["step"]
+    state's step a new tensor one past the given one.
+
+    Sharded (DTensor params, moments and gradients): the norm is the
+    global one, and each leaf's update runs on its local shards (the
+    gradient first brought to the param's placements), elementwise as it
+    is, so the same arithmetic updates each shard in place."""
+    step = _local(state["step"])       # replicated when sharded
     gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
+    scale = _local(torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                               max=1.0))
     lr = schedule(step, cfg)
     b1, b2 = cfg.beta1, cfg.beta2
     c1 = 1.0 - torch.pow(b1, step.float() + 1.0)
     c2 = 1.0 - torch.pow(b2, step.float() + 1.0)
 
     def upd(p, g, mu, nu):
+        if hasattr(p, "to_local"):
+            g = g.redistribute(p.device_mesh, p.placements)
+            p, g, mu, nu = (t.to_local() for t in (p, g, mu, nu))
         g = g.float() * scale
         mu32 = mu.float() * b1 + (1 - b1) * g
         nu32 = nu.float() * b2 + (1 - b2) * torch.square(g)

@@ -8,8 +8,14 @@ weight bridge carry it across.  A batch is ``{"tokens": [B, L]}``, or
 ``[accum, B / accum, L]`` when accumulating (:func:`split_microbatches`).
 Gradients come from ``torch.autograd.grad`` on detached views of the
 params (no ``.grad`` fields, no copies) and are accumulated in float32,
-then scaled by ``1 / accum``, as is the loss.  Not ported (the sharding
-slice): ``state_shardings``, ``batch_shardings`` and ``jit_train_step``.
+then scaled by ``1 / accum``, as is the loss.
+
+On a mesh (:func:`sharded_train_step`, JAX's ``jit_train_step``) the
+state is placed by :func:`state_shardings` (params and moments by
+``param_shardings``, the step replicated) and the batch by
+:func:`batch_shardings`, and the step runs under the mesh's activation
+policy: the gradients come back as DTensors on the params' shards and
+AdamW updates the sharded state in place, where JAX donates it.
 """
 from __future__ import annotations
 
@@ -70,8 +76,20 @@ def loss_and_grads(model: Model, params, batch: dict, cfg: TrainConfig):
                       remat=cfg.remat)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
     return loss.detach(), [torch.zeros_like(p, dtype=torch.float32)
-                           if g is None else g.float()
+                           if g is None else _unnest(g).float()
                            for p, g in zip(flat, grads)]
+
+
+def _unnest(g):
+    """A DTensor gradient whose local tensor is itself a DTensor (what
+    torch 2.11's non-reentrant checkpoint returns over DTensor ops) as
+    one DTensor on its innermost local tensor; other tensors as given."""
+    while hasattr(g, "to_local") and hasattr(g.to_local(), "to_local"):
+        inner = g.to_local()
+        g = type(g).from_local(inner.to_local(), g.device_mesh, g.placements,
+                               run_check=False, shape=g.shape,
+                               stride=g.stride())
+    return g
 
 
 def make_train_step(model: Model, cfg: TrainConfig):
@@ -105,3 +123,50 @@ def make_train_step(model: Model, cfg: TrainConfig):
         return new_state, dict(metrics, loss=loss)
 
     return train_step
+
+
+def state_shardings(model: Model, cfg: TrainConfig, mesh) -> dict:
+    """The train state's shardings: params and moments (and the error
+    feedback) by ``param_shardings``, the step replicated."""
+    from ..distributed import sharding as shd
+    pshard = shd.param_shardings(model.abstract_ptree(), mesh)
+    return {"params": pshard,
+            "opt": {"mu": pshard, "nu": pshard,
+                    "step": shd.replicated(mesh)},
+            "ef": pshard if cfg.compress_grads else None}
+
+
+def batch_shardings(batch_specs: dict, mesh, accum: int) -> dict:
+    """Batch arrays are [accum, mb, ...] when accumulating: dim1 =
+    batch."""
+    from ..distributed import sharding as shd
+    return shd.data_shardings(batch_specs, mesh,
+                              batch_dim=1 if accum > 1 else 0)
+
+
+def sharded_train_step(model: Model, cfg: TrainConfig, mesh,
+                       batch_specs: dict):
+    """JAX's ``jit_train_step`` on a torch ``DeviceMesh``: ``step(state,
+    batch) -> (state, metrics)`` with the state placed by
+    :func:`state_shardings` and the batch (``batch_specs``' shapes, split
+    into microbatches when accumulating) by :func:`batch_shardings`;
+    inputs that are not DTensors yet are placed first.  The state is
+    updated in place; ``loss``, ``grad_norm`` and ``lr`` come back
+    replicated."""
+    from ..distributed import sharding as shd
+    from ..distributed.act_sharding import activation_policy, as_dtensor
+    step = make_train_step(model, cfg)
+    sshard = state_shardings(model, cfg, mesh)
+    bshard = batch_shardings(split_microbatches(batch_specs, cfg.accum),
+                             mesh, cfg.accum)
+    rep = shd.replicated(mesh).placements
+
+    def run(state, batch):
+        state = shd.place_tree(state, sshard)
+        batch = shd.place_tree(batch, bshard)
+        with activation_policy(mesh):
+            state, metrics = step(state, batch)
+            metrics = {k: as_dtensor(v, mesh).redistribute(mesh, rep)
+                       for k, v in metrics.items()}
+        return state, metrics
+    return run

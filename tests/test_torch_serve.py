@@ -252,8 +252,21 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = res.stdout.split()
-    assert int(names[0]) >= 120
-    assert {"repro_torch.core.commands",
+    assert int(names[0]) >= 133
+    assert {"repro_torch.models.param",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.act_sharding",
+            "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.shard_smoke",
+            "repro_torch.launch.serve_lm",
+            "repro_torch.launch.flight_drill",
+            "repro_torch.launch.train_lm",
+            "repro_torch.launch.figures.roofline_table",
+            "repro_torch.roofline",
+            "repro_torch.roofline.trace_analyzer",
+            "repro_torch.roofline.analysis",
+            "repro_torch.core.commands",
             "repro_torch.core.timing",
             "repro_torch.core.optimizations",
             "repro_torch.core.placement",
