@@ -215,22 +215,25 @@ nothing of the JAX package ``repro``.  Phases, each of which fails the run:
    CPU's plain path, paged and dense; and the padding invariant on the
    card: a 10-token prompt's stream alone and beside a 30-token prompt,
    equal or a difference at a logit near-tie;
-12. ``[train]``: (a) the grouped GEMM's backward (dxe through the kernel,
-   dw through ``torch.bmm``) against autograd through its plain version
-   at moonshot's and deepseek's expert shapes of a 4,096-token join,
-   gate/up and down, both dtypes, dy NaN past each count (dxe's rows
-   there exactly 0), and its bfloat16 times beside two ``torch.bmm``
-   calls and its bound; (b) full-width, full-depth qwen2-0.5b trained
-   through ``repro_torch.launch.train.run`` at L 4,096, batch 8 in 2
-   microbatches, 12 steps, checkpoints every 4, a failure injected at
-   step 9 and restored: finite losses and grad norms, the last
-   checkpoint restored bit for bit, the loss falling; step ms, tokens/s,
-   model TFLOP/s, peak memory, checkpoint bytes and stall; (c) the
-   full-width moonshot cut to 1 dense + 1 MoE layer trained 4 steps:
-   every gradient finite, the experts' non-zero, ``group_gemm`` launches
-   exact (forward, recompute, backward); (d) 3 float32 train steps at
-   ``reduced()`` of qwen2-0.5b, moonshot, deepseek-v3, mamba2 and zamba2,
-   card against the CPU's plain path;
+12. ``[train]``: (a) the grouped GEMM's backward (dy's mask and cast, dxe
+   with w read as it lies, dw over the live rows in bfloat16 or through
+   ``torch.bmm`` in float32) against autograd through its plain version at
+   moonshot's and deepseek's expert shapes of a 4,096-token join, gate/up
+   and down, both dtypes, dy and xe NaN past each count (dxe's rows there
+   and every empty expert's dw exactly 0), each kernel's launches exact;
+   its bfloat16 times, whole and by kernel, beside two ``torch.bmm`` calls
+   and its bound, and each backward kernel beside its plain version; (b)
+   full-width, full-depth qwen2-0.5b trained through
+   ``repro_torch.launch.train.run`` at L 4,096, batch 8 in 2 microbatches,
+   12 steps, checkpoints every 4, a failure injected at step 9 and
+   restored: finite losses and grad norms, the last checkpoint restored bit
+   for bit, the loss falling; step ms, tokens/s, model TFLOP/s, peak
+   memory, checkpoint bytes and stall; (c) the full-width moonshot cut to 1
+   dense + 1 MoE layer trained 4 steps: every gradient finite, the experts'
+   non-zero, the forward's and the backward's kernels' launches exact, the
+   median step ms; (d) 3 float32 train steps at ``reduced()`` of
+   qwen2-0.5b, moonshot, deepseek-v3, mamba2 and zamba2, card against the
+   CPU's plain path;
 13. ``[encdec]``: (a) the attention kernels at whisper-tiny's geometry
    (Hq 6, Hkv 6: G 1, D 64; 48 (slot, KV head) rows at the serve batch),
    which no earlier phase launches: both paged kernels at every split
@@ -311,7 +314,9 @@ as ``bf16_*``, the grouped GEMM's row the join's as ``prefill_*`` and
 ``ds_down_*`` and the deepseek cut's launches as ``deepseek_launches``,
 the backward's as ``bwd_*``, ``bwd_down_*`` and ``ds_bwd_*``, the
 ``[train]`` phase's qwen step as ``train_*`` and its moonshot launches as
-``train_launches``, the ``[pim]`` phase's launches as ``pim_launches``,
+``train_launches`` (the backward's three kernels have rows of their own:
+moonshot's gate/up at a join, their launches those of the moonshot
+cut), the ``[pim]`` phase's launches as ``pim_launches``,
 the ``[shard]`` phase's (decode_attn and group_gemm) as
 ``shard_launches``,
 the ss-gemm rows N 16's as ``n16_*``), the
@@ -3753,6 +3758,8 @@ BWD_SHAPES = (("moonshot gate/up", MOE_ARCH, "gate/up", "bwd_"),
               ("deepseek gate/up", MLA_ARCH, "gate/up", "ds_bwd_"),
               ("deepseek down", MLA_ARCH, "down", None))
 BWD_GROUP = 64              # experts a check takes at once (deepseek: 4)
+# the backward's kernels, in launch order, each with a row of its own
+BWD_KERNELS = ("group_gemm_dy", "group_gemm_dxe", "group_gemm_dw")
 
 
 def expert_dims(arch: str, proj: str) -> tuple[int, int, int]:
@@ -3784,16 +3791,18 @@ def backward_inputs(torch, arch, d, f, dtype, lo, hi, seed):
 
 
 def group_gemm_backward_checks(torch) -> dict:
-    """The autograd backward of ``group_gemm`` on the card (``dxe`` through
-    the kernel, ``dw`` through ``torch.bmm``) against autograd through its
-    plain version, at full-width moonshot's (E 64, C 480) and deepseek's
-    (E 256, C 160, 64 experts at a time) expert shapes, gate/up and down,
-    in both dtypes: ``dy`` holds NaN past each count, and so does the
-    kernel's ``xe`` (the plain version's is zero there, as the dispatch
-    leaves it: the forward reads neither).  Within ``TOL`` of the plain
-    version's largest entry; ``dxe``'s rows past the counts exactly 0;
-    everything finite; one kernel launch forward and one backward.
-    Returns the largest relative errors (bfloat16) by label."""
+    """The autograd backward of ``group_gemm`` on the card (dy's mask and
+    cast, dxe with w read as it lies, dw over the live rows in bfloat16,
+    ``torch.bmm`` in float32) against autograd through its plain version,
+    at full-width moonshot's (E 64, C 480) and deepseek's (E 256, C 160,
+    64 experts at a time) expert shapes, gate/up and down, in both dtypes:
+    ``dy`` holds NaN past each count, and so does the kernels' ``xe`` (the
+    plain version's is zero there, as the dispatch leaves it: the forward
+    reads neither).  Within ``TOL`` of the plain version's largest entry;
+    ``dxe``'s rows past the counts and every empty expert's ``dw`` exactly
+    0; everything finite; each kernel launched exactly once (the dw kernel
+    in bfloat16 alone).  Returns the largest relative errors (bfloat16) by
+    label."""
     from repro_torch.kernels import moe_group_gemm as mg
     worst = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -3801,9 +3810,12 @@ def group_gemm_backward_checks(torch) -> dict:
         for label, arch, proj, _ in BWD_SHAPES:
             n_exp, d, f = expert_dims(arch, proj)
             errs, zeros, finite, rows = [0.0, 0.0], True, True, 0
+            empty = 0
             for lo in range(0, n_exp, BWD_GROUP):
                 cnt, live, xe, w, dy = backward_inputs(
                     torch, arch, d, f, dtype, lo, lo + BWD_GROUP, SEED + lo)
+                # one empty expert a group, whose dw must come out 0
+                cnt[-1], live[-1], xe[-1] = 0, False, 0
                 rows += int(cnt.sum())
                 x_nan = torch.where(live, xe, torch.full_like(
                     xe, float("nan"))).requires_grad_()
@@ -3812,9 +3824,12 @@ def group_gemm_backward_checks(torch) -> dict:
                 got = torch.autograd.grad(mg.group_gemm(x_nan, wk, cnt),
                                           (x_nan, wk), dy)
                 torch.cuda.synchronize()
-                check(mg.launch_counts["group_gemm"] == 2,
-                      f"group_gemm backward {label}: "
-                      f"{mg.launch_counts['group_gemm']} launches, not 2")
+                want_n = {"group_gemm": 1, "group_gemm_dy": 1,
+                          "group_gemm_dxe": 1,
+                          "group_gemm_dw": int(name == "bfloat16")}
+                check(mg.launch_counts == want_n,
+                      f"group_gemm backward {label}: launches "
+                      f"{mg.launch_counts}, not {want_n}")
                 xr, wr = xe.requires_grad_(), w.requires_grad_()
                 want = torch.autograd.grad(mg.group_gemm_ref(xr, wr, cnt),
                                            (xr, wr), dy)
@@ -3825,7 +3840,9 @@ def group_gemm_backward_checks(torch) -> dict:
                                   / max(scale, 1e-30))
                     finite = finite and bool(torch.isfinite(got[i]).all())
                 zeros = zeros and bool((got[0][~live.expand_as(
-                    got[0])] == 0).all())
+                    got[0])] == 0).all()) and bool((got[1][cnt <= 0] == 0)
+                                                  .all())
+                empty += int((cnt <= 0).sum())
                 del x_nan, wk, got, want, xr, wr, xe, w, dy
                 torch.cuda.empty_cache()
             print(f"[train] group_gemm backward {name} {label} (D={d} "
@@ -3833,8 +3850,9 @@ def group_gemm_backward_checks(torch) -> dict:
                   f"the kernel's xe NaN past the counts) vs autograd "
                   f"through the plain version: dxe {errs[0]:.3e}, dw "
                   f"{errs[1]:.3e} of the largest entry (tolerance "
-                  f"{TOL[name]}); dxe rows past the counts exactly 0: "
-                  f"{zeros}; finite: {finite}")
+                  f"{TOL[name]}); dxe rows past the counts and the {empty} "
+                  f"empty experts' dw exactly 0: {zeros}; finite: {finite};"
+                  f" launches each 1 (dw: bf16)")
             check(max(errs) <= TOL[name] and zeros and finite,
                   f"group_gemm backward disagrees ({name}, {label})")
             if name == "bfloat16":
@@ -3842,20 +3860,24 @@ def group_gemm_backward_checks(torch) -> dict:
     return worst
 
 
-def group_gemm_backward_timing(torch) -> dict:
-    """The bfloat16 backward (:func:`group_gemm_backward`: dy's mask, the
-    transposed weights, the kernel for dxe, ``torch.bmm`` for dw) at
+def group_gemm_backward_timing(torch) -> tuple[dict, dict]:
+    """The bfloat16 backward (:func:`group_gemm_backward`: the mask and
+    cast of dy, dxe with w read as it lies, dw over the live rows) at
     moonshot's gate/up (``bwd_*`` keys) and down (``bwd_down_*``) and
     deepseek's gate/up (``ds_bwd_*``, all 256 experts) at a 4,096-token
-    join; beside it autograd through the plain version (``plain_ms``) and
+    join; beside it autograd through the plain version (``plain_ms``),
     two ``torch.bmm`` calls for the same products over the padded slabs
-    (``library_ms``), and two of its parts alone (``transpose_ms``, the
-    copy of w transposed, and ``kernel_ms``, the kernel for dxe).  The
-    bound counts the live experts' weights, the
-    live rows of xe and dy in, dxe and every expert's dw out, and 4 x
-    live rows x D x F operations."""
+    (``library_ms``) and its three kernels alone (``prep_ms``, ``dxe_ms``,
+    ``dw_ms``).  The bound counts the live experts' weights, the live rows
+    of xe and dy in, dxe and every expert's dw out, and 4 x live rows x D
+    x F operations.  Returns those keys and, at moonshot's gate/up, a row
+    for each of the three kernels: its time, its plain version's, one
+    ``torch.bmm`` for dxe and for dw (none masks and casts dy), its own
+    bound (bytes: what it must read and write once; operations: 2 x live
+    rows x D x F) and its largest difference from its plain version."""
     from repro_torch.kernels import moe_group_gemm as mg
-    row, item = {}, 2
+    k = mg.kernel
+    row, kernels, item = {}, {}, 2
     for label, arch, proj, key in BWD_SHAPES:
         if key is None:
             continue
@@ -3868,19 +3890,23 @@ def group_gemm_backward_timing(torch) -> dict:
                   + e * c * d * item + e * d * f * item + e * 4)
         flops = 4.0 * n_rows * d * f
         t_bound, by = bound(nbytes, flops, "bfloat16")
-        dy16 = torch.where(live, dy, torch.zeros_like(dy)).to(torch.bfloat16)
+        dy16 = k.group_gemm_dy_cuda(dy, cnt, torch.bfloat16)
         wt = w.transpose(1, 2)
         part = {"ms": time_ms(lambda i: mg.group_gemm_backward(
                     xe, w, cnt, dy), 5),
                 "library_ms": time_ms(lambda i: (
                     torch.bmm(dy16, wt), torch.bmm(xe.transpose(1, 2),
                                                    dy16)), 5),
-                # its parts: the transposed copy of w, the kernel for dxe
-                "transpose_ms": time_ms(lambda i: wt.contiguous(), 5)}
-        wt_c = wt.contiguous()
-        part["kernel_ms"] = time_ms(lambda i: mg.kernel.group_gemm_cuda(
-            dy16, wt_c, cnt), 5)
-        del dy16, wt, wt_c
+                "prep_ms": time_ms(lambda i: k.group_gemm_dy_cuda(
+                    dy, cnt, torch.bfloat16), 5),
+                "dxe_ms": time_ms(lambda i: k.group_gemm_dxe_cuda(
+                    dy16, w, cnt), 5),
+                "dw_ms": time_ms(lambda i: k.group_gemm_dw_cuda(
+                    xe, dy16, cnt), 5)}
+        if key == "bwd_":
+            kernels = backward_kernel_rows(torch, mg, cnt, xe, w, dy, dy16,
+                                           part)
+        del dy16, wt
         torch.cuda.empty_cache()
         xr, wr = xe.requires_grad_(), w.requires_grad_()
         out = mg.group_gemm_ref(xr, wr, cnt)
@@ -3888,20 +3914,77 @@ def group_gemm_backward_timing(torch) -> dict:
             out, (xr, wr), dy, retain_graph=True), 2, reps=2)
         del out, xr, wr
         part.update(bound_ms=t_bound, bound_by=by, flops=flops, bytes=nbytes)
-        row.update({key + k: v for k, v in part.items()})
+        row.update({key + n: v for n, v in part.items()})
         print(f"[timing] group_gemm backward {label} (E={e} C={c} D={d} "
               f"F={f} bf16, {n_rows} live rows in {n_live} live experts): "
-              f"ms {part['ms']:.4f} (of it the transposed copy of w "
-              f"{part['transpose_ms']:.4f}, the kernel for dxe "
-              f"{part['kernel_ms']:.4f}), plain_ms (autograd through the "
+              f"ms {part['ms']:.4f} (the kernels alone: dy's mask and cast "
+              f"{part['prep_ms']:.4f}, dxe {part['dxe_ms']:.4f}, dw "
+              f"{part['dw_ms']:.4f}), plain_ms (autograd through the "
               f"plain version) {part['plain_ms']:.4f}, library_ms (2 "
-              f"torch.bmm, padded) {part['library_ms']:.4f}, bound_ms "
-              f"{t_bound:.4f} "
-              f"({by}), {flops / part['ms'] / 1e9:.1f} TFLOP/s, "
-              f"{t_bound / part['ms']:.1%} of its bound; {SMI}")
+              f"torch.bmm, padded) {part['library_ms']:.4f} "
+              f"({part['ms'] / part['library_ms']:.2f}x), bound_ms "
+              f"{t_bound:.4f} ({by}), {flops / part['ms'] / 1e9:.1f} "
+              f"TFLOP/s, {t_bound / part['ms']:.1%} of its bound; {SMI}")
         del xe, w, dy
         torch.cuda.empty_cache()
-    return row
+    return row, kernels
+
+
+def backward_kernel_rows(torch, mg, cnt, xe, w, dy, dy16, part) -> dict:
+    """The rows of the backward's three kernels at one shape (bfloat16):
+    ``ms`` from ``part``, ``plain_ms`` their plain versions', ``library_ms``
+    one ``torch.bmm`` (dxe and dw; none for the mask and cast), the bound
+    of each from this run's counts and its largest absolute difference
+    from its plain version on the same inputs, which must be 0 for the
+    mask and cast and within ``TOL`` of the plain version's largest entry
+    for dxe and dw."""
+    k = mg.kernel
+    e, c, d = xe.shape
+    f = dy.shape[2]
+    n_rows, n_live, item = int(cnt.sum()), int((cnt > 0).sum()), 2
+    flops = 2.0 * n_rows * d * f
+    spec = {
+        "group_gemm_dy": (
+            lambda: k.group_gemm_dy_cuda(dy, cnt, torch.bfloat16),
+            lambda: mg.group_gemm_dy_ref(dy, cnt, torch.bfloat16), None,
+            n_rows * f * 4 + e * c * f * item + e * 4, 0.0,
+            part["prep_ms"]),
+        "group_gemm_dxe": (
+            lambda: k.group_gemm_dxe_cuda(dy16, w, cnt),
+            lambda: mg.group_gemm_dxe_ref(dy16, w, cnt),
+            lambda: torch.bmm(dy16, w.transpose(1, 2)),
+            n_live * d * f * item + n_rows * f * item + e * c * d * item
+            + e * 4, flops, part["dxe_ms"]),
+        "group_gemm_dw": (
+            lambda: k.group_gemm_dw_cuda(xe, dy16, cnt),
+            lambda: mg.group_gemm_dw_ref(xe, dy16, cnt),
+            lambda: torch.bmm(xe.transpose(1, 2), dy16),
+            n_rows * (d + f) * item + e * d * f * item + e * 4, flops,
+            part["dw_ms"])}
+    rows = {}
+    for name, (run, plain, library, nbytes, ops, ms) in spec.items():
+        want = plain().float()
+        err = float((run().float() - want).abs().max())
+        limit = 0.0 if ops == 0 else TOL["bfloat16"] * float(
+            want.abs().max())
+        check(err <= limit, f"{name} disagrees with its plain version at "
+              f"moonshot's gate/up join: {err:.3e} > {limit:.3e}")
+        del want
+        t_bound, by = bound(nbytes, ops, "bfloat16")
+        rows[name] = {
+            "ms": ms, "plain_ms": time_ms(lambda i: plain(), 2, reps=3),
+            "library_ms": (None if library is None
+                           else time_ms(lambda i: library(), 5)),
+            "bound_ms": t_bound, "bound_by": by, "max_abs_err": err}
+        r = rows[name]
+        lib = ("none (no one call masks and casts)" if library is None
+               else f"{r['library_ms']:.4f}")
+        print(f"[timing] {name} (moonshot gate/up at a join, E={e} C={c} "
+              f"D={d} F={f} bf16): ms {ms:.4f}, plain_ms "
+              f"{r['plain_ms']:.4f}, library_ms {lib}, bound_ms "
+              f"{t_bound:.4f} ({by}), {t_bound / ms:.1%} of its bound; "
+              f"max_abs_err vs its plain version {err:.3e}")
+    return rows
 
 
 def train_qwen(torch) -> dict:
@@ -3997,15 +4080,17 @@ def train_qwen(torch) -> dict:
     return out
 
 
-def train_moe_cut(torch) -> int:
+def train_moe_cut(torch) -> dict:
     """(c) moonshot-v1-16b-a3b at full width cut to 1 dense + 1 MoE layer
     (all 64 experts and the vocab kept): seeded float32 params, bf16
     activations, remat, batch 4 x L 1,024 from the port's
     ``DataPipeline``.  One microbatch's gradients: every leaf finite and
     ``wi``, ``wg`` and ``wo`` each a non-zero norm.  Then 4 train steps:
-    finite losses, and ``group_gemm`` launched exactly 3 GEMMs x
-    (forward, remat's recompute, backward) x the MoE layer x 4 steps.
-    Returns those launches."""
+    finite losses, the median step ms (steps 1 on), and exactly 3 GEMMs x
+    the MoE layer x 4 steps x 2 (forward, remat's recompute) launches of
+    ``group_gemm`` and x 1 of each backward kernel (``group_gemm_dy``,
+    ``group_gemm_dxe``, ``group_gemm_dw``: the slabs are bf16 with C past
+    16).  Returns those launches."""
     from repro_torch import tree
     from repro_torch.data import DataConfig, DataPipeline
     from repro_torch.models.model_zoo import Model
@@ -4036,31 +4121,35 @@ def train_moe_cut(torch) -> int:
           f"train moe: gradients finite {finite}, expert norms {experts}")
     reset_counts()
     step = make_train_step(model, tcfg)
-    losses = []
+    losses, step_ms = [], []
     for s in range(steps):
+        t1 = time.perf_counter()
         state, m = step(state, batch(s))
-        losses.append(float(m["loss"]))
+        losses.append(float(m["loss"]))      # reads back: the step is done
+        step_ms.append((time.perf_counter() - t1) * 1e3)
     counts = read_counts()
     n_moe = 1
-    want = 3 * 3 * n_moe * steps
+    want = {"group_gemm": 3 * 2 * n_moe * steps,
+            **{n: 3 * n_moe * steps for n in BWD_KERNELS}}
+    got = {n: counts[n] for n in want}
     check(all(math.isfinite(v) for v in losses),
           f"train moe: losses {losses}")
-    check(counts["group_gemm"] == want,
-          f"train moe: group_gemm launched {counts['group_gemm']} times, "
-          f"not {want}")
+    check(got == want, f"train moe: launches {got}, not {want}")
     print(f"[train] moonshot cut to 1 dense + 1 MoE layer at full width "
           f"({n_params} params, 64 experts), batch 4 x L 1,024, bf16, "
           f"remat: every gradient finite, expert gradient norms "
           + ", ".join(f"{k} {v:.4g}" for k, v in experts.items())
           + f"; 4 steps, losses " + " ".join(f"{v:.4f}" for v in losses)
-          + f"; group_gemm launches {counts['group_gemm']} = 3 GEMMs x "
-          f"(forward, recompute, backward) x 1 MoE layer x 4 steps; "
-          f"{time.perf_counter() - t0:.1f}s, peak device memory "
+          + f"; median step {statistics.median(step_ms[1:]):.1f} ms "
+          f"(steps 1 on: " + " ".join(f"{v:.1f}" for v in step_ms)
+          + f"); launches {got} = 3 GEMMs x 1 MoE layer x 4 steps x "
+          f"(forward, recompute) for group_gemm, x 1 for each backward "
+          f"kernel; {time.perf_counter() - t0:.1f}s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {SMI}")
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
-    return counts["group_gemm"]
+    return got
 
 
 def train_agreement(torch) -> None:
@@ -4070,8 +4159,10 @@ def train_agreement(torch) -> None:
     plain path), on the port's ``DataPipeline`` batches (4 x 64).  Each
     step's loss within 1e-4 relative; the final params within max(1e-4 x
     the leaf's largest entry, ``PARAM_LR_SHARE`` x the summed lr), the
-    tolerance the CPU tests hold the port to JAX with; ``group_gemm``
-    launched 9 times a MoE layer and step."""
+    tolerance the CPU tests hold the port to JAX with; a MoE layer and
+    step launch ``group_gemm`` 6 times (forward and recompute), the mask
+    and cast of dy and dxe 3 times each, the dw kernel never (float32
+    takes ``torch.bmm``)."""
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, DataPipeline
@@ -4103,9 +4194,13 @@ def train_agreement(torch) -> None:
             cpu, mp = step(cpu, {"tokens": tokens})
             rel.append(abs(float(mc["loss"]) - float(mp["loss"]))
                        / abs(float(mp["loss"])))
-        launches = read_counts()["group_gemm"]
         n_moe = sum(g.count for g in cfg.resolved_segments()
                     if g.kind.value == "moe")
+        launches = {n: read_counts()[n] for n in ("group_gemm",
+                                                  *BWD_KERNELS)}
+        want = {"group_gemm": 6 * n_moe * steps,
+                "group_gemm_dy": 3 * n_moe * steps,
+                "group_gemm_dxe": 3 * n_moe * steps, "group_gemm_dw": 0}
         worst, worst_key = 0.0, ""
         for (key, a), (_, b) in zip(tree.paths(card["params"]),
                                     tree.paths(cpu["params"])):
@@ -4117,31 +4212,34 @@ def train_agreement(torch) -> None:
               f"path: loss relative differences "
               + " ".join(f"{v:.2e}" for v in rel)
               + f"; params at most {worst:.3f} of their tolerance "
-              f"({worst_key}); group_gemm launches {launches}")
+              f"({worst_key}); launches {launches}")
         check(max(rel) <= 1e-4, f"train agreement {arch}: losses differ")
         check(worst <= 1.0, f"train agreement {arch}: {worst_key} differs")
-        check(launches == 9 * n_moe * steps,
-              f"train agreement {arch}: group_gemm launched {launches} "
-              f"times, not {9 * n_moe * steps}")
+        check(launches == want,
+              f"train agreement {arch}: launches {launches}, not {want}")
 
 
-def train_phase(torch) -> dict:
+def train_phase(torch) -> tuple[dict, dict]:
     """Phase 12, ``[train]``: (a) the grouped GEMM's backward checked and
     timed, (b) full-width qwen2-0.5b trained through a failure, (c) the
-    full-width moonshot cut trained through the kernel, (d) card = CPU at
+    full-width moonshot cut trained through the kernels, (d) card = CPU at
     ``reduced()``.  Returns the backward's times and errors (the
-    group_gemm row's ``bwd_*`` keys) and the launches of (c)."""
+    group_gemm row's ``bwd_*`` keys) and the launches of (c), and the rows
+    of the backward's three kernels with their launches in (c)."""
     t0 = time.perf_counter()
     worst = group_gemm_backward_checks(torch)
-    row = group_gemm_backward_timing(torch)
+    row, kernels = group_gemm_backward_timing(torch)
     row["bwd_max_rel_err"] = worst["moonshot gate/up"]
     row["ds_bwd_max_rel_err"] = worst["deepseek gate/up"]
     qwen = train_qwen(torch)
     row.update({f"train_{k}": v for k, v in qwen.items()})
-    row["train_launches"] = train_moe_cut(torch)
+    launched = train_moe_cut(torch)
+    row["train_launches"] = launched["group_gemm"]
+    for name in BWD_KERNELS:
+        kernels[name]["launches"] = launched[name]
     train_agreement(torch)
     print(f"[train] phase took {time.perf_counter() - t0:.1f}s")
-    return row
+    return row, kernels
 
 
 # ---------------------------------------------------------------------------
@@ -4897,7 +4995,8 @@ def main() -> int:
     print(f"[ssm] phase took {time.perf_counter() - t_ssm:.1f}s")
     # phase 12, [train]: the grouped GEMM's backward, full-width qwen and
     # the moonshot cut trained on the card, card = CPU at reduced()
-    timings["group_gemm"].update(train_phase(torch))
+    bwd_row, bwd_kernels = train_phase(torch)
+    timings["group_gemm"].update(bwd_row)
     # phase 13, [encdec]: whisper's W64 geometry, whisper-tiny and
     # internvl2-26b at full width, card = CPU at reduced(), whisper trained
     enc_worst, at_w64, encdec_counts = encdec_phase(torch)
@@ -4949,6 +5048,17 @@ def main() -> int:
                               "group_gemm.cu",
                               "src/repro/kernels/moe_group_gemm/"
                               "kernel.py:39")}
+    # the backward's kernels: JAX differentiates the einsum outside any
+    # Pallas kernel, so each is the backward of group_gemm_kernel; their
+    # launches are the [train] moonshot cut's
+    for name, src in (("group_gemm_dy", "group_gemm.cu"),
+                      ("group_gemm_dxe", "group_gemm_sm90.cu"),
+                      ("group_gemm_dw", "group_gemm_sm90.cu")):
+        sources[name] = ("src/repro_torch/kernels/moe_group_gemm/csrc/"
+                         + src, sources["group_gemm"][1])
+        timings[name] = bwd_kernels[name]
+        counts[name] = bwd_kernels[name]["launches"]
+        worst[name] = bwd_kernels[name]["max_abs_err"]
     rows = []
     for name, (src, replaces) in sources.items():
         t = timings[name]
@@ -5009,12 +5119,13 @@ def main() -> int:
             rows[-1]["cuda_core_source"] = ("src/repro_torch/kernels/"
                                             "ss_gemm/csrc/ss_gemm.cu")
         # no single PyTorch call computes flux1d's pair of periodic
-        # differences, so its library_ms is null, and that row's alone
+        # differences, nor the mask and cast of dy, so those two rows'
+        # library_ms are null, and theirs alone
         check(all(isinstance(v, (int, float)) and math.isfinite(v)
                   for k, v in rows[-1].items()
                   if k.endswith("_ms") or k == "ms"
-                  if not (k == "library_ms" and name == "flux1d"
-                          and v is None)),
+                  if not (k == "library_ms" and v is None and name in (
+                      "flux1d", "group_gemm_dy"))),
               f"{name}: a timing is not a finite number")
         check(counts[name] > 0, f"{name}: not launched on its path")
         check(rows[-1].get("families_launches", 1) > 0

@@ -40,11 +40,22 @@
 // 16-byte aligned, which the wrapper requires.  Reads past C, D and F are
 // guarded.  Where asked (a non-null `tiles`), each CTA adds one to tiles[0]
 // and each skipped one to tiles[1], so a caller can read what was skipped.
+//
+// The backward's dxe[e] = dy[e] @ w[e]^T runs the same tiles for float32
+// and for bfloat16 slabs of up to 16 rows (the bfloat16 join's runs in
+// group_gemm_sm90.cu), reading w as it lies through a template flag (WT):
+// a B chunk is staged 16 bytes along K of each output column, and the
+// products read it column-major, so no transposed copy of w is made.
+// group_gemm_dy_kernel is the backward's first pass for every route: it
+// reads float32 dy's live rows once and writes them in the working dtype,
+// zeros past each count (never multiplied: the forward defines those rows
+// as 0, so nothing flows through them, NaN included); bytes bound it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace group_gemm {
 
@@ -54,15 +65,16 @@ constexpr int kChunk = 128;    // bytes of K staged per row and chunk
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
-template <typename T, int BM>
+// WT: w[e] is read as [N, K] (dxe's w^T), staged column by column.
+template <typename T, int BM, bool WT>
 struct Tile {
   static constexpr int V = 16 / static_cast<int>(sizeof(T));  // per 16 B
   static constexpr int BK = kChunk / static_cast<int>(sizeof(T));
   static constexpr int LDA = BK + V;   // padded rows, 16-byte multiples
-  static constexpr int LDB = kBN + V;
+  static constexpr int LDB = WT ? BK + V : kBN + V;
   static constexpr int LDC = kBN + 4;  // float epilogue tile
   static constexpr int A_ELEMS = BM * LDA;
-  static constexpr int B_ELEMS = BK * LDB;
+  static constexpr int B_ELEMS = (WT ? kBN : BK) * LDB;
   // 16-byte chunks per thread and chunk of K
   static constexpr int A_VEC = BM * BK / V / kThreads;
   static constexpr int B_VEC = BK * kBN / V / kThreads;
@@ -76,17 +88,18 @@ struct Tile {
 };
 
 // One expert's view: where its rows and weights start and how much is live.
+// d is the K walked and f the output columns (dxe: F and D).
 template <typename T>
 struct Operands {
-  const T* x;  // xe[e], [C, D]
-  const T* w;  // w[e], [D, F]
+  const T* x;  // xe[e], [C, D] (dxe: dy[e], [C, F])
+  const T* w;  // w[e], [D, F] (dxe: the same w[e], read as [N, K])
   int c0, n0, live, d, f;
 };
 
 // The next chunk of K, held in registers between its load and its store.
-template <typename T, int BM>
+template <typename T, int BM, bool WT>
 struct Stage {
-  using TL = Tile<T, BM>;
+  using TL = Tile<T, BM, WT>;
   uint4 a[TL::A_VEC];
   uint4 b[TL::B_VEC];
 
@@ -101,16 +114,29 @@ struct Stage {
                        op.x + static_cast<int64_t>(op.c0 + r) * op.d + k)
                  : make_uint4(0, 0, 0, 0);
     }
-    constexpr int kColChunks = kBN / TL::V;
+    if constexpr (WT) {         // 16 bytes along K of one column of w^T
 #pragma unroll
-    for (int j = 0; j < TL::B_VEC; ++j) {
-      const int q = threadIdx.x + j * kThreads;
-      const int k = k0 + q / kColChunks;
-      const int n = op.n0 + (q % kColChunks) * TL::V;
-      b[j] = k < op.d && n < op.f
-                 ? *reinterpret_cast<const uint4*>(
-                       op.w + static_cast<int64_t>(k) * op.f + n)
-                 : make_uint4(0, 0, 0, 0);
+      for (int j = 0; j < TL::B_VEC; ++j) {
+        const int q = threadIdx.x + j * kThreads;
+        const int n = op.n0 + q / kRowChunks;
+        const int k = k0 + (q % kRowChunks) * TL::V;
+        b[j] = k < op.d && n < op.f
+                   ? *reinterpret_cast<const uint4*>(
+                         op.w + static_cast<int64_t>(n) * op.d + k)
+                   : make_uint4(0, 0, 0, 0);
+      }
+    } else {
+      constexpr int kColChunks = kBN / TL::V;
+#pragma unroll
+      for (int j = 0; j < TL::B_VEC; ++j) {
+        const int q = threadIdx.x + j * kThreads;
+        const int k = k0 + q / kColChunks;
+        const int n = op.n0 + (q % kColChunks) * TL::V;
+        b[j] = k < op.d && n < op.f
+                   ? *reinterpret_cast<const uint4*>(
+                         op.w + static_cast<int64_t>(k) * op.f + n)
+                   : make_uint4(0, 0, 0, 0);
+      }
     }
   }
 
@@ -122,19 +148,20 @@ struct Stage {
       *reinterpret_cast<uint4*>(
           as + (q / kRowChunks) * TL::LDA + (q % kRowChunks) * TL::V) = a[j];
     }
-    constexpr int kColChunks = kBN / TL::V;
+    // B as [K, N] rows, or (WT) as [N, K] rows: column n of B is row n
+    constexpr int kBRun = WT ? kRowChunks : kBN / TL::V;
 #pragma unroll
     for (int j = 0; j < TL::B_VEC; ++j) {
       const int q = threadIdx.x + j * kThreads;
       *reinterpret_cast<uint4*>(
-          bs + (q / kColChunks) * TL::LDB + (q % kColChunks) * TL::V) = b[j];
+          bs + (q / kBRun) * TL::LDB + (q % kBRun) * TL::V) = b[j];
     }
   }
 };
 
 // The products of one staged chunk.  bfloat16: warp w owns output columns
 // [16w, 16w + 16) and every 16-row fragment that holds a live row.
-template <int BM>
+template <int BM, bool WT>
 struct Mma {
   static constexpr int FM = BM / 16;
   nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
@@ -148,13 +175,15 @@ struct Mma {
   __device__ __forceinline__ void step(const __nv_bfloat16* as,
                                        const __nv_bfloat16* bs, int live) {
     using namespace nvcuda;
-    using TL = Tile<__nv_bfloat16, BM>;
+    using TL = Tile<__nv_bfloat16, BM, WT>;
+    using Layout = std::conditional_t<WT, wmma::col_major, wmma::row_major>;
     const int warp = threadIdx.x >> 5;
 #pragma unroll
     for (int kk = 0; kk < TL::BK; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, bs + kk * TL::LDB + warp * 16, TL::LDB);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, Layout> fb;
+      wmma::load_matrix_sync(fb, WT ? bs + warp * 16 * TL::LDB + kk
+                                    : bs + kk * TL::LDB + warp * 16,
+                             TL::LDB);
 #pragma unroll
       for (int i = 0; i < FM; ++i) {
         if (i * 16 < live) {  // warp-uniform: fragments past the count idle
@@ -169,7 +198,7 @@ struct Mma {
 };
 
 // float32: thread t owns column t % 64 and rows t / 64 + 2i, i < BM / 2.
-template <int BM>
+template <int BM, bool WT>
 struct Fma {
   static constexpr int R = BM / 2;
   float acc[R];
@@ -181,11 +210,11 @@ struct Fma {
 
   __device__ __forceinline__ void step(const float* as, const float* bs,
                                        int) {
-    using TL = Tile<float, BM>;
+    using TL = Tile<float, BM, WT>;
     const int col = threadIdx.x % kBN, r0 = threadIdx.x / kBN;
 #pragma unroll 4
     for (int kk = 0; kk < TL::BK; ++kk) {
-      const float b = bs[kk * TL::LDB + col];
+      const float b = WT ? bs[col * TL::LDB + kk] : bs[kk * TL::LDB + col];
 #pragma unroll
       for (int i = 0; i < R; ++i)
         acc[i] = fmaf(as[(r0 + 2 * i) * TL::LDA + kk], b, acc[i]);
@@ -193,19 +222,21 @@ struct Fma {
   }
 };
 
-template <typename T, int BM>
+template <typename T, int BM, bool WT>
 struct Math;
-template <int BM>
-struct Math<__nv_bfloat16, BM> { using type = Mma<BM>; };
-template <int BM>
-struct Math<float, BM> { using type = Fma<BM>; };
+template <int BM, bool WT>
+struct Math<__nv_bfloat16, BM, WT> { using type = Mma<BM, WT>; };
+template <int BM, bool WT>
+struct Math<float, BM, WT> { using type = Fma<BM, WT>; };
 
-template <typename T, int BM>
+// (c, d, f): capacity rows, the K walked, output columns.  WT: w is [E, f,
+// d] and the product is xe @ w^T (dxe: xe is dy, d is F and f is D).
+template <typename T, int BM, bool WT>
 __global__ void __launch_bounds__(kThreads)
 group_gemm_kernel(const T* __restrict__ xe, const T* __restrict__ w,
                   const int* __restrict__ counts, float* __restrict__ out,
                   int* __restrict__ tiles, int c, int d, int f) {
-  using TL = Tile<T, BM>;
+  using TL = Tile<T, BM, WT>;
   __shared__ __align__(128) unsigned char smem[TL::kSmemBytes];
   const int e = blockIdx.z;
   const int c0 = blockIdx.y * BM;
@@ -233,9 +264,9 @@ group_gemm_kernel(const T* __restrict__ xe, const T* __restrict__ w,
   T* bs[2] = {reinterpret_cast<T*>(smem) + 2 * TL::A_ELEMS,
               reinterpret_cast<T*>(smem) + 2 * TL::A_ELEMS + TL::B_ELEMS};
 
-  typename Math<T, BM>::type math;
+  typename Math<T, BM, WT>::type math;
   math.zero();
-  Stage<T, BM> st;
+  Stage<T, BM, WT> st;
   const int nk = (d + TL::BK - 1) / TL::BK;
   if (nk > 0) st.load(op, 0);
   for (int kt = 0; kt < nk; ++kt) {
@@ -276,28 +307,64 @@ group_gemm_kernel(const T* __restrict__ xe, const T* __restrict__ w,
   }
 }
 
-template <typename T, int BM>
+template <typename T, int BM, bool WT>
 cudaError_t launch(const void* xe, const void* w, const int* counts,
                    float* out, int* tiles, int e, int c, int d, int f,
                    cudaStream_t stream) {
   const dim3 grid((f + kBN - 1) / kBN, (c + BM - 1) / BM, e);
-  group_gemm_kernel<T, BM><<<grid, kThreads, 0, stream>>>(
+  group_gemm_kernel<T, BM, WT><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(xe), static_cast<const T*>(w), counts, out, tiles,
       c, d, f);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool WT>
 cudaError_t dispatch(const void* xe, const void* w, const int* counts,
                      float* out, int* tiles, int e, int c, int d, int f,
                      int bm, cudaStream_t stream) {
-  if (bm == 16) return launch<T, 16>(xe, w, counts, out, tiles, e, c, d, f,
-                                     stream);
+  if (bm == 16) return launch<T, 16, WT>(xe, w, counts, out, tiles, e, c, d,
+                                         f, stream);
   if constexpr (sizeof(T) == 4) {  // bfloat16 past C 16 is the wgmma kernel's
-    if (bm == 64) return launch<T, 64>(xe, w, counts, out, tiles, e, c, d,
-                                       f, stream);
+    if (bm == 64) return launch<T, 64, WT>(xe, w, counts, out, tiles, e, c,
+                                           d, f, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// out[e, r] = dy[e, r] in T for r < counts[e], else 0: 16 bytes of out a
+// thread and step (8 bfloat16 from two float4, or one float4); f is a
+// whole number of them, which the wrapper requires.
+template <typename T>
+__global__ void __launch_bounds__(256)
+group_gemm_dy_kernel(const float* __restrict__ dy,
+                     const int* __restrict__ counts, T* __restrict__ out,
+                     int c, int f, int64_t n_vec) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const int per_row = f / V;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n_vec; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t row = i / per_row;
+    const int64_t at = row * f + (i % per_row) * V;
+    const int e = static_cast<int>(row / c), r = static_cast<int>(row % c);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < counts[e]) {       // counts past C act as C: r < C already
+      if constexpr (sizeof(T) == 2) {
+        const float4 lo = __ldcs(reinterpret_cast<const float4*>(dy + at));
+        const float4 hi =
+            __ldcs(reinterpret_cast<const float4*>(dy + at + 4));
+        alignas(16) __nv_bfloat162 h[4] = {
+            __floats2bfloat162_rn(lo.x, lo.y),
+            __floats2bfloat162_rn(lo.z, lo.w),
+            __floats2bfloat162_rn(hi.x, hi.y),
+            __floats2bfloat162_rn(hi.z, hi.w)};
+        v = *reinterpret_cast<const uint4*>(h);
+      } else {
+        v = __ldcs(reinterpret_cast<const uint4*>(dy + at));
+      }
+    }
+    *reinterpret_cast<uint4*>(out + at) = v;
+  }
 }
 
 }  // namespace group_gemm
@@ -328,9 +395,69 @@ cudaError_t group_gemm_launch(int dtype, const void* xe, const void* w,
                                          f, stream)
                : cudaErrorInvalidValue;
   if (dtype == kFloat32)
-    return dispatch<float>(xe, w, counts, out, tiles, e, c, d, f, bm, stream);
+    return dispatch<float, false>(xe, w, counts, out, tiles, e, c, d, f, bm,
+                                  stream);
   if (dtype == kBFloat16)
-    return dispatch<__nv_bfloat16>(xe, w, counts, out, tiles, e, c, d, f, bm,
-                                   stream);
+    return dispatch<__nv_bfloat16, false>(xe, w, counts, out, tiles, e, c, d,
+                                          f, bm, stream);
   return cudaErrorInvalidValue;
+}
+
+// bfloat16 with C > 16: dxe on the wgmma kernel, w read as it lies
+// (group_gemm_sm90.cu)
+cudaError_t group_gemm_dxe_wgmma_launch(const void* dy, const void* w,
+                                        const int* counts, void* dxe,
+                                        int* tiles, int e, int c, int d,
+                                        int f, cudaStream_t stream);
+
+// dxe [E, C, D] = dy [E, C, F] @ w [E, D, F]^T, the rows at or past
+// counts[e] zero, w read as it lies.  `bm` as for group_gemm_launch: 256
+// (bfloat16, C > 16) writes dxe in bfloat16 on the wgmma kernel; 16 or 64
+// write it in float32 on this file's tiles.  Returns the launch status.
+cudaError_t group_gemm_dxe_launch(int dtype, const void* dy, const void* w,
+                                  const int* counts, void* dxe, int* tiles,
+                                  int e, int c, int d, int f, int bm,
+                                  cudaStream_t stream) {
+  using namespace group_gemm;
+  if (e < 0 || c < 0 || d < 0 || f < 0) return cudaErrorInvalidValue;
+  if (e == 0 || c == 0 || d == 0) return cudaSuccess;
+  if (e > 65535 || (c + bm - 1) / bm > 65535) return cudaErrorInvalidValue;
+  if (bm == 256)
+    return dtype == kBFloat16
+               ? group_gemm_dxe_wgmma_launch(dy, w, counts, dxe, tiles, e, c,
+                                             d, f, stream)
+               : cudaErrorInvalidValue;
+  float* out = static_cast<float*>(dxe);
+  if (dtype == kFloat32)    // K is F, the output columns D
+    return dispatch<float, true>(dy, w, counts, out, tiles, e, c, f, d, bm,
+                                 stream);
+  if (dtype == kBFloat16)
+    return dispatch<__nv_bfloat16, true>(dy, w, counts, out, tiles, e, c, f,
+                                         d, bm, stream);
+  return cudaErrorInvalidValue;
+}
+
+// out [E, C, F] (float32 or bfloat16, `dtype`) = float32 dy's rows below
+// counts[e] (clamped to [0, C]), zeros past them; F a whole number of
+// 16-byte runs of out, both bases 16-byte aligned.
+cudaError_t group_gemm_dy_launch(int dtype, const float* dy,
+                                 const int* counts, void* out, int e, int c,
+                                 int f, cudaStream_t stream) {
+  using namespace group_gemm;
+  if (e < 0 || c < 0 || f < 0) return cudaErrorInvalidValue;
+  const int v = dtype == kBFloat16 ? 8 : 4;
+  if (f % v) return cudaErrorInvalidValue;
+  const int64_t n_vec = static_cast<int64_t>(e) * c * (f / v);
+  if (n_vec == 0) return cudaSuccess;
+  const int64_t blocks = (n_vec + 255) / 256;
+  const int grid = static_cast<int>(blocks < (1 << 20) ? blocks : (1 << 20));
+  if (dtype == kBFloat16)
+    group_gemm_dy_kernel<__nv_bfloat16><<<grid, 256, 0, stream>>>(
+        dy, counts, static_cast<__nv_bfloat16*>(out), c, f, n_vec);
+  else if (dtype == kFloat32)
+    group_gemm_dy_kernel<float><<<grid, 256, 0, stream>>>(
+        dy, counts, static_cast<float*>(out), c, f, n_vec);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }

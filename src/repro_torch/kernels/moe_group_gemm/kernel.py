@@ -1,4 +1,5 @@
-"""Build, load and launch the hand-written CUDA grouped expert GEMM.
+"""Build, load and launch the hand-written CUDA grouped expert GEMM and
+its backward.
 
 Sources live in ``csrc/``: ``group_gemm.cu`` (replaces the TPU kernel
 ``repro/kernels/moe_group_gemm/kernel.py::group_gemm_kernel``: decode
@@ -18,7 +19,16 @@ one fragment (as at decode), 256 x 128 for bfloat16 past that (the wgmma
 kernel), 64 x 64 for float32.  Given ``tiles``, the kernel counts on the
 card the tiles it ran and those it skipped; :func:`tile_counts` is what
 the tiling rule predicts.
-The plain version lives in :mod:`.ref` and the routing by the tensors'
+The backward's kernels (:func:`group_gemm_backward` in :mod:`.ops` runs
+them): :func:`group_gemm_dy_cuda` masks float32 ``dy`` past each count
+and casts it to the working dtype (``group_gemm.cu``);
+:func:`group_gemm_dxe_cuda` computes ``dy @ w^T`` reading ``w`` as it lies
+(bfloat16 past C 16 on the wgmma kernel of ``group_gemm_sm90.cu``, out in
+bfloat16; float32 and C <= 16 on ``group_gemm.cu``'s tiles, out in
+float32); :func:`group_gemm_dw_cuda` computes ``xe^T @ dy`` over each
+expert's live rows only (bfloat16, ``group_gemm_sm90.cu``, persistent
+CTAs; :func:`dw_tile_counts` predicts its tiles and K stages).
+The plain versions live in :mod:`.ref` and the routing by the tensors'
 device in :mod:`.ops`.  ``launch_counts`` counts launches (a launch
 captured in a CUDA graph counts at each replay:
 :mod:`repro_torch.kernels.launches`).
@@ -39,7 +49,11 @@ BN = 64                        # kBN in group_gemm.cu
 BN_WGMMA = 128                 # kBN in group_gemm_sm90.cu
 _INT_MAX = 2**31 - 1
 
-launch_counts = {"group_gemm": 0}
+BK = 64                        # kBK in group_gemm_sm90.cu: K rows a stage
+BM_DW = 256                    # kBM in group_gemm_sm90.cu: rows of D a dw tile
+
+launch_counts = {"group_gemm": 0, "group_gemm_dy": 0, "group_gemm_dxe": 0,
+                 "group_gemm_dw": 0}
 
 _ext = None
 _lock = threading.Lock()
@@ -73,11 +87,18 @@ def load_extension():
     return _ext
 
 
+def on_wgmma(c: int, dtype: torch.dtype) -> bool:
+    """Whether slabs of ``c`` rows of ``dtype`` take the wgmma kernels
+    (bfloat16 past 16 rows, a join's or a training step's): the forward's
+    and dxe's 256-row tiles, and the dw kernel."""
+    return dtype == torch.bfloat16 and c > 16
+
+
 def tile_rows(c: int, dtype: torch.dtype) -> int:
     """Capacity rows per tile of the kernel for slabs of ``c`` rows."""
     if c <= 16:
         return 16
-    return 256 if dtype == torch.bfloat16 else 64
+    return 256 if on_wgmma(c, dtype) else 64
 
 
 def tile_cols(c: int, dtype: torch.dtype) -> int:
@@ -100,6 +121,27 @@ def tile_counts(counts: torch.Tensor, c: int, f: int,
     return total, total - int(live.sum()) * n_f
 
 
+def dw_stages(counts: torch.Tensor, c: int) -> torch.Tensor:
+    """[E] K stages of :data:`BK` rows that a dw tile of each expert runs:
+    ceil(count / BK), counts clamped to [0, c]; 0 for an empty expert,
+    whose tiles load nothing and write zeros."""
+    return (counts.clamp(0, c) + BK - 1) // BK
+
+
+def dw_tile_counts(counts: torch.Tensor, c: int, d: int,
+                   f: int) -> tuple[int, int, int]:
+    """(tiles, tiles of an empty expert, K stages run) that the dw
+    kernel's launch over [E, c, d] x [E, c, f] runs: each expert has
+    ceil(d / BM_DW) x ceil(f / BN_WGMMA) tiles, each running
+    :func:`dw_stages` stages.  Reads ``counts`` back to the host; the
+    kernel's own count is ``group_gemm_dw_cuda(tiles=)``."""
+    per_expert = -(-d // BM_DW) * -(-f // BN_WGMMA)
+    stages = dw_stages(counts, c)
+    return (counts.shape[0] * per_expert,
+            int((stages == 0).sum()) * per_expert,
+            int(stages.sum()) * per_expert)
+
+
 def _check(name: str, t: torch.Tensor, ndim: int, dtypes, dev) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
@@ -114,6 +156,27 @@ def _check(name: str, t: torch.Tensor, ndim: int, dtypes, dev) -> None:
         raise TypeError(f"{name} dtype {t.dtype} not in {dtypes}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_rows(dtype: torch.dtype, widths, *tensors: torch.Tensor) -> None:
+    """Rows of ``widths`` elements of ``dtype`` whole 16 bytes, and the
+    tensors on 16-byte aligned bases."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for n in widths:
+        if n * item % 16:
+            raise ValueError(f"rows of {n} {dtype} elements are not whole "
+                             "16 bytes")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("tensors must start on 16-byte boundaries")
+
+
+def _check_tiles(tiles: torch.Tensor | None, n: int, dev) -> torch.Tensor:
+    if tiles is None:
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    _check("tiles", tiles, 1, (torch.int32,), dev)
+    if tiles.shape[0] != n:
+        raise ValueError(f"tiles must be [{n}], got {tuple(tiles.shape)}")
+    return tiles
 
 
 def group_gemm_cuda(xe: torch.Tensor, w: torch.Tensor,
@@ -141,20 +204,102 @@ def group_gemm_cuda(xe: torch.Tensor, w: torch.Tensor,
     if e > 65535 or -(-c // bm) > 65535 or max(c, d, f) > _INT_MAX:
         raise ValueError(f"shape xe {tuple(xe.shape)} w {tuple(w.shape)} "
                          "is past the kernel's grid")
-    item = xe.element_size()
-    if d * item % 16 or f * item % 16:
-        raise ValueError(f"rows of D {d} and F {f} must be whole 16 bytes "
-                         f"({16 // item} {xe.dtype} elements)")
-    if xe.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("xe and w must start on 16-byte boundaries")
-    if tiles is None:
-        tiles = torch.empty(0, dtype=torch.int32, device=dev)
-    else:
-        _check("tiles", tiles, 1, (torch.int32,), dev)
-        if tiles.shape[0] != 2:
-            raise ValueError(f"tiles must be [2], got {tuple(tiles.shape)}")
+    _check_rows(xe.dtype, (d, f), xe, w)
+    tiles = _check_tiles(tiles, 2, dev)
     out = torch.empty((e, c, f), dtype=torch.float32, device=dev)
     if out.numel():                  # nothing to write: nothing to launch
         load_extension().group_gemm(xe, w, counts, bm, out, tiles)
         launches.count(launch_counts, "group_gemm")
+    return out
+
+
+def group_gemm_dy_cuda(dy: torch.Tensor, counts: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """The backward's first pass: dy [E, C, F] float32 on the card, counts
+    [E] int32 -> [E, C, F] ``dtype`` (float32 or bfloat16) holding dy's
+    rows below each count and zeros past it, whatever dy holds there (NaN
+    included).  F must make whole 16-byte rows of ``dtype``."""
+    dev = dy.device
+    _check("dy", dy, 3, (torch.float32,), dev)
+    _check("counts", counts, 1, (torch.int32,), dev)
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype} not in {_DTYPES}")
+    if counts.shape[0] != dy.shape[0]:
+        raise ValueError(f"counts has {counts.shape[0]} entries for "
+                         f"{dy.shape[0]} experts")
+    _check_rows(dtype, dy.shape[2:], dy)
+    out = torch.empty(dy.shape, dtype=dtype, device=dev)
+    if out.numel():
+        load_extension().group_gemm_dy(dy, counts, out)
+        launches.count(launch_counts, "group_gemm_dy")
+    return out
+
+
+def group_gemm_dxe_cuda(dy: torch.Tensor, w: torch.Tensor,
+                        counts: torch.Tensor, *,
+                        tiles: torch.Tensor | None = None) -> torch.Tensor:
+    """dxe[e] = dy[e] @ w[e]^T with w read as it lies: dy [E, C, F]
+    (float32 or bfloat16, zero or not past each count), w [E, D, F] in
+    dy's dtype, counts [E] int32 -> [E, C, D], rows at or past counts[e]
+    exactly 0 (the tiles past the count read nothing).  bfloat16 with C >
+    16 runs the wgmma kernel and returns bfloat16; the rest runs
+    ``group_gemm.cu``'s tiles and returns float32.  ``tiles``, int32 [2],
+    gets the launch's tiles and skipped tiles added, as
+    :func:`tile_counts` (counts, C, D, dtype) predicts."""
+    dev = dy.device
+    _check("dy", dy, 3, _DTYPES, dev)
+    _check("w", w, 3, (dy.dtype,), dev)
+    _check("counts", counts, 1, (torch.int32,), dev)
+    e, c, f = dy.shape
+    if w.shape[0] != e or w.shape[2] != f:
+        raise ValueError(f"dy {tuple(dy.shape)} and w {tuple(w.shape)} do "
+                         "not chain expert by expert")
+    if counts.shape[0] != e:
+        raise ValueError(f"counts has {counts.shape[0]} entries for {e} "
+                         "experts")
+    d = w.shape[1]
+    bm = tile_rows(c, dy.dtype)
+    if e > 65535 or -(-c // bm) > 65535 or max(c, d, f) > _INT_MAX:
+        raise ValueError(f"shape dy {tuple(dy.shape)} w {tuple(w.shape)} "
+                         "is past the kernel's grid")
+    _check_rows(dy.dtype, (f, d), dy, w)
+    tiles = _check_tiles(tiles, 2, dev)
+    out = torch.empty((e, c, d), device=dev, dtype=(
+        torch.bfloat16 if bm == 256 else torch.float32))
+    if out.numel():
+        load_extension().group_gemm_dxe(dy, w, counts, bm, out, tiles)
+        launches.count(launch_counts, "group_gemm_dxe")
+    return out
+
+
+def group_gemm_dw_cuda(xe: torch.Tensor, dy: torch.Tensor,
+                       counts: torch.Tensor, *,
+                       tiles: torch.Tensor | None = None) -> torch.Tensor:
+    """dw[e] = xe[e]^T @ dy[e] over the rows below counts[e] alone: xe [E,
+    C, D] and dy [E, C, F] bfloat16 (anything, NaN included, past each
+    count), counts [E] int32, C >= 1 -> [E, D, F] bfloat16 (float32 sums);
+    an empty expert's dw is 0 and reads nothing.  ``tiles``, int32 [3],
+    gets the launch's tiles, tiles of an empty expert and K stages run
+    added, as :func:`dw_tile_counts` predicts."""
+    dev = xe.device
+    _check("xe", xe, 3, (torch.bfloat16,), dev)
+    _check("dy", dy, 3, (torch.bfloat16,), dev)
+    _check("counts", counts, 1, (torch.int32,), dev)
+    e, c, d = xe.shape
+    if dy.shape[:2] != (e, c):
+        raise ValueError(f"xe {tuple(xe.shape)} and dy {tuple(dy.shape)} "
+                         "do not share experts and rows")
+    if counts.shape[0] != e:
+        raise ValueError(f"counts has {counts.shape[0]} entries for {e} "
+                         "experts")
+    f = dy.shape[2]
+    if c < 1 or -(-d // BM_DW) * -(-f // BN_WGMMA) * e > _INT_MAX:
+        raise ValueError(f"shape xe {tuple(xe.shape)} dy {tuple(dy.shape)}"
+                         " is outside the kernel's range")
+    _check_rows(torch.bfloat16, (d, f), xe, dy)
+    tiles = _check_tiles(tiles, 3, dev)
+    out = torch.empty((e, d, f), dtype=torch.bfloat16, device=dev)
+    if out.numel():
+        load_extension().group_gemm_dw(xe, dy, counts, out, tiles)
+        launches.count(launch_counts, "group_gemm_dw")
     return out

@@ -11,14 +11,14 @@ tile (:func:`.kernel.tile_rows` x :func:`.kernel.tile_cols`) and needs no
 padding of C.  There is no ``interpret`` flag.
 
 Gradients: the CUDA route is the autograd function :class:`GroupGemm`,
-whose backward zeroes ``dy``'s rows at or past each count (the forward
-defines those rows as 0 whatever the inputs, so nothing flows through
-them), sends ``dxe = dy w^T`` through the same hand-written kernel (so the
-skip of dead tiles carries into the backward) and takes ``dw = xe^T dy``
-from ``torch.bmm`` over the live rows, as JAX's autodiff computes the
-weight gradient outside any kernel.  ``counts`` gets no gradient.  The
-CPU route is the plain version, which autograd differentiates as it is,
-and which the function's backward is held to on the card.
+whose backward (:func:`group_gemm_backward`) runs hand-written kernels
+and copies no weights: one pass zeroes ``dy``'s rows at or past each
+count and casts it to the working dtype (the forward defines those rows
+as 0 whatever the inputs, so nothing flows through them), ``dxe = dy
+w^T`` reads ``w`` as it lies with the forward's skip of dead tiles, and
+``dw = xe^T dy`` runs over each expert's live rows only.  ``counts`` gets
+no gradient.  The CPU route is the plain version, which autograd
+differentiates as it is, and which the function's backward is held to.
 """
 from __future__ import annotations
 
@@ -27,33 +27,31 @@ import torch
 from . import kernel, ref
 
 
-def _live(xe: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """[E, C, 1] bool: row c of expert e lies below ``counts[e]``."""
-    c = xe.shape[1]
-    return (torch.arange(c, device=xe.device)[None, :, None]
-            < counts[:, None, None])
-
-
 def group_gemm_backward(xe: torch.Tensor, w: torch.Tensor,
                         counts: torch.Tensor, dy: torch.Tensor, *,
                         need_dxe: bool = True, need_dw: bool = True):
     """(dxe, dw) of the CUDA op's output given ``dy`` [E, C, F] float32,
-    None where not needed.  ``dy``'s rows at or past each count are
-    zeroed first, whatever they hold (NaN included), and so are ``xe``'s
-    before they enter ``dw``: the forward reads neither.  ``dxe`` comes
-    from the hand-written kernel (its rows past the counts exactly 0),
-    ``dw`` from ``torch.bmm``; each in its input's dtype."""
-    live = _live(xe, counts)
-    dy = torch.where(live, dy, torch.zeros((), dtype=dy.dtype,
-                                           device=dy.device)).to(xe.dtype)
+    None where not needed, each in its input's dtype; no route copies
+    ``w``.  ``dy``'s rows at or past each count are zeroed first, whatever
+    they hold (NaN included), and ``xe``'s never enter ``dw``: the forward
+    reads neither.  bfloat16 with C > 16 (a join's or a training step's
+    slabs) runs three launches: the mask and cast of ``dy``, dxe on the
+    wgmma kernel and dw over the live rows (``kernel.on_wgmma``).  float32
+    and C <= 16 run the mask and cast, dxe on ``group_gemm.cu``'s tiles,
+    and ``torch.bmm`` for dw over ``xe``'s rows selected to the counts, as
+    JAX's autodiff computes the weight gradient outside any kernel."""
+    dy_live = kernel.group_gemm_dy_cuda(dy.contiguous(), counts, xe.dtype)
     dxe = dw = None
     if need_dxe:
-        dxe = kernel.group_gemm_cuda(
-            dy, w.transpose(1, 2).contiguous(), counts).to(xe.dtype)
+        dxe = kernel.group_gemm_dxe_cuda(dy_live, w, counts).to(xe.dtype)
     if need_dw:
-        x_live = torch.where(live, xe, torch.zeros((), dtype=xe.dtype,
-                                                   device=xe.device))
-        dw = torch.bmm(x_live.transpose(1, 2), dy).to(w.dtype)
+        if kernel.on_wgmma(xe.shape[1], xe.dtype):
+            dw = kernel.group_gemm_dw_cuda(xe, dy_live, counts)
+        else:
+            x_live = torch.where(ref.live_rows(xe, counts), xe,
+                                 torch.zeros((), dtype=xe.dtype,
+                                             device=xe.device))
+            dw = torch.bmm(x_live.transpose(1, 2), dy_live)
     return dxe, dw
 
 

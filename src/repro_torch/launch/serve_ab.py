@@ -6,6 +6,8 @@ its parent) can be compared on one card.
       [--arch qwen2-0.5b] [--layouts paged dense] [--reps 2] [--graphs-ab]
   python src/repro_torch/launch/serve_ab.py --primitives [--src DIR] \\
       [--steps 5]
+  python src/repro_torch/launch/serve_ab.py --moe-train [--src DIR] \\
+      [--steps 5]
   python src/repro_torch/launch/serve_ab.py --kernel-outputs OUT.npz \\
       [--src DIR]
   python src/repro_torch/launch/serve_ab.py --compare-outputs A.npz B.npz
@@ -42,6 +44,16 @@ back between CUDA events (``ms``, which includes the host); the median of
 5 replays or runs.  Then ``--steps`` wave steps at ``Problem()`` through
 ``launch.wave_demo.run`` (ms a step and the volume op's ms, medians).
 
+``--moe-train``: the MoE train step of ``chip_smoke.py``'s ``[train]``
+(c): full-width moonshot-v1-16b-a3b cut to 1 dense + 1 MoE layer, seeded
+float32 params, bf16 activations, remat, batch 4 x L 1,024 from the
+port's ``DataPipeline``; ``--steps`` + 1 steps, the median step ms on the
+host clock from the second (each step ends in a read of its loss).  Then
+the grouped GEMM's backward alone (``group_gemm_backward``, bf16) at a
+4,096-token join's gate/up shapes (E 64, C 480, D 2048, F 1408; counts
+from a seeded routing, dy float32), by CUDA events: what the two trees'
+expert GEMM backwards differ by, beside the step they sit in.
+
 ``--kernel-outputs OUT.npz``: the paged decode and prefill kernels'
 outputs, through their wrappers with no launch argument (the tree's
 default launch), at full-width qwen2-0.5b's and moonshot's geometry in
@@ -56,11 +68,13 @@ The last line is a JSON summary.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import pathlib
 import statistics
 import sys
+import time
 
 
 def own_timing():
@@ -178,6 +192,61 @@ def primitives(torch, timing, args) -> dict:
     return out
 
 
+def moe_train(torch, timing, args) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BlockKind, Segment
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels.moe_group_gemm import group_gemm_backward
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import (TrainConfig, make_train_state,
+                                              make_train_step)
+    cfg = get_config("moonshot-v1-16b-a3b")
+    cut = dataclasses.replace(cfg, n_layers=2, segments=(
+        Segment(BlockKind.DENSE, 1), Segment(BlockKind.MOE, 1)))
+    model = Model(cut)
+    tcfg = TrainConfig(opt=opt.OptConfig(lr=3e-4, warmup_steps=2,
+                                         total_steps=args.steps + 1))
+    state = make_train_state(model, 0, tcfg, device="cuda")
+    data = DataPipeline(DataConfig(vocab=cut.vocab, seq_len=1024,
+                                   global_batch=4, seed=0))
+    step = make_train_step(model, tcfg)
+    step_ms = []
+    for s in range(args.steps + 1):
+        batch = {"tokens": torch.from_numpy(
+            data.batch_at(s)["tokens"]).cuda()}
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    del state, step
+    torch.cuda.empty_cache()
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    router = {"w": 0.02 * torch.randn(d, e, generator=gen, device="cuda")}
+    x = torch.randn(4096, d, generator=gen, device="cuda")
+    _, ids, _ = moe.route({"router": router}, x, cfg)
+    c = moe.capacity(cfg, 4096)
+    counts = moe.dispatch(ids, e, c)[2].to(torch.int32)
+    live = torch.arange(c, device="cuda")[None, :, None] < counts[:, None,
+                                                                  None]
+    xe = (torch.randn(e, c, d, generator=gen, device="cuda")
+          * live).to(torch.bfloat16)
+    w = (torch.randn(e, d, f, generator=gen, device="cuda")
+         / d ** 0.5).to(torch.bfloat16)
+    dy = torch.randn(e, c, f, generator=gen, device="cuda")
+    bwd_ms = timing.time_ms(lambda i: group_gemm_backward(xe, w, counts,
+                                                          dy), 5)
+    out = {"step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms[1:]),
+           "backward_ms": bwd_ms, "live_rows": int(counts.sum())}
+    print(f"[serve_ab] moe train step {out['median_step_ms']:.2f} ms "
+          f"(median of steps 1-{args.steps}), group_gemm backward "
+          f"{bwd_ms:.4f} ms at E {e} C {c} D {d} F {f}", flush=True)
+    return out
+
+
 def kernel_outputs(torch, path: str) -> dict:
     """Save the default launches' outputs (see the module docstring)."""
     import numpy as np
@@ -235,6 +304,10 @@ def main() -> None:
     ap.add_argument("--primitives", action="store_true",
                     help="time the volume and vector-sum ops and the wave "
                          "step instead of serving")
+    ap.add_argument("--moe-train", action="store_true",
+                    help="time the MoE train step of chip_smoke's [train] "
+                         "(c) and the grouped GEMM's backward instead of "
+                         "serving")
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--layouts", nargs="+", default=["paged", "dense"],
                     choices=["paged", "dense"])
@@ -267,6 +340,8 @@ def main() -> None:
         raise SystemExit("serve_ab measures the GPU: no CUDA device")
     if args.kernel_outputs:
         out = kernel_outputs(torch, args.kernel_outputs)
+    elif args.moe_train:
+        out = moe_train(torch, timing, args)
     else:
         out = (primitives if args.primitives else serve)(torch, timing,
                                                          args)

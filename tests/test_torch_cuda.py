@@ -1719,11 +1719,137 @@ def test_ssm_stream_does_not_see_the_join_padding(arch, paged):
 # a train step card against CPU
 # ---------------------------------------------------------------------------
 
+# (E, C, D, F, counts) for the backward's kernels: C, D and F multiples
+# of none of the tiles (256 or 16 rows, 128 or 64 columns, 64 of K);
+# empty, one-row, full and over-full experts
+BWD_SHAPES = [(5, 300, 200, 136, [0, 1, 65, 300, 299]),
+              (3, 20, 72, 264, [20, 0, 17]),
+              (4, 9, 40, 24, [9, 0, 4, 12])]
+
+
+def _bwd_inputs(seed, e, c, d, f, counts, dtype):
+    """counts [E] int32, live [E, C, 1], xe and w of ``dtype`` and float32
+    dy, each from a seeded generator; xe and dy NaN past each count and w
+    NaN in the empty experts (no kernel may read them there)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    live = torch.arange(c, device="cuda")[None, :, None] < cnt[:, None, None]
+    xe = torch.randn(e, c, d, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(e, d, f, generator=gen, device="cuda")
+         / d ** 0.5).to(dtype)
+    dy = torch.randn(e, c, f, generator=gen, device="cuda")
+    nan = float("nan")
+    xe = torch.where(live, xe, torch.full_like(xe, nan))
+    dy = torch.where(live, dy, torch.full_like(dy, nan))
+    return cnt, live, xe, w, dy
+
+
+def _rel_err(got, want) -> float:
+    return (float((got.float() - want.float()).abs().max())
+            / max(float(want.float().abs().max()), 1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,c,d,f,counts", BWD_SHAPES)
+def test_group_gemm_dy_kernel_matches_plain_version(dtype, e, c, d, f,
+                                                    counts):
+    """The mask and cast of dy: bit for bit its plain version (a select
+    and a round to nearest even), the NaN past each count gone."""
+    cnt, live, _, _, dy = _bwd_inputs(1, e, c, d, f, counts, dtype)
+    before = mg.launch_counts["group_gemm_dy"]
+    got = mg.kernel.group_gemm_dy_cuda(dy, cnt, dtype)
+    assert mg.launch_counts["group_gemm_dy"] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, mg.group_gemm_dy_ref(dy, cnt, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,c,d,f,counts", BWD_SHAPES)
+def test_group_gemm_dxe_kernel_matches_plain_version(dtype, e, c, d, f,
+                                                     counts):
+    """dxe = dy @ w^T with w read as it lies: within ``TOL`` of the plain
+    version's largest entry, rows past the counts exactly 0 although dy
+    holds NaN there and the empty experts' w NaN; bfloat16 past 16 rows
+    comes back in bfloat16 (the wgmma kernel), the rest in float32.  Its
+    tiles, counted on the card, are those ``tile_counts`` predicts."""
+    cnt, live, _, w, dy = _bwd_inputs(2, e, c, d, f, counts, dtype)
+    w[cnt == 0] = float("nan")
+    dy_k = dy.to(dtype)
+    before = mg.launch_counts["group_gemm_dxe"]
+    tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
+    got = mg.kernel.group_gemm_dxe_cuda(dy_k, w, cnt, tiles=tiles)
+    assert mg.launch_counts["group_gemm_dxe"] == before + 1
+    torch.cuda.synchronize()
+    wgmma = mg.kernel.on_wgmma(c, dtype)
+    assert got.dtype == (torch.bfloat16 if wgmma else torch.float32)
+    assert got.shape == (e, c, d)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[~live.expand(e, c, d)] == 0).all())
+    assert _rel_err(got, mg.group_gemm_dxe_ref(dy_k, w, cnt)) <= TOL[dtype]
+    assert tuple(tiles.tolist()) == mg.kernel.tile_counts(cnt, c, d, dtype)
+
+
+@pytest.mark.parametrize("e,c,d,f,counts", BWD_SHAPES)
+def test_group_gemm_dw_kernel_matches_plain_version(e, c, d, f, counts):
+    """dw = xe^T @ dy over the live rows alone (bfloat16): within 2e-2 of
+    the plain version's largest entry, finite although xe and dy hold NaN
+    past each count, every empty expert's dw exactly 0; its tiles, empty
+    tiles and K stages, counted on the card, those ``dw_tile_counts``
+    predicts."""
+    cnt, live, xe, _, dy = _bwd_inputs(3, e, c, d, f, counts,
+                                       torch.bfloat16)
+    dy_k = dy.to(torch.bfloat16)
+    before = mg.launch_counts["group_gemm_dw"]
+    tiles = torch.zeros(3, dtype=torch.int32, device="cuda")
+    got = mg.kernel.group_gemm_dw_cuda(xe, dy_k, cnt, tiles=tiles)
+    assert mg.launch_counts["group_gemm_dw"] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (e, d, f)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[cnt <= 0] == 0).all())
+    assert _rel_err(got, mg.group_gemm_dw_ref(xe, dy_k, cnt)) <= 2e-2
+    assert tuple(tiles.tolist()) == mg.kernel.dw_tile_counts(cnt, c, d, f)
+
+
+def test_group_gemm_backward_wrappers_refuse_what_the_kernels_do_not_take():
+    k = mg.kernel
+    cnt = torch.ones(2, dtype=torch.int32, device="cuda")
+    dy = torch.zeros(2, 20, 16, device="cuda")
+    xe = torch.zeros(2, 20, 8, dtype=torch.bfloat16, device="cuda")
+    w = torch.zeros(2, 8, 16, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(TypeError):                  # dy not float32
+        k.group_gemm_dy_cuda(dy.half(), cnt, torch.bfloat16)
+    with pytest.raises(TypeError):                  # float16 out
+        k.group_gemm_dy_cuda(dy, cnt, torch.float16)
+    with pytest.raises(ValueError, match="16 bytes"):   # F 12 in bf16
+        k.group_gemm_dy_cuda(dy[:, :, :12].contiguous(), cnt, torch.bfloat16)
+    with pytest.raises(TypeError):                  # w in another dtype
+        k.group_gemm_dxe_cuda(dy.to(torch.bfloat16), w.float(), cnt)
+    with pytest.raises(ValueError):                 # F does not chain
+        k.group_gemm_dxe_cuda(dy.to(torch.bfloat16), w[:, :, :8]
+                              .contiguous(), cnt)
+    with pytest.raises(ValueError, match="16 bytes"):   # D 4 in bf16
+        k.group_gemm_dxe_cuda(dy.to(torch.bfloat16), w[:, :4].contiguous(),
+                              cnt)
+    with pytest.raises(TypeError):                  # dw takes bf16 alone
+        k.group_gemm_dw_cuda(xe.float(), dy, cnt)
+    with pytest.raises(ValueError):                 # rows differ
+        k.group_gemm_dw_cuda(xe, dy[:, :10].to(torch.bfloat16)
+                             .contiguous(), cnt)
+    with pytest.raises(ValueError):                 # tiles not int32 [3]
+        k.group_gemm_dw_cuda(xe, dy.to(torch.bfloat16), cnt,
+                             tiles=torch.zeros(2, dtype=torch.int32,
+                                               device="cuda"))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_group_gemm_backward_matches_the_plain_autograd(dtype):
-    """dxe through the kernel and dw through torch.bmm against autograd
-    through the plain version; dy (and the kernel's xe) NaN past each
-    count, ragged counts including empty and full experts."""
+    """The backward's kernels (dy's mask and cast, dxe with w read as it
+    lies, dw over the live rows in bfloat16, ``torch.bmm`` in float32)
+    against autograd through the plain version; dy (and the kernels' xe)
+    NaN past each count, ragged counts including empty and full experts;
+    one launch of each kernel, exactly."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     e, c, d, f = 6, 100, 64, 96
     cnt = torch.tensor([0, 1, 37, 100, 64, 99], dtype=torch.int32,
@@ -1741,7 +1867,9 @@ def test_group_gemm_backward_matches_the_plain_autograd(dtype):
     mg.reset_launch_counts()
     out = mg.group_gemm(x_nan, wk, cnt)
     got = torch.autograd.grad(out, (x_nan, wk), dy)
-    assert mg.launch_counts["group_gemm"] == 2     # forward and dxe
+    assert mg.launch_counts == {"group_gemm": 1, "group_gemm_dy": 1,
+                                "group_gemm_dxe": 1,
+                                "group_gemm_dw": int(dtype == torch.bfloat16)}
     xr, wr = xe.clone().requires_grad_(), w.clone().requires_grad_()
     want = torch.autograd.grad(mg.group_gemm_ref(xr, wr, cnt), (xr, wr), dy)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
@@ -1804,7 +1932,10 @@ def test_train_step_on_the_card_matches_the_cpu():
     step = make_train_step(model, tcfg)
     mg.reset_launch_counts()
     _, got = step(card, {"tokens": tokens.cuda()})
-    assert mg.launch_counts["group_gemm"] == 9 * 2   # 2 MoE layers
+    # 3 GEMMs x 2 MoE layers: forward and recompute, then the backward's
+    # mask and dxe (float32: dw through torch.bmm)
+    assert mg.launch_counts == {"group_gemm": 3 * 2 * 2, "group_gemm_dy": 6,
+                                "group_gemm_dxe": 6, "group_gemm_dw": 0}
     _, want = step(cpu, {"tokens": tokens})
     for key in ("loss", "grad_norm", "lr"):
         np.testing.assert_allclose(float(got[key]), float(want[key]),

@@ -113,7 +113,8 @@ def test_cpu_tensors_take_the_plain_version():
     _, (tx, tw, tc) = _inputs(rng, 3, 20, 16, 24, [20, 3, 0], "float32")
     kernel.reset_launch_counts()
     got = mg.group_gemm(tx, tw, tc)
-    assert kernel.launch_counts == {"group_gemm": 0}
+    assert kernel.launch_counts == {"group_gemm": 0, "group_gemm_dy": 0,
+                                    "group_gemm_dxe": 0, "group_gemm_dw": 0}
     assert torch.equal(got, mg.group_gemm_ref(tx, tw, tc))
     with pytest.raises(ValueError, match="CUDA"):
         kernel.group_gemm_cuda(tx, tw, tc)       # the wrapper takes no CPU

@@ -261,21 +261,31 @@ def test_data_pipeline_matches_jax(seed, step, n_shards, shard):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_group_gemm_function_backward_on_the_plain_version(monkeypatch,
                                                            dtype):
-    """The CUDA route's autograd function with its kernel replaced by the
-    plain version (the CPU has no kernel): dxe and dw equal autograd
-    through the plain version, dy and the function's xe NaN past the
-    counts, one "kernel" call forward and one backward."""
+    """The CUDA route's autograd function with its kernels replaced by
+    their plain versions (the CPU has no kernel): dxe and dw equal
+    autograd through the plain version, dy and the function's xe NaN past
+    the counts.  The calls: the forward, then the mask and cast of dy,
+    dxe and (bfloat16 past 16 rows) the dw kernel; float32 takes dw from
+    ``torch.bmm``.  dxe gets the caller's own w (the same storage: no
+    transposed copy)."""
     from repro_torch.kernels.moe_group_gemm import kernel, ops, ref
     calls = []
 
-    def plain(xe, w, counts):
-        calls.append(tuple(w.shape))
-        assert xe.is_contiguous() and w.is_contiguous()
-        return ref.group_gemm_ref(xe, w, counts)
-    monkeypatch.setattr(kernel, "group_gemm_cuda", plain)
+    def stub(name, fn):
+        def run(*args, **kw):
+            calls.append((name, args))
+            assert all(a.is_contiguous() for a in args
+                       if isinstance(a, torch.Tensor))
+            return fn(*args, **kw)
+        monkeypatch.setattr(kernel, name, run)
+    stub("group_gemm_cuda", ref.group_gemm_ref)
+    stub("group_gemm_dy_cuda", ref.group_gemm_dy_ref)
+    stub("group_gemm_dxe_cuda", ref.group_gemm_dxe_ref)
+    stub("group_gemm_dw_cuda",
+         lambda xe, dy, cnt: ref.group_gemm_dw_ref(xe, dy, cnt).to(xe.dtype))
     rng = np.random.default_rng(8)
-    e, c, d, f = 4, 12, 8, 16
-    cnt = torch.tensor([0, 3, 12, 7], dtype=torch.int32)
+    e, c, d, f = 4, 20, 8, 16
+    cnt = torch.tensor([0, 3, 20, 7], dtype=torch.int32)
     live = torch.arange(c)[None, :, None] < cnt[:, None, None]
     xe = (torch.from_numpy(rng.standard_normal((e, c, d))).float()
           * live).to(dtype)
@@ -289,7 +299,12 @@ def test_group_gemm_function_backward_on_the_plain_version(monkeypatch,
     wk = w.clone().requires_grad_()
     got = torch.autograd.grad(ops.GroupGemm.apply(x_nan, wk, cnt),
                               (x_nan, wk), dy)
-    assert calls == [(e, d, f), (e, f, d)]
+    order = ["group_gemm_cuda", "group_gemm_dy_cuda", "group_gemm_dxe_cuda"]
+    if dtype == torch.bfloat16:
+        order.append("group_gemm_dw_cuda")
+    assert [name for name, _ in calls] == order
+    w_dxe = calls[2][1][1]
+    assert w_dxe.shape == (e, d, f) and w_dxe.data_ptr() == wk.data_ptr()
     xr, wr = xe.clone().requires_grad_(), w.clone().requires_grad_()
     want = torch.autograd.grad(ref.group_gemm_ref(xr, wr, cnt), (xr, wr),
                                dy)
