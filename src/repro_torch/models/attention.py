@@ -68,6 +68,7 @@ from ..distributed.act_sharding import (batch_sharded, coordinate,
                                         constrain_btd, context_shard_wanted,
                                         from_local, is_sharded, local_region,
                                         to_local)
+from ..parthook import part
 from .layers import dense, rmsnorm, rope_tables, rotate
 
 BLOCK_Q = 512
@@ -391,7 +392,8 @@ def _gqa_core(q, k, v, cache, *, write_index, kv_cap, verify, causal):
             out = paged_attn(q[:, 0], kp, vp, cache.table, kv_len)[:, None]
         else:
             attend = paged_verify_attn if verify else paged_prefill_attn
-            out = attend(q, kp, vp, cache.table, cache.length, kv_len)
+            with part("attn.core"):
+                out = attend(q, kp, vp, cache.table, cache.length, kv_len)
     elif cache is not None:
         kc = _cache_insert(cache.k, k, cache.length, write_index)
         vc = _cache_insert(cache.v, v, cache.length, write_index)

@@ -95,7 +95,7 @@ class Model:
         return lm_loss(params, batch, self.cfg, dtype=dtype, remat=remat)
 
     def prefill(self, params, batch, max_len: int, *, dtype=torch.bfloat16,
-                last_pos=None, caches=None):
+                last_pos=None, caches=None, logits: bool = True):
         """Run the prompt, filling fresh dense stripes sized for ``max_len``
         tokens on the tokens' device.  ``last_pos`` ([B]) picks each row's
         logits position: prompts of mixed length share one padded prefill,
@@ -104,9 +104,10 @@ class Model:
         stops at each row's ``last_pos + 1`` (:func:`_lengths`).  The
         batch may carry ``vision_embeds``, ``encoder_frames`` or
         ``cross_kv`` (see :func:`~.transformer.forward`).  Returns
-        (logits [B, 1, V] float32, caches).  ``caches`` (zeroed stripes
-        for ``max_len`` tokens, e.g. placed on a mesh) are filled in place
-        of fresh ones."""
+        (logits [B, 1, V] float32, caches), or with ``logits`` False the
+        hidden states the logits read ([B, 1, D]: :meth:`readout`'s
+        input).  ``caches`` (zeroed stripes for ``max_len`` tokens, e.g.
+        placed on a mesh) are filled in place of fresh ones."""
         tokens = batch["tokens"]
         if caches is None:
             caches = init_caches(self.cfg, tokens.shape[0], max_len, dtype,
@@ -114,11 +115,16 @@ class Model:
         hidden, caches = forward(params, batch, self.cfg, caches=caches,
                                  cache_len=0, dtype=dtype,
                                  lengths=_lengths(last_pos, tokens))
-        return logits_fn(params, _last_rows(hidden, last_pos),
-                         self.cfg), caches
+        last = _last_rows(hidden, last_pos)
+        return (self.readout(params, last) if logits else last), caches
+
+    def readout(self, params, hidden):
+        """Logits (float32) of hidden states [..., D]."""
+        return logits_fn(params, hidden, self.cfg)
 
     def prefill_paged(self, params, batch, caches, pages, *,
-                      dtype=torch.bfloat16, last_pos=None, cache_len=None):
+                      dtype=torch.bfloat16, last_pos=None, cache_len=None,
+                      logits: bool = True):
         """Paged prefill: write the prompt's K/V through ``pages`` ([B, P]
         page table) into the pooled ``caches``.  Rows whose table entries
         are all sentinels write nothing to live pages: that is how the
@@ -128,7 +134,8 @@ class Model:
         ends each row's SSM recurrence there, as in :meth:`prefill`; the
         SSM caches given take every row's fresh state (the paged join
         hands in scratch state and keeps the joining rows').  Returns
-        (logits [B, 1, V] float32, caches)."""
+        (logits [B, 1, V] float32, caches), or with ``logits`` False the
+        hidden states the logits read ([B, 1, D])."""
         b = batch["tokens"].shape[0]
         dev = batch["tokens"].device
         if cache_len is None:
@@ -137,8 +144,8 @@ class Model:
                                  cache_len=cache_len.to(torch.int32),
                                  dtype=dtype, pages=pages,
                                  lengths=_lengths(last_pos, batch["tokens"]))
-        return logits_fn(params, _last_rows(hidden, last_pos),
-                         self.cfg), caches
+        last = _last_rows(hidden, last_pos)
+        return (self.readout(params, last) if logits else last), caches
 
     def decode_step(self, params, tokens, caches, cache_len, *,
                     dtype=torch.bfloat16, extra: dict | None = None,

@@ -44,6 +44,7 @@ from ..distributed.act_sharding import (batch_sharded, coordinate,
                                         is_sharded, to_local)
 from ..distributed.sharding import axis_sizes
 from ..kernels.moe_group_gemm import group_gemm
+from ..parthook import part
 from .layers import activation, mlp
 
 
@@ -126,12 +127,15 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     b, length, d = x.shape
     t, e = b * length, m.n_experts
     x2d = x.reshape(t, d)
-    w, ids, probs = route(params, x2d, cfg)
+    with part("moe.route"):
+        w, ids, probs = route(params, x2d, cfg)
     wi, wg, wo = (params[n].to(x.dtype) for n in ("wi", "wg", "wo"))
     y = _experts(x2d, w, ids, wi, wg, wo, capacity(cfg, t),
                  activation(act_name)).reshape(b, length, d)
     if "shared" in params:
-        y = y + mlp(params["shared"], x, act_name)
+        with part("moe.shared"):
+            shared = mlp(params["shared"], x, act_name)
+        y = y + shared
     if with_aux:
         return y.to(x.dtype), aux_load_balance_loss(probs, ids, e)
     return y.to(x.dtype)
@@ -148,27 +152,31 @@ def _experts(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
     result is this rank's partial sum."""
     t, d = x2d.shape
     e, k = wi.shape[0], ids.shape[1]
-    if e_lo is None:
-        slot, buf_tok, counts = dispatch(ids, e, cap)
-    else:
-        rel = ids - e_lo
-        slot, buf_tok, counts = dispatch(rel, e, cap, (rel >= 0) & (rel < e))
+    with part("moe.dispatch"):
+        if e_lo is None:
+            slot, buf_tok, counts = dispatch(ids, e, cap)
+        else:
+            rel = ids - e_lo
+            slot, buf_tok, counts = dispatch(rel, e, cap,
+                                             (rel >= 0) & (rel < e))
 
-    # gather [E, C, D]; padding places read the zero row appended to x
-    xpad = torch.cat([x2d, x2d.new_zeros(1, d)])
-    xe = xpad[buf_tok].reshape(e, cap, d)
+    with part("moe.experts"):
+        # gather [E, C, D]; padding places read the zero row appended to x
+        xpad = torch.cat([x2d, x2d.new_zeros(1, d)])
+        xe = xpad[buf_tok].reshape(e, cap, d)
 
-    # expert GEMMs: each float32 product rounds to x's dtype where the JAX
-    # einsum of x-dtype operands yields x's dtype
-    h = (act(group_gemm(xe, wg, counts).to(x2d.dtype))
-         * group_gemm(xe, wi, counts).to(x2d.dtype))
-    ye = group_gemm(h, wo, counts).to(x2d.dtype)              # [E, C, D]
+        # expert GEMMs: each float32 product rounds to x's dtype where the
+        # JAX einsum of x-dtype operands yields x's dtype
+        h = (act(group_gemm(xe, wg, counts).to(x2d.dtype))
+             * group_gemm(xe, wi, counts).to(x2d.dtype))
+        ye = group_gemm(h, wo, counts).to(x2d.dtype)          # [E, C, D]
 
-    # weighted combine: choice j of token t reads its place's row (the
-    # drop slot reads a zero row) times its routing weight
-    yflat = torch.cat([ye.reshape(e * cap, d), ye.new_zeros(1, d)])
-    terms = yflat[slot] * w.reshape(-1, 1).to(ye.dtype)       # [T k, D]
-    return terms.reshape(t, k, d).sum(dim=1)
+    with part("moe.combine"):
+        # weighted combine: choice j of token t reads its place's row (the
+        # drop slot reads a zero row) times its routing weight
+        yflat = torch.cat([ye.reshape(e * cap, d), ye.new_zeros(1, d)])
+        terms = yflat[slot] * w.reshape(-1, 1).to(ye.dtype)   # [T k, D]
+        return terms.reshape(t, k, d).sum(dim=1)
 
 
 def _moe_shard_map(params: dict, x, cfg: ArchConfig, act_name: str, mesh,

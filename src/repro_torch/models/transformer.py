@@ -47,6 +47,7 @@ from .init import ATTN_KINDS, _check_supported
 from .layers import (dense, embed, layernorm, mlp, rmsnorm, rope_tables,
                      sinusoidal_positions, unembed)
 from .moe import moe_apply
+from ..parthook import part
 from .ssm import init_cache as init_ssm_cache, ssm_apply
 
 LOSS_CHUNK = 1024           # positions a chunk of the LM loss, as in JAX
@@ -162,10 +163,12 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
         h = ssm_apply(params["ssm"], _norm(cfg, params["norm"], x),
                       cfg, cache=cache, lengths=lengths)
         return (x + h, cache) + ((aux,) if with_aux else ())
-    h, new_cache = attention_apply(
-        params["attn"], _norm(cfg, params["norm1"], x), cfg,
-        rope=rope, cache=cache, write_index=write_index, kv_cap=kv_cap,
-        verify=verify, causal=causal)
+    z = _norm(cfg, params["norm1"], x)
+    with part("attn"):
+        h, new_cache = attention_apply(
+            params["attn"], z, cfg, rope=rope, cache=cache,
+            write_index=write_index, kv_cap=kv_cap, verify=verify,
+            causal=causal)
     x = x + h
     if "cross" in params and cross_kv is not None:
         h, _ = attention_apply(params["cross"],
@@ -179,7 +182,8 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     elif kind is BlockKind.MOE:
         h = moe_apply(params["moe"], z, cfg, cfg.activation)
     else:
-        h = mlp(params["mlp"], z, cfg.activation)
+        with part("mlp"):
+            h = mlp(params["mlp"], z, cfg.activation)
     return (x + h, new_cache) + ((aux,) if with_aux else ())
 
 

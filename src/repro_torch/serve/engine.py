@@ -40,6 +40,7 @@ from ..kernels import launches
 from ..kernels.decode_attn.ops import (MODES, DecodeAttnPolicy,
                                        decode_attn_policy)
 from ..models.model_zoo import Model
+from ..parthook import part
 
 PAD_TOKEN = -1    # emitted-slot sentinel: "slot was already retired"
 
@@ -120,11 +121,14 @@ class ServeConfig:
     speculate_ngram: int = 2
     # telemetry (serve/telemetry.py): when True the batcher builds a
     # Tracer recording per-request lifecycle events, per-round scheduler
-    # spans and pool-partition gauges (exportable as Perfetto trace_event
-    # JSON).  Off by default; every call site is at a host sync point or
-    # a scheduling-round boundary, never inside a decode segment, and the
-    # one sync it adds (closing the decode-segment span on the device's
-    # time) happens only with it on.
+    # spans, the port's inner spans (rounds, the eager join's model
+    # parts) and pool-partition gauges (exportable as Perfetto
+    # trace_event JSON); on the card the join and decode-segment spans
+    # and the parts carry CUDA-event device intervals.  Off by default;
+    # every call site is at a host sync point, a scheduling-round
+    # boundary or a part of the eager join, never inside a decode
+    # segment, and it adds no host sync: device marks become seconds at
+    # the syncs the batcher already makes.
     telemetry: bool = False
     # SLO monitor (the batcher's slo_stats): per-request latency targets.
     # None disables the check for that metric (attainment is vacuously
@@ -577,18 +581,20 @@ def make_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
     def join(params, caches, tok, lengths, done, remaining, rows, prompts,
              plens, budgets, gen):
         b, width = tok.shape[0], prompts.shape[1]
-        logits, fresh = model.prefill(
+        last, fresh = model.prefill(
             params, {"tokens": prompts.new_zeros((b, width)).index_copy(
                 0, rows, prompts)}, width, dtype=cfg.dtype,
-            last_pos=plens.new_zeros(b).index_copy(0, rows, plens - 1))
-        logits = logits[rows]
+            last_pos=plens.new_zeros(b).index_copy(0, rows, plens - 1),
+            logits=False)
         for new, old in zip(fresh, caches):
             for name, held in old.items():
                 # stripes: the prompt's rows; an SSM leaf whole
                 cut = width if name in ("k", "v") else None
                 held[:, :, :cut].index_copy_(
                     1, rows, new[name][:, :, :cut].index_select(1, rows))
-        first = sample_tokens(logits[:, -1], temp, gen)
+        with part("readout"):
+            logits = model.readout(params, last)[rows]
+            first = sample_tokens(logits[:, -1], temp, gen)
         if eos_id is None:
             is_eos = torch.zeros_like(first, dtype=torch.bool)
         else:
@@ -631,16 +637,18 @@ def make_paged_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
                                 torch.full_like(pages, sentinel))
         work = [{name: torch.zeros_like(t) for name, t in c.items()}
                 if ssm else c for ssm, c in zip(recurrent, caches)]
-        logits, work = model.prefill_paged(
+        last, work = model.prefill_paged(
             params, {"tokens": prompts}, work, write_tbl, dtype=cfg.dtype,
-            last_pos=plens - 1, cache_len=prefix_lens)
+            last_pos=plens - 1, cache_len=prefix_lens, logits=False)
         for ssm, new, old in zip(recurrent, work, caches):
             if ssm:           # leaves are [layers, B, ...]: the batch axis
                 for name, held in old.items():
                     mask = join_mask.reshape((1, -1) + (1,) * (held.dim()
                                                                - 2))
                     held.copy_(torch.where(mask, new[name], held))
-        first = sample_tokens(logits[:, -1], temp, gen)
+        with part("readout"):
+            first = sample_tokens(model.readout(params, last)[:, -1], temp,
+                                  gen)
         if eos_id is None:
             is_eos = torch.zeros_like(join_mask)
         else:

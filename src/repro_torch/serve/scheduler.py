@@ -135,11 +135,20 @@ and SLO counters (``prefix_stats``, ``spec_stats``, ``preempt_stats``,
 ``cfg.telemetry`` (or a ``telemetry=`` :class:`~repro_torch.serve.
 telemetry.Tracer`) every lifecycle event, the per-round spans and the
 pool's partitions are traced, for :mod:`.attribution` and a Perfetto
-file; only then does a segment synchronise the device before its span
-closes.  The flight recorder, on by default, keeps the last
-``cfg.flight_events`` events in a ring (host appends only: no sync, no
-gauge callback) and dumps them with the slot table and the pool when a
-``PageError`` escapes ``run`` or the watchdog trips.
+file, beside the port's inner spans (each ``round``, its ``sweep`` and
+``admit``, and the model's parts inside a join, recorded through
+:mod:`repro_torch.parthook`, which the batcher arms around a traced join
+only).  The ``join`` and ``decode-segment`` spans carry the work they
+did (rows, width, joining rows, prompt and committed tokens; steps, live
+rows, keys read, tokens emitted) and, on the card, their device interval:
+CUDA events, turned into host-clock seconds at the two host syncs the
+batcher makes anyway (the join's first-token read and the segment's
+emitted-token read).  Tracing adds no sync: a traced segment ends, as an
+untraced one does, at its ``.cpu()`` read.  The flight recorder, on by
+default, keeps the last ``cfg.flight_events`` events in a ring (host
+appends only: no sync, no gauge callback) and dumps them with the slot
+table and the pool when a ``PageError`` escapes ``run`` or the watchdog
+trips.
 """
 from __future__ import annotations
 
@@ -161,7 +170,8 @@ from .overload import (CANCEL_REASONS, HEALTHY, RETRY_AFTER, STATES,
                        DegradationController, Watchdog, WatchdogStall,
                        project_finish_s)
 from .prefixcache import PrefixCache
-from .telemetry import MetricsRegistry, Tracer
+from .telemetry import CudaTimer, MetricsRegistry, Tracer
+from .. import parthook
 from ..models.model_zoo import Model
 
 
@@ -299,8 +309,10 @@ class ContinuousBatcher:
         # every per-wave stat lives in the registry; the tracer is
         # optional (None keeps each event call site a skipped ``if``)
         self.metrics = MetricsRegistry()
-        self.telemetry = (telemetry if telemetry is not None
-                          else Tracer() if cfg.telemetry else None)
+        self.telemetry = telemetry
+        if telemetry is None and cfg.telemetry:
+            self.telemetry = Tracer(device_timer=CudaTimer(dev)
+                                    if dev.type == "cuda" else None)
         # flight recorder: an always-on bounded ring of the same lifecycle
         # events (host dict appends only: no spans, no pool gauge
         # callback, no device sync), dumped by ``_dump_flight``
@@ -1075,6 +1087,9 @@ class ContinuousBatcher:
         completes sample their first token.  The chunk is the one in force
         (``_effective_chunk``); the drafter's history is written whenever
         speculation is configured, shed or not."""
+        tr = self.telemetry
+        admit = (tr.open("admit", self.round, inner=True)
+                 if tr is not None else None)
         chunk = self._effective_chunk()
         round_cap = self.cfg.prefill_round_tokens
         round_used = 0
@@ -1123,8 +1138,15 @@ class ContinuousBatcher:
             if self.history is not None:
                 history.append((slot, 0, p))     # the drafter's corpus
         if not take:
+            if tr is not None:
+                tr.close(admit)
             return
         t0 = time.perf_counter()
+        join = None
+        if tr is not None:
+            tr.close(admit, t1=t0)
+            join = tr.open("join", self.round, t0=t0)
+            tr.mark(join, "d0")
         b, dev = self.cfg.batch, self.device
         # the join prefills only each row's uncached piece, so its width
         # shrinks with the hit depth and is bounded by the chunk
@@ -1153,15 +1175,10 @@ class ContinuousBatcher:
             prompts = np.zeros((len(take), width), np.int32)
             for j, (_, _, piece, _, _) in enumerate(take):
                 prompts[j, :len(piece)] = piece
-            *_, first = self._join(
-                self.params, self.caches, self.tok, self.lengths, self.done,
-                self.remaining,
-                up(np.asarray([slot for slot, *_ in take])), up(prompts),
-                up(np.asarray([len(piece) for _, _, piece, _, _ in take],
-                              np.int32)),
-                up(np.asarray(budgets, np.int32)), self.gen)
-            first = dict(zip((slot for slot, *_ in take),
-                             first.cpu().numpy().tolist()))
+            args = (up(np.asarray([slot for slot, *_ in take])), up(prompts),
+                    up(np.asarray([len(piece) for _, _, piece, _, _ in take],
+                                  np.int32)),
+                    up(np.asarray(budgets, np.int32)), self.gen)
         else:
             join_mask = np.zeros((b,), bool)
             commit_mask = np.zeros((b,), bool)
@@ -1177,12 +1194,21 @@ class ContinuousBatcher:
                 plens[slot] = len(piece)
                 prefix_lens[slot] = depth
                 slot_budgets[slot] = budget
-            *_, first = self._join(
-                self.params, self.caches, self.tok, self.lengths, self.done,
-                self.remaining, up(join_mask), up(prompts), up(plens),
-                up(slot_budgets), self.gen,
-                up(self.pool.table), up(prefix_lens), up(commit_mask))
-            first = first.cpu().numpy()
+            args = (up(join_mask), up(prompts), up(plens), up(slot_budgets),
+                    self.gen, up(self.pool.table), up(prefix_lens),
+                    up(commit_mask))
+        # traced, the model's parts record into the join (parthook)
+        with parthook.armed(tr.part) if tr is not None else parthook.NULL:
+            *_, first = self._join(self.params, self.caches, self.tok,
+                                   self.lengths, self.done, self.remaining,
+                                   *args)
+        if tr is not None:
+            tr.mark(join, "d1")
+        first = first.cpu().numpy()
+        if tr is not None:
+            tr.device_sync()
+        if self.pool is None:       # the dense join's are the joining rows'
+            first = dict(zip((slot for slot, *_ in take), first.tolist()))
         now = time.perf_counter()
         self.joins += 1
         for slot, rid, piece, depth, commit in take:
@@ -1228,8 +1254,11 @@ class ContinuousBatcher:
             self._write_history(history)
         t1 = time.perf_counter()
         self.metrics.observe("join.seconds", t1 - t0)
-        if self.telemetry is not None:
-            self.telemetry.add_span("join", self.round, t0, t1)
+        if tr is not None:
+            # B rows computed at width W, whoever joins
+            tr.close(join, t1=t1, rows=b, width=width, joined=len(take),
+                     real_tokens=sum(len(p) for _, _, p, _, _ in take),
+                     committed=sum(c for *_, c in take))
 
     def _collect(self, emitted: np.ndarray) -> None:
         """Drain one segment's emitted block into per-request outputs,
@@ -1240,13 +1269,15 @@ class ContinuousBatcher:
         slots emit only PAD and are skipped.  A plain segment of a
         speculating batcher (the controller shed speculation) writes its
         committed tokens into the drafter's history here, where the
-        verify loop writes its own, so a re-enabled drafter reads them."""
+        verify loop writes its own, so a re-enabled drafter reads them.
+        Returns the tokens it appended."""
         if emitted.ndim == 2:
             emitted = emitted[:, :, None]
         steps, _, width = emitted.shape
         now = time.perf_counter()
         mirror = self.history is not None and width == 1
         history: list[tuple[int, int, list[int]]] = []
+        total = 0
         for i, rid in enumerate(self.slot_rid):
             if rid is None or self.slot_pending[i]:
                 continue
@@ -1288,7 +1319,9 @@ class ContinuousBatcher:
                 raise RuntimeError(
                     f"slot {i} (request {rid}) stalled: device reports done "
                     "but host bookkeeping thinks it is live")
+            total += appended
         self._write_history(history)
+        return total
 
     def _decode_segment(self, steps: int) -> torch.Tensor:
         """Run one decode segment of ``steps`` steps over the live slots,
@@ -1370,22 +1403,34 @@ class ContinuousBatcher:
         return self.results
 
     def _round(self, max_new: int, steps: int) -> None:
-        """One scheduling round of ``run``."""
-        tr = self.telemetry
+        """One scheduling round of ``run`` (traced: in its ``round``
+        span)."""
         self.round += 1
+        tr = self.telemetry
+        if tr is None:
+            self._round_body(max_new, steps, None)
+            return
+        with tr.round_span(self.round):
+            self._round_body(max_new, steps, tr)
+
+    def _round_body(self, max_new: int, steps: int, tr: Tracer | None
+                    ) -> None:
         if self.chaos is not None:
             if tr is not None:
                 with tr.span("chaos", self.round):
                     self.chaos.on_round(self)
             else:
                 self.chaos.on_round(self)
-        if self.overload is not None:
-            self._overload_round()
-        self._cancel_sweep(max_new)
-        # any stall (an admission that can never place, a chaos stall)
-        # trips the watchdog after ``watchdog_rounds`` rounds without
-        # progress: it dumps the flight bundle and sheds the blocking head
-        self._watchdog_tick()
+        with (tr.inner_span("sweep", self.round) if tr is not None
+              else parthook.NULL):
+            if self.overload is not None:
+                self._overload_round()
+            self._cancel_sweep(max_new)
+            # any stall (an admission that can never place, a chaos stall)
+            # trips the watchdog after ``watchdog_rounds`` rounds without
+            # progress: it dumps the flight bundle and sheds the blocking
+            # head
+            self._watchdog_tick()
         if self.round < self._stall_until:
             return                               # a chaos stall: dead round
         self._refill(max_new)
@@ -1400,19 +1445,36 @@ class ContinuousBatcher:
                    for i, r in enumerate(self.slot_rid)):
             return
         self._sample_kv()
-        seg_t0 = time.perf_counter() if tr is not None else 0.0
-        emitted = self._decode_segment(steps)
         if tr is None:
-            self._collect(emitted.cpu().numpy())
+            self._collect(self._decode_segment(steps).cpu().numpy())
             return
-        # traced only: wait for the device, so the span measures the
-        # segment's device time and not its launch (the untraced path's
-        # one sync stays the ``.cpu()`` read)
-        if emitted.is_cuda:
-            torch.cuda.synchronize(emitted.device)
-        tr.add_span("decode-segment", self.round, seg_t0, time.perf_counter())
+        # traced: the span runs from the launch to the emitted tokens'
+        # read-back, the segment's one host sync, as untraced
+        live = [i for i, r in enumerate(self.slot_rid)
+                if r is not None and not self.slot_pending[i]]
+        kv = self._kv_read(live, steps)
+        seg = tr.open("decode-segment", self.round, t0=time.perf_counter())
+        tr.mark(seg, "d0")
+        emitted = self._decode_segment(steps)
+        tr.mark(seg, "d1")
+        emitted = emitted.cpu().numpy()
+        tr.close(seg, t1=time.perf_counter(), steps=steps,
+                 live_rows=len(live), kv_tokens=kv)
+        tr.device_sync()
         with tr.span("collect", self.round):
-            self._collect(emitted.cpu().numpy())
+            seg["tokens"] = self._collect(emitted)
+
+    def _kv_read(self, live: list[int], steps: int) -> int:
+        """Keys the live rows read over a plain segment of ``steps``: a
+        row of ``slot_len`` L reads L + j + 1 at step j, for the steps its
+        budget and ``max_len`` leave it (a verify step reads k more)."""
+        total = 0
+        for i in live:
+            n = min(steps, self.cfg.max_len - self.slot_len[i],
+                    self.slot_budget[i] - len(self.outputs[self.slot_rid[i]]))
+            n = max(0, n)
+            total += n * self.slot_len[i] + n * (n + 1) // 2
+        return total
 
     # ------------------------------------------------------------------
     # flight recorder

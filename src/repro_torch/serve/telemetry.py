@@ -1,6 +1,6 @@
 """Serving telemetry of the port, from :mod:`repro.serve.telemetry`,
 copied: that module is framework-free, but the port imports nothing of
-``repro``.  Two parts:
+``repro``.  Two parts, and the port's device timing beside them:
 
 **MetricsRegistry**: the counters, gauges and fixed-bucket histograms that
 the batcher's ``*_stats()`` views read.  Histograms keep their raw samples
@@ -28,18 +28,43 @@ scheduler's spans and the pool's counters).  With ``ring=N`` the tracer is
 a bounded flight recorder (the scheduler runs one always, and dumps its
 tail when a page invariant trips or the watchdog fires).
 
-Everything is host-side: the batcher calls in at its host sync points and
-scheduling-round boundaries, never inside a decode segment (so never
-inside a captured CUDA graph), and only behind ``if tracer is not None``.
+**Device time and the port's inner spans.**  ``spans`` keeps JAX's
+sequence of dicts: a bare :meth:`Tracer.add_span` or :meth:`Tracer.span`
+gives exactly ``{name, round, t0, t1}``; the batcher's ``join`` and
+``decode-segment`` add their device interval (``d0``, ``d1``) and the work
+they did.  A second list, ``inner``, holds the port's own spans, each with
+a stable ``id`` and its ``parent``'s: the ``round`` (parent of that
+round's ``chaos``, ``join``, ``decode-segment`` and ``collect``, whose
+ids and parents live in the side table ``span_links``), its ``sweep`` and
+``admit``, and the model's parts inside a join (:mod:`repro_torch.parthook`).
+With a ``device_timer`` (:class:`CudaTimer` on the card) a span that
+enqueues device work takes a device mark at its start and its end; marks
+become seconds on the tracer's own clock only at host syncs the batcher
+already makes (:meth:`Tracer.device_sync`: the join's first-token read and
+the segment's emitted-token read), against an anchor mark recorded on the
+drained stream there beside a host stamp.  Without a timer (the CPU) no
+span has ``d0``/``d1``.  :meth:`Tracer.summary` reduces a window of spans
+to the join's and the segment's device times, the join's useful tokens,
+its parts' shares, the scheduler's own time and the device's idle share.
+
+Everything else is host-side: the batcher calls in at its host sync
+points, scheduling-round boundaries and around the eager join's model
+parts, never inside a decode segment (so never inside a captured CUDA
+graph), and only behind ``if tracer is not None``.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import time
 from collections import deque
 from contextlib import contextmanager
 
 import numpy as np
+import torch
+
+from .. import parthook
 
 
 def _pct(a: list[float], q: float) -> float:
@@ -223,7 +248,59 @@ CHAOS_KINDS = ("CHAOS_HOLD", "CHAOS_RELEASE_HELD", "CHAOS_SLOT_FAILURE",
 _PID = 1
 _TID_SCHED = 0          # scheduler spans + chaos instants
 _TID_QUEUE = 1          # async queue-residency spans
+_TID_MODEL = 2          # the port's inner spans (rounds, sweeps, parts)
+_TID_DEVICE = 3         # device intervals on the host clock
 _TID_SLOT0 = 10         # slot s lands on tid _TID_SLOT0 + s
+
+# the round's children that are not the scheduler's own time: the client
+# hook at its top, the join and the decode segment
+_NOT_SELF = ("chaos", "join", "decode-segment")
+
+
+class CudaTimer:
+    """Device marks for :class:`Tracer` on the card: a timing CUDA event
+    recorded on the device's current stream.  ``seconds(a, b)`` is the
+    device time from mark ``a`` to mark ``b`` (both complete),
+    ``release(m)`` hands a mark whose time has been read back for reuse
+    (making an event costs some 150 us of host time, recording a made one
+    a few), and ``capturing()`` says whether that stream is capturing a
+    CUDA graph, where no mark may be recorded."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._free: list = []
+
+    def mark(self):
+        ev = (self._free.pop() if self._free
+              else torch.cuda.Event(enable_timing=True))
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def release(self, ev) -> None:
+        self._free.append(ev)
+
+    @staticmethod
+    def seconds(a, b) -> float:
+        return a.elapsed_time(b) * 1e-3
+
+    @staticmethod
+    def capturing() -> bool:
+        return torch.cuda.is_current_stream_capturing()
+
+
+def _gaps(t0: float, t1: float, busy: list[tuple[float, float]]
+          ) -> list[tuple[float, float]]:
+    """[t0, t1] less the union of the ``busy`` intervals."""
+    out, at = [], t0
+    for a, b in sorted(busy):
+        if a > at:
+            out.append((at, min(a, t1)))
+        at = max(at, b)
+        if at >= t1:
+            break
+    if at < t1:
+        out.append((at, t1))
+    return [(a, b) for a, b in out if b > a]
 
 
 class Tracer:
@@ -240,20 +317,42 @@ class Tracer:
     enough to leave on even when full tracing is off.  The scheduler runs
     one such tracer unconditionally and dumps its tail as a debug bundle
     when a pool/prefix invariant trips (see ``Batcher.flight_bundle``).
+
+    ``device_timer`` (injectable as ``clock`` is; :class:`CudaTimer` on
+    the card, None elsewhere) gives the spans that enqueue device work
+    their device interval (``d0``, ``d1``: :meth:`mark`,
+    :meth:`device_sync`).  Spans nest: :meth:`open` and :meth:`close`
+    (and :meth:`add_span`) make the innermost open span the parent, held
+    for ``spans`` in the side table ``span_links`` (``(id, parent)``, one
+    a span) and in ``inner``'s own records.
     """
 
-    def __init__(self, clock=time.perf_counter, ring: int | None = None):
+    def __init__(self, clock=time.perf_counter, ring: int | None = None,
+                 device_timer=None):
         self._clock = clock
         self.t0 = clock()
         self.ring = ring
+        self.device_timer = device_timer
+        self._ids = itertools.count()
+        # the open spans, innermost last: [id, parent id, record, inner?,
+        # the records of its closed children]
+        self._stack: list[list] = []
+        # the last host sync's (anchor mark, host seconds), and the marks
+        # not yet in seconds: (record, key, mark, anchor before it)
+        self._anchor: tuple | None = None
+        self._pending: list[tuple] = []
         if ring is None:
             self.events: list[dict] = []
             self.spans: list[dict] = []
             self.pool_samples: list[tuple[float, dict]] = []
+            self.inner: list[dict] = []
+            self.span_links: list[tuple[int, int | None]] = []
         else:
             self.events = deque(maxlen=int(ring))
             self.spans = deque(maxlen=int(ring))
             self.pool_samples = deque(maxlen=int(ring))
+            self.inner = deque(maxlen=int(ring))
+            self.span_links = deque(maxlen=int(ring))
 
     def now(self) -> float:
         return self._clock()
@@ -274,8 +373,9 @@ class Tracer:
         self.events.append(e)
 
     def add_span(self, name: str, round: int, t0: float, t1: float) -> None:
-        self.spans.append({"name": name, "round": round,
-                           "t0": t0, "t1": max(t0, t1)})
+        self._closed({"name": name, "round": round, "t0": t0,
+                      "t1": max(t0, t1)}, next(self._ids), self._parent(),
+                     inner=False)
 
     @contextmanager
     def span(self, name: str, round: int = 0):
@@ -284,6 +384,153 @@ class Tracer:
             yield
         finally:
             self.add_span(name, round, t0, self._clock())
+
+    # -- nested spans and device intervals (the port's) ----------------
+    def _parent(self) -> int | None:
+        return self._stack[-1][0] if self._stack else None
+
+    def _closed(self, rec: dict, sid: int, parent: int | None, *,
+                inner: bool) -> None:
+        if not inner:
+            self.spans.append(rec)
+            self.span_links.append((sid, parent))
+        if self._stack:
+            self._stack[-1][4].append(rec)
+
+    def open(self, name: str, round: int = 0, *, inner: bool = False,
+             t0: float | None = None) -> dict:
+        """Open a span at ``t0`` (now) for :meth:`close` to end: one of
+        ``spans`` (appended when it closes, as :meth:`add_span` appends)
+        or, ``inner``, one of ``inner`` (appended now, with its ``id`` and
+        its parent's).  The spans opened or added until it closes are its
+        children."""
+        sid, parent = next(self._ids), self._parent()
+        rec = {"name": name, "round": round,
+               "t0": self._clock() if t0 is None else t0, "t1": None}
+        if inner:
+            rec = {"id": sid, "parent": parent, **rec}
+            self.inner.append(rec)
+        self._stack.append([sid, parent, rec, inner, []])
+        return rec
+
+    def close(self, rec: dict, t1: float | None = None, **work
+              ) -> list[dict]:
+        """End the open span ``rec`` at ``t1`` (now) with the ``work``
+        counts given, and return its children's records.  A span left
+        open inside it leaves the open stack: a ``spans`` one unrecorded,
+        an ``inner`` one with ``t1`` None."""
+        t1 = self._clock() if t1 is None else t1
+        while self._stack:
+            sid, parent, top, inner, kids = self._stack.pop()
+            if top is rec:
+                break
+        else:
+            raise ValueError(f"span {rec.get('name')!r} is not open")
+        rec["t1"] = max(rec["t0"], t1)
+        rec.update(work)
+        self._closed(rec, sid, parent, inner=inner)
+        return kids
+
+    @contextmanager
+    def inner_span(self, name: str, round: int = 0):
+        """An inner host span around the body (``sweep``, ``admit``)."""
+        rec = self.open(name, round, inner=True)
+        try:
+            yield rec
+        finally:
+            self.close(rec)
+
+    @contextmanager
+    def round_span(self, round: int):
+        """The ``round`` span around one scheduling round.  With a device
+        timer it closes with ``idle_s``, its host interval less the union
+        of its children's device intervals, and ``idle``, those seconds by
+        the child span they fell in (``round`` between children), once
+        every child's marks are seconds (a round traced before the first
+        host sync goes without)."""
+        rec = self.open("round", round, inner=True)
+        try:
+            yield rec
+        finally:
+            kids = self.close(rec)
+            if self.device_timer is not None:
+                self._note_idle(rec, kids)
+
+    def _note_idle(self, rec: dict, kids: list[dict]) -> None:
+        busy = []
+        for k in kids:
+            if "d0" in k:
+                if k["d0"] is None or k.get("d1") is None:
+                    return
+                busy.append((k["d0"], k["d1"]))
+        gaps = _gaps(rec["t0"], rec["t1"], busy)
+        idle: dict[str, float] = {}
+        for a, b in gaps:
+            rest = b - a
+            for k in kids:
+                o = min(b, k["t1"]) - max(a, k["t0"])
+                if o > 0:
+                    idle[k["name"]] = idle.get(k["name"], 0.0) + o
+                    rest -= o
+            if rest > 0:
+                idle["round"] = idle.get("round", 0.0) + rest
+        rec["idle_s"] = sum(b - a for a, b in gaps)
+        rec["idle"] = idle
+
+    def part(self, name: str):
+        """The recorder :mod:`repro_torch.parthook` arms around a traced
+        join: an inner span of the model's part ``name``, a child of the
+        innermost open span, with device marks; the hook's shared null
+        context while the stream captures a CUDA graph."""
+        dt = self.device_timer
+        if dt is not None and dt.capturing():
+            return parthook.NULL
+        return self._part(name)
+
+    @contextmanager
+    def _part(self, name: str):
+        rnd = self._stack[-1][2]["round"] if self._stack else 0
+        with self.inner_span(name, rnd) as rec:
+            self.mark(rec, "d0")
+            try:
+                yield rec
+            finally:
+                self.mark(rec, "d1")
+
+    def mark(self, rec: dict, key: str) -> None:
+        """A device mark for ``rec[key]`` (None until the next
+        :meth:`device_sync` makes it seconds on this tracer's clock);
+        nothing without a device timer."""
+        dt = self.device_timer
+        if dt is None:
+            return
+        rec[key] = None
+        self._pending.append((rec, key, dt.mark(), self._anchor))
+
+    def device_sync(self) -> None:
+        """Called right after a host sync that drained the device's
+        stream, so every pending mark is complete: each maps to the anchor
+        recorded before it, ``host + seconds(anchor, mark)`` (a mark
+        from before the first anchor maps back from that anchor at the
+        next sync, when it is complete).  Then a new anchor is recorded
+        on the drained stream and stamped with the host clock."""
+        dt = self.device_timer
+        if dt is None:
+            return
+        last, left = self._anchor, []
+        for rec, key, ev, base in self._pending:
+            if base is not None:
+                rec[key] = base[1] + dt.seconds(base[0], ev)
+            elif last is not None:
+                rec[key] = last[1] - dt.seconds(ev, last[0])
+            else:
+                left.append((rec, key, ev, None))
+                continue
+            dt.release(ev)
+        if last is not None:
+            dt.release(last[0])
+        self._pending = left
+        self._anchor = (dt.mark(), self._clock())
 
     def pool_gauge(self, counts: dict) -> None:
         """Pool-partition sample (called from ``KVPool.gauge_cb`` after
@@ -336,7 +583,13 @@ class Tracer:
           on top — one request per slot at a time, so slot spans never
           overlap;
         * counter track ``kv_pool_pages`` (``ph:"C"``) — the pool's
-          free/mapped/cached/preempted/held partition sizes over time.
+          free/mapped/cached/preempted/held partition sizes over time;
+        * with a device timer only (the card; a CPU trace is JAX's, event
+          for event): tid 2 ``model`` — the port's inner spans nested by
+          host time: each ``round`` (its idle seconds in its args), its
+          ``sweep`` and ``admit``, and a join's parts; tid 3 ``device`` —
+          the device intervals on the host clock: joins, decode segments
+          and, nested in a join's, its parts'.
         """
         ev: list[dict] = []
         ev.append({"ph": "M", "pid": _PID, "name": "process_name",
@@ -353,7 +606,8 @@ class Tracer:
                        "pid": _PID, "tid": _TID_SCHED,
                        "ts": self._us(sp["t0"]),
                        "dur": self._us(sp["t1"]) - self._us(sp["t0"]),
-                       "args": {"round": sp["round"]}})
+                       "args": {k: v for k, v in sp.items()
+                                if k not in ("name", "t0", "t1")}})
 
         events = sorted(self.events, key=lambda e: e["t"])
         slots_seen: set[int] = set()
@@ -415,9 +669,136 @@ class Tracer:
                        "pid": _PID, "ts": self._us(t),
                        "args": {k: int(v) for k, v in counts.items()}})
 
+        model = ([r for r in self.inner if r["t1"] is not None]
+                 if self.device_timer is not None else [])
+        if model:
+            thread_meta(_TID_MODEL, "model")
+        for r in model:
+            ev.append({"name": r["name"], "cat": "model", "ph": "X",
+                       "pid": _PID, "tid": _TID_MODEL,
+                       "ts": self._us(r["t0"]),
+                       "dur": self._us(r["t1"]) - self._us(r["t0"]),
+                       "args": {k: v for k, v in r.items()
+                                if k not in ("name", "t0", "t1", "d0",
+                                             "d1")}})
+        device = [r for r in list(self.spans) + model
+                  if r.get("d0") is not None and r.get("d1") is not None
+                  and self.device_timer is not None]
+        if device:
+            thread_meta(_TID_DEVICE, "device")
+        for r in device:
+            ev.append({"name": r["name"], "cat": "device", "ph": "X",
+                       "pid": _PID, "tid": _TID_DEVICE,
+                       "ts": self._us(r["d0"]),
+                       "dur": max(0.0, self._us(r["d1"]) - self._us(r["d0"])),
+                       "args": {"round": r["round"]}})
+
         data = {"traceEvents": ev, "displayTimeUnit": "ms"}
         if path is not None:
             with open(path, "w") as f:
                 json.dump(data, f)
                 f.write("\n")
         return data
+
+    # -- device-side summary -------------------------------------------
+    def summary(self, t0: float | None = None,
+                t1: float | None = None) -> dict:
+        """The device-side measures of the spans that start in [t0, t1)
+        (default: every span), each None where there is nothing to read
+        (no device timer, no such span):
+
+        - ``join.device_ms_mean``: the joins' mean device interval, ms;
+        - ``join.useful_token_share``: the joins' prompt tokens
+          (``real_tokens``) over the tokens they computed (``rows`` x
+          ``width``), %;
+        - ``parts``: each part's device seconds over the joins', % (a
+          nested part, ``attn.core``, counts inside its parent's share
+          too), and ``join.parts_share``: the top-level parts' sum, %;
+        - ``moe.dispatch_share`` and ``join.attn_share``: ``parts``'
+          ``moe.dispatch`` and ``attn.core``;
+        - ``decode.device_step_ms``: the decode segments' device seconds
+          over their steps, ms;
+        - ``sched.round_self_ms``: the mean round less its ``chaos``,
+          ``join`` and ``decode-segment`` children, ms;
+        - ``idle_share``: the share of [t0, t1] (default: the rounds'
+          extent) that no ``join`` or ``decode-segment`` device interval
+          covers, %; the gaps inside those intervals (the host launching
+          into an idle device) count busy, as does device work outside
+          them (a cancelled row's latch), so a profiler's busy time reads
+          it from the other side.
+        """
+        lo = float("-inf") if t0 is None else t0
+        hi = float("inf") if t1 is None else t1
+
+        def inside(r):
+            return r["t1"] is not None and lo <= r["t0"] < hi
+
+        def dev(r):
+            d0, d1 = r.get("d0"), r.get("d1")
+            return None if d0 is None or d1 is None else d1 - d0
+
+        spans = list(self.spans)
+        ids = {sid: r for (sid, _), r in zip(self.span_links, spans)}
+        parent = {sid: p for sid, p in self.span_links}
+        for r in self.inner:
+            ids[r["id"]], parent[r["id"]] = r, r["parent"]
+        joins = {sid: r for sid, r in ids.items()
+                 if r["name"] == "join" and "id" not in r and inside(r)
+                 and dev(r) is not None}
+        join_dev = sum(dev(r) for r in joins.values())
+        parts: dict[str, float] = {}
+        top = 0.0
+        for r in self.inner:
+            at = r["parent"]
+            while at is not None and at not in joins:
+                at = parent.get(at)
+            d = dev(r)
+            if at is None or d is None:
+                continue
+            parts[r["name"]] = parts.get(r["name"], 0.0) + d
+            if r["parent"] in joins:
+                top += d
+        computed = [r for r in spans if r["name"] == "join" and inside(r)
+                    and "rows" in r]
+        segs = [r for r in spans if r["name"] == "decode-segment"
+                and inside(r) and dev(r) is not None and r.get("steps")]
+        kids: dict[int, float] = {}
+        for sid, r in ids.items():
+            if "id" not in r and r["name"] in _NOT_SELF \
+                    and parent.get(sid) is not None and r["t1"] is not None:
+                kids[parent[sid]] = (kids.get(parent[sid], 0.0)
+                                     + r["t1"] - r["t0"])
+        rounds = [r for r in self.inner if r["name"] == "round"
+                  and inside(r)]
+        ends = [r for r in self.inner if r["name"] == "round"
+                and r["t1"] is not None]
+        w0 = min((r["t0"] for r in ends), default=lo) if t0 is None else t0
+        w1 = max((r["t1"] for r in ends), default=hi) if t1 is None else t1
+        busy = [(max(r["d0"], w0), min(r["d1"], w1)) for r in spans
+                if dev(r) is not None and r["d1"] > w0 and r["d0"] < w1]
+
+        def share(num, den):
+            return 100.0 * num / den if den > 0 else None
+
+        pct = {name: share(v, join_dev) for name, v in parts.items()}
+        return {
+            "join.device_ms_mean": (join_dev / len(joins) * 1e3
+                                    if joins else None),
+            "join.useful_token_share": share(
+                sum(r["real_tokens"] for r in computed),
+                sum(r["rows"] * r["width"] for r in computed)),
+            "parts": pct,
+            "join.parts_share": share(top, join_dev) if parts else None,
+            "moe.dispatch_share": pct.get("moe.dispatch"),
+            "join.attn_share": pct.get("attn.core"),
+            "decode.device_step_ms": (
+                sum(dev(r) for r in segs) / sum(r["steps"] for r in segs)
+                * 1e3 if segs else None),
+            "sched.round_self_ms": (
+                sum(r["t1"] - r["t0"] - kids.get(r["id"], 0.0)
+                    for r in rounds) / len(rounds) * 1e3
+                if rounds else None),
+            "idle_share": (share(sum(b - a for a, b in _gaps(w0, w1, busy)),
+                                 w1 - w0)
+                           if busy and math.isfinite(w1 - w0) else None),
+        }

@@ -1996,3 +1996,72 @@ def test_whisper_with_frames_on_the_card_matches_the_cpu(paged):
     name = "paged_decode" if paged else "decode_attn"
     counts = {**dattn.launch_counts, **kernel.launch_counts}
     assert counts[name] == cfg.n_layers * 3
+
+
+def test_traced_serving_device_intervals_without_a_sync(monkeypatch):
+    """Reduced moonshot served paged on the card, traced: each join's and
+    decode segment's device interval lies inside its host span, each
+    part's inside its join's (``attn.core`` inside its ``attn``), the
+    top-level parts' device time sums to at most the join's, every round
+    has its idle seconds, and a traced wave into captured graphs calls
+    ``torch.cuda.synchronize`` zero times; the tokens are the untraced
+    run's."""
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import Batcher
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    params = init_params(cfg, 0, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(4, 30)))
+               .tolist() for _ in range(6)]
+
+    def wave(b, first_rid):
+        for i, p in enumerate(prompts):
+            b.submit(first_rid + i, p)
+        b.run(max_new=9)
+
+    def batcher(telemetry):
+        return Batcher(Model(cfg), params, ServeConfig(
+            max_len=64, batch=4, dtype=torch.float32, sync_every=4,
+            paged=True, page_size=8, telemetry=telemetry))
+    off, on = batcher(False), batcher(True)
+    wave(off, 0)
+    wave(on, 0)                        # builds, captures the graphs
+    calls, real = [], torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (calls.append(1), real(*a, **k)))
+    wave(on, 100)
+    monkeypatch.undo()
+    assert calls == []
+    for i in range(len(prompts)):
+        assert on.results[i] == on.results[100 + i] == off.results[i]
+    tr, tol = on.telemetry, 1e-3          # the anchor's error is ~us
+    ids = {sid: sp for (sid, _), sp in zip(tr.span_links, tr.spans)}
+    timed = [sp for sp in tr.spans
+             if sp["name"] in ("join", "decode-segment")]
+    assert len(timed) == on.joins + on.segments
+    for sp in timed:
+        assert sp["t0"] - tol <= sp["d0"] <= sp["d1"] <= sp["t1"] + tol
+    by_id = {r["id"]: r for r in tr.inner}
+    for sid, j in ids.items():
+        if j["name"] != "join":
+            continue
+        parts = [r for r in tr.inner if r["parent"] == sid]
+        assert parts
+        for r in parts:
+            assert j["d0"] - tol <= r["d0"] <= r["d1"] <= j["d1"] + tol
+        assert sum(r["d1"] - r["d0"] for r in parts) \
+            <= j["d1"] - j["d0"] + tol
+    for r in tr.inner:
+        if r["name"] == "attn.core":
+            a = by_id[r["parent"]]
+            assert a["d0"] - tol <= r["d0"] <= r["d1"] <= a["d1"] + tol
+    rounds = [r for r in tr.inner if r["name"] == "round"]
+    assert all("idle_s" in r for r in rounds[1:])
+    got = tr.summary()
+    for key in ("join.device_ms_mean", "join.useful_token_share",
+                "moe.dispatch_share", "join.attn_share",
+                "decode.device_step_ms", "sched.round_self_ms",
+                "idle_share"):
+        assert got[key] is not None and got[key] >= 0, key
+    assert got["join.parts_share"] <= 100.0 + 1e-6
