@@ -253,10 +253,11 @@ def _paged_insert(pool: torch.Tensor, vals: torch.Tensor,
                   ) -> torch.Tensor:
     """Write ``vals`` [B, L, ...] into the page pool [n_pages + 2, ps, ...]
     in place, at the addresses of :func:`paged_write_index` (``index``,
-    when the caller has computed them).  A join's non-joining rows carry
-    all-sentinel tables, so their writes reach the sink and never another
-    slot's pages.  The address depends on the position only, so the insert
-    is rollback-safe for speculative verify, as in JAX."""
+    when the caller has computed them).  The non-joining rows of a MoE
+    model's join carry all-sentinel tables, so their writes reach the sink
+    and never another slot's pages.  The address depends on the position
+    only, so the insert is rollback-safe for speculative verify, as in
+    JAX."""
     if index is None:
         index = paged_write_index(table, length, vals.shape[1],
                                   pool.shape[0] - 2, pool.shape[1])

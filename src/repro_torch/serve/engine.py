@@ -35,7 +35,7 @@ import time
 
 import torch
 
-from ..configs.base import BlockKind
+from ..configs.base import ArchConfig, BlockKind
 from ..kernels import launches
 from ..kernels.decode_attn.ops import (MODES, DecodeAttnPolicy,
                                        decode_attn_policy)
@@ -608,59 +608,93 @@ def make_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
     return _within(policy, cfg, join)
 
 
+def rows_interact(cfg: ArchConfig) -> bool:
+    """Whether a row of one model call can change another row's values:
+    true when a segment routes tokens to experts (``BlockKind.MOE``),
+    whose capacity ``int(T k cf / E)`` counts every row and position of
+    the call, so the rows sharing a call decide which choices drop.
+    Attention (GQA, MLA), dense MLPs and SSM recurrences are per row."""
+    return any(seg.kind is BlockKind.MOE for seg in cfg.resolved_segments())
+
+
 def make_paged_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
                     policy: DecodeAttnPolicy | None = None):
-    """Paged slot refill.  The batch prefill writes through the page
-    table, and rows outside ``join_mask`` get an all-sentinel table, so
-    their writes never reach a live page: occupied slots' pages stay
-    bit-for-bit intact in the shared pool.  ``prefix_lens`` [B] is each
-    joining row's resident depth (0 for a whole-prompt prefill) and
-    ``commit_mask`` [B] the joining rows whose prompt completes with this
-    call (``commit_mask == join_mask`` when prompts are not chunked).  SSM
-    segments keep per-slot state, not pages, as in JAX: the prefill
-    computes every row's fresh state into scratch tensors, and only the
-    joining rows' are selected into the serving state, so every other
-    slot's window and state stay bit-for-bit (JAX's prefill starts from
-    the serving state, the previous occupant's for a reused slot; the
-    port's from zero).  The slot state is written in place, as in
-    :func:`make_join`, inside ``policy``.  Returns (caches, tok, lengths,
-    done, remaining, first), the state tensors the same ones it was
-    given."""
+    """Paged slot refill: prefill the joining slots' pieces through their
+    page tables into the shared pool, sample the first tokens of the rows
+    whose prompt completes, and write the slot state back by slot index.
+
+    ``join(params, caches, tok, lengths, done, remaining, rows, prompts,
+    plens, budgets, gen, pages, prefix_lens, commit)``: ``rows`` [J]
+    int64 names the joining slots, and ``prompts`` [J, W], ``plens``,
+    ``budgets``, ``prefix_lens`` (each row's resident depth, 0 for a
+    whole-prompt prefill) and ``commit`` (the rows whose prompt completes
+    with this call) [J] and ``pages`` [J, P] (their page tables) are
+    theirs, in that order.
+
+    Which rows the prefill computes depends on the model
+    (:func:`rows_interact`).  Without routed experts no row can change
+    another's values, so the call computes the J joining rows alone.
+    With routed experts it computes all B slots, as JAX's join does: the
+    experts' capacity counts every row of the call, so fewer rows would
+    change which choices drop, and the benchmark's check samples only
+    the slots whose choices no B-row join can drop
+    (``portbench/check.py::undroppable_slots``).  There the other rows
+    take zero prompts and an all-sentinel write table, so their writes
+    never reach a live page.  Either way only the joining rows are
+    written: every other slot's pages, token, length, flags and SSM
+    window and state stay bit-for-bit the same.  SSM segments keep
+    per-slot state, not pages, as in JAX: the prefill starts from zeroed
+    scratch state (JAX's from the serving state, the previous occupant's
+    for a reused slot) and the joining rows' fresh window and state are
+    copied into their slots.  A joining row that does not commit (a
+    chunk of a longer prompt) keeps its token and is latched done with
+    nothing left to emit.  The slot state is written in place
+    (``index_copy_``), as in :func:`make_join`, inside ``policy``.
+    Returns (caches, tok, lengths, done, remaining, first), the state
+    tensors the same ones it was given and ``first`` [J] the joining
+    rows' sampled tokens."""
     temp = cfg.temperature
     sentinel = cfg.pool_pages      # the pool's out-of-range id
     recurrent = [seg.kind is BlockKind.SSM
                  for seg in model.cfg.resolved_segments()]
+    every_row = rows_interact(model.cfg)
 
-    def join(params, caches, tok, lengths, done, remaining, join_mask,
-             prompts, plens, budgets, gen, pages, prefix_lens, commit_mask):
-        write_tbl = torch.where(join_mask[:, None], pages,
-                                torch.full_like(pages, sentinel))
-        work = [{name: torch.zeros_like(t) for name, t in c.items()}
-                if ssm else c for ssm, c in zip(recurrent, caches)]
+    def join(params, caches, tok, lengths, done, remaining, rows, prompts,
+             plens, budgets, gen, pages, prefix_lens, commit):
+        call = (prompts, plens, prefix_lens, pages)
+        if every_row:          # the B-row call; other slots write nothing
+            b = tok.shape[0]
+            call = tuple(x.new_full((b,) + x.shape[1:], fill).index_copy(
+                0, rows, x) for x, fill in zip(call, (0, 1, 0, sentinel)))
+        c_prompts, c_plens, c_prefix, c_pages = call
+        n = c_prompts.shape[0]
+        work = [{name: t.new_zeros((t.shape[0], n) + t.shape[2:])
+                 for name, t in c.items()} if ssm else c
+                for ssm, c in zip(recurrent, caches)]
         last, work = model.prefill_paged(
-            params, {"tokens": prompts}, work, write_tbl, dtype=cfg.dtype,
-            last_pos=plens - 1, cache_len=prefix_lens, logits=False)
+            params, {"tokens": c_prompts}, work, c_pages, dtype=cfg.dtype,
+            last_pos=c_plens - 1, cache_len=c_prefix, logits=False)
         for ssm, new, old in zip(recurrent, work, caches):
-            if ssm:           # leaves are [layers, B, ...]: the batch axis
+            if ssm:           # leaves are [layers, rows, ...]: the row axis
                 for name, held in old.items():
-                    mask = join_mask.reshape((1, -1) + (1,) * (held.dim()
-                                                               - 2))
-                    held.copy_(torch.where(mask, new[name], held))
+                    fresh = new[name]
+                    if every_row:
+                        fresh = fresh.index_select(1, rows)
+                    held.index_copy_(1, rows, fresh)
         with part("readout"):
             first = sample_tokens(model.readout(params, last)[:, -1], temp,
                                   gen)
+            if every_row:
+                first = first[rows]
         if eos_id is None:
-            is_eos = torch.zeros_like(join_mask)
+            is_eos = torch.zeros_like(commit)
         else:
             is_eos = first == eos_id
         rem_new = budgets - 1
-        new = (torch.where(commit_mask[:, None], first[:, None], tok),
-               torch.where(join_mask, prefix_lens + plens, lengths),
-               torch.where(commit_mask, is_eos | (rem_new <= 0),
-                           join_mask | done),
-               torch.where(commit_mask, rem_new,
-                           torch.where(join_mask, 0, remaining)))
-        for held, value in zip((tok, lengths, done, remaining), new):
-            held.copy_(value)
+        tok.index_copy_(0, rows, torch.where(commit[:, None], first[:, None],
+                                             tok[rows]))
+        lengths.index_copy_(0, rows, prefix_lens + plens)
+        done.index_copy_(0, rows, ~commit | is_eos | (rem_new <= 0))
+        remaining.index_copy_(0, rows, torch.where(commit, rem_new, 0))
         return caches, tok, lengths, done, remaining, first
     return _within(policy, cfg, join)

@@ -163,7 +163,7 @@ import torch
 
 from ..configs.base import BlockKind
 from .engine import (PAD_TOKEN, GraphedLoop, ServeConfig, make_decode_loop,
-                     make_join, make_paged_join)
+                     make_join, make_paged_join, rows_interact)
 from ..kernels.decode_attn.ops import DecodeAttnPolicy
 from .kvpool import KVPool, PageError
 from .overload import (CANCEL_REASONS, HEALTHY, RETRY_AFTER, STATES,
@@ -292,6 +292,9 @@ class ContinuousBatcher:
             self._capture_stream = torch.cuda.Stream(dev)
         self.attn_policy = DecodeAttnPolicy(mode=cfg.attn_mode)
         b = cfg.batch
+        # a join computes all B rows, or the joining rows alone: the paged
+        # join's choice (make_paged_join)
+        self._join_all_rows = not cfg.paged or rows_interact(model.cfg)
         if cfg.paged:
             self.pool = KVPool(cfg.pool_pages, cfg.page_size, b,
                                max_pages=cfg.max_pages)
@@ -1086,7 +1089,16 @@ class ContinuousBatcher:
         piece at its slot's resident depth, and the slots whose prompt it
         completes sample their first token.  The chunk is the one in force
         (``_effective_chunk``); the drafter's history is written whenever
-        speculation is configured, shed or not."""
+        speculation is configured, shed or not.
+
+        The join is handed the joining slots (``rows`` [J]) and their
+        pieces, depths, budgets and page tables.  The paged join of a model
+        without routed experts computes those J rows alone; with routed
+        experts, and in the dense join, it computes all B slots (the
+        experts' capacity counts every row of the call, and the
+        benchmark's check samples only slots no B-row join can drop:
+        :func:`~.engine.make_paged_join`).  The ``join`` span's ``rows``
+        and the ``join.rows_computed`` counter count the rows computed."""
         tr = self.telemetry
         admit = (tr.open("admit", self.round, inner=True)
                  if tr is not None else None)
@@ -1171,32 +1183,21 @@ class ContinuousBatcher:
 
         def up(a):
             return torch.as_tensor(a, device=dev)
-        if self.pool is None:
-            prompts = np.zeros((len(take), width), np.int32)
-            for j, (_, _, piece, _, _) in enumerate(take):
-                prompts[j, :len(piece)] = piece
-            args = (up(np.asarray([slot for slot, *_ in take])), up(prompts),
-                    up(np.asarray([len(piece) for _, _, piece, _, _ in take],
-                                  np.int32)),
-                    up(np.asarray(budgets, np.int32)), self.gen)
-        else:
-            join_mask = np.zeros((b,), bool)
-            commit_mask = np.zeros((b,), bool)
-            prompts = np.zeros((b, width), np.int32)
-            plens = np.ones((b,), np.int32)
-            prefix_lens = np.zeros((b,), np.int32)
-            slot_budgets = np.full((b,), max_new, np.int32)
-            for (slot, _, piece, depth, commit), budget in zip(take,
-                                                               budgets):
-                join_mask[slot] = True
-                commit_mask[slot] = commit
-                prompts[slot, :len(piece)] = piece
-                plens[slot] = len(piece)
-                prefix_lens[slot] = depth
-                slot_budgets[slot] = budget
-            args = (up(join_mask), up(prompts), up(plens), up(slot_budgets),
-                    self.gen, up(self.pool.table), up(prefix_lens),
-                    up(commit_mask))
+        slots = np.asarray([slot for slot, *_ in take])
+        prompts = np.zeros((len(take), width), np.int32)
+        for j, (_, _, piece, _, _) in enumerate(take):
+            prompts[j, :len(piece)] = piece
+        args = (up(slots), up(prompts),
+                up(np.asarray([len(piece) for _, _, piece, _, _ in take],
+                              np.int32)),
+                up(np.asarray(budgets, np.int32)), self.gen)
+        if self.pool is not None:
+            args += (up(self.pool.table[slots]),
+                     up(np.asarray([depth for *_, depth, _ in take],
+                                   np.int32)),
+                     up(np.asarray([commit for *_, commit in take])))
+        rows = b if self._join_all_rows else len(take)
+        self.metrics.inc("join.rows_computed", rows)
         # traced, the model's parts record into the join (parthook)
         with parthook.armed(tr.part) if tr is not None else parthook.NULL:
             *_, first = self._join(self.params, self.caches, self.tok,
@@ -1207,8 +1208,7 @@ class ContinuousBatcher:
         first = first.cpu().numpy()
         if tr is not None:
             tr.device_sync()
-        if self.pool is None:       # the dense join's are the joining rows'
-            first = dict(zip((slot for slot, *_ in take), first.tolist()))
+        first = dict(zip(slots.tolist(), first.tolist()))
         now = time.perf_counter()
         self.joins += 1
         for slot, rid, piece, depth, commit in take:
@@ -1255,8 +1255,7 @@ class ContinuousBatcher:
         t1 = time.perf_counter()
         self.metrics.observe("join.seconds", t1 - t0)
         if tr is not None:
-            # B rows computed at width W, whoever joins
-            tr.close(join, t1=t1, rows=b, width=width, joined=len(take),
+            tr.close(join, t1=t1, rows=rows, width=width, joined=len(take),
                      real_tokens=sum(len(p) for _, _, p, _, _ in take),
                      committed=sum(c for *_, c in take))
 

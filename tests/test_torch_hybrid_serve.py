@@ -170,15 +170,14 @@ def test_join_keeps_other_slots_ssm_state_bitwise(served, layout):
              torch.zeros(3, dtype=torch.int32))
     if layout == "paged":
         join = make_paged_join(model, scfg, eos_id=None)
-        prompts = torch.zeros((3, 16), dtype=torch.int32)
-        prompts[1, :5] = prompt[0]
-        mask = torch.tensor([False, True, False])
+        prompts = torch.zeros((1, 16), dtype=torch.int32)
+        prompts[0, :5] = prompt[0]
         table = torch.arange(scfg.pool_pages, dtype=torch.int32).reshape(3,
                                                                          -1)
-        join(params, caches, *state, mask, prompts,
-             torch.tensor([1, 5, 1], dtype=torch.int32),
-             torch.full((3,), 4, dtype=torch.int32), None, table,
-             torch.zeros(3, dtype=torch.int32), mask)
+        join(params, caches, *state, torch.tensor([1]), prompts,
+             torch.tensor([5], dtype=torch.int32),
+             torch.tensor([4], dtype=torch.int32), None, table[1:2],
+             torch.zeros(1, dtype=torch.int32), torch.tensor([True]))
     else:
         join = make_join(model, scfg, eos_id=None)
         prompts = torch.zeros((1, 16), dtype=torch.int32)

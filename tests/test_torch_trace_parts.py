@@ -51,13 +51,13 @@ class Probe(Batcher):
         self.segment_inputs: list[tuple] = []
         join = self._join
 
-        def spy(params, caches, tok, lengths, done, remaining, join_mask,
+        def spy(params, caches, tok, lengths, done, remaining, rows,
                 prompts, plens, *rest):
-            self.join_inputs.append((join_mask.clone(), prompts.shape,
+            self.join_inputs.append((rows.clone(), prompts.shape,
                                      plens.clone(), rest[-1].clone(),
                                      parthook._recorder))
             return join(params, caches, tok, lengths, done, remaining,
-                        join_mask, prompts, plens, *rest)
+                        rows, prompts, plens, *rest)
         self._join = spy
 
     def _decode_segment(self, steps):
@@ -162,10 +162,11 @@ def test_join_and_segment_work_counts(served, setup):
     cfg = setup[0]
     joins = [sp for sp in b.telemetry.spans if sp["name"] == "join"]
     assert len(joins) == len(b.join_inputs)
-    for sp, (mask, shape, plens, commit, _) in zip(joins, b.join_inputs):
-        assert (sp["rows"], sp["width"]) == tuple(shape) == (4, sp["width"])
-        assert sp["joined"] == int(mask.sum())
-        assert sp["real_tokens"] == int(plens[mask].sum())
+    for sp, (rows, shape, plens, commit, _) in zip(joins, b.join_inputs):
+        # routed experts: the join computes every slot's row
+        assert (sp["rows"], sp["width"]) == (4, shape[1])
+        assert sp["joined"] == len(rows) == shape[0]
+        assert sp["real_tokens"] == int(plens.sum())
         assert sp["committed"] == int(commit.sum())
     # unchunked, no prefix cache: every prompt token is computed once
     assert sum(sp["real_tokens"] for sp in joins) == sum(
