@@ -7,9 +7,9 @@ For each seed, in one process: a run of the cell at its own load for
 ``--seconds`` (set-up, ramp and window as the benchmark's), then, on the
 requests its check samples, the widest gap of the program's served
 tokens (the lower reading) and, with ``--control``, of the control: the
-reference run in float8 (``reference.model``, ``fp8=True``) in the
-program's place, each position's token its own first choice, read in the
-float32 reference (the upper reading).  One JSON line a seed.
+cell's reference run in float8 (``fp8=True``) in the program's place,
+each position's token its own first choice, read in the float32
+reference (the upper reading).  One JSON line a seed.
 """
 from __future__ import annotations
 
@@ -55,14 +55,14 @@ def main() -> int:
                                 cell_.port,
                                 int(cell_.limits["min_tokens"]))
             t0 = time.perf_counter()
-            g = check.gaps(params, cell_.port, reqs)
+            g = check.gaps(cell_, params, reqs)
             read.update(_stats("program", g))
             read["tokens"] = int(sum(x.size for x in g))
             read["slots"] = sorted({q.slot for q in reqs})
             read["reference_s"] = time.perf_counter() - t0
             if args.control:
-                firsts = check.gaps(params, cell_.port, reqs, fp8=True)
-                c = check.gaps(params, cell_.port, reqs,
+                firsts = check.gaps(cell_, params, reqs, fp8=True)
+                c = check.gaps(cell_, params, reqs,
                                tokens=[f.tolist() for f in firsts])
                 read.update(_stats("control", c))
             return check.check(cell_, mix, params, session, seed_)

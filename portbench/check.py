@@ -3,16 +3,17 @@ reference.
 
 Once the window has closed and the batcher is freed, a sample of the
 requests the program finished, drawn from the seed with the longest of
-them in it, is run through the float32 reference (``reference.model``)
-over each prompt and its served tokens.  At each served position the gap
-is how far the served token's logit lies below the reference's best, in
-units of the standard deviation of the reference's logits there (greedy
-decoding serves the argmax, so a sound program reads rounding alone).
-The numbers compared are the widest gap and the mean gap, each where the
-cell's limits file gives it a limit (``limits/<workload>.json``, with the
-readings it was set from).  The joins (first tokens), the graphed
-decode segments (every later token), the paged pool they read and the
-read-out are all in it.
+them in it, is run through the cell's float32 reference (the module its
+configuration names, ``reference/model.py`` by default; the contract is
+in ``reference/__init__.py``) over each prompt and its served tokens.
+At each served position the gap is how far the served token's logit lies
+below the reference's best, in units of the standard deviation of the
+reference's logits there (greedy decoding serves the argmax, so a sound
+program reads rounding alone).  The numbers compared are the widest gap
+and the mean gap, each where the cell's limits file gives it a limit
+(``limits/<workload>.json``, with the readings it was set from).  The
+joins (first tokens), the graphed decode segments (every later token),
+the paged pool they read and the read-out are all in it.
 
 Capacity: a routed-expert layer of the port gives each expert
 ``int(T k cf / E)`` places a call, T every row and position of the call,
@@ -30,8 +31,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
-from .reference import model as ref
 
 
 def undroppable_slots(port: dict, slots: int, max_len: int) -> int:
@@ -92,21 +91,21 @@ def sample(session, seed: int, k: int, port: dict, min_tokens: int = 0):
     return out
 
 
-def gaps(params: dict, port: dict, reqs, *, tokens=None, fp8: bool = False):
-    """For each request, the gaps at its served positions: the reference's
-    best logit minus its logit of the token at that position, in units of
-    the standard deviation of the reference's logits there (so that
-    configurations of other read-out scales read alike; ``tokens``: per
-    request the tokens to read, default the served ones).  With
-    ``fp8`` the reference itself runs as the control, and each position's
-    token is the control's own first choice, read against nothing: the
-    caller reads those tokens in the float32 reference."""
+def gaps(cell, params: dict, reqs, *, tokens=None, fp8: bool = False):
+    """For each request, the gaps at its served positions: the best logit
+    of ``cell``'s reference minus its logit of the token at that
+    position, in units of the standard deviation of the reference's
+    logits there (so that configurations of other read-out scales read
+    alike; ``tokens``: per request the tokens to read, default the served
+    ones).  With ``fp8`` the reference itself runs as the control, and
+    each position's token is the control's own first choice, read against
+    nothing: the caller reads those tokens in the float32 reference."""
     seqs = [q.r.prompt + q.served[:-1] for q in reqs]
     starts = [q.plen - 1 for q in reqs]
     out = [np.zeros(len(q.served)) for q in reqs]
     firsts = [np.zeros(len(q.served), dtype=np.int64) for q in reqs]
-    for i, at, logits in ref.forward(params, port, seqs, score_from=starts,
-                                     fp8=fp8):
+    for i, at, logits in cell.reference.forward(
+            params, cell.port, seqs, score_from=starts, fp8=fp8):
         j0 = at - starts[i]
         n = logits.shape[0]
         if fp8:
@@ -132,7 +131,7 @@ def check(cell, mix, params, session, seed: int) -> dict:
     lim = cell.limits
     reqs = sample(session, seed, int(lim["sample_requests"]), cell.port,
                   int(lim["min_tokens"]))
-    g = gaps(params, cell.port, reqs) if reqs else []
+    g = gaps(cell, params, reqs) if reqs else []
     allg = np.concatenate(g) if g else np.zeros(0)
     checks, correct = {}, any(name in lim for name in STATS)
     for name, stat in STATS.items():

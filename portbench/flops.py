@@ -34,12 +34,25 @@ class Shapes:
     top_k: int = 0
     d_ff_expert: int = 0
     d_ff_shared: int = 0
+    attn: str = "gqa"                  # "gqa" or "mla"
+    q_lora: int = 0                    # MLA; 0: q projected from d
+    kv_lora: int = 0
+    nope: int = 0
+    rope: int = 0
+    v_dim: int = 0
 
     @classmethod
     def of(cls, port: dict) -> "Shapes":
         layers = tuple(kind for kind, n in port["segments"]
                        for _ in range(n))
+        other = set(layers) - {"dense", "moe"}
+        if other:
+            raise NotImplementedError(
+                f"the yardstick counts dense and moe layers, not "
+                f"{sorted(other)}")
         moe = port.get("moe") or {}
+        attn = port.get("attn", "gqa")
+        mla = port["mla"] if attn == "mla" else {}
         return cls(d=port["d_model"], hq=port["n_heads"],
                    hkv=port["kv_heads"],
                    hd=port.get("head_dim") or port["d_model"]
@@ -49,7 +62,12 @@ class Shapes:
                    n_experts=moe.get("n_experts", 0),
                    top_k=moe.get("top_k", 0),
                    d_ff_expert=moe.get("d_ff_expert", 0),
-                   d_ff_shared=moe.get("d_ff_shared", 0))
+                   d_ff_shared=moe.get("d_ff_shared", 0),
+                   attn=attn, q_lora=mla.get("q_lora_rank") or 0,
+                   kv_lora=mla.get("kv_lora_rank", 0),
+                   nope=mla.get("qk_nope_head_dim", 0),
+                   rope=mla.get("qk_rope_head_dim", 0),
+                   v_dim=mla.get("v_head_dim", 0))
 
     @property
     def n_moe(self) -> int:
@@ -59,21 +77,55 @@ class Shapes:
     def n_attn(self) -> int:
         return len(self.layers)
 
+    def attn_params(self) -> int:
+        """One layer's attention projections.  MLA: q_a d q_lora and q_b
+        q_lora H (nope + rope) (or d H (nope + rope) without q_lora),
+        kv_a d (r + rope), kv_b r H (nope + v), counted once a token (W_uk
+        and W_uv absorbed into each query, or applied once to each key),
+        and o H v d."""
+        if self.attn != "mla":
+            return self.d * self.hd * (2 * self.hq + 2 * self.hkv)
+        qk = self.hq * (self.nope + self.rope)
+        q = (self.d * self.q_lora + self.q_lora * qk if self.q_lora
+             else self.d * qk)
+        return (q + self.d * (self.kv_lora + self.rope)
+                + self.kv_lora * self.hq * (self.nope + self.v_dim)
+                + self.hq * self.v_dim * self.d)
+
+    def layer_params(self, kind: str) -> int:
+        """Weights one token multiplies by in one layer: attention, and
+        the dense MLP or the router, the top-k experts and the shared
+        experts."""
+        if kind == "moe":
+            ffn = (self.d * self.n_experts
+                   + self.top_k * 3 * self.d * self.d_ff_expert
+                   + 3 * self.d * self.d_ff_shared)
+        else:
+            ffn = (3 if self.gated else 2) * self.d * self.d_ff
+        return self.attn_params() + ffn
+
     def active_params(self) -> int:
-        """Weights one token multiplies by, read-out excluded: attention
-        projections, and the dense MLP or the router, the top-k experts
-        and the shared experts of each layer."""
-        attn = self.d * self.hd * (2 * self.hq + 2 * self.hkv)
-        mlp = (3 if self.gated else 2) * self.d * self.d_ff
-        moe = (self.d * self.n_experts
-               + self.top_k * 3 * self.d * self.d_ff_expert
-               + 3 * self.d * self.d_ff_shared)
-        return sum(attn + (moe if k == "moe" else mlp) for k in self.layers)
+        """Weights one token multiplies by, read-out excluded."""
+        return sum(self.layer_params(k) for k in self.layers)
+
+    def attn_flops_per_key(self, prefill: bool = False) -> float:
+        """Operations of one query position over one key in one layer:
+        GQA q k^T and p v over the head width.  MLA in the cheaper of its
+        two forms: a decoded query absorbs W_uk and W_uv, so it scores
+        the (r + rope)-wide key and sums the r-wide latent, 2 H (r + rope
+        + r); a prefilled prompt expands each of its keys once by kv_b
+        (counted in ``attn_params``), then scores (nope + rope) and sums
+        v a head, 2 H (nope + rope + v)."""
+        if self.attn != "mla":
+            return 4.0 * self.hq * self.hd
+        if prefill:
+            return 2.0 * self.hq * (self.nope + self.rope + self.v_dim)
+        return 2.0 * self.hq * (self.kv_lora + self.rope + self.kv_lora)
 
 
 def attention_flops(s: Shapes, keys: int) -> float:
-    """One query position over ``keys`` keys, every layer: q k^T and p v."""
-    return 4.0 * s.hq * s.hd * keys * s.n_attn
+    """One query position over ``keys`` keys, every layer."""
+    return s.attn_flops_per_key() * keys * s.n_attn
 
 
 def readout_flops(s: Shapes) -> float:
@@ -85,7 +137,7 @@ def prompt_flops(s: Shapes, length: int) -> float:
     out (the first token's logits)."""
     causal_keys = length * (length + 1) / 2
     return (2.0 * s.active_params() * length
-            + 4.0 * s.hq * s.hd * causal_keys * s.n_attn
+            + s.attn_flops_per_key(prefill=True) * causal_keys * s.n_attn
             + readout_flops(s))
 
 
@@ -100,21 +152,21 @@ def decode_flops(s: Shapes, keys: int) -> float:
 # -------------------------------------------------------------------------
 
 def paged_decode_work(s: Shapes, keys: list[int]) -> tuple[float, float]:
-    """One decode step over rows reading ``keys[i]`` keys each, every
+    """One GQA decode step over rows reading ``keys[i]`` keys each, every
     layer: each key and value read once, q read and the output written."""
     k = float(sum(keys))
-    flops = 4.0 * s.hq * s.hd * k * s.n_attn
+    flops = s.attn_flops_per_key() * k * s.n_attn
     nbytes = (k * s.hkv * s.hd * 2 * BF16
               + len(keys) * 2 * s.hq * s.hd * BF16) * s.n_attn
     return flops, nbytes
 
 
 def paged_prefill_work(s: Shapes, lengths: list[int]) -> tuple[float, float]:
-    """Prompts of ``lengths`` real tokens (padding not counted), causal,
-    every layer: q, k and v read once and the output written."""
+    """GQA prompts of ``lengths`` real tokens (padding not counted),
+    causal, every layer: q, k and v read once and the output written."""
     keys = sum(n * (n + 1) / 2 for n in lengths)
     toks = float(sum(lengths))
-    flops = 4.0 * s.hq * s.hd * keys * s.n_attn
+    flops = s.attn_flops_per_key(prefill=True) * keys * s.n_attn
     nbytes = toks * (2 * s.hq + 2 * s.hkv) * s.hd * BF16 * s.n_attn
     return flops, nbytes
 

@@ -390,8 +390,6 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, traced: bool,
              mix: traffic.Mix | None = None, check_fn=None) -> dict:
     """One run; returns the result dict (the line to print) and, under
     ``"_run"``, the :class:`Run` for the caller's diagnostics."""
-    from repro_torch.configs.base import (ArchConfig, BlockKind, MoeConfig,
-                                          Segment)
     from repro_torch.models.model_zoo import Model
     from repro_torch.serve.engine import ServeConfig
     from repro_torch.serve.scheduler import Batcher
@@ -399,18 +397,7 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, traced: bool,
     marks = {"imports": time.perf_counter()}
     port = cell.port
     mix = mix or traffic.Mix.load(spec.traffic_path(cell.traffic))
-    kinds = {"dense": BlockKind.DENSE, "moe": BlockKind.MOE}
-    moe = port.get("moe")
-    arch = ArchConfig(
-        name=cell.config_name, n_layers=port["n_layers"],
-        d_model=port["d_model"], n_heads=port["n_heads"],
-        kv_heads=port["kv_heads"], d_ff=port["d_ff"], vocab=port["vocab"],
-        segments=tuple(Segment(kinds[k], n) for k, n in port["segments"]),
-        activation=port["activation"], gated_mlp=port["gated_mlp"],
-        qkv_bias=port["qkv_bias"], tied_embeddings=port["tied_embeddings"],
-        head_dim=port["head_dim"], rope_theta=port["rope_theta"],
-        norm_eps=port["norm_eps"],
-        moe=MoeConfig(**moe) if moe else None)
+    arch = spec.arch(cell.config_name, port)
     model = Model(arch)
     params = make_weights(model.abstract_ptree(), seed, device, dtype)
     if device.type == "cuda":

@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 E4M3_MAX = 448.0
+COVERS = {"attn": ["gqa"], "segments": ["dense", "moe"],
+          "activation": ["silu", "gelu"]}
 
 
 def _fp8(t: torch.Tensor, dim: int) -> torch.Tensor:

@@ -57,8 +57,14 @@ def test_the_harness_modules_load_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_port():
+    """Every module in ``reference/``, loaded as the harness loads it."""
+    mods = sorted(p.stem for p in (spec.HERE / "reference").glob("*.py")
+                  if p.stem != "__init__")
+    assert "model" in mods
     names = _loaded(
-        "import json, sys; import portbench.reference.model; "
+        "import json, sys; import portbench.reference; "
+        "from portbench import spec; "
+        f"[(r.forward, r.COVERS) for r in map(spec.reference, {mods!r})]; "
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
     assert not (names & (JAX_NAMES | {"repro_torch"}))
 

@@ -1,7 +1,7 @@
-"""The frozen reference against the port's CPU path in float32, at the
-smoke widths of both configurations' layer kinds (``ArchConfig.reduced``
-sizes), on weights the benchmark makes.  The test imports both; the
-reference imports neither the port nor JAX."""
+"""Each cell's frozen reference against the port's CPU path in float32,
+at the smoke widths of its configuration's layer kinds
+(``ArchConfig.reduced`` sizes), on weights the benchmark makes.  The test
+imports both; a reference imports neither the port nor JAX."""
 import json
 
 import pytest
@@ -12,31 +12,16 @@ from portbench.reference import model as ref
 from portbench.testcell import tiny_cell
 from portbench.weights import make_weights
 
-
-def _arch(port, name):
-    from repro_torch.configs.base import (ArchConfig, BlockKind, MoeConfig,
-                                          Segment)
-    kinds = {"dense": BlockKind.DENSE, "moe": BlockKind.MOE}
-    return ArchConfig(
-        name=name, n_layers=port["n_layers"], d_model=port["d_model"],
-        n_heads=port["n_heads"], kv_heads=port["kv_heads"],
-        d_ff=port["d_ff"], vocab=port["vocab"],
-        segments=tuple(Segment(kinds[k], n) for k, n in port["segments"]),
-        activation=port["activation"], gated_mlp=port["gated_mlp"],
-        qkv_bias=port["qkv_bias"], tied_embeddings=port["tied_embeddings"],
-        head_dim=port["head_dim"], rope_theta=port["rope_theta"],
-        norm_eps=port["norm_eps"],
-        moe=MoeConfig(**port["moe"]) if port.get("moe") else None)
+CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
 
 
-@pytest.mark.parametrize("workload", ["moonshot.decode_backlog",
-                                      "starcoder2.completion_open"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_reference_equals_the_port_in_float32(workload):
     from repro_torch.models.model_zoo import Model
     from repro_torch.models.transformer import forward, logits_fn
     cell = tiny_cell(workload)
     port = cell.port
-    arch = _arch(port, cell.config_name)
+    arch = spec.arch(cell.config_name, port)
     w = make_weights(Model(arch).abstract_ptree(), 5, torch.device("cpu"),
                      torch.float32)
     with torch.no_grad():
@@ -52,8 +37,8 @@ def test_reference_equals_the_port_in_float32(workload):
             hidden, _ = forward(w, {"tokens": torch.tensor([s])}, arch,
                                 dtype=torch.float32)
             want = logits_fn(w, hidden, arch)[0]
-            got = torch.cat([lg for _, _, lg in ref.forward(
-                w, port, [s], score_from=[0])])
+            got = torch.cat([lg for _, _, lg in cell.reference.forward(
+                w, port, [s], score_from=[0], fp8=False)])
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
@@ -64,7 +49,7 @@ def test_reference_capacity_drops_as_the_port():
     from repro_torch.models.moe import capacity, moe_apply
     cell = tiny_cell("moonshot.decode_backlog")
     port = dict(cell.port, moe=dict(cell.port["moe"], capacity_factor=0.5))
-    arch = _arch(port, "moe")
+    arch = spec.arch("moe", port)
     w = make_weights(Model(arch).abstract_ptree(), 9, torch.device("cpu"),
                      torch.float32)
     layer = {k: v[0] for k, v in w["segments"][1]["moe"].items()
@@ -91,10 +76,16 @@ def test_control_rounds_through_fp8():
     assert torch.equal(ref._fp8(q, -1), q)
 
 
-def test_configs_name_the_reference_layer_kinds():
+def test_each_cell_lies_inside_its_reference():
+    """Every cell's ``port`` block uses only the attention, segment kinds
+    and activation that the reference its configuration names says it
+    computes (``COVERS``)."""
     for w in spec.load_benchmark()["workloads"]:
-        port = spec.cell(w["name"]).port
-        assert port["attn"] == "gqa"
-        assert {k for k, _ in port["segments"]} <= {"dense", "moe"}
-        assert port["activation"] in ("silu", "gelu")
-        json.dumps(port)
+        cell = spec.cell(w["name"])
+        covers = cell.reference.COVERS
+        arch = spec.arch(cell.config_name, cell.port)
+        assert arch.attn.value in covers["attn"], w["name"]
+        assert {s.kind.value for s in arch.segments} <= \
+            set(covers["segments"]), w["name"]
+        assert arch.activation in covers["activation"], w["name"]
+        json.dumps(cell.port)

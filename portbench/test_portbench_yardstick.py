@@ -1,6 +1,7 @@
 """The benchmark's yardstick and discovery, on the CPU: the operation and
 byte counts against hand-worked cases, the traffic generator, the
 capacity argument and every name in BENCHMARK.json resolving to files."""
+import dataclasses
 import json
 import math
 
@@ -55,6 +56,109 @@ def test_group_gemm_work_by_hand():
     assert flops.group_gemm_work(flops.Shapes(
         d=8, hq=4, hkv=2, hd=2, d_ff=16, vocab=10, gated=False,
         layers=("dense",)), 5) == (0.0, 0.0)
+
+
+# DeepSeek-V3's published widths (hf:deepseek-ai/DeepSeek-V3 config.json)
+DEEPSEEK = flops.Shapes(
+    d=7168, hq=128, hkv=128, hd=56, d_ff=18432, vocab=129280, gated=True,
+    layers=("dense", "moe"), n_experts=256, top_k=8, d_ff_expert=2048,
+    d_ff_shared=2048, attn="mla", q_lora=1536, kv_lora=512, nope=128,
+    rope=64, v_dim=128)
+
+
+def test_mla_counts_by_hand_at_deepseek_v3_widths():
+    s = DEEPSEEK
+    # q_a, q_b, kv_a, kv_b (once a token), o
+    assert s.attn_params() == (7168 * 1536 + 1536 * 128 * (128 + 64)
+                               + 7168 * (512 + 64) + 512 * 128 * (128 + 128)
+                               + 128 * 128 * 7168) == 187_105_280
+    assert s.layer_params("dense") == 187_105_280 + 3 * 7168 * 18432 \
+        == 583_467_008
+    # the router over 256, 8 routed experts and the shared one
+    assert s.layer_params("moe") == 187_105_280 + 7168 * 256 \
+        + 8 * 3 * 7168 * 2048 + 3 * 7168 * 2048 == 585_302_016
+    # decode, absorbed: scores over the 576-wide key, values over the
+    # 512-wide latent
+    assert s.attn_flops_per_key() == 2 * 128 * (512 + 64 + 512) == 278_528
+    assert flops.attention_flops(s, 10) == 278_528 * 10 * 2
+    # prefill, each key expanded once: scores over nope + rope, values
+    # over v, a head
+    assert s.attn_flops_per_key(prefill=True) == 2 * 128 * (128 + 64) \
+        + 2 * 128 * 128 == 81_920
+    assert s.active_params() == 583_467_008 + 585_302_016
+    # without q_lora the query is projected from d
+    assert dataclasses.replace(s, q_lora=0).attn_params() == \
+        187_105_280 - 7168 * 1536 - 1536 * 128 * 192 + 7168 * 128 * 192
+
+
+def test_mla_prompt_and_decode_flops_by_hand():
+    s = DEEPSEEK
+    n = 583_467_008 + 585_302_016
+    read = 2 * 7168 * 129280
+    # a 4,096-token prompt: 2 n a token, and 4096 x 4097 / 2 causal keys
+    # at 81,920 a key in each of the two layers
+    assert flops.prompt_flops(s, 4096) == 2 * n * 4096 \
+        + 81_920 * (4096 * 4097 // 2) * 2 + read
+    # a decoded token over 4,096 keys at 278,528 a key a layer
+    assert flops.decode_flops(s, 4096) == 2 * n + 278_528 * 4096 * 2 + read
+    # GQA counts one form for both
+    assert TINY.attn_flops_per_key(prefill=True) == \
+        TINY.attn_flops_per_key() == 4 * 4 * 2
+
+
+def test_mla_config_reads_through_shapes_of():
+    port = {"d_model": 7168, "n_heads": 128, "kv_heads": 128,
+            "head_dim": None, "d_ff": 18432, "vocab": 129280,
+            "gated_mlp": True, "segments": [["dense", 3], ["moe", 58]],
+            "attn": "mla",
+            "mla": {"q_lora_rank": 1536, "kv_lora_rank": 512,
+                    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+                    "v_head_dim": 128},
+            "moe": {"n_experts": 256, "top_k": 8, "d_ff_expert": 2048,
+                    "n_shared_experts": 1, "d_ff_shared": 2048,
+                    "capacity_factor": 1.25}}
+    s = flops.Shapes.of(port)
+    assert dataclasses.replace(s, layers=DEEPSEEK.layers) == DEEPSEEK
+    assert s.active_params() == 3 * 583_467_008 + 58 * 585_302_016
+    with pytest.raises(NotImplementedError, match="ssm"):
+        flops.Shapes.of(dict(port, segments=[["ssm", 2]]))
+
+
+# the parent's counts (the benchmark as first accepted), as literals
+PARENT_COUNTS = {
+    "moonshot-v1-16b-a3b": {
+        "prompt_flops": {1000: 4761283952640.0, 3584: 18086906298368.0},
+        "decode_flops": {1500: 5652774912.0},
+        "group_gemm_work": {1: (2699034624.0, 2700312576.0),
+                            64: (172738215936.0, 28818633619.795086),
+                            4096: (11055245819904.0, 34024194048.0)},
+        "paged_decode_work": (348807168.0, 349470720.0),
+        "paged_prefill_work": (1537034158080.0, 2038431744.0)},
+    "starcoder2-3b": {
+        "prompt_flops": {1000: 5941488549888.0, 3584: 23000512462848.0},
+        "decode_flops": {1500: 6611632128.0},
+        "group_gemm_work": {1: (0.0, 0.0), 64: (0.0, 0.0),
+                            4096: (0.0, 0.0)},
+        "paged_decode_work": (581345280.0, 49551360.0),
+        "paged_prefill_work": (2561723596800.0, 1840250880.0)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARENT_COUNTS))
+def test_counts_of_the_accepted_configs_are_unchanged(name):
+    want = PARENT_COUNTS[name]
+    s = flops.Shapes.of(json.loads((spec.HERE / "configs" /
+                                    f"{name}.json").read_text())["port"])
+    for n, v in want["prompt_flops"].items():
+        assert flops.prompt_flops(s, n) == v
+    for n, v in want["decode_flops"].items():
+        assert flops.decode_flops(s, n) == v
+    for n, v in want["group_gemm_work"].items():
+        assert flops.group_gemm_work(s, n) == v
+    assert flops.paged_decode_work(s, [300, 1200, 77]) == \
+        want["paged_decode_work"]
+    assert flops.paged_prefill_work(s, [1024, 3584]) == \
+        want["paged_prefill_work"]
 
 
 def test_bound_and_share():

@@ -18,20 +18,41 @@ import time
 from . import spec, traffic
 
 
-def tiny_cell(workload: str, limit: float | None = None) -> spec.Cell:
-    cell = spec.cell(workload)
-    port = dict(cell.port, d_model=64, n_heads=4, head_dim=16, d_ff=128,
-                vocab=256)
-    port["kv_heads"] = 4 if cell.port["kv_heads"] == cell.port["n_heads"] \
-        else 2
-    if port.get("moe"):
-        port["segments"] = [["dense", 1], ["moe", 2]]
-        port["moe"] = dict(port["moe"], n_experts=8, top_k=2, d_ff_expert=64,
-                           d_ff_shared=64, capacity_factor=8.0)
-    else:
-        port["segments"] = [["dense", 2]]
-    port["n_layers"] = sum(n for _, n in port["segments"])
-    cell.config = dict(cell.config, port=port)
+def tiny_port(name: str, port: dict) -> dict:
+    """``port`` at smoke widths, every segment kind kept (two layers of
+    each segment at most): the attention and MLP widths and the vocab
+    shrunk, GQA's grouping kept (MHA stays MHA), the routed experts cut
+    to 8 top-2 at a capacity nothing reaches, and the ``mla`` and ``ssm``
+    blocks and
+    ``shared_attn_every`` at the port's ``ArchConfig.reduced()`` sizes."""
+    out = dict(port, d_model=64, n_heads=4, head_dim=16, d_ff=128,
+               vocab=256)
+    out["kv_heads"] = 4 if port["kv_heads"] == port["n_heads"] else 2
+    out["segments"] = [[kind, min(n, 2)] for kind, n in port["segments"]]
+    out["n_layers"] = sum(n for _, n in out["segments"])
+    # the routed experts are cut here, so the probe leaves them out
+    small = spec.arch(name, dict(port, moe=None)).reduced()
+    for key in ("mla", "ssm"):
+        if port.get(key):
+            block = dataclasses.asdict(getattr(small, key))
+            out[key] = {k: None if v is None else block[k]
+                        for k, v in port[key].items()}
+    if port.get("shared_attn_every"):
+        out["shared_attn_every"] = small.shared_attn_every
+    moe = port.get("moe")
+    if moe:
+        n = min(8, moe["n_experts"])
+        out["moe"] = dict(moe, n_experts=n, top_k=min(2, moe["top_k"]),
+                          d_ff_expert=64, d_ff_shared=64,
+                          capacity_factor=8.0)
+    return out
+
+
+def tiny_cell(workload: str, limit: float | None = None,
+              root=spec.ROOT) -> spec.Cell:
+    cell = spec.cell(workload, root)
+    cell.config = dict(cell.config, port=tiny_port(cell.config_name,
+                                                   cell.port))
     if limit is not None:
         cell.limits = {"logit_gap_max": {"limit": limit},
                        "logit_gap_mean": {"limit": limit}}
@@ -49,11 +70,14 @@ def tiny_mix(cell: spec.Cell) -> traffic.Mix:
 
 
 def run_tiny(workload: str, seed: int, *, seconds: float = 0.6,
-             limit: float | None = None, check_fn=None) -> dict:
+             limit: float | None = None, check_fn=None,
+             cell: spec.Cell | None = None) -> dict:
+    """One run of ``tiny_cell(workload, limit)`` (or of ``cell``) on the
+    CPU."""
     import torch
 
     from . import harness
-    cell = tiny_cell(workload, limit)
+    cell = cell or tiny_cell(workload, limit)
     threads = torch.get_num_threads()
     torch.set_num_threads(min(threads, 2))    # beside other test workers
     try:
