@@ -42,6 +42,17 @@ class MoeConfig:
     d_ff_shared: int = 0               # shared-expert hidden size
     capacity_factor: float = 1.25
     router_noise: float = 0.0
+    # "softmax" (softmax top-k, renormalised) or "noaux_tc" (DeepSeek-V3:
+    # sigmoid scores plus a correction bias pick the experts within the
+    # ``topk_group`` best of ``n_group`` groups; the weights are the
+    # picked sigmoid scores renormalised times ``routed_scaling``)
+    router: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling: float = 1.0
+    # the experts this chip holds, 0 .. experts_held - 1 of n_experts (the
+    # expert-parallel share of one chip); 0 holds them all
+    experts_held: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +62,14 @@ class MlaConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+    # YaRN over the rope dims (DeepSeek-V3's rope_scaling, whose mscale
+    # equals its mscale_all_dim, so the rope tables keep their unit
+    # gain); factor 1 is plain RoPE
+    yarn_factor: float = 1.0
+    yarn_original_len: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,14 +140,21 @@ class ArchConfig:
         moe = None
         if self.moe:
             # capacity_factor high enough that nothing drops at smoke scale,
-            # so cached decode exactly matches the full forward.
+            # so cached decode exactly matches the full forward; groups of
+            # two experts and a partial share kept where the model has them
+            m = self.moe
+            n = min(8, m.n_experts)
+            groups = min(m.n_group, max(1, n // 2))
             moe = dataclasses.replace(
-                self.moe, n_experts=min(8, self.moe.n_experts),
-                top_k=min(2, self.moe.top_k), d_ff_expert=64,
-                d_ff_shared=64 if self.moe.n_shared_experts else 0,
-                capacity_factor=8.0)
-        mla = MlaConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=8,
-                        qk_rope_head_dim=8, v_head_dim=8) if self.mla else None
+                m, n_experts=n, top_k=min(2, m.top_k), d_ff_expert=64,
+                d_ff_shared=64 if m.n_shared_experts else 0,
+                capacity_factor=8.0, n_group=groups,
+                topk_group=max(1, m.topk_group * groups // m.n_group),
+                experts_held=(min(m.experts_held, n // 2)
+                              if 0 < m.experts_held < m.n_experts else 0))
+        mla = dataclasses.replace(
+            self.mla, q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=8,
+            qk_rope_head_dim=8, v_head_dim=8) if self.mla else None
         ssm = dataclasses.replace(self.ssm, d_state=16, head_dim=8,
                                   chunk=8) if self.ssm else None
         return dataclasses.replace(

@@ -15,7 +15,12 @@ below.  Its queries are absorbed into the latent (JAX's absorbed path),
 and it attends through :func:`gather_pages` and :func:`attention_core`
 on every cache kind: no hand-written kernel, as JAX keeps it on the XLA
 gather (its 128 query heads over one latent key of width 576 fit no
-kernel's group or head dim).
+kernel's group or head dim).  A multi-token call over a cache whose
+scores (rows x heads x queries x keys) pass ``_DENSE_LIMIT`` attends in
+key blocks (:func:`_blockwise_attn` at each row's offset and length), so
+a join at 128 heads never holds its float32 scores over the whole table
+width.  A config with YaRN (``MlaConfig.yarn_factor`` > 1) rotates at
+:func:`~.layers.yarn_freqs` and scales the softmax by ``mscale^2``.
 
 Dense-stripe layout (:class:`KVCache`): each slot owns a contiguous stripe
 ``[B, max_len + 1, Hkv, D]`` per layer.  Row ``max_len`` is a **sink**: JAX
@@ -69,7 +74,8 @@ from ..distributed.act_sharding import (batch_sharded, coordinate,
                                         from_local, is_sharded, local_region,
                                         to_local)
 from ..parthook import part
-from .layers import dense, rmsnorm, rope_tables, rotate
+from .layers import (dense, mla_rope_tables, rmsnorm, rope_tables,
+                     rotate, yarn_mscale)
 
 BLOCK_Q = 512
 BLOCK_K = 1024
@@ -118,13 +124,16 @@ def _dense_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, q_offset: int = 0) -> torch.Tensor:
+                    causal: bool, q_offset=0, kv_len=None) -> torch.Tensor:
     """Flash-style online-softmax attention, O(block) memory: q [B, Lq,
     Hkv, G, D], k [B, Lk, Hkv, D], v [B, Lk, Hkv, Dv] -> [B, Lq, Hkv, G,
     Dv].  Queries and keys are padded to whole ``BLOCK_Q`` / ``BLOCK_K``
-    blocks, keys at or past Lk (and, ``causal``, past each query's
-    position ``q_offset + t``) are masked at -1e30, and the running max,
-    sum and output stay in float32, as JAX's nested scan does."""
+    blocks, and keys at or past Lk (and ``kv_len``, and, ``causal``, past
+    each query's position) are masked at -1e30; ``q_offset`` and
+    ``kv_len`` are ints or per-row [B] tensors, as :func:`_dense_attn`'s.
+    The running max, sum and output stay in float32, as JAX's nested scan
+    does.  Key 0 lies in the first block and every query sees it, so no
+    row's running max stays at the masked value."""
     b, lq, hkv, g, d = q.shape
     lk, dv = k.shape[1], v.shape[-1]
     bq, bk = min(BLOCK_Q, lq), min(BLOCK_K, lk)
@@ -134,11 +143,14 @@ def _blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * bk - lk))
     scale = 1.0 / math.sqrt(d)
     dev = q.device
+    off = torch.as_tensor(q_offset, device=dev).reshape(-1, 1, 1)  # [B|1]
+    lim = torch.as_tensor(lk if kv_len is None else kv_len,
+                          device=dev).reshape(-1, 1, 1).clamp(max=lk)
     out = q.new_empty((b, nq * bq, hkv, g, dv))
     for qi in range(nq):
         qblk = q[:, qi * bq:(qi + 1) * bq]
-        qpos = (qi * bq + torch.arange(bq, device=dev)[:, None]
-                + q_offset)
+        qpos = (qi * bq + torch.arange(bq, device=dev)[None, :, None]
+                + off)                                      # [.., bq, 1]
         m = torch.full((b, hkv, g, bq), -math.inf, device=dev)
         l = torch.zeros((b, hkv, g, bq), device=dev)
         acc = torch.zeros((b, hkv, g, bq, dv), device=dev)
@@ -147,11 +159,12 @@ def _blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             vblk = v[:, ki * bk:(ki + 1) * bk]
             s = (torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk)
                  * scale).float()
-            kpos = ki * bk + torch.arange(bk, device=dev)[None, :]
-            mask = kpos < lk
+            kpos = ki * bk + torch.arange(bk, device=dev)[None, None, :]
+            mask = kpos < lim
             if causal:
                 mask = mask & (kpos <= qpos)
-            s = torch.where(mask, s, torch.full_like(s, -1e30))
+            s = torch.where(mask[:, None, None], s,
+                            torch.full_like(s, -1e30))
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -458,7 +471,7 @@ def mla_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     new_cache)."""
     m = cfg.mla
     if rope is None:
-        rope = rope_tables(positions, m.qk_rope_head_dim, cfg.rope_theta)
+        rope = mla_rope_tables(positions, m, cfg.rope_theta)
     if is_sharded(x):
         # the latent path runs on the batch shard, its weights gathered
         if isinstance(cache, PagedKVCache):
@@ -505,12 +518,26 @@ def mla_apply(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
         c_kv_all, k_rope_all = c_kv, k_rope
     k_full = torch.cat([c_kv_all, k_rope_all], dim=-1)[:, :, None, :]
     q_full = torch.cat([q_lat, q_rope], dim=-1)             # [B,L,H,r+rope]
+    # the core divides by sqrt(r + rope); the head's own scale is
+    # 1 / sqrt(nope + rope), times YaRN's mscale^2
     scale_fix = math.sqrt(q_full.shape[-1]) / math.sqrt(
         m.qk_nope_head_dim + m.qk_rope_head_dim)
-    out_lat = attention_core(q_full * scale_fix, k_full,
-                             c_kv_all[:, :, None, :],
-                             causal=causal or cache is not None,
-                             q_offset=q_offset, kv_len=kv_len)  # [B,L,H,r]
+    if m.yarn_mscale_all_dim:
+        scale_fix *= yarn_mscale(m.yarn_factor, m.yarn_mscale_all_dim) ** 2
+    core = dict(causal=causal or cache is not None, q_offset=q_offset,
+                kv_len=kv_len)
+    with part("attn.core"):
+        if kv_len is not None and n > 1 and (
+                q_full.shape[0] * q_full.shape[2] * n * k_full.shape[1]
+                > _DENSE_LIMIT):
+            # a join over a cache: 128 heads' scores over the whole table
+            # width would be [B, H, L, keys] float32, so in key blocks
+            out_lat = _blockwise_attn(
+                (q_full * scale_fix)[:, :, None], k_full,
+                c_kv_all[:, :, None, :], **core)[:, :, 0]
+        else:
+            out_lat = attention_core(q_full * scale_fix, k_full,
+                                     c_kv_all[:, :, None, :], **core)
     out = torch.einsum("bthr,rhv->bthv", out_lat,
                        params["uv"]["w"].to(x.dtype))
     return dense(params["o"], out, n_in=2), new_cache

@@ -10,8 +10,11 @@ layer-stacked ``segments`` whose leaves are ``[n_layers, ...]``, with a
 and shared experts) in MOE blocks and ``init_ssm``'s leaves under ``ssm``
 in SSM blocks; a SHARED_ATTN segment is ``{}``, its weights the one
 unstacked DENSE ``shared_block`` that every occurrence applies (zamba2).
-An MLA model's ``attn`` holds ``init_mla``'s low-rank leaves, and a model
-with multi-token prediction (deepseek-v3) also the unstacked DENSE
+A ``noaux_tc`` router adds its correction ``bias`` [E] beside ``w``, and
+a config holding a share of the experts has slabs of the held ones only
+(``[held, D, F]``; the router stays ``[D, E]``).  An MLA model's
+``attn`` holds ``init_mla``'s low-rank leaves, and a model with
+multi-token prediction (deepseek-v3) also the unstacked DENSE
 ``mtp_block`` and ``mtp_norm``, which serving never reads (they belong to
 the training loss).  An encoder-decoder (whisper) has LayerNorm leaves
 (``scale`` and ``bias``) for every norm, a ``norm_x`` and a ``cross``
@@ -33,6 +36,7 @@ import torch
 from ..configs.base import ArchConfig, AttnKind, BlockKind
 from ..device import resolve_device
 from . import param as pm
+from .moe import held_experts
 from .ssm import _dims as ssm_dims
 
 FILL_CHUNK = 1 << 24    # values drawn at once by init_params (64 MiB fp32)
@@ -64,14 +68,15 @@ def serves_in_float32(path: tuple[str, ...]) -> bool:
     """Leaves kept in float32 when the projections are stored in a lower
     serving dtype: norm scales and a LayerNorm's ``bias`` (the norms
     multiply and add in float32; a projection's bias is its ``b``, cast),
-    the embedding (rows are gathered, then cast), the router (JAX routes
-    with float32 logits from a float32 weight) and the untied read-out
-    (JAX reads out in float32 from a float32 weight) and an SSM block's
-    ``a_log`` and ``dt_bias`` (JAX adds them to float32 ``dt``)."""
+    the embedding (rows are gathered, then cast), the router and its
+    ``noaux_tc`` correction bias (JAX routes with float32 logits from a
+    float32 weight; the gate adds the bias in float32) and the untied
+    read-out (JAX reads out in float32 from a float32 weight) and an SSM
+    block's ``a_log`` and ``dt_bias`` (JAX adds them to float32 ``dt``)."""
     return (path[-1] in ("scale", "a_log", "dt_bias")
             or (path[-1] == "bias" and "norm" in path[-2])
             or path[:1] in (("embed",), ("lm_head",))
-            or path[-2:] == ("router", "w"))
+            or path[-2:] in (("router", "w"), ("router", "bias")))
 
 
 def _spec(cfg: ArchConfig) -> dict:
@@ -163,14 +168,20 @@ def _spec(cfg: ArchConfig) -> dict:
         if kind is BlockKind.MOE:
             m = cfg.moe
             e, fe = m.n_experts, m.d_ff_expert
+            held = held_experts(cfg)        # the slabs of a chip's share
             moe = {"router": {"w": ("normal", lead + (d, e), 0.02,
                                     ("embed", "experts"))},
-                   "wi": ("normal", lead + (e, d, fe), 1 / math.sqrt(d),
+                   "wi": ("normal", lead + (held, d, fe), 1 / math.sqrt(d),
                           ("experts", "embed", "mlp")),
-                   "wg": ("normal", lead + (e, d, fe), 1 / math.sqrt(d),
+                   "wg": ("normal", lead + (held, d, fe), 1 / math.sqrt(d),
                           ("experts", "embed", "mlp")),
-                   "wo": ("normal", lead + (e, fe, d), 1 / math.sqrt(fe),
-                          ("experts", "mlp", "embed"))}
+                   "wo": ("normal", lead + (held, fe, d),
+                          1 / math.sqrt(fe), ("experts", "mlp", "embed"))}
+            if m.router == "noaux_tc":
+                # the correction bias over every expert, replicated,
+                # drawn as the router is
+                moe["router"]["bias"] = ("normal", lead + (e,), 0.02,
+                                         (None,))
             if m.n_shared_experts:
                 moe["shared"] = gated_mlp(
                     lead, m.d_ff_shared or fe * m.n_shared_experts)
@@ -207,8 +218,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
                 device: str | torch.device = "cuda",
                 dtype: torch.dtype = torch.float32) -> dict:
     """Random weights for ``cfg``: embedding rows N(0, 0.02), projections
-    N(0, 1/fan_in) as in ``init_dense``, the router N(0, 0.02), zero
-    biases, unit norm scales.
+    N(0, 1/fan_in) as in ``init_dense``, the router (and its ``noaux_tc``
+    bias) N(0, 0.02), zero biases, unit norm scales.
 
     ``dtype`` is the storage of every leaf but those
     :func:`serves_in_float32` keeps in float32, so ``dtype=bfloat16``

@@ -95,6 +95,49 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
     return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor: ``0.1 mscale ln(factor) + 1`` past a
+    factor of 1, else 1."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_freqs(dim: int, theta: float, m,
+               device: torch.device | None = None) -> torch.Tensor:
+    """YaRN's inverse frequencies over ``dim`` rope dims for the
+    ``MlaConfig`` ``m`` (DeepSeek-V3's ``rope_scaling``, as its
+    ``inference/model.py`` and HF's ``DeepseekV3YarnRotaryEmbedding``
+    compute them): the plain ``theta^(-2i/dim)`` blended with their
+    interpolation ``/ factor`` by a linear ramp over the correction
+    range ``[floor(c(beta_fast)), ceil(c(beta_slow))]``, ``c(r) = dim
+    ln(original / (2 pi r)) / (2 ln theta)``: dims below it keep their
+    frequency, dims above it are interpolated."""
+    freqs = rope_freqs(dim, theta, device)
+
+    def corr(rotations: float) -> float:
+        return (dim * math.log(m.yarn_original_len
+                               / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(corr(m.yarn_beta_fast)), 0)
+    high = min(math.ceil(corr(m.yarn_beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    return freqs / m.yarn_factor * ramp + freqs * (1 - ramp)
+
+
+def mla_rope_tables(positions: torch.Tensor, m,
+                    theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """MLA's rope tables over ``m.qk_rope_head_dim``: :func:`rope_tables`,
+    or with YaRN (``m.yarn_factor`` > 1) at :func:`yarn_freqs`."""
+    dim = m.qk_rope_head_dim
+    if m.yarn_factor <= 1:
+        return rope_tables(positions, dim, theta)
+    angles = positions[..., None].float() * yarn_freqs(dim, theta, m,
+                                                       positions.device)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
 def rotate(x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor) -> torch.Tensor:
     """Split-half rotation of x [..., L, H, D] by precomputed tables (a

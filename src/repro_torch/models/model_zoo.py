@@ -127,10 +127,10 @@ class Model:
                       logits: bool = True):
         """Paged prefill: write the prompt's K/V through ``pages`` ([B, P]
         page table) into the pooled ``caches``.  Rows whose table entries
-        are all sentinels write nothing to live pages: that is how a MoE
-        model's serving join, which computes every slot, refills only the
-        joining ones (any other model's join hands in the joining rows
-        alone).  ``cache_len``
+        are all sentinels write nothing to live pages: that is how the
+        serving join of a MoE model whose experts can drop, which computes
+        every slot, refills only the joining ones (any other model's join
+        hands in the joining rows alone).  ``cache_len``
         ([B] int32, default zeros) makes this a suffix prefill at that
         depth.  ``last_pos`` ([B]) picks each row's logits position, and
         ends each row's SSM recurrence there, as in :meth:`prefill`; the

@@ -1,7 +1,13 @@
 """Mixture-of-Experts FFN with rank-based dispatch, from
 :mod:`repro.models.moe` (``route`` and the single-device ``moe_apply``).
 
-Routing is a float32 softmax over the experts, top-k, renormalised.  Each
+Routing is a float32 softmax over the experts, top-k, renormalised, or
+DeepSeek-V3's ``noaux_tc`` gate (sigmoid scores, a correction bias, a
+group limit, scaled weights; :func:`_route_noaux_tc`).  A config that
+holds a share of the experts (``MoeConfig.experts_held``, one chip's part
+of an expert-parallel layer) routes over all of them and computes the
+held experts' part of the routed sum, the others' choices dropped as on
+an expert-parallel rank, with no stand-in for the rest.  Each
 expert takes a fixed capacity of ``max(1, int(T k capacity_factor / E))``
 (token, choice) slots, where T counts every row and position of the call;
 a slot's place in its expert is its token-major rank, and ranks past the
@@ -44,19 +50,53 @@ from ..distributed.act_sharding import (batch_sharded, coordinate,
                                         is_sharded, to_local)
 from ..distributed.sharding import axis_sizes
 from ..kernels.moe_group_gemm import group_gemm
-from ..parthook import part
+from ..parthook import count, part
 from .layers import activation, mlp
 
 
 def route(params: dict, x2d: torch.Tensor, cfg: ArchConfig):
     """x2d: [T, D] -> (weights [T, k] float32, expert ids [T, k] int64,
-    router probs [T, E] float32)."""
+    router probs [T, E] float32), by the config's router."""
     m = cfg.moe
     logits = x2d.float() @ params["router"]["w"].float()
+    if m.router == "noaux_tc":
+        return _route_noaux_tc(params["router"]["bias"], logits, m)
     probs = torch.softmax(logits, dim=-1)
     w, ids = torch.topk(probs, m.top_k, dim=-1)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)   # renormalize
     return w, ids, probs
+
+
+def _route_noaux_tc(bias: torch.Tensor, logits: torch.Tensor, m):
+    """DeepSeek-V3's gate (``inference/model.py`` ``Gate``), in float32:
+    sigmoid scores s [T, E]; the choice reads s + bias; a group's score is
+    the sum of its best two (its best one in groups of one), and the
+    experts outside the ``topk_group`` best of ``n_group`` groups are
+    masked at -inf; ids are the top-k of what is left, and the weights
+    the chosen s renormalised times ``routed_scaling``.  The sigmoid
+    scores stand for the router probs."""
+    t, e = logits.shape
+    scores = torch.sigmoid(logits)
+    biased = scores + bias.float()
+    if m.n_group > 1:
+        grouped = biased.reshape(t, m.n_group, e // m.n_group)
+        best = torch.topk(grouped, min(2, e // m.n_group), dim=-1)[0]
+        keep = torch.topk(best.sum(-1), m.topk_group, dim=-1)[1]
+        mask = torch.ones((t, m.n_group), dtype=torch.bool,
+                          device=logits.device).scatter_(1, keep, False)
+        biased = grouped.masked_fill(mask[..., None],
+                                     float("-inf")).reshape(t, e)
+    ids = torch.topk(biased, m.top_k, dim=-1)[1]
+    w = scores.gather(1, ids)
+    w = w / w.sum(-1, keepdim=True) * m.routed_scaling
+    return w, ids, scores
+
+
+def held_experts(cfg: ArchConfig) -> int:
+    """The experts whose slabs this chip holds (experts 0 .. n - 1)."""
+    m = cfg.moe
+    return m.experts_held if 0 < m.experts_held < m.n_experts \
+        else m.n_experts
 
 
 def aux_load_balance_loss(probs: torch.Tensor, ids: torch.Tensor,
@@ -127,11 +167,16 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     b, length, d = x.shape
     t, e = b * length, m.n_experts
     x2d = x.reshape(t, d)
+    held = held_experts(cfg)
     with part("moe.route"):
         w, ids, probs = route(params, x2d, cfg)
+    if held < e:
+        count("moe.held_choice", lambda: ((ids < held).sum(), ids.numel()))
     wi, wg, wo = (params[n].to(x.dtype) for n in ("wi", "wg", "wo"))
+    # a share of the experts: the held slabs' part of the routed sum
     y = _experts(x2d, w, ids, wi, wg, wo, capacity(cfg, t),
-                 activation(act_name)).reshape(b, length, d)
+                 activation(act_name), 0 if held < e else None
+                 ).reshape(b, length, d)
     if "shared" in params:
         with part("moe.shared"):
             shared = mlp(params["shared"], x, act_name)
@@ -202,8 +247,12 @@ def _moe_shard_map(params: dict, x, cfg: ArchConfig, act_name: str, mesh,
     xl, x_pl = to_local(x, keep=keep, partial=("model",) if split else ())
     t = xl.shape[0] * length
     x2d = xl.reshape(t, d)
-    router = to_local(params["router"]["w"], partial=keep)[0]
-    w, ids, probs = route({"router": {"w": router}}, x2d, cfg)
+    if held_experts(cfg) < e:
+        raise NotImplementedError("a chip's share of the experts is a "
+                                  "one-chip layer; the mesh splits them")
+    router = {k: to_local(v, partial=keep)[0]
+              for k, v in params["router"].items()}
+    w, ids, probs = route({"router": router}, x2d, cfg)
     slabs = [to_local(params[n].to(x.dtype),
                       keep=("model",) if split else (), partial=keep)[0]
              for n in ("wi", "wg", "wo")]

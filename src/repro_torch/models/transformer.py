@@ -44,8 +44,8 @@ from ..distributed.act_sharding import (as_dtensor, batch_sharded, constrain,
 from .attention import (KVCache, PagedKVCache, attention_apply,
                         dense_write_index, paged_write_index)
 from .init import ATTN_KINDS, _check_supported
-from .layers import (dense, embed, layernorm, mlp, rmsnorm, rope_tables,
-                     sinusoidal_positions, unembed)
+from .layers import (dense, embed, layernorm, mla_rope_tables, mlp,
+                     rmsnorm, rope_tables, sinusoidal_positions, unembed)
 from .moe import moe_apply
 from ..parthook import part
 from .ssm import init_cache as init_ssm_cache, ssm_apply
@@ -189,10 +189,11 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
 
 def _rope(cfg: ArchConfig, positions: torch.Tensor):
     """RoPE tables at ``positions``: MLA rotates only its rope slice of
-    each head and its shared key."""
-    rope_dim = (cfg.mla.qk_rope_head_dim if cfg.attn is AttnKind.MLA
-                else cfg.resolved_head_dim)
-    return rope_tables(positions, rope_dim, cfg.rope_theta)
+    each head and its shared key, at YaRN's frequencies where its config
+    has them."""
+    if cfg.attn is AttnKind.MLA:
+        return mla_rope_tables(positions, cfg.mla, cfg.rope_theta)
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
 def _layer(stacked, i: int):

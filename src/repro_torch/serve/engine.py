@@ -610,11 +610,23 @@ def make_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
 
 def rows_interact(cfg: ArchConfig) -> bool:
     """Whether a row of one model call can change another row's values:
-    true when a segment routes tokens to experts (``BlockKind.MOE``),
-    whose capacity ``int(T k cf / E)`` counts every row and position of
-    the call, so the rows sharing a call decide which choices drop.
-    Attention (GQA, MLA), dense MLPs and SSM recurrences are per row."""
-    return any(seg.kind is BlockKind.MOE for seg in cfg.resolved_segments())
+    true when a routed-expert segment (``BlockKind.MOE``) can drop, that
+    is ``top_k x capacity_factor < n_experts``.  Its capacity ``int(T k
+    cf / E)`` counts every row and position of the call, so the rows
+    sharing a call decide which choices drop.  At ``k cf >= E`` it is at
+    least T, a place for every token an expert can take (a token picks an
+    expert once), so nothing drops: a dropless MoE (DeepSeek-V3's) is per
+    row, as attention (GQA, MLA), dense MLPs and SSM recurrences are."""
+    m = cfg.moe
+    return (m is not None and m.top_k * m.capacity_factor < m.n_experts
+            and any(seg.kind is BlockKind.MOE
+                    for seg in cfg.resolved_segments()))
+
+
+# rows x width of one prefill call of a join whose rows do not interact:
+# a wider join runs its rows in consecutive calls of at most this many
+# tokens (one row at least), so its activations stay bounded
+JOIN_CALL_TOKENS = 8192
 
 
 def make_paged_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
@@ -632,12 +644,13 @@ def make_paged_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
     theirs, in that order.
 
     Which rows the prefill computes depends on the model
-    (:func:`rows_interact`).  Without routed experts no row can change
-    another's values, so the call computes the J joining rows alone.
-    With routed experts it computes all B slots, as JAX's join does: the
-    experts' capacity counts every row of the call, so fewer rows would
-    change which choices drop, and the benchmark's check samples only
-    the slots whose choices no B-row join can drop
+    (:func:`rows_interact`).  Where no row can change another's values
+    (no routed experts, or a dropless MoE) it computes the J joining rows
+    alone, in calls of at most ``JOIN_CALL_TOKENS`` rows x width.  Where
+    routed experts can drop it computes all B slots in one call, as JAX's
+    join does: the experts' capacity counts every row of the call, so
+    fewer rows would change which choices drop, and the benchmark's check
+    samples only the slots whose choices no B-row join can drop
     (``portbench/check.py::undroppable_slots``).  There the other rows
     take zero prompts and an all-sentinel write table, so their writes
     never reach a live page.  Either way only the joining rows are
@@ -659,13 +672,11 @@ def make_paged_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
                  for seg in model.cfg.resolved_segments()]
     every_row = rows_interact(model.cfg)
 
-    def join(params, caches, tok, lengths, done, remaining, rows, prompts,
-             plens, budgets, gen, pages, prefix_lens, commit):
-        call = (prompts, plens, prefix_lens, pages)
-        if every_row:          # the B-row call; other slots write nothing
-            b = tok.shape[0]
-            call = tuple(x.new_full((b,) + x.shape[1:], fill).index_copy(
-                0, rows, x) for x, fill in zip(call, (0, 1, 0, sentinel)))
+    def prefill(params, caches, call, slots, pick):
+        """One prefill call over ``call``'s rows (prompts, plens, depths,
+        tables); the fresh SSM window and state of its rows ``pick`` (all
+        when None) go to the slots ``slots``.  Returns the last hidden
+        rows."""
         c_prompts, c_plens, c_prefix, c_pages = call
         n = c_prompts.shape[0]
         work = [{name: t.new_zeros((t.shape[0], n) + t.shape[2:])
@@ -678,9 +689,25 @@ def make_paged_join(model: Model, cfg: ServeConfig, *, eos_id: int | None,
             if ssm:           # leaves are [layers, rows, ...]: the row axis
                 for name, held in old.items():
                     fresh = new[name]
-                    if every_row:
-                        fresh = fresh.index_select(1, rows)
-                    held.index_copy_(1, rows, fresh)
+                    if pick is not None:
+                        fresh = fresh.index_select(1, pick)
+                    held.index_copy_(1, slots, fresh)
+        return last
+
+    def join(params, caches, tok, lengths, done, remaining, rows, prompts,
+             plens, budgets, gen, pages, prefix_lens, commit):
+        call = (prompts, plens, prefix_lens, pages)
+        if every_row:          # the B-row call; other slots write nothing
+            b = tok.shape[0]
+            call = tuple(x.new_full((b,) + x.shape[1:], fill).index_copy(
+                0, rows, x) for x, fill in zip(call, (0, 1, 0, sentinel)))
+            last = prefill(params, caches, call, rows, rows)
+        else:
+            step = max(1, JOIN_CALL_TOKENS // prompts.shape[1])
+            last = torch.cat([
+                prefill(params, caches, tuple(x[i:i + step] for x in call),
+                        rows[i:i + step], None)
+                for i in range(0, prompts.shape[0], step)])
         with part("readout"):
             first = sample_tokens(model.readout(params, last)[:, -1], temp,
                                   gen)

@@ -138,7 +138,8 @@ pool's partitions are traced, for :mod:`.attribution` and a Perfetto
 file, beside the port's inner spans (each ``round``, its ``sweep`` and
 ``admit``, and the model's parts inside a join, recorded through
 :mod:`repro_torch.parthook`, which the batcher arms around a traced join
-only).  The ``join`` and ``decode-segment`` spans carry the work they
+only, and the model's device counts, armed around traced joins and decode
+segments).  The ``join`` and ``decode-segment`` spans carry the work they
 did (rows, width, joining rows, prompt and committed tokens; steps, live
 rows, keys read, tokens emitted) and, on the card, their device interval:
 CUDA events, turned into host-clock seconds at the two host syncs the
@@ -1198,8 +1199,11 @@ class ContinuousBatcher:
                      up(np.asarray([commit for *_, commit in take])))
         rows = b if self._join_all_rows else len(take)
         self.metrics.inc("join.rows_computed", rows)
-        # traced, the model's parts record into the join (parthook)
-        with parthook.armed(tr.part) if tr is not None else parthook.NULL:
+        # traced, the model's parts and counts record into the join
+        # (parthook)
+        with (parthook.armed(tr.part) if tr is not None else parthook.NULL,
+              parthook.counting(tr.count) if tr is not None
+              else parthook.NULL):
             *_, first = self._join(self.params, self.caches, self.tok,
                                    self.lengths, self.done, self.remaining,
                                    *args)
@@ -1454,7 +1458,8 @@ class ContinuousBatcher:
         kv = self._kv_read(live, steps)
         seg = tr.open("decode-segment", self.round, t0=time.perf_counter())
         tr.mark(seg, "d0")
-        emitted = self._decode_segment(steps)
+        with parthook.counting(tr.count):   # captured into the graph too
+            emitted = self._decode_segment(steps)
         tr.mark(seg, "d1")
         emitted = emitted.cpu().numpy()
         tr.close(seg, t1=time.perf_counter(), steps=steps,

@@ -341,6 +341,9 @@ class Tracer:
         # not yet in seconds: (record, key, mark, anchor before it)
         self._anchor: tuple | None = None
         self._pending: list[tuple] = []
+        # device counters (parthook.count): name -> [hits, total] int64 on
+        # the counted tensors' device, added to in place, read by summary
+        self.device_counts: dict[str, torch.Tensor] = {}
         if ring is None:
             self.events: list[dict] = []
             self.spans: list[dict] = []
@@ -476,6 +479,20 @@ class Tracer:
                 idle["round"] = idle.get("round", 0.0) + rest
         rec["idle_s"] = sum(b - a for a, b in gaps)
         rec["idle"] = idle
+
+    def count(self, name: str, hits, total) -> None:
+        """The counter :mod:`repro_torch.parthook` arms around traced joins
+        and decode segments: ``hits`` and ``total`` added in place to the
+        device pair ``device_counts[name]``, with no read-back (made on the
+        first count, an eager join's; a captured decode graph replays its
+        adds)."""
+        buf = self.device_counts.get(name)
+        if buf is None:
+            dev = hits.device if isinstance(hits, torch.Tensor) else None
+            buf = self.device_counts[name] = torch.zeros(
+                2, dtype=torch.int64, device=dev)
+        buf[0].add_(hits)
+        buf[1].add_(total)
 
     def part(self, name: str):
         """The recorder :mod:`repro_torch.parthook` arms around a traced
@@ -720,6 +737,10 @@ class Tracer:
           over their steps, ms;
         - ``sched.round_self_ms``: the mean round less its ``chaos``,
           ``join`` and ``decode-segment`` children, ms;
+        - ``moe.held_choice_share``: the routing choices that landed on
+          the experts a chip's share holds over all choices, %, counted
+          on the device over every traced join and decode step of the run
+          (not only [t0, t1]); read back here, once;
         - ``idle_share``: the share of [t0, t1] (default: the rounds'
           extent) that no ``join`` or ``decode-segment`` device interval
           covers, %; the gaps inside those intervals (the host launching
@@ -781,6 +802,8 @@ class Tracer:
             return 100.0 * num / den if den > 0 else None
 
         pct = {name: share(v, join_dev) for name, v in parts.items()}
+        held = self.device_counts.get("moe.held_choice")
+        held = held.tolist() if held is not None else (0, 0)
         return {
             "join.device_ms_mean": (join_dev / len(joins) * 1e3
                                     if joins else None),
@@ -791,6 +814,7 @@ class Tracer:
             "join.parts_share": share(top, join_dev) if parts else None,
             "moe.dispatch_share": pct.get("moe.dispatch"),
             "join.attn_share": pct.get("attn.core"),
+            "moe.held_choice_share": share(*held),
             "decode.device_step_ms": (
                 sum(dev(r) for r in segs) / sum(r["steps"] for r in segs)
                 * 1e3 if segs else None),

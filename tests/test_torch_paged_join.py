@@ -1,5 +1,6 @@
-"""The paged join's rows: a model without routed experts prefills only the
-J joining rows, a model with them all B slots
+"""The paged join's rows: a model whose rows do not interact (no routed
+experts, or a dropless MoE) prefills only the J joining rows, a model
+whose experts can drop all B slots
 (:func:`repro_torch.serve.engine.make_paged_join`).  On ``reduced()``
 configs in float32, on the CPU:
 
@@ -10,11 +11,18 @@ configs in float32, on the CPU:
   the join as it was before it took the joining rows alone), to float32
   rounding with tokens equal, and leaves every other slot's pages and SSM
   state bit for bit;
-- the MoE model's join is the B-row join bit for bit, greedy and sampled;
+- the MoE model at a capacity that drops (moonshot's 1.25) joins on B
+  rows, the B-row join bit for bit, greedy and sampled;
+- a dropless MoE (DeepSeek-V3's share: ``noaux_tc``, 4 of 8 experts held,
+  capacity factor 8) joins on its J rows, and gives the B-row join's
+  first tokens, slot state and caches bit for bit, in one call and in
+  calls split by ``JOIN_CALL_TOKENS``;
 - a batcher with the J-row join serves the tokens of one forced onto the
   B-row join, with chunked prefill and the prefix cache on;
 - the ``join`` span's ``rows`` and the ``join.rows_computed`` counter
   read the joining rows for a dense model and B for the MoE model."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,7 +38,8 @@ from repro_torch.serve.engine import (ServeConfig, make_paged_join,
 torch.set_num_threads(1)
 
 ARCHS = {"dense": "qwen2-0.5b", "ssm": "mamba2-370m",
-         "hybrid": "zamba2-1.2b", "moe": "moonshot-v1-16b-a3b"}
+         "hybrid": "zamba2-1.2b", "moe": "moonshot-v1-16b-a3b",
+         "dropless": "deepseek-v3-671b"}
 B, MAX_NEW = 4, 6
 SERVE = dict(max_len=64, batch=B, dtype=torch.float32, paged=True,
              page_size=8)
@@ -81,9 +90,22 @@ def _b_row_join(model, cfg, eos_id):
 _MODELS: dict = {}
 
 
+def _config(kind):
+    cfg = get_config(ARCHS[kind])
+    if kind == "dropless":     # DeepSeek-V3 at EP32's share, dropless
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=32.0, router="noaux_tc", n_group=8,
+            topk_group=4, routed_scaling=2.5, experts_held=8))
+    cfg = cfg.reduced()
+    if kind == "moe":          # top-2 x 1.25 < 8 experts: choices can drop
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=1.25))
+    return cfg
+
+
 def _model(kind):
     if kind not in _MODELS:
-        cfg = get_config(ARCHS[kind]).reduced()
+        cfg = _config(kind)
         _MODELS[kind] = (Model(cfg), init_params(cfg, 0, device="cpu"))
     return _MODELS[kind]
 
@@ -216,6 +238,26 @@ def test_moe_join_is_the_b_row_join_bit_for_bit(temperature):
     for cn, co in zip(c_new, c_old):
         for name in cn:
             assert torch.equal(cn[name], co[name]), name
+
+
+@pytest.mark.parametrize("call_tokens", [8192, 16],
+                         ids=["one-call", "row-calls"])
+def test_dropless_moe_joins_its_rows_alone_bit_for_bit(call_tokens,
+                                                        monkeypatch):
+    monkeypatch.setattr(engine, "JOIN_CALL_TOKENS", call_tokens)
+    model, scfg, before, new, old, _, _ = _run_both(
+        "dropless", [3, 0, 1], [12, 16, 6], [0, 0, 0], [True, True, True])
+    assert not engine.rows_interact(model.cfg)
+    assert model.cfg.moe.experts_held < model.cfg.moe.n_experts
+    (c_new, s_new, first), (c_old, s_old, first_old) = new, old
+    assert torch.equal(first, first_old)
+    for a, b in zip(s_new, s_old):
+        assert torch.equal(a, b)
+    live = slice(0, scfg.pool_pages + 1)     # every page but the sink
+    for cn, co, cb in zip(c_new, c_old, before[0]):
+        for name in cn:
+            assert torch.equal(cn[name][:, live], co[name][:, live]), name
+            assert not torch.equal(cn[name][:, live], cb[name][:, live])
 
 
 def _requests(vocab, n=7, seed=4, shared=0):
